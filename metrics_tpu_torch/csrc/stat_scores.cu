@@ -1,0 +1,102 @@
+// Per-class [target count, prediction count, true positives] for one batch.
+//
+// Replaces the TPU kernel `_stat_counts_kernel` (metrics_tpu/ops/stat_scores.py:39,
+// launched by `_stat_counts_pallas`). It computes, for rows i < n,
+//   out[0*C + target[i]] += w[i]
+//   out[1*C + pred[i]]   += w[i]
+//   out[2*C + target[i]] += correct[i]
+// into an int32 (3, C) array that the caller has zeroed.
+//
+// Bound on the H100: the kernel reads 13 bytes a row (int32 target, int32
+// prediction, bool correct, int32 weight) and writes 12 bytes a class. At the
+// ImageNet-1k validation batch (n = 1024, C = 1000) that is 25 KB, 7.6 ns at
+// 3.35 TB/s; the launch itself (a few microseconds) is the real cost.
+//
+// Why atomics and not the one-hot product: on the TPU a scatter serialises, so
+// the JAX package builds (rows, C) one-hot tiles and reduces them on the
+// matrix unit. Hopper has fast integer atomics in shared memory, so each block
+// keeps a private 3*C histogram there (12 KB at C = 1000), adds its rows with
+// shared-memory atomics, and flushes the non-zero cells to the output with one
+// global atomic each. Integer addition is exact and order-independent, so the
+// result is bit-identical to the plain version whatever the scheduling. When
+// 3*C ints exceed the 227 KB a block may have, the rows go straight to global
+// atomics.
+//
+// A row whose class lies outside [0, C) adds nothing to that class's count;
+// the input checks reject such labels before this is reached.
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 264;            // two blocks on each of the 132 SMs
+constexpr size_t kMaxSmem = 232448;        // 227 KB: a block's shared memory limit on sm_90
+constexpr size_t kDefaultSmem = 48 * 1024; // above this a kernel must opt in
+
+__device__ __forceinline__ void add_row(int32_t* counts, int32_t target, int32_t pred, bool correct,
+                                        int32_t w, int num_classes) {
+  const bool t_ok = target >= 0 && target < num_classes;
+  if (w != 0) {
+    if (t_ok) atomicAdd(&counts[target], w);
+    if (pred >= 0 && pred < num_classes) atomicAdd(&counts[num_classes + pred], w);
+  }
+  if (correct && t_ok) atomicAdd(&counts[2 * num_classes + target], 1);
+}
+
+__global__ void stat_counts_shared(const int32_t* __restrict__ target, const int32_t* __restrict__ pred,
+                                   const bool* __restrict__ correct, const int32_t* __restrict__ w, int n,
+                                   int num_classes, int32_t* __restrict__ out) {
+  extern __shared__ int32_t hist[];
+  const int cells = 3 * num_classes;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0;
+  __syncthreads();
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    add_row(hist, target[i], pred[i], correct[i], w[i], num_classes);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int32_t v = hist[i];
+    if (v != 0) atomicAdd(&out[i], v);
+  }
+}
+
+__global__ void stat_counts_global(const int32_t* __restrict__ target, const int32_t* __restrict__ pred,
+                                   const bool* __restrict__ correct, const int32_t* __restrict__ w, int n,
+                                   int num_classes, int32_t* __restrict__ out) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    add_row(out, target[i], pred[i], correct[i], w[i], num_classes);
+  }
+}
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int stat_scores_launch(const void* target, const void* pred, const void* correct, const void* w,
+                                  int n, int num_classes, void* out, void* stream) {
+  if (n <= 0) return 0;
+  int blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const auto* t = static_cast<const int32_t*>(target);
+  const auto* p = static_cast<const int32_t*>(pred);
+  const auto* c = static_cast<const bool*>(correct);
+  const auto* wt = static_cast<const int32_t*>(w);
+  auto* o = static_cast<int32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const size_t smem = 3 * static_cast<size_t>(num_classes) * sizeof(int32_t);
+  if (smem <= kMaxSmem) {
+    if (smem > kDefaultSmem) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(stat_counts_shared, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    stat_counts_shared<<<blocks, kThreads, smem, s>>>(t, p, c, wt, n, num_classes, o);
+  } else {
+    stat_counts_global<<<blocks, kThreads, 0, s>>>(t, p, c, wt, n, num_classes, o);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* stat_scores_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

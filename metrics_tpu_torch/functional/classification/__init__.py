@@ -1,0 +1,3 @@
+from metrics_tpu_torch.functional.classification.accuracy import accuracy  # noqa: F401
+from metrics_tpu_torch.functional.classification.confusion_matrix import confusion_matrix  # noqa: F401
+from metrics_tpu_torch.functional.classification.stat_scores import stat_scores  # noqa: F401

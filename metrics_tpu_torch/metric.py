@@ -1,0 +1,452 @@
+"""The ``Metric`` base class: the core of ``metrics_tpu/metric.py`` in PyTorch.
+
+What is ported: ``add_state`` with the named reductions and 32-bit count
+states, the ``update``/``compute`` wrappers (memoised compute, update count,
+state version), ``forward`` (one update per step when states merge, the
+double-update form otherwise), ``reset``, the pure ``(state, batch) -> state``
+functions, ``state_dict``/``load_state_dict`` with the JAX package's crc32
+checksum entries, and ``to(device)``.
+
+What is not: the dispatch engine, the fused forward, cross-process sync,
+telemetry, resilience, sharded state and quantised sync. The constructor
+arguments that select them raise ``NotImplementedError`` naming the
+ROADMAP.md item that will port them.
+
+A metric's states live on its device, ``cuda`` unless the caller passes
+``device="cpu"``. Tensors given to ``update`` must lie on that device.
+"""
+import functools
+import inspect
+from abc import ABC, abstractmethod
+from copy import deepcopy
+from enum import Enum
+from typing import Any, Callable, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.utilities.checksums import attach_checksums, verify_checksums
+from metrics_tpu_torch.utilities.data import (
+    _flatten,
+    _squeeze_if_scalar,
+    dim_zero_cat,
+    dim_zero_max,
+    dim_zero_mean,
+    dim_zero_min,
+    dim_zero_sum,
+)
+from metrics_tpu_torch.utilities.prints import rank_zero_warn
+
+StateType = Union[Tensor, List[Tensor]]
+
+_REDUCTIONS = {
+    "sum": dim_zero_sum,
+    "mean": dim_zero_mean,
+    "max": dim_zero_max,
+    "min": dim_zero_min,
+    "cat": dim_zero_cat,
+}
+
+_ENGINES = "ROADMAP.md, Queue A item 4 (engines)"
+_SYNC = "ROADMAP.md, Queue A item 5 (distributed sync)"
+_LIST_STATES = "ROADMAP.md, Queue A item 6 (curve metrics, which accumulate list states)"
+
+
+def not_ported(argument: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"`{argument}` is not ported to metrics_tpu_torch yet; see {item}.")
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
+    """The metric's device: ``cuda`` (the current card) unless given."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _stable_default(x: Any, device: torch.device) -> Tensor:
+    """A Python number becomes a 32-bit tensor (the JAX package's x64-off
+    dtypes); a tensor keeps its dtype."""
+    if isinstance(x, Tensor):
+        return x.detach().clone().to(device)
+    if isinstance(x, bool):
+        return torch.tensor(x, device=device)
+    if isinstance(x, int):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _as_state(value: Any, device: torch.device) -> Tensor:
+    """A checkpoint leaf (tensor or numpy array) as a fresh tensor on ``device``."""
+    if isinstance(value, Tensor):
+        return value.detach().to(device, copy=True)
+    return torch.from_numpy(np.array(value)).to(device)
+
+
+class Metric(ABC):
+    """Base class for all metrics.
+
+    Subclasses declare state in ``__init__`` via :meth:`add_state` and
+    implement :meth:`update` and :meth:`compute`.
+
+    Args:
+        device: where the states live and the updates run; ``cuda`` by default.
+    """
+
+    is_differentiable: Optional[bool] = None
+    higher_is_better: Optional[bool] = None
+    full_state_update: Optional[bool] = True
+    # non-tensor attributes that belong in checkpoints (e.g. an inferred input mode)
+    _aux_attributes: tuple = ()
+
+    def __init__(
+        self,
+        device: Optional[Union[str, torch.device]] = None,
+        compute_on_cpu: bool = False,
+        dist_sync_on_step: bool = False,
+        process_group: Optional[str] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        sync_env: Any = None,
+        jit_update: bool = False,
+        sync_dtype: Any = None,
+        sync_precision: Optional[str] = None,
+        **kwargs: Any,
+    ) -> None:
+        if jit_update:
+            raise not_ported("jit_update", _ENGINES)
+        if compute_on_cpu:
+            raise not_ported("compute_on_cpu", _LIST_STATES)
+        for name, value in (
+            ("dist_sync_on_step", dist_sync_on_step or None),
+            ("process_group", process_group),
+            ("dist_sync_fn", dist_sync_fn),
+            ("sync_env", sync_env),
+            ("sync_dtype", sync_dtype),
+            ("sync_precision", sync_precision),
+        ):
+            if value is not None:
+                raise not_ported(name, _SYNC)
+        self._device = resolve_device(device)
+
+        self._update_signature = inspect.signature(self.update)
+        self._update_impl: Callable = self.update
+        self._compute_impl: Callable = self.compute
+        self.update = self._wrap_update(self._update_impl)  # type: ignore[method-assign]
+        self.compute = self._wrap_compute(self._compute_impl)  # type: ignore[method-assign]
+        self._computed: Any = None
+        self._forward_cache: Any = None
+        self._update_count = 0
+        # bumped on every edge that can change what compute() returns
+        self._version = 0
+
+        self._defaults: Dict[str, StateType] = {}
+        self._persistent: Dict[str, bool] = {}
+        self._reductions: Dict[str, Optional[Callable]] = {}
+
+    # ------------------------------------------------------------------ state
+    def add_state(
+        self,
+        name: str,
+        default: Union[Tensor, List, float, int],
+        dist_reduce_fx: Optional[Union[str, Callable]] = None,
+        persistent: bool = False,
+    ) -> None:
+        """Declare a metric state: a tensor (or Python number) or an empty list.
+
+        The reduction governs ``forward``'s merge of a batch state into the
+        global one: ``"sum"``, ``"mean"``, ``"max"``, ``"min"``, ``"cat"``,
+        a callable on the stacked pair, or None.
+        """
+        if not isinstance(default, (list, int, float, Tensor)) or (isinstance(default, list) and default):
+            raise ValueError("state variable must be an array or an empty list (where you can append arrays)")
+        if isinstance(dist_reduce_fx, str):
+            if dist_reduce_fx not in _REDUCTIONS:
+                raise ValueError(
+                    "`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]"
+                )
+            dist_reduce_fx = _REDUCTIONS[dist_reduce_fx]
+        elif dist_reduce_fx is not None and not callable(dist_reduce_fx):
+            raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
+
+        default = [] if isinstance(default, list) else _stable_default(default, self._device)
+        object.__setattr__(self, name, [] if isinstance(default, list) else default.clone())
+        self._defaults[name] = default
+        self._persistent[name] = persistent
+        self._reductions[name] = dist_reduce_fx
+
+    def _copy_state(self) -> Dict[str, StateType]:
+        return {k: list(v) if isinstance(v, list) else v for k, v in ((k, getattr(self, k)) for k in self._defaults)}
+
+    def _load_state(self, state: Dict[str, StateType]) -> None:
+        for k, v in state.items():
+            object.__setattr__(self, k, list(v) if isinstance(v, (list, tuple)) else v)
+
+    @property
+    def state_version(self) -> int:
+        """Monotonic counter of state mutations: two reads of an equal
+        version see identical state."""
+        return self._version
+
+    def _bump_version(self) -> None:
+        self._version += 1
+
+    # ------------------------------------------------------------- pure API
+    def default_state(self) -> Dict[str, StateType]:
+        """A fresh default state (the state ``reset()`` installs)."""
+        return {k: [] if isinstance(v, list) else v.clone() for k, v in self._defaults.items()}
+
+    def pure_update(self, state: Dict[str, StateType], *args: Any, **kwargs: Any) -> Dict[str, StateType]:
+        """``(state, batch) -> state``; the metric's own state is left as it was."""
+        saved = self._copy_state()
+        try:
+            self._load_state(state)
+            self._update_impl(*args, **kwargs)
+            return self._copy_state()
+        finally:
+            self._load_state(saved)
+
+    def pure_compute(self, state: Dict[str, StateType]) -> Any:
+        """The metric's value for a state."""
+        saved = self._copy_state()
+        try:
+            self._load_state(state)
+            return self._compute_impl()
+        finally:
+            self._load_state(saved)
+
+    def pure_merge(self, state_a: Dict[str, StateType], state_b: Dict[str, StateType], count: Any = 2) -> Dict[str, StateType]:
+        """Merge two partial states with the declared reductions. ``count`` is
+        the number of updates the merged state stands for (mean states only)."""
+        saved = self._copy_state()
+        saved_count = self._update_count
+        try:
+            self._load_state(state_b)
+            self._update_count = count
+            self._reduce_states(state_a)
+            return self._copy_state()
+        finally:
+            self._update_count = saved_count
+            self._load_state(saved)
+
+    # --------------------------------------------------------------- forward
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        """Accumulate the batch and return the metric's value on it alone."""
+        if self.full_state_update or self.full_state_update is None:
+            self._forward_cache = self._forward_full_state_update(*args, **kwargs)
+        else:
+            self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
+        return self._forward_cache
+
+    def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
+        """Two updates: one on the global state, one on a fresh state for the batch value."""
+        self.update(*args, **kwargs)
+        cache = self._copy_state()
+        update_count = self._update_count
+        self.reset()
+        self.update(*args, **kwargs)
+        batch_val = self.compute()
+
+        self._update_count = update_count
+        self._load_state(cache)
+        self._computed = None
+        self._bump_version()
+        return batch_val
+
+    def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
+        """One update on a fresh state, merged into the global one by the reductions."""
+        global_state = self._copy_state()
+        update_count = self._update_count
+        self.reset()
+        self.update(*args, **kwargs)
+        batch_val = self.compute()
+
+        self._update_count = update_count + 1
+        self._reduce_states(global_state)
+        self._computed = None
+        self._bump_version()
+        return batch_val
+
+    def _reduce_states(self, incoming_state: Dict[str, StateType]) -> None:
+        """Merge ``incoming_state`` (global) into the current (batch) state."""
+        for attr in self._defaults:
+            local_state = getattr(self, attr)
+            global_state = incoming_state[attr]
+            reduce_fn = self._reductions[attr]
+            if reduce_fn is dim_zero_sum:
+                reduced = global_state + local_state
+            elif reduce_fn is dim_zero_mean:
+                reduced = ((self._update_count - 1) * global_state + local_state) / self._update_count
+            elif reduce_fn is dim_zero_max:
+                reduced = torch.maximum(global_state, local_state)
+            elif reduce_fn is dim_zero_min:
+                reduced = torch.minimum(global_state, local_state)
+            elif reduce_fn is dim_zero_cat:
+                if isinstance(global_state, list):
+                    reduced = list(global_state) + list(local_state)
+                else:
+                    reduced = torch.cat([torch.atleast_1d(global_state), torch.atleast_1d(local_state)])
+            elif reduce_fn is None and isinstance(global_state, list):
+                reduced = _flatten([global_state, local_state])
+            elif reduce_fn is None:
+                reduced = torch.stack([global_state, local_state])
+            else:
+                reduced = reduce_fn(torch.stack([global_state, local_state]))
+            object.__setattr__(self, attr, reduced)
+
+    # -------------------------------------------------------------- wrappers
+    def _check_devices(self, args: tuple, kwargs: Dict[str, Any]) -> None:
+        for value in (*args, *kwargs.values()):
+            if isinstance(value, Tensor) and value.device != self._device:
+                raise RuntimeError(
+                    f"Expected all tensors to be on the metric's device {self._device}, "
+                    f"but found one on {value.device}"
+                )
+
+    def _wrap_update(self, update: Callable) -> Callable:
+        @functools.wraps(update)
+        def wrapped_func(*args: Any, **kwargs: Any) -> None:
+            self._check_devices(args, kwargs)
+            self._computed = None
+            self._update_count += 1
+            self._bump_version()
+            update(*args, **kwargs)
+
+        return wrapped_func
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        @functools.wraps(compute)
+        def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            if self._update_count == 0:
+                rank_zero_warn(
+                    f"The ``compute`` method of metric {self.__class__.__name__}"
+                    " was called before the ``update`` method which may lead to errors,"
+                    " as metric states have not yet been updated.",
+                    UserWarning,
+                )
+            if self._computed is None:
+                self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            return self._computed
+
+        return wrapped_func
+
+    @abstractmethod
+    def update(self, *_: Any, **__: Any) -> None:
+        """Accumulate statistics for this batch into the metric state."""
+
+    @abstractmethod
+    def compute(self) -> Any:
+        """Compute the final value from the accumulated state."""
+
+    def reset(self) -> None:
+        """Restore all states to their defaults."""
+        self._update_count = 0
+        self._forward_cache = None
+        self._computed = None
+        self._bump_version()
+        for attr, default in self.default_state().items():
+            object.__setattr__(self, attr, default)
+
+    def clone(self) -> "Metric":
+        return deepcopy(self)
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        return self.forward(*args, **kwargs)
+
+    # -------------------------------------------------------------- pickling
+    def __getstate__(self) -> Dict[str, Any]:
+        # the wrapped bound methods are rebuilt in __setstate__
+        skip = ("update", "compute", "_update_impl", "_compute_impl", "_update_signature")
+        return {k: v for k, v in self.__dict__.items() if k not in skip}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self._update_signature = inspect.signature(self.update)
+        self._update_impl = type(self).update.__get__(self)
+        self._compute_impl = type(self).compute.__get__(self)
+        self.update = self._wrap_update(self._update_impl)  # type: ignore[method-assign]
+        self.compute = self._wrap_compute(self._compute_impl)  # type: ignore[method-assign]
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if name in ("higher_is_better", "is_differentiable", "full_state_update"):
+            raise RuntimeError(f"Can't change const `{name}`.")
+        object.__setattr__(self, name, value)
+
+    # ---------------------------------------------------------------- device
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def to(self, device: Union[str, torch.device]) -> "Metric":
+        """Move every state (and its default) to ``device``."""
+        self._device = resolve_device(device)
+        for attr in self._defaults:
+            value = getattr(self, attr)
+            if isinstance(value, list):
+                object.__setattr__(self, attr, [v.to(self._device) for v in value])
+            else:
+                object.__setattr__(self, attr, value.to(self._device))
+            if not isinstance(self._defaults[attr], list):
+                self._defaults[attr] = self._defaults[attr].to(self._device)
+        self._computed = None
+        return self
+
+    # ----------------------------------------------------------- checkpoints
+    def persistent(self, mode: bool = False) -> None:
+        """Toggle persistence of all states."""
+        for key in self._persistent:
+            self._persistent[key] = mode
+
+    def state_dict(self, destination: Optional[Dict] = None, prefix: str = "") -> Dict[str, Any]:
+        """Copies of the persistent states (tensors on the metric's device),
+        ``aux:<name>`` entries and ``__checksum__::<key>`` entries in the
+        JAX package's format."""
+        top_level = destination is None
+        destination = {} if destination is None else destination
+        for key in self._defaults:
+            if not self._persistent[key]:
+                continue
+            current = getattr(self, key)
+            destination[prefix + key] = [v.clone() for v in current] if isinstance(current, list) else current.clone()
+        for name in self._aux_attributes:
+            value = getattr(self, name, None)
+            if value is not None:
+                destination[f"{prefix}aux:{name}"] = value.value if isinstance(value, Enum) else value
+        if top_level:
+            attach_checksums(destination)
+        return destination
+
+    def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "", strict: bool = True) -> None:
+        """Restore states from :meth:`state_dict` (tensors or numpy arrays).
+
+        The checksums are verified before any state is touched; a mismatch
+        raises :class:`~metrics_tpu_torch.utilities.exceptions.StateCorruptionError`.
+        """
+        if not prefix:
+            verify_checksums(state_dict)
+        for key in self._defaults:
+            name = prefix + key
+            if name in state_dict:
+                value = state_dict[name]
+                if isinstance(value, (list, tuple)):
+                    object.__setattr__(self, key, [_as_state(v, self._device) for v in value])
+                else:
+                    object.__setattr__(self, key, _as_state(value, self._device))
+                self._update_count = max(self._update_count, 1)
+            elif strict and self._persistent[key]:
+                raise KeyError(f"Missing key {name!r} in state_dict")
+        for name in self._aux_attributes:
+            key = f"{prefix}aux:{name}"
+            if key in state_dict:
+                setattr(self, name, state_dict[key])
+        self._computed = None
+        self._bump_version()
+
+    def __hash__(self) -> int:
+        return hash((self.__class__.__name__, id(self)))
+
+    def __repr__(self) -> str:
+        return f"{self.__class__.__name__}()"

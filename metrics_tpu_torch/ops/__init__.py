@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
+
+| kernel | replaces (TPU) | source |
+| --- | --- | --- |
+| ``stat_scores`` | ``metrics_tpu/ops/stat_scores.py::_stat_counts_kernel`` | ``csrc/stat_scores.cu`` |
+| ``confusion_matrix`` | ``metrics_tpu/ops/confusion.py::_confmat_kernel`` | ``csrc/confusion.cu`` |
+
+A CPU tensor takes the plain version, a CUDA tensor the kernel
+(:mod:`metrics_tpu_torch.ops.registry`). Nothing is compiled at import: the
+kernels are built by ``nvcc`` at their first launch (:mod:`._build`).
+"""
+from metrics_tpu_torch.ops.confusion import confusion_matrix_counts  # noqa: F401
+from metrics_tpu_torch.ops.registry import KERNELS, launches, reset_launches  # noqa: F401
+from metrics_tpu_torch.ops.stat_scores import stat_scores_counts  # noqa: F401

@@ -1,0 +1,93 @@
+"""Per-class multiclass stat-score counts: the ``stat_scores`` kernel.
+
+Port of ``metrics_tpu/ops/stat_scores.py``. On a CUDA tensor the counts come
+from the hand-written kernel in ``csrc/stat_scores.cu`` (shared-memory
+integer atomics, see the note there); on a CPU tensor from
+:func:`_stat_counts_plain`, the JAX package's scatter formulation
+(``_stat_counts_lax``) in PyTorch. Both are exact integer sums, so they agree
+bit for bit.
+"""
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.ops import _build, registry
+
+_NAME = "stat_scores"
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("stat_scores")
+    lib.stat_scores_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2
+    lib.stat_scores_launch.restype = ctypes.c_int
+    lib.stat_scores_error_string.argtypes = [ctypes.c_int]
+    lib.stat_scores_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _stat_counts_plain(target_cls: Tensor, pred_cls: Tensor, correct: Tensor, w: Tensor, num_classes: int):
+    """One scatter-add over a length-3C counts vector:
+    ``idx = [target, pred + C, target + 2C]``, ``wts = [w, w, correct]``.
+
+    A class index outside ``[0, C)`` adds nothing (it is sent to index 0 with
+    weight 0), as in the kernel.
+    """
+    dtype = w.dtype
+    t_ok = (target_cls >= 0) & (target_cls < num_classes)
+    p_ok = (pred_cls >= 0) & (pred_cls < num_classes)
+    t_idx = torch.where(t_ok, target_cls, 0).long()
+    p_idx = torch.where(p_ok, pred_cls, 0).long()
+    idx = torch.cat([t_idx, p_idx + num_classes, t_idx + 2 * num_classes])
+    wts = torch.cat([w * t_ok, w * p_ok, correct.to(dtype) * t_ok]).to(dtype)
+    counts = torch.zeros(3 * num_classes, dtype=dtype, device=w.device).index_add_(0, idx, wts)
+    return counts[:num_classes], counts[num_classes : 2 * num_classes], counts[2 * num_classes :]
+
+
+def _check(target_cls: Tensor, pred_cls: Tensor, correct: Tensor, w: Tensor, num_classes: int) -> None:
+    n = target_cls.shape[0]
+    for name, t, dtype in (
+        ("target_cls", target_cls, torch.int32),
+        ("pred_cls", pred_cls, torch.int32),
+        ("correct", correct, torch.bool),
+        ("w", w, torch.int32),
+    ):
+        if t.dtype != dtype:
+            raise TypeError(f"stat_scores_counts: `{name}` must be {dtype}, got {t.dtype}")
+        if t.ndim != 1 or t.shape[0] != n:
+            raise ValueError(f"stat_scores_counts: `{name}` must have shape ({n},), got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"stat_scores_counts: `{name}` must be contiguous")
+    if num_classes < 1:
+        raise ValueError(f"stat_scores_counts: `num_classes` must be positive, got {num_classes}")
+
+
+def stat_scores_counts(
+    target_cls: Tensor, pred_cls: Tensor, correct: Tensor, w: Tensor, num_classes: int
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Per-class ``(target_count, pred_count, tp)`` for one batch.
+
+    ``target_cls``/``pred_cls`` are ``(B,)`` int32 class indices, ``correct``
+    the ``(B,)`` bool hit mask (already masked by validity), ``w`` the ``(B,)``
+    int32 0/1 validity weights. Each count is int32 ``(C,)``.
+    """
+    _check(target_cls, pred_cls, correct, w, num_classes)
+    if not registry.use_kernel(target_cls, pred_cls, correct, w):
+        return _stat_counts_plain(target_cls, pred_cls, correct, w, num_classes)
+    out = torch.zeros((3, num_classes), dtype=torch.int32, device=w.device)
+    n = target_cls.shape[0]
+    if n > 0:
+        lib = _lib()
+        with torch.cuda.device(w.device):
+            stream = torch.cuda.current_stream(w.device).cuda_stream
+            err = lib.stat_scores_launch(
+                target_cls.data_ptr(), pred_cls.data_ptr(), correct.data_ptr(), w.data_ptr(),
+                n, num_classes, out.data_ptr(), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"stat_scores kernel launch failed: {lib.stat_scores_error_string(err).decode()}")
+        registry.note_launch(_NAME)
+    return out[0], out[1], out[2]

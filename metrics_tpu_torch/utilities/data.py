@@ -1,0 +1,79 @@
+"""Tensor helpers and the dim-zero reductions (port of ``metrics_tpu/utilities/data.py``).
+
+The ``dim_zero_*`` functions are the named reductions a metric state can
+declare; ``forward`` merges a batch state into the global one with them.
+"""
+from typing import Any, List, Union
+
+import torch
+from torch import Tensor
+
+
+def dim_zero_cat(x: Union[Tensor, List[Tensor]]) -> Tensor:
+    """Concatenate a (list of) tensor(s) along dim 0."""
+    if isinstance(x, (list, tuple)):
+        if not x:
+            raise ValueError("No samples to concatenate")
+        return torch.cat([torch.atleast_1d(v) for v in x], dim=0)
+    return x
+
+
+def dim_zero_sum(x: Tensor) -> Tensor:
+    return torch.sum(x, dim=0)
+
+
+def dim_zero_mean(x: Tensor) -> Tensor:
+    return torch.mean(x, dim=0)
+
+
+def dim_zero_max(x: Tensor) -> Tensor:
+    return torch.amax(x, dim=0)
+
+
+def dim_zero_min(x: Tensor) -> Tensor:
+    return torch.amin(x, dim=0)
+
+
+def _flatten(x: List) -> list:
+    """Flatten one level of nesting."""
+    return [item for sublist in x for item in sublist]
+
+
+def to_onehot(label_tensor: Tensor, num_classes: int) -> Tensor:
+    """``(N, ...)`` integer labels to an int32 one-hot ``(N, C, ...)``.
+
+    Written as a compare against ``arange(C)`` (not ``F.one_hot``) so that a
+    label outside ``[0, C)`` gives an all-zero row, as ``jax.nn.one_hot``
+    does, instead of raising.
+    """
+    classes = torch.arange(num_classes, device=label_tensor.device)
+    onehot = (label_tensor.long().unsqueeze(-1) == classes).to(torch.int32)
+    return torch.movedim(onehot, -1, 1)
+
+
+def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
+    """int32 mask of the ``topk`` highest entries along ``dim``."""
+    moved = torch.movedim(prob_tensor, dim, -1)
+    if topk == 1:
+        idx = torch.argmax(moved, dim=-1, keepdim=True)
+    else:
+        idx = torch.topk(moved, topk, dim=-1).indices
+    mask = torch.zeros(moved.shape, dtype=torch.int32, device=prob_tensor.device)
+    mask.scatter_(-1, idx, 1)
+    return torch.movedim(mask, -1, dim)
+
+
+def _squeeze_if_scalar(data: Any) -> Any:
+    """Squeeze a single-element tensor to 0-d."""
+    if isinstance(data, Tensor) and data.numel() == 1:
+        return data.squeeze()
+    return data
+
+
+def _bincount(x: Tensor, minlength: int) -> Tensor:
+    """int32 bincount of a flattened tensor with a fixed length.
+
+    Values are checked to lie in ``[0, minlength)`` before this is reached,
+    so the length is ``minlength`` as with ``jnp.bincount(length=...)``.
+    """
+    return torch.bincount(x.reshape(-1), minlength=minlength).to(torch.int32)

@@ -1,0 +1,219 @@
+"""The port's kernel modules held against the JAX package on the CPU.
+
+For each kernel, the port's plain PyTorch version (what a CPU tensor runs)
+must equal, bit for bit and in dtype, both formulations of the JAX package:
+the lax fallback (``force_pallas=False``) and the Pallas kernel body run in
+interpret mode. The Pallas body is called directly (``_stat_counts_pallas``,
+``_confmat_pallas``), not through the registry, whose launch fallback could
+otherwise hide a failure. The grids are those of
+``tests/ops/test_kernel_parity.py``. The CUDA kernels themselves run only on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import os
+import stat
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from metrics_tpu.ops.confusion import _confmat_pallas
+from metrics_tpu.ops.confusion import confusion_matrix_counts as jax_confusion_matrix_counts
+from metrics_tpu.ops.stat_scores import _stat_counts_pallas
+from metrics_tpu.ops.stat_scores import stat_scores_counts as jax_stat_scores_counts
+from metrics_tpu_torch.ops import _build, confusion_matrix_counts, launches, registry, stat_scores_counts
+
+
+def _stat_inputs(n, c, seed):
+    rng = np.random.RandomState(seed)
+    target = rng.randint(0, c, n).astype(np.int32)
+    pred = rng.randint(0, c, n).astype(np.int32)
+    w = rng.randint(0, 2, n).astype(np.int32)  # 0/1 validity: masked rows
+    correct = (pred == target) & (w > 0)
+    return target, pred, correct, w
+
+
+def _port_counts(target, pred, correct, w, c):
+    return stat_scores_counts(
+        torch.from_numpy(target), torch.from_numpy(pred), torch.from_numpy(correct), torch.from_numpy(w), c
+    )
+
+
+# ------------------------------------------------------------- stat scores
+@pytest.mark.parametrize("n", [1, 100, 128, 129, 512])
+@pytest.mark.parametrize("c", [2, 7, 33])
+def test_stat_scores_plain_matches_jax_lax_and_pallas(n, c):
+    target, pred, correct, w = _stat_inputs(n, c, seed=n + c)
+    got = _port_counts(target, pred, correct, w, c)
+
+    jt, jp, jw = jnp.asarray(target), jnp.asarray(pred), jnp.asarray(w)
+    jc = jnp.asarray(correct)
+    lax = jax_stat_scores_counts(jt, jp, jc, jw, c, force_pallas=False)
+    pallas = _stat_counts_pallas(jt, jp, jc.astype(jnp.float32), jw.astype(jnp.float32), c, interpret=True)
+    pallas = [pallas[i].astype(jw.dtype) for i in range(3)]
+    for name, g, ref_lax, ref_pallas in zip(("targ", "pred", "tp"), got, lax, pallas):
+        assert g.dtype == torch.int32 and np.asarray(ref_lax).dtype == np.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(ref_lax), err_msg=f"{name} vs lax")
+        np.testing.assert_array_equal(g.numpy(), np.asarray(ref_pallas), err_msg=f"{name} vs pallas")
+
+
+def test_stat_scores_out_of_range_class_adds_nothing():
+    # a NaN score row gives pred_cls == C: the kernel and its plain version drop it
+    target = np.array([0, 1, 2], np.int32)
+    pred = np.array([3, 1, -1], np.int32)
+    correct = pred == target
+    w = np.ones(3, np.int32)
+    targ, prd, tp = _port_counts(target, pred, correct, w, 3)
+    assert targ.tolist() == [1, 1, 1] and prd.tolist() == [0, 1, 0] and tp.tolist() == [0, 1, 0]
+
+
+def test_stat_scores_empty_batch_gives_zeros():
+    empty = np.zeros(0, np.int32)
+    out = _port_counts(empty, empty, empty.astype(bool), empty, 4)
+    assert all(o.tolist() == [0] * 4 and o.dtype == torch.int32 for o in out)
+
+
+@pytest.mark.parametrize(
+    "field,bad",
+    [("target", torch.zeros(4, dtype=torch.int64)), ("correct", torch.zeros(4, dtype=torch.int32)), ("w", torch.zeros(4))],
+)
+def test_stat_scores_wrapper_rejects_wrong_dtype(field, bad):
+    args = {
+        "target": torch.zeros(4, dtype=torch.int32),
+        "pred": torch.zeros(4, dtype=torch.int32),
+        "correct": torch.zeros(4, dtype=torch.bool),
+        "w": torch.ones(4, dtype=torch.int32),
+    }
+    args[field] = bad
+    with pytest.raises(TypeError, match="must be"):
+        stat_scores_counts(args["target"], args["pred"], args["correct"], args["w"], 3)
+
+
+def test_stat_scores_wrapper_rejects_shape_and_layout():
+    ok = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="shape"):
+        stat_scores_counts(ok, torch.zeros(5, dtype=torch.int32), ok.bool(), ok, 3)
+    strided = torch.zeros(8, dtype=torch.int32)[::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        stat_scores_counts(ok, strided, ok.bool(), ok, 3)
+
+
+# -------------------------------------------------------- confusion matrix
+@pytest.mark.parametrize("n", [1, 64, 128, 200, 1024])
+@pytest.mark.parametrize("c", [2, 10, 40])
+def test_confusion_plain_matches_jax_lax_and_pallas(n, c):
+    rng = np.random.RandomState(n * 7 + c)
+    target = rng.randint(0, c, n).astype(np.int32)
+    pred = rng.randint(0, c, n).astype(np.int32)
+    got = confusion_matrix_counts(torch.from_numpy(target), torch.from_numpy(pred), c)
+
+    jt, jp = jnp.asarray(target), jnp.asarray(pred)
+    lax = np.asarray(jax_confusion_matrix_counts(jt, jp, c, force_pallas=False))
+    pallas = np.asarray(_confmat_pallas(jt, jp, c, interpret=True).astype(jnp.int32))
+    assert got.dtype == torch.int32 and lax.dtype == np.int32 and got.shape == (c, c)
+    np.testing.assert_array_equal(got.numpy(), lax)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    assert int(got.sum()) == n
+
+
+def test_confusion_padding_label_matches_no_class():
+    target = torch.tensor([0, -1, 1, 2], dtype=torch.int32)
+    pred = torch.tensor([0, 1, -1, 2], dtype=torch.int32)
+    got = confusion_matrix_counts(target, pred, 3)
+    ref = np.asarray(_confmat_pallas(jnp.asarray(target.numpy()), jnp.asarray(pred.numpy()), 3, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), ref.astype(np.int32))
+    assert int(got.sum()) == 2
+
+
+def test_confusion_wrapper_rejects_bad_inputs():
+    ok = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        confusion_matrix_counts(ok.long(), ok, 3)
+    with pytest.raises(ValueError, match="1-D"):
+        confusion_matrix_counts(ok, torch.zeros(3, dtype=torch.int32), 3)
+    with pytest.raises(ValueError, match="positive"):
+        confusion_matrix_counts(ok, ok, 0)
+
+
+# ---------------------------------------------------------------- routing
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    registry.reset_launches()
+    target, pred, correct, w = _stat_inputs(64, 5, seed=3)
+    _port_counts(target, pred, correct, w, 5)
+    confusion_matrix_counts(torch.from_numpy(target), torch.from_numpy(pred), 5)
+    assert launches() == {"stat_scores": 0, "confusion_matrix": 0}
+
+
+def test_other_devices_raise():
+    meta = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        confusion_matrix_counts(meta, meta, 3)
+    with pytest.raises(RuntimeError, match="same device"):
+        confusion_matrix_counts(torch.zeros(4, dtype=torch.int32), meta, 3)
+
+
+# ------------------------------------------------------------------ build
+def _fake_nvcc(tmp_path, exit_code):
+    """A stand-in compiler that writes its ``-o`` file (or fails)."""
+    script = tmp_path / "bin" / "nvcc"
+    script.parent.mkdir()
+    body = f"#!{sys.executable}\nimport sys\nargs = sys.argv[1:]\n"
+    if exit_code:
+        body += f"print('error: bad source')\nsys.exit({exit_code})\n"
+    else:
+        body += "open(args[args.index('-o') + 1], 'w').write(' '.join(args))\n"
+    script.write_text(body)
+    script.chmod(script.stat().st_mode | stat.S_IEXEC)
+    return script
+
+
+@pytest.fixture
+def fake_csrc(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// a\n")
+    (csrc / "b.cu").write_text("// b\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    return csrc
+
+
+def test_build_compiles_each_source_once_with_the_hopper_flags(fake_csrc, tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(_fake_nvcc(tmp_path, 0).parent) + os.pathsep + os.environ["PATH"])
+    paths = _build.build(["a", "b"])
+    assert set(paths) == {"a", "b"}
+    for name, path in paths.items():
+        cmdline = path.read_text()
+        assert "arch=compute_90a,code=sm_90a" in cmdline and "-shared" in cmdline
+        assert cmdline.endswith(f"{name}.cu")
+    mtime = paths["a"].stat().st_mtime_ns
+    assert _build.build(["a"])["a"].stat().st_mtime_ns == mtime  # cached: not rebuilt
+    assert sorted(p.name for p in (tmp_path / "_build").iterdir()) == sorted(p.name for p in paths.values())
+
+
+def test_build_key_follows_the_source(fake_csrc):
+    before = _build.library_path("a")
+    (fake_csrc / "a.cu").write_text("// a, edited\n")
+    assert _build.library_path("a") != before
+    assert _build.library_path("b") != _build.library_path("a")
+
+
+def test_build_failure_raises_with_the_compiler_output(fake_csrc, tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(_fake_nvcc(tmp_path, 2).parent) + os.pathsep + os.environ["PATH"])
+    with pytest.raises(RuntimeError, match="error: bad source"):
+        _build.build(["a"])
+    assert not any((tmp_path / "_build").iterdir())
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os, "access", lambda *_: False)
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        _build.nvcc()
+
+
+def test_the_repo_ships_both_kernel_sources():
+    for name in _build.SOURCES:
+        source = (_build.CSRC / f"{name}.cu").read_text()
+        assert 'extern "C" int' in source and "__global__" in source and "Replaces the TPU kernel" in source
