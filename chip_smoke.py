@@ -7,16 +7,28 @@
    (one ``nvcc`` per source, all at once).
 2. Holds each kernel against its plain PyTorch version on the card over the
    JAX package's parity grid plus masked and padded rows: exact equality.
-3. Runs the slice: ImageNet-1k validation (50,000 images, 1,000 classes) in
-   batches of 1,024 (48 full, one of 848) through ``Accuracy(average="macro")``
-   and ``ConfusionMatrix(update_method="matmul")`` with ``update``,
-   ``forward``, ``compute``, ``state_dict`` and ``reset``. Each kernel must
-   launch once per batch (49 times), and the results must equal the same run
-   on the CPU (counts exactly, accuracy to rtol 1e-6) and an independent
-   reference computed from the scores.
-4. Times each kernel, its plain version and one PyTorch library call at the
-   slice's shapes with CUDA events (median of 25 repetitions), beside the
-   least time the card's memory allows, and times whole updates.
+3. Runs the slices. Slice 1: ImageNet-1k validation (50,000 images, 1,000
+   classes) in batches of 1,024 (48 full, one of 848) through
+   ``Accuracy(average="macro")`` and ``ConfusionMatrix(update_method="matmul")``
+   with ``update``, ``forward``, ``compute``, ``state_dict`` and ``reset``.
+   Each kernel must launch once per batch (49 times), and the results must
+   equal the same run on the CPU (counts exactly, accuracy to rtol 1e-6) and
+   an independent reference computed from the scores. Slice 2: the same
+   ImageNet scores through ``BinnedAveragePrecision`` and
+   ``BinnedRecallAtFixedPrecision`` (100 thresholds; 98 launches of
+   ``binned_stats``), and MS-COCO 2014 val multilabel classification (40,504
+   images, 80 classes, 39 batches of 1,024 and one of 568) through
+   ``BinnedAveragePrecision`` with ``forward`` on the last batch (40
+   launches). The ``TPs/FPs/FNs`` states must equal the CPU run and a
+   searchsorted/histogram reference exactly, the values the CPU run to rtol
+   1e-6; an update must make no host sync.
+4. Times each kernel, its plain version and the one PyTorch library call
+   that computes the same function (``binned_stats`` has none, so a
+   searchsorted/bincount yardstick is timed and named instead) at the
+   slices' shapes with CUDA events (median of 25 repetitions), beside the
+   least time the card allows (bytes over its memory rate or the operations
+   the batch needs over its float32 rate, whichever is larger), and times
+   whole updates and the binned metrics' ``compute``.
 
 The scores and labels are made on the card from a seeded generator: a model
 whose top-1 hits the label on about 76% of images, with random scores
@@ -34,14 +46,19 @@ import warnings
 
 SEED = 0
 N_VAL, NUM_CLASSES, BATCH = 50_000, 1000, 1024  # ILSVRC2012 validation
+N_COCO, COCO_CLASSES, COCO_LABELS_PER_IMAGE = 40_504, 80, 2.9  # MS-COCO 2014 val, multilabel
+THRESHOLDS = 100  # the binned metrics' default
+MIN_PRECISION = 0.5
 HEADLINE_CLASSES = 128  # bench.py's headline shape, B = 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
 REPS, INNER = 25, 20
 SLEEP_CYCLES = 20_000_000  # ~10 ms of device time: the host queues a whole repetition behind it
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
     "confusion_matrix": ("metrics_tpu_torch/csrc/confusion.cu", "metrics_tpu/ops/confusion.py:37"),
+    "binned_stats": ("metrics_tpu_torch/csrc/binned_stats.cu", "metrics_tpu/ops/binned_stats.py:43"),
 }
 
 
@@ -153,6 +170,42 @@ def stat_inputs(torch, preds, target):
     return target_cls, pred_cls, correct, w
 
 
+def bound(nbytes, ops):
+    """The least time (ms) the card could take for the work: bytes over the
+    memory rate or operations over the float32 rate, whichever is larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def searchsorted_counts(torch, preds, target, thr):
+    """Binned ``(tp, fp, fn)`` without the kernel or its plain version. For
+    sorted thresholds, ``k = searchsorted(thr, score, right=True)`` counts the
+    thresholds a score reaches; a per-class histogram of ``k`` and its suffix
+    sum give the prediction-positive and true-positive counts."""
+    n, c = preds.shape
+    t = thr.shape[0]
+    k = torch.searchsorted(thr, preds.contiguous(), right=True)
+    flat = (torch.arange(c, device=preds.device) * (t + 1) + k).reshape(-1)
+    y = (target == 1).reshape(n, c)
+    hist_p = torch.bincount(flat, minlength=c * (t + 1)).reshape(c, t + 1)
+    hist_tp = torch.bincount(flat, weights=y.reshape(-1).double(), minlength=c * (t + 1)).reshape(c, t + 1).long()
+    # a score reaches thr[j] exactly when k > j
+    p = hist_p.flip(1).cumsum(1).flip(1)[:, 1:]
+    tp = hist_tp.flip(1).cumsum(1).flip(1)[:, 1:]
+    pos = y.sum(0)
+    return tp.float(), (p - tp).float(), (pos[:, None] - tp).float()
+
+
+def coco_data(torch, dev):
+    """MS-COCO 2014 val as a multilabel classifier sees it: Bernoulli(2.9/80)
+    labels per class and scores ``sigmoid(N(0, 1) + 2 * label)``."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    target = (torch.rand(N_COCO, COCO_CLASSES, generator=g, device=dev) < COCO_LABELS_PER_IMAGE / COCO_CLASSES)
+    target = target.to(torch.int32)
+    scores = torch.sigmoid(torch.randn(N_COCO, COCO_CLASSES, generator=g, device=dev) + 2.0 * target)
+    return scores, target
+
+
 def main() -> int:
     import torch
 
@@ -160,11 +213,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible; the port is measured on an NVIDIA card only", file=sys.stderr)
         return 1
 
-    from metrics_tpu_torch import Accuracy, ConfusionMatrix
+    from metrics_tpu_torch import Accuracy, BinnedAveragePrecision, BinnedRecallAtFixedPrecision, ConfusionMatrix
+    from metrics_tpu_torch.classification.binned_precision_recall import _linspace_thresholds
     from metrics_tpu_torch.functional.classification.confusion_matrix import _canonicalize_confmat_labels
-    from metrics_tpu_torch.ops import _build, confusion_matrix_counts, launches, reset_launches, stat_scores_counts
+    from metrics_tpu_torch.ops import (
+        _build,
+        binned_stat_scores,
+        confusion_matrix_counts,
+        launches,
+        reset_launches,
+        stat_scores_counts,
+    )
+    from metrics_tpu_torch.ops.binned_stats import _binned_stat_scores_kernel, _binned_stat_scores_plain
     from metrics_tpu_torch.ops.confusion import _confmat_plain
     from metrics_tpu_torch.ops.stat_scores import _stat_counts_plain
+    from metrics_tpu_torch.utilities.data import to_onehot
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain one-hot product stays exact float32
@@ -211,6 +274,43 @@ def main() -> int:
                 check(torch.equal(got, ref), f"confusion_matrix differs from its plain version at n={n} C={c}")
                 max_err["confusion_matrix"] = max(max_err["confusion_matrix"], int((got - ref).abs().max()))
                 cases += 1
+    # the flat-index rule of JAX's scatter: pred_cls == C (a NaN score row) adds to tp[0],
+    # a negative target under w = 0 wraps into range with weight 0
+    for n, c in ((129, 7), (1024, 1000)):
+        target = torch.randint(0, c, (n,), generator=g, device=dev, dtype=torch.int32)
+        pred = torch.randint(0, c, (n,), generator=g, device=dev, dtype=torch.int32)
+        w = torch.ones(n, dtype=torch.int32, device=dev)
+        pred[::5] = c
+        target[1::7], w[1::7] = -1, 0
+        target[2::7], w[2::7] = -3 * c, 0
+        correct = (pred == target) & (w > 0)
+        got = stat_scores_counts(target, pred, correct, w, c)
+        ref = _stat_counts_plain(target, pred, correct, w, c)
+        for a, b in zip(got, ref):
+            check(a.dtype == b.dtype == torch.int32 and torch.equal(a, b),
+                  f"stat_scores differs from its plain version on out-of-range classes at n={n} C={c}")
+        check(int(got[2][0]) >= int(((pred == c) & (w > 0)).sum()), "a pred_cls == C row did not reach tp[0]")
+        cases += 1
+
+    unsorted = torch.tensor([0.5, 0.1, 0.5, 0.9, -float("inf"), float("inf"), 0.0, 0.3, 1.0], device=dev)
+    for n in (0, 1, 100, 128, 129, 1024):
+        for c, t in ((1, 5), (5, 17), (3, 128), (80, 100), (1000, 100), (7, 1)):
+            thr_sets = [_linspace_thresholds(t, dev)] + ([unsorted] if c in (80, 1000) else [])
+            for thr in thr_sets:
+                preds = torch.rand(n, c, generator=g, device=dev)
+                if n >= 8:
+                    # scores exactly on thresholds, then NaN, +inf and -inf rows
+                    preds[:4] = thr[torch.randint(0, thr.shape[0], (4, c), generator=g, device=dev)]
+                    preds[4], preds[5], preds[6] = float("nan"), float("inf"), -float("inf")
+                target = torch.randint(0, 3, (n, c), generator=g, device=dev)  # 2 is not a positive
+                got = binned_stat_scores(preds, target, thr)
+                ref = _binned_stat_scores_plain(preds, target == 1, thr)
+                for a, b in zip(got, ref):
+                    check(a.dtype == b.dtype == torch.float32 and a.shape == b.shape == (c, thr.shape[0]),
+                          f"binned_stats dtype or shape at n={n} C={c} T={thr.shape[0]}")
+                    check(torch.equal(a, b), f"binned_stats differs from its plain version at n={n} C={c} T={thr.shape[0]}")
+                    max_err["binned_stats"] = max(max_err["binned_stats"], float((a - b).abs().max()) if a.numel() else 0.0)
+                cases += 1
     torch.cuda.synchronize()
     print(f"kernel vs plain: {cases} cases equal, max_abs_err {max_err}")
 
@@ -249,11 +349,12 @@ def main() -> int:
     acc, cm, batch_vals, values, epoch_s = run_slice(dev, batches)
     counts = launches()
     print(f"slice on the card: 49 batches in {epoch_s * 1e3:.1f} ms, launches {counts}")
-    for name in KERNELS:
+    for name in ("stat_scores", "confusion_matrix"):
         check(counts[name] == 49, f"{name} launched {counts[name]} times in the slice, not 49")
 
     cpu = torch.device("cpu")
-    c_acc, c_cm, c_batch_vals, c_values, cpu_s = run_slice(cpu, [(p.cpu(), t.cpu()) for p, t in batches])
+    cpu_batches = [(p.cpu(), t.cpu()) for p, t in batches]
+    c_acc, c_cm, c_batch_vals, c_values, cpu_s = run_slice(cpu, cpu_batches)
     print(f"same slice on the CPU (plain versions): {cpu_s * 1e3:.1f} ms")
     for name in ("tp", "fp", "tn", "fn"):
         a, b = getattr(acc, name), getattr(c_acc, name)
@@ -293,6 +394,91 @@ def main() -> int:
               f"{cls.__name__}.reset left state behind")
     print("state_dict round trip and reset: ok")
 
+    # ------------------------------------------------- 3b. slice 2: binned curves
+    def run_imagenet_binned(device, data):
+        # made on the CPU and moved: the thresholds must follow the states
+        ap = BinnedAveragePrecision(num_classes=NUM_CLASSES, thresholds=THRESHOLDS, device="cpu").to(device)
+        rap = BinnedRecallAtFixedPrecision(
+            num_classes=NUM_CLASSES, min_precision=MIN_PRECISION, thresholds=THRESHOLDS, device=device
+        )
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for p, t in data:
+            ap.update(p, t)
+            rap.update(p, t)
+        values = (torch.stack(ap.compute()), *rap.compute())
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return (ap, rap), values, time.perf_counter() - t_start
+
+    def run_coco_binned(device, data):
+        m = BinnedAveragePrecision(num_classes=COCO_CLASSES, thresholds=THRESHOLDS, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for i, (p, t) in enumerate(data):
+            if i == len(data) - 1:
+                batch_val = torch.stack(m(p, t))  # forward: one update and the batch's value
+            else:
+                m.update(p, t)
+        values = (torch.stack(m.compute()), batch_val)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return (m,), values, time.perf_counter() - t_start
+
+    coco_scores, coco_target = coco_data(torch, dev)
+    coco_batches = [(coco_scores[i:i + BATCH], coco_target[i:i + BATCH]) for i in range(0, N_COCO, BATCH)]
+    check(len(coco_batches) == 40 and coco_batches[-1][0].shape[0] == 568, "COCO is 39 batches of 1024 and one of 568")
+    thr_ref = _linspace_thresholds(THRESHOLDS, dev)
+    imagenet_onehot = torch.zeros(N_VAL, NUM_CLASSES, dtype=torch.bool, device=dev)
+    imagenet_onehot[torch.arange(N_VAL, device=dev), labels] = True
+    binned_paths = {
+        "imagenet": (run_imagenet_binned, batches, cpu_batches, 2 * len(batches), (scores, imagenet_onehot)),
+        "coco": (run_coco_binned, coco_batches, [(p.cpu(), t.cpu()) for p, t in coco_batches], len(coco_batches),
+                 (coco_scores, coco_target)),
+    }
+    binned_launches = {}
+    binned_metrics = {}
+    for path, (run, data, cpu_data, expected, (all_scores, all_target)) in binned_paths.items():
+        reset_launches()
+        metrics, values, card_s = run(dev, data)
+        binned_launches[path] = launches()["binned_stats"]
+        check(binned_launches[path] == expected,
+              f"binned_stats launched {binned_launches[path]} times on the {path} path, not {expected}")
+        c_metrics, c_values, cpu_path_s = run(cpu, cpu_data)
+        print(f"{path} binned path: {len(data)} batches in {card_s * 1e3:.1f} ms on the card, "
+              f"{cpu_path_s * 1e3:.1f} ms on the CPU (plain versions); binned_stats launches {binned_launches[path]}")
+        ref = searchsorted_counts(torch, all_scores, all_target, thr_ref)
+        for m, c_m in zip(metrics, c_metrics):
+            for name, r in zip(("TPs", "FPs", "FNs"), ref):
+                a = getattr(m, name)
+                check(a.dtype == torch.float32 and a.shape == (all_scores.shape[1], THRESHOLDS),
+                      f"{path} {type(m).__name__}.{name} dtype or shape")
+                check(torch.equal(a.cpu(), getattr(c_m, name)), f"{path} {type(m).__name__}.{name} differs from the CPU run")
+                check(torch.equal(a, r), f"{path} {type(m).__name__}.{name} differs from the searchsorted reference")
+        for got, want in zip(values, c_values):
+            check(bool(torch.isfinite(got).all()), f"{path} values are not finite")
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0, msg=f"{path} values differ from the CPU run")
+        for m in metrics:
+            m.persistent(True)
+            kwargs = dict(num_classes=m.num_classes, thresholds=THRESHOLDS, device=dev)
+            if isinstance(m, BinnedRecallAtFixedPrecision):
+                kwargs["min_precision"] = MIN_PRECISION
+            fresh = type(m)(**kwargs)
+            fresh.load_state_dict(m.state_dict())
+            for a, b in zip(fresh.compute(), m.compute()):
+                check(torch.equal(a, b), f"{path} {type(m).__name__} state_dict round trip changed the value")
+            m.reset()
+            check(m._update_count == 0 and all(int(getattr(m, k).abs().sum()) == 0 for k in m._defaults),
+                  f"{path} {type(m).__name__}.reset left state behind")
+        binned_metrics[path] = values
+    imagenet_values, coco_values = binned_metrics["imagenet"], binned_metrics["coco"]
+    print(f"slice 2 results: ImageNet mean binned AP {float(imagenet_values[0].mean()):.6f}, mean recall at "
+          f"precision {MIN_PRECISION} {float(imagenet_values[1].mean()):.6f}; COCO mAP {float(coco_values[0].mean()):.6f} "
+          f"(last batch {float(coco_values[1].mean()):.6f}); states equal to the CPU run and the searchsorted "
+          "reference; state_dict round trip and reset: ok")
+
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000
     n = p.shape[0]
@@ -307,35 +493,69 @@ def main() -> int:
     check(torch.equal(confusion_matrix_counts(t32, p32, NUM_CLASSES), _confmat_plain(t32, p32, NUM_CLASSES)),
           "confusion_matrix differs from its plain version at the slice's shape")
 
+    y_onehot = to_onehot(t, NUM_CLASSES) == 1  # the binned update's canonical target
+    thr_d = _linspace_thresholds(THRESHOLDS, dev)
+    b_tp, b_fp, _ = _binned_stat_scores_kernel(p, y_onehot, thr_d)
+    for a, b in zip((b_tp, b_fp), _binned_stat_scores_plain(p, y_onehot, thr_d)):
+        check(torch.equal(a, b), "binned_stats differs from its plain version at the slice's shape")
+    # this batch's work: a compare per (row, class, threshold), an add to P per hit, an add to TP per true hit
+    binned_ops = n * NUM_CLASSES * THRESHOLDS + int((b_tp + b_fp).sum()) + int(b_tp.sum())
+
     rows = []
+    # per kernel: kernel wrapper, plain version, one library call computing the same function (or None)
+    # and its name, bytes moved once, operations this batch needs, shape
     timing = {
         "stat_scores": (
             lambda: stat_scores_counts(target_cls, pred_cls, correct, w, NUM_CLASSES),
             lambda: _stat_counts_plain(target_cls, pred_cls, correct, w, NUM_CLASSES),
             lambda: torch.bincount(idx3, weights=wts3, minlength=3 * NUM_CLASSES),
+            "torch.bincount weighted, 3C bins",
             n * (4 + 4 + 1 + 4) + 3 * NUM_CLASSES * 4,
+            2 * n + int(correct.sum()),  # two adds a row and one a correct row
+            {"B": n, "C": NUM_CLASSES},
         ),
         "confusion_matrix": (
             lambda: confusion_matrix_counts(t32, p32, NUM_CLASSES),
             lambda: _confmat_plain(t32, p32, NUM_CLASSES),
             lambda: torch.bincount(flat, minlength=NUM_CLASSES * NUM_CLASSES),
+            "torch.bincount, C^2 bins",
             n * 8 + NUM_CLASSES * NUM_CLASSES * 4,
+            n,  # one add a row
+            {"B": n, "C": NUM_CLASSES},
+        ),
+        "binned_stats": (
+            lambda: _binned_stat_scores_kernel(p, y_onehot, thr_d),
+            lambda: _binned_stat_scores_plain(p, y_onehot, thr_d),
+            None,  # no single PyTorch call computes it; the searchsorted yardstick is timed below
+            None,
+            n * NUM_CLASSES * (4 + 1) + 3 * NUM_CLASSES * THRESHOLDS * 4,
+            binned_ops,
+            {"B": n, "C": NUM_CLASSES, "T": THRESHOLDS},
         ),
     }
-    for name, (kernel, plain, library, nbytes) in timing.items():
+    path_launches = {"stat_scores": counts["stat_scores"], "confusion_matrix": counts["confusion_matrix"],
+                     "binned_stats": sum(binned_launches.values())}
+    for name, (kernel, plain, library, library_call, nbytes, ops, shape) in timing.items():
         # plain, kernel, kernel, plain: each pair within one call, the mean of the two readings
         plain_a, kernel_a, kernel_b, plain_b = (device_ms(torch, f) for f in (plain, kernel, kernel, plain))
-        library_ms = device_ms(torch, library)
+        library_ms = device_ms(torch, library) if library else None
+        bound_ms, bound_by = bound(nbytes, ops)
         source, replaces = KERNELS[name]
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": max_err[name],
+            "launches": path_launches[name], "max_abs_err": max_err[name],
             "ms": (kernel_a + kernel_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": library_ms,
-            "shape": {"B": n, "C": NUM_CLASSES},
-        })
-        print(f"{name} at B={n} C={NUM_CLASSES}: kernel {kernel_a:.5f}/{kernel_b:.5f} ms, "
-              f"plain {plain_a:.5f}/{plain_b:.5f} ms, library {library_ms:.5f} ms, bound {rows[-1]['bound_ms']:.6f} ms")
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "library_call": library_call, "ops": ops, "bytes": nbytes, "shape": shape,
+        }
+        if name == "binned_stats":
+            row["yardstick_ms"] = device_ms(torch, lambda: searchsorted_counts(torch, p, y_onehot, thr_d))
+            row["yardstick_call"] = "torch.searchsorted + 2x torch.bincount + cumsum"
+        rows.append(row)
+        print(f"{name} at {shape}: kernel {kernel_a:.5f}/{kernel_b:.5f} ms, plain {plain_a:.5f}/{plain_b:.5f} ms, "
+              f"library {library_ms} ms, yardstick {row.get('yardstick_ms')} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}: {nbytes} bytes, {ops} operations)")
+    print(f"binned_stats launches per path: {json.dumps(binned_launches)}")
 
     upd_acc = Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev)
     upd_cm = ConfusionMatrix(num_classes=NUM_CLASSES, update_method="matmul", device=dev)
@@ -353,6 +573,30 @@ def main() -> int:
         print(f"{label} update under torch.profiler: " + json.dumps(device_busy(torch, fn)))
     warm_s = run_slice(dev, batches)[-1]
     print(f"slice on the card, warm: 49 batches in {warm_s * 1e3:.3f} ms")
+
+    cp, ct = coco_batches[0]
+    upd_ap = BinnedAveragePrecision(num_classes=NUM_CLASSES, thresholds=THRESHOLDS, device=dev)
+    upd_rap = BinnedRecallAtFixedPrecision(
+        num_classes=NUM_CLASSES, min_precision=MIN_PRECISION, thresholds=THRESHOLDS, device=dev
+    )
+    upd_coco = BinnedAveragePrecision(num_classes=COCO_CLASSES, thresholds=THRESHOLDS, device=dev)
+    binned_updates = {
+        "imagenet_ap_update_ms": (upd_ap, p, t),
+        "imagenet_rap_update_ms": (upd_rap, p, t),
+        "coco_ap_update_ms": (upd_coco, cp, ct),
+    }
+    binned = {}
+    for label, (m, bp, bt) in binned_updates.items():
+        binned[label] = host_ms(torch, lambda: m.update(bp, bt))
+        binned[label.replace("update_ms", "compute_ms")] = host_ms(torch, m._compute_impl)
+        syncs = syncs_per_call(torch, lambda: m.update(bp, bt))
+        binned[label.replace("update_ms", "syncs_per_update")] = len(syncs)
+        binned[label.replace("update_ms", "syncs")] = syncs
+    print("binned updates (B=1024, T=100) and computes: " + json.dumps(binned))
+    print("ImageNet BinnedAveragePrecision update under torch.profiler: "
+          + json.dumps(device_busy(torch, lambda: upd_ap.update(p, t))))
+    warm = {"imagenet_ms": run_imagenet_binned(dev, batches)[-1] * 1e3, "coco_ms": run_coco_binned(dev, coco_batches)[-1] * 1e3}
+    print("binned paths on the card, warm: " + json.dumps(warm))
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     hp = torch.rand(BATCH, HEADLINE_CLASSES, generator=g, device=dev)

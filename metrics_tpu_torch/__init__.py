@@ -8,8 +8,26 @@ PyTorch versions.
 """
 from metrics_tpu_torch import functional  # noqa: F401
 from metrics_tpu_torch.classification.accuracy import Accuracy  # noqa: F401
+from metrics_tpu_torch.classification.avg_precision import AveragePrecision  # noqa: F401
+from metrics_tpu_torch.classification.binned_precision_recall import (  # noqa: F401
+    BinnedAveragePrecision,
+    BinnedPrecisionRecallCurve,
+    BinnedRecallAtFixedPrecision,
+)
 from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix  # noqa: F401
+from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve  # noqa: F401
 from metrics_tpu_torch.classification.stat_scores import StatScores  # noqa: F401
 from metrics_tpu_torch.metric import Metric  # noqa: F401
 
-__all__ = ["Accuracy", "ConfusionMatrix", "Metric", "StatScores", "functional"]
+__all__ = [
+    "Accuracy",
+    "AveragePrecision",
+    "BinnedAveragePrecision",
+    "BinnedPrecisionRecallCurve",
+    "BinnedRecallAtFixedPrecision",
+    "ConfusionMatrix",
+    "Metric",
+    "PrecisionRecallCurve",
+    "StatScores",
+    "functional",
+]

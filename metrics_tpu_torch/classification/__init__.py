@@ -1,3 +1,10 @@
 from metrics_tpu_torch.classification.accuracy import Accuracy  # noqa: F401
+from metrics_tpu_torch.classification.avg_precision import AveragePrecision  # noqa: F401
+from metrics_tpu_torch.classification.binned_precision_recall import (  # noqa: F401
+    BinnedAveragePrecision,
+    BinnedPrecisionRecallCurve,
+    BinnedRecallAtFixedPrecision,
+)
 from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix  # noqa: F401
+from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve  # noqa: F401
 from metrics_tpu_torch.classification.stat_scores import StatScores  # noqa: F401

@@ -22,8 +22,12 @@
 // 3*C ints exceed the 227 KB a block may have, the rows go straight to global
 // atomics.
 //
-// A row whose class lies outside [0, C) adds nothing to that class's count;
-// the input checks reject such labels before this is reached.
+// Out-of-range classes follow the JAX package's production scatter
+// (`_stat_counts_lax`, JAX's `.at[idx].add` on the flat 3*C vector): the
+// contribution of block k (0 target, 1 prediction, 2 true positives) goes to
+// the flat index f = k*C + class; f in [-3C, 0) wraps to f + 3C, and f
+// outside [-3C, 3C) is dropped. So a NaN score row, whose predicted class
+// is C, adds its weight to tp[0], as it does in the JAX package.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -34,14 +38,22 @@ constexpr int kMaxBlocks = 264;            // two blocks on each of the 132 SMs
 constexpr size_t kMaxSmem = 232448;        // 227 KB: a block's shared memory limit on sm_90
 constexpr size_t kDefaultSmem = 48 * 1024; // above this a kernel must opt in
 
+// Adds `v` at flat index k*C + cls under the wrap-or-drop rule above
+// (64-bit arithmetic, so no class value can overflow the index).
+__device__ __forceinline__ void add_flat(int32_t* counts, int k, int32_t cls, int32_t v, int num_classes) {
+  const int64_t cells = 3 * static_cast<int64_t>(num_classes);
+  int64_t f = static_cast<int64_t>(k) * num_classes + cls;
+  if (f < 0) f += cells;
+  if (f >= 0 && f < cells) atomicAdd(&counts[f], v);
+}
+
 __device__ __forceinline__ void add_row(int32_t* counts, int32_t target, int32_t pred, bool correct,
                                         int32_t w, int num_classes) {
-  const bool t_ok = target >= 0 && target < num_classes;
   if (w != 0) {
-    if (t_ok) atomicAdd(&counts[target], w);
-    if (pred >= 0 && pred < num_classes) atomicAdd(&counts[num_classes + pred], w);
+    add_flat(counts, 0, target, w, num_classes);
+    add_flat(counts, 1, pred, w, num_classes);
   }
-  if (correct && t_ok) atomicAdd(&counts[2 * num_classes + target], 1);
+  if (correct) add_flat(counts, 2, target, 1, num_classes);
 }
 
 __global__ void stat_counts_shared(const int32_t* __restrict__ target, const int32_t* __restrict__ pred,

@@ -132,7 +132,8 @@ def _fast_multiclass_eligible(
 def _predicted_classes(preds: Tensor) -> Tensor:
     """int32 index of each row's first maximum, taken as max-compare then
     min-index so that ties and NaN rank as in the JAX package (``torch.argmax``
-    ranks NaN otherwise). A row holding NaN gets ``C``, which no class matches."""
+    ranks NaN otherwise). A row holding NaN gets ``C``: no class matches it,
+    and the ``stat_scores`` scatter counts it as the JAX package's does."""
     num_classes = preds.shape[1]
     class_idx = torch.arange(num_classes, dtype=torch.int32, device=preds.device)
     row_max = preds.amax(dim=-1, keepdim=True)

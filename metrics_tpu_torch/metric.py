@@ -5,7 +5,8 @@ states, the ``update``/``compute`` wrappers (memoised compute, update count,
 state version), ``forward`` (one update per step when states merge, the
 double-update form otherwise), ``reset``, the pure ``(state, batch) -> state``
 functions, ``state_dict``/``load_state_dict`` with the JAX package's crc32
-checksum entries, and ``to(device)``.
+checksum entries, and ``to(device)``, which also moves the tensor attributes a
+subclass names in ``_device_attributes``.
 
 What is not: the dispatch engine, the fused forward, cross-process sync,
 telemetry, resilience, sharded state and quantised sync. The constructor
@@ -102,6 +103,8 @@ class Metric(ABC):
     full_state_update: Optional[bool] = True
     # non-tensor attributes that belong in checkpoints (e.g. an inferred input mode)
     _aux_attributes: tuple = ()
+    # tensor attributes that are not states but live on the metric's device (e.g. thresholds)
+    _device_attributes: tuple = ()
 
     def __init__(
         self,
@@ -381,8 +384,11 @@ class Metric(ABC):
         return self._device
 
     def to(self, device: Union[str, torch.device]) -> "Metric":
-        """Move every state (and its default) to ``device``."""
+        """Move every state (and its default), and the tensor attributes named
+        in ``_device_attributes``, to ``device``."""
         self._device = resolve_device(device)
+        for name in self._device_attributes:
+            object.__setattr__(self, name, getattr(self, name).to(self._device))
         for attr in self._defaults:
             value = getattr(self, attr)
             if isinstance(value, list):

@@ -33,17 +33,20 @@ def _stat_counts_plain(target_cls: Tensor, pred_cls: Tensor, correct: Tensor, w:
     """One scatter-add over a length-3C counts vector:
     ``idx = [target, pred + C, target + 2C]``, ``wts = [w, w, correct]``.
 
-    A class index outside ``[0, C)`` adds nothing (it is sent to index 0 with
-    weight 0), as in the kernel.
+    Out-of-range indices follow JAX's ``.at[idx].add``, as the JAX package's
+    ``_stat_counts_lax`` meets them: a flat index ``f`` in ``[-3C, 0)`` wraps
+    to ``f + 3C``, and one outside ``[-3C, 3C)`` is dropped. So a NaN score
+    row (``pred == C``) adds to ``tp[0]``, as it does there.
     """
     dtype = w.dtype
-    t_ok = (target_cls >= 0) & (target_cls < num_classes)
-    p_ok = (pred_cls >= 0) & (pred_cls < num_classes)
-    t_idx = torch.where(t_ok, target_cls, 0).long()
-    p_idx = torch.where(p_ok, pred_cls, 0).long()
-    idx = torch.cat([t_idx, p_idx + num_classes, t_idx + 2 * num_classes])
-    wts = torch.cat([w * t_ok, w * p_ok, correct.to(dtype) * t_ok]).to(dtype)
-    counts = torch.zeros(3 * num_classes, dtype=dtype, device=w.device).index_add_(0, idx, wts)
+    cells = 3 * num_classes
+    idx = torch.cat([target_cls.long(), pred_cls.long() + num_classes, target_cls.long() + 2 * num_classes])
+    wts = torch.cat([w, w, correct.to(dtype)])
+    idx = torch.where(idx < 0, idx + cells, idx)
+    ok = (idx >= 0) & (idx < cells)
+    idx = torch.where(ok, idx, 0)
+    wts = torch.where(ok, wts, 0).to(dtype)
+    counts = torch.zeros(cells, dtype=dtype, device=w.device).index_add_(0, idx, wts)
     return counts[:num_classes], counts[num_classes : 2 * num_classes], counts[2 * num_classes :]
 
 

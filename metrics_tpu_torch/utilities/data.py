@@ -64,9 +64,14 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
 
 
 def _squeeze_if_scalar(data: Any) -> Any:
-    """Squeeze a single-element tensor to 0-d."""
-    if isinstance(data, Tensor) and data.numel() == 1:
-        return data.squeeze()
+    """Squeeze every single-element tensor to 0-d, also inside lists, tuples
+    and dicts (the JAX package maps it over the whole result tree)."""
+    if isinstance(data, Tensor):
+        return data.squeeze() if data.numel() == 1 else data
+    if isinstance(data, (list, tuple)):
+        return type(data)(_squeeze_if_scalar(x) for x in data)
+    if isinstance(data, dict):
+        return {k: _squeeze_if_scalar(v) for k, v in data.items()}
     return data
 
 

@@ -48,13 +48,16 @@ def _inputs(kind, n=96, c=C, seed=0):
     probs, labels = _scores(n, c, seed)
     if kind == "scores":
         return probs, labels
+    if kind == "nan_scores":  # every 7th row holds a NaN: its predicted class is C
+        probs[::7, seed % c] = np.nan
+        return probs, labels
     if kind == "labels":
         return probs.argmax(1), labels
     raise ValueError(kind)
 
 
 # ------------------------------------------------------------- functional
-@pytest.mark.parametrize("kind", ["scores", "labels"])
+@pytest.mark.parametrize("kind", ["scores", "labels", "nan_scores"])
 @pytest.mark.parametrize("reduce", ["micro", "macro", "samples"])
 @pytest.mark.parametrize("ignore_index", [None, 2])
 def test_functional_stat_scores(kind, reduce, ignore_index):
@@ -64,7 +67,7 @@ def test_functional_stat_scores(kind, reduce, ignore_index):
     _assert_same(jF.stat_scores(jp, jt, **kwargs), tF.stat_scores(tp, tt, **kwargs), exact=True)
 
 
-@pytest.mark.parametrize("kind", ["scores", "labels"])
+@pytest.mark.parametrize("kind", ["scores", "labels", "nan_scores"])
 @pytest.mark.parametrize("average", ["micro", "macro", "weighted", "none"])
 @pytest.mark.parametrize("ignore_index", [None, 3, -1])
 def test_functional_accuracy(kind, average, ignore_index):
@@ -159,7 +162,7 @@ def _drive(make_jax, make_torch, batches, exact):
     return jm, tm
 
 
-@pytest.mark.parametrize("kind", ["scores", "labels"])
+@pytest.mark.parametrize("kind", ["scores", "labels", "nan_scores"])
 @pytest.mark.parametrize("average", ["micro", "macro", "weighted", "none"])
 def test_accuracy_module(kind, average):
     kwargs = dict(num_classes=C, average=average)
@@ -187,6 +190,30 @@ def test_stat_scores_module(reduce):
         _batches("scores", seed=13),
         exact=True,
     )
+
+
+@pytest.mark.parametrize("reduce", ["micro", "macro", "samples"])
+def test_stat_scores_module_nan_score_rows(reduce):
+    kwargs = dict(num_classes=C, reduce=reduce)
+    _drive(
+        lambda: metrics_tpu.StatScores(**kwargs),
+        lambda: metrics_tpu_torch.StatScores(device="cpu", **kwargs),
+        _batches("nan_scores", seed=13),
+        exact=True,
+    )
+
+
+def test_nan_score_row_counts_as_the_jax_scatter_does():
+    # row 1 = [nan, .5, .5] with label 0: its predicted class is C, which JAX's scatter adds to tp[0]
+    preds = np.array([[0.2, 0.5, 0.3], [np.nan, 0.5, 0.5], [0.1, 0.1, 0.8], [0.6, 0.3, 0.1]], np.float32)
+    target = np.array([1, 0, 2, 0])
+    (jp, tp), (jt, tt) = _pair(preds), _pair(target)
+    got = tF.stat_scores(tp, tt, reduce="macro", num_classes=3)
+    _assert_same(jF.stat_scores(jp, jt, reduce="macro", num_classes=3), got, exact=True)
+    # class 0: rows 1 and 3 are labelled 0; the hit of row 3 and the scatter's add of row 1 make tp = 2
+    assert got[0].tolist() == [2, -1, 3, 0, 2]
+    _assert_same(jF.accuracy(jp, jt, average="macro", num_classes=3),
+                 tF.accuracy(tp, tt, average="macro", num_classes=3), exact=False)
 
 
 @pytest.mark.parametrize("update_method", ["bincount", "matmul"])

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 import metrics_tpu_torch
-from metrics_tpu_torch.ops import confusion_matrix_counts, launches, reset_launches, stat_scores_counts
+from metrics_tpu_torch.ops import binned_stat_scores, confusion_matrix_counts, launches, reset_launches, stat_scores_counts
+from metrics_tpu_torch.ops.binned_stats import _binned_stat_scores_plain
 from metrics_tpu_torch.ops.confusion import _confmat_plain
 from metrics_tpu_torch.ops.stat_scores import _stat_counts_plain
 
@@ -37,6 +38,50 @@ def test_stat_scores_kernel_equals_plain(card, n, c):
     assert launches()["stat_scores"] == 1
     for g, r in zip(got, _stat_counts_plain(target, pred, correct, w, c)):
         assert g.dtype == r.dtype == torch.int32 and torch.equal(g, r)
+
+
+def test_stat_scores_kernel_follows_the_flat_index_rule(card):
+    # pred_cls == C (a NaN score row) adds to tp[0]; negative targets under w = 0 add nothing
+    c = 5
+    target = torch.tensor([0, 1, -1, -15, 2, 4], dtype=torch.int32, device=card)
+    pred = torch.tensor([c, c, 0, 3, -16, 3 * c], dtype=torch.int32, device=card)
+    w = torch.tensor([1, 1, 0, 0, 1, 1], dtype=torch.int32, device=card)
+    correct = (pred == target) & (w > 0)
+    got = stat_scores_counts(target, pred, correct, w, c)
+    for g, r in zip(got, _stat_counts_plain(target, pred, correct, w, c)):
+        assert torch.equal(g, r)
+    assert int(got[2][0]) == 2
+
+
+@pytest.mark.parametrize("n", [1, 129, 1024])
+@pytest.mark.parametrize("c,t", [(1, 5), (80, 100), (1000, 100), (7, 300)])
+def test_binned_stats_kernel_equals_plain(card, n, c, t):
+    g = torch.Generator(device=card).manual_seed(n + c + t)
+    preds = torch.rand(n, c, generator=g, device=card)
+    preds[::3, 0] = float("nan")
+    target = torch.randint(0, 2, (n, c), generator=g, device=card)
+    thr = torch.rand(t, generator=g, device=card)  # unsorted
+    reset_launches()
+    got = binned_stat_scores(preds, target, thr)
+    torch.cuda.synchronize()
+    assert launches()["binned_stats"] == 1
+    for a, b in zip(got, _binned_stat_scores_plain(preds, target == 1, thr)):
+        assert a.dtype == b.dtype == torch.float32 and torch.equal(a, b)
+
+
+def test_binned_average_precision_on_the_card_equals_the_cpu(card):
+    rng = np.random.RandomState(1)
+    batches = [(rng.rand(n, 30).astype(np.float32), rng.randint(0, 30, n)) for n in (256, 256, 77)]
+    results = {}
+    for device in ("cpu", card):
+        m = metrics_tpu_torch.BinnedAveragePrecision(num_classes=30, thresholds=50, device="cpu").to(device)
+        for p, t in batches:
+            m.update(torch.from_numpy(p).to(device), torch.from_numpy(t).to(device))
+        results[str(device)] = (m.TPs.cpu(), m.FPs.cpu(), m.FNs.cpu(), [v.cpu() for v in m.compute()])
+    cpu, gpu = results["cpu"], results[str(card)]
+    assert all(torch.equal(a, b) for a, b in zip(cpu[:3], gpu[:3]))
+    for a, b in zip(cpu[3], gpu[3]):
+        torch.testing.assert_close(b, a, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("n", [1, 200, 1024])

@@ -58,14 +58,45 @@ def test_stat_scores_plain_matches_jax_lax_and_pallas(n, c):
         np.testing.assert_array_equal(g.numpy(), np.asarray(ref_pallas), err_msg=f"{name} vs pallas")
 
 
+def _assert_jax_scatter(target, pred, w, c):
+    """The port's counts equal the JAX package's production scatter
+    (``force_pallas=False``) exactly, out-of-range classes included."""
+    correct = (pred == target) & (w > 0)
+    got = _port_counts(target, pred, correct, w, c)
+    ref = jax_stat_scores_counts(jnp.asarray(target), jnp.asarray(pred), jnp.asarray(correct), jnp.asarray(w), c,
+                                 force_pallas=False)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.int32 and np.asarray(r).dtype == np.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    return got
+
+
 def test_stat_scores_out_of_range_class_adds_nothing():
-    # a NaN score row gives pred_cls == C: the kernel and its plain version drop it
-    target = np.array([0, 1, 2], np.int32)
-    pred = np.array([3, 1, -1], np.int32)
-    correct = pred == target
-    w = np.ones(3, np.int32)
-    targ, prd, tp = _port_counts(target, pred, correct, w, 3)
-    assert targ.tolist() == [1, 1, 1] and prd.tolist() == [0, 1, 0] and tp.tolist() == [0, 1, 0]
+    # flat indices k*C + cls outside [-3C, 3C) are dropped, as JAX's scatter drops them
+    c = 3
+    target = np.array([0, 1, 2, 9, -10], np.int32)
+    pred = np.array([3 * c, 1, -5 * c, 0, 2], np.int32)
+    targ, prd, tp = _assert_jax_scatter(target, pred, np.ones(5, np.int32), c)
+    assert targ.tolist() == [1, 1, 1] and prd.tolist() == [1, 1, 1] and tp.tolist() == [0, 1, 0]
+
+
+@pytest.mark.parametrize("pred_cls", ["C", "0"])
+@pytest.mark.parametrize("masked_negative_target", [False, True])
+def test_stat_scores_flat_index_rule_matches_jax_scatter(pred_cls, masked_negative_target):
+    # a NaN score row has pred_cls == C: JAX's scatter adds it at flat index 2C, which is tp[0];
+    # a negative target under w = 0 wraps into range but adds weight 0
+    c = 5
+    target, pred, _, w = _stat_inputs(64, c, seed=11)
+    w = np.ones_like(w)
+    pred[::4] = c if pred_cls == "C" else 0
+    if masked_negative_target:
+        target[1::6] = -1
+        target[2::6] = -3 * c
+        w[1::6] = 0
+        w[2::6] = 0
+    targ, prd, tp = _assert_jax_scatter(target, pred, w, c)
+    if pred_cls == "C":
+        assert int(tp[0]) >= int(((pred == c) & (w > 0)).sum()) > 0
 
 
 def test_stat_scores_empty_batch_gives_zeros():
@@ -142,7 +173,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     target, pred, correct, w = _stat_inputs(64, 5, seed=3)
     _port_counts(target, pred, correct, w, 5)
     confusion_matrix_counts(torch.from_numpy(target), torch.from_numpy(pred), 5)
-    assert launches() == {"stat_scores": 0, "confusion_matrix": 0}
+    assert launches() == {"stat_scores": 0, "confusion_matrix": 0, "binned_stats": 0}
 
 
 def test_other_devices_raise():
