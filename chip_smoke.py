@@ -21,14 +21,32 @@
    ``BinnedAveragePrecision`` with ``forward`` on the last batch (40
    launches). The ``TPs/FPs/FNs`` states must equal the CPU run and a
    searchsorted/histogram reference exactly, the values the CPU run to rtol
-   1e-6; an update must make no host sync.
+   1e-6; an update must make no host sync. Slice 3, retrieval: MS MARCO
+   passage ranking dev (small) re-ranking (6,980 queries x 1,000 BM25
+   candidates, 1 relevant passage on 93% of queries and 2 on the rest,
+   scores ``N(0, 1) + 2 * relevant`` rounded to 1/256 so that ties occur) in
+   updates of 64 queries (109 full and one of 4) through the eight retrieval
+   metrics, one ``retrieval_sort`` launch a ``compute`` at (Q, L) =
+   (6980, 1024), and the eight functional metrics over the first 200
+   queries, one launch a call; TREC DL 2019 passage (43 queries x 1,000,
+   graded relevance 0-3) through ``RetrievalNormalizedDCG(k=10)``. Values
+   must equal the CPU run to rtol 1e-6, the sorted relevance matrix the CPU
+   run exactly, and MRR, MAP and nDCG@10 of the first 200 queries a numpy
+   ``argsort(kind="stable")`` reference to rtol 1e-6. Slice 3, streaming: a
+   click log of 10,000,000 item ids drawn Zipf(1.1) over 1,000,000 ids, in
+   batches of 65,536 (152 full and one partial), through
+   ``CountMinHeavyHitters()`` (4 x 1024: the kernel's shared-memory branch),
+   ``CountMinHeavyHitters(width=65536)`` (the global-atomics branch) and
+   ``HyperLogLog(precision=14)``; every table row must sum to 10,000,000,
+   each table must equal a numpy ``np.add.at`` reference exactly, and no
+   estimate of the 100 most frequent ids may fall below its true count.
 4. Times each kernel, its plain version and the one PyTorch library call
-   that computes the same function (``binned_stats`` has none, so a
-   searchsorted/bincount yardstick is timed and named instead) at the
-   slices' shapes with CUDA events (median of 25 repetitions), beside the
-   least time the card allows (bytes over its memory rate or the operations
-   the batch needs over its float32 rate, whichever is larger), and times
-   whole updates and the binned metrics' ``compute``.
+   that computes the same function (``binned_stats``, ``retrieval_sort``
+   and ``countmin`` have none, so a yardstick is timed and named instead)
+   at the slices' shapes with CUDA events (median of 25 repetitions),
+   beside the least time the card allows (bytes over its memory rate or the
+   operations the work needs over its float32 rate, whichever is larger),
+   and times whole updates, ``compute`` and each path's epoch.
 
 The scores and labels are made on the card from a seeded generator: a model
 whose top-1 hits the label on about 76% of images, with random scores
@@ -37,12 +55,15 @@ elsewhere. The line before the last is ``{"kernels": [...]}``; the last is
 script fails.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 import traceback
 import warnings
+
+import numpy as np
 
 SEED = 0
 N_VAL, NUM_CLASSES, BATCH = 50_000, 1000, 1024  # ILSVRC2012 validation
@@ -52,6 +73,14 @@ MIN_PRECISION = 0.5
 HEADLINE_CLASSES = 128  # bench.py's headline shape, B = 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
+MARCO_QUERIES, MARCO_CANDIDATES = 6980, 1000  # MS MARCO passage dev (small), BM25 top 1000
+MARCO_TWO_RELEVANT = 0.07  # share of queries with 2 relevant passages (1 on the rest)
+MARCO_QUERY_BATCH = 64  # queries an update: 64,000 rows
+MARCO_FUNCTIONAL_QUERIES = 200
+TREC_QUERIES = 43  # TREC DL 2019 passage, graded 0-3
+TREC_GRADE_SHARES = (0.04, 0.04, 0.02)  # synthetic shares of grades 1, 2 and 3
+CLICKS, CLICK_IDS, CLICK_ZIPF, CLICK_BATCH = 10_000_000, 1_000_000, 1.1, 65_536
+HEAVY_HITTERS = 100
 REPS, INNER = 25, 20
 SLEEP_CYCLES = 20_000_000  # ~10 ms of device time: the host queues a whole repetition behind it
 
@@ -59,6 +88,19 @@ KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
     "confusion_matrix": ("metrics_tpu_torch/csrc/confusion.cu", "metrics_tpu/ops/confusion.py:37"),
     "binned_stats": ("metrics_tpu_torch/csrc/binned_stats.cu", "metrics_tpu/ops/binned_stats.py:43"),
+    "retrieval_sort": ("metrics_tpu_torch/csrc/retrieval_sort.cu", "metrics_tpu/ops/retrieval.py:43"),
+    "countmin": ("metrics_tpu_torch/csrc/countmin.cu", "metrics_tpu/ops/sketch_ops.py:48"),
+}
+# the retrieval metrics of the MS MARCO path: (module, constructor arguments, functional, its arguments)
+RETRIEVAL = {
+    "map": ("RetrievalMAP", {}, "retrieval_average_precision", {}),
+    "mrr": ("RetrievalMRR", {}, "retrieval_reciprocal_rank", {}),
+    "ndcg@10": ("RetrievalNormalizedDCG", {"k": 10}, "retrieval_normalized_dcg", {"k": 10}),
+    "precision@10": ("RetrievalPrecision", {"k": 10}, "retrieval_precision", {"k": 10}),
+    "recall@1000": ("RetrievalRecall", {"k": 1000}, "retrieval_recall", {"k": 1000}),
+    "hit_rate@10": ("RetrievalHitRate", {"k": 10}, "retrieval_hit_rate", {"k": 10}),
+    "fall_out@10": ("RetrievalFallOut", {"k": 10}, "retrieval_fall_out", {"k": 10}),
+    "r_precision": ("RetrievalRPrecision", {}, "retrieval_r_precision", {}),
 }
 
 
@@ -206,6 +248,78 @@ def coco_data(torch, dev):
     return scores, target
 
 
+def marco_data(torch, dev):
+    """MS MARCO passage dev (small) as a re-ranker sees it: ``(Q, 1000)``
+    scores, bool relevance (1 passage a query, 2 on 7% of queries) and query
+    ids, with scores ``N(0, 1) + 2 * relevant`` rounded to 1/256."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    q, c = MARCO_QUERIES, MARCO_CANDIDATES
+    first = torch.randint(0, c, (q,), generator=g, device=dev)
+    second = (first + torch.randint(1, c, (q,), generator=g, device=dev)) % c
+    two = torch.rand(q, generator=g, device=dev) < MARCO_TWO_RELEVANT
+    target = torch.zeros(q, c, dtype=torch.bool, device=dev)
+    rows = torch.arange(q, device=dev)
+    target[rows, first] = True
+    target[rows, second] |= two
+    scores = torch.round((torch.randn(q, c, generator=g, device=dev) + 2.0 * target) * 256) / 256
+    qids = (rows * 13 + 1000)[:, None].expand(q, c).contiguous()
+    return scores, target, qids
+
+
+def trec_data(torch, dev):
+    """TREC DL 2019 passage shape: 43 queries x 1000 candidates, int32 grades
+    0-3 and scores ``N(0, 1) + 0.8 * grade`` rounded to 1/256."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    u = torch.rand(TREC_QUERIES, MARCO_CANDIDATES, generator=g, device=dev)
+    s1, s2, s3 = TREC_GRADE_SHARES
+    grade = (u < s1 + s2 + s3).int() + (u < s2 + s3).int() + (u < s3).int()
+    scores = torch.round((torch.randn(u.shape, generator=g, device=dev) + 0.8 * grade) * 256) / 256
+    qids = torch.arange(TREC_QUERIES, device=dev)[:, None].expand(u.shape).contiguous()
+    return scores, grade.to(torch.int32), qids
+
+
+def click_stream(torch, dev):
+    """10,000,000 item ids drawn Zipf(1.1) over 1,000,000 ids (inverse CDF
+    in float64), as float32 (exact below 2^24)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    weight = torch.arange(1, CLICK_IDS + 1, dtype=torch.float64, device=dev) ** -CLICK_ZIPF
+    cdf = torch.cumsum(weight, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand(CLICKS, generator=g, device=dev, dtype=torch.float64)
+    return torch.searchsorted(cdf, u).clamp(max=CLICK_IDS - 1).to(torch.float32)
+
+
+def numpy_countmin(ids, depth, width):
+    """The count-min table of unit-weight keys in numpy: the sketches' hash
+    in uint32 arithmetic and ``np.add.at``, independent of the port."""
+    bits = ids.astype(np.float32).view(np.uint32)
+    table = np.zeros((depth, width), np.float64)
+    mult = np.uint32(0x45D9F3B)
+    for d in range(depth):
+        x = bits ^ np.uint32((d * 0x9E3779B9 + 1) & 0xFFFFFFFF)
+        x = (x ^ (x >> np.uint32(16))) * mult
+        x = (x ^ (x >> np.uint32(16))) * mult
+        x = x ^ (x >> np.uint32(16))
+        np.add.at(table[d], (x % np.uint32(width)).astype(np.int64), 1.0)
+    return table
+
+
+def numpy_retrieval(scores, target):
+    """Per-query MRR, AP and nDCG@10 (graded) in float64 from ``np.argsort(-p, kind="stable")``."""
+    out = {"mrr": [], "map": [], "ndcg@10": []}
+    disc = 1.0 / np.log2(np.arange(10) + 2.0)
+    for p, t in zip(scores, target):
+        st = t[np.argsort(-p, kind="stable")].astype(np.float64)
+        rel = st > 0
+        hits = np.flatnonzero(rel)
+        out["mrr"].append(1.0 / (hits[0] + 1) if hits.size else 0.0)
+        out["map"].append(float(np.mean(np.arange(1, hits.size + 1) / (hits + 1))) if hits.size else 0.0)
+        ideal = np.sort(t.astype(np.float64))[::-1][:10]
+        idcg = float((ideal * disc[: ideal.size]).sum())
+        out["ndcg@10"].append(float((st[:10] * disc).sum()) / idcg if idcg > 0 else 0.0)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def main() -> int:
     import torch
 
@@ -224,10 +338,18 @@ def main() -> int:
         reset_launches,
         stat_scores_counts,
     )
+    import metrics_tpu_torch
+    from metrics_tpu_torch import CountMinHeavyHitters, HyperLogLog
+    from metrics_tpu_torch import functional as tF
+    from metrics_tpu_torch.ops import countmin_update, sorted_by_preds
     from metrics_tpu_torch.ops.binned_stats import _binned_stat_scores_kernel, _binned_stat_scores_plain
     from metrics_tpu_torch.ops.confusion import _confmat_plain
+    from metrics_tpu_torch.ops.retrieval import _sorted_by_preds_kernel, _sorted_by_preds_plain
+    from metrics_tpu_torch.ops.sketch_ops import _countmin_kernel, _countmin_plain, countmin_uses_shared
+    from metrics_tpu_torch.retrieval.base import _pad_by_query
+    from metrics_tpu_torch.streaming.sketch import _key_bits
     from metrics_tpu_torch.ops.stat_scores import _stat_counts_plain
-    from metrics_tpu_torch.utilities.data import to_onehot
+    from metrics_tpu_torch.utilities.data import dim_zero_cat, to_onehot
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain one-hot product stays exact float32
@@ -311,6 +433,49 @@ def main() -> int:
                     check(torch.equal(a, b), f"binned_stats differs from its plain version at n={n} C={c} T={thr.shape[0]}")
                     max_err["binned_stats"] = max(max_err["binned_stats"], float((a - b).abs().max()) if a.numel() else 0.0)
                 cases += 1
+
+    def hold_sort(p, t, what):
+        """The kernel against its plain version on the card and on the CPU, bit for bit."""
+        got = sorted_by_preds(p, t)
+        ref = _sorted_by_preds_plain(p, t)
+        check(got.dtype == ref.dtype == t.dtype and got.shape == ref.shape, f"retrieval_sort dtype or shape at {what}")
+        check(torch.equal(got, ref), f"retrieval_sort differs from its plain version at {what}")
+        check(torch.equal(got.cpu(), _sorted_by_preds_plain(p.cpu(), t.cpu())),
+              f"retrieval_sort differs from its plain version on the CPU at {what}")
+        max_err["retrieval_sort"] = max(max_err["retrieval_sort"], float((got.double() - ref.double()).abs().max()))
+
+    # the JAX parity grid, then rows holding NaN, +-0, +-inf and ties
+    for n in (1, 5, 128, 129, 1000):
+        for dtype in (torch.int32, torch.float32, torch.bool):
+            p = torch.rand(n, generator=g, device=dev)
+            hold_sort(p, torch.randint(0, 2, (n,), generator=g, device=dev).to(dtype), f"n={n} {dtype}")
+            cases += 1
+    special = torch.tensor([0.0, -0.0, float("nan"), -float("inf"), 1.0, float("nan"), 0.0, -0.0, float("inf")],
+                           device=dev)
+    order = sorted_by_preds(special, torch.arange(9, device=dev, dtype=torch.int32))
+    check(order.tolist() == [8, 4, 0, 1, 6, 7, 3, 2, 5], f"retrieval_sort order of NaN, +-0, +-inf: {order.tolist()}")
+    for q, l in ((6, 257), (64, 1024), (3, 3000)):
+        p = torch.round(torch.randn(q, l, generator=g, device=dev) * 4) / 4  # ties, and -0.0 from rounding
+        p[torch.rand(q, l, generator=g, device=dev) < 0.05] = float("nan")
+        p[:, ::37] = float("inf")
+        p[:, 1::41] = -float("inf")
+        for dtype in (torch.int32, torch.float32, torch.bool, torch.int64, torch.uint8):
+            hold_sort(p, torch.randint(0, 4, (q, l), generator=g, device=dev).to(dtype), f"({q}, {l}) {dtype}")
+            cases += 1
+    # count-min: the JAX parity grid and both branches, integral weights: exact
+    for n in (1, 100, 128, 300, CLICK_BATCH):
+        for depth, width in ((2, 128), (4, 1024), (4, 65536)):
+            value = torch.randint(0, 50, (depth, width), generator=g, device=dev).float()
+            bits = torch.randint(-(2**31), 2**31 - 1, (n,), generator=g, device=dev, dtype=torch.int32)
+            bits[::3] = bits[0].clone()  # a hot key
+            w = torch.randint(0, 3, (n,), generator=g, device=dev).float()
+            seeds = torch.randint(-(2**31), 2**31 - 1, (depth,), generator=g, device=dev, dtype=torch.int32)
+            got = countmin_update(value, bits, w, seeds)
+            ref = _countmin_plain(value, bits, w, seeds)
+            check(got.dtype == ref.dtype == torch.float32 and torch.equal(got, ref),
+                  f"countmin differs from its plain version at n={n} ({depth}, {width})")
+            max_err["countmin"] = max(max_err["countmin"], float((got - ref).abs().max()))
+            cases += 1
     torch.cuda.synchronize()
     print(f"kernel vs plain: {cases} cases equal, max_abs_err {max_err}")
 
@@ -479,6 +644,151 @@ def main() -> int:
           f"(last batch {float(coco_values[1].mean()):.6f}); states equal to the CPU run and the searchsorted "
           "reference; state_dict round trip and reset: ok")
 
+    # ------------------------------------------ 3c. slice 3: retrieval, MS MARCO
+    m_scores, m_target, m_qids = marco_data(torch, dev)
+    marco_batches = [
+        (m_scores[i:i + MARCO_QUERY_BATCH].reshape(-1), m_target[i:i + MARCO_QUERY_BATCH].reshape(-1),
+         m_qids[i:i + MARCO_QUERY_BATCH].reshape(-1))
+        for i in range(0, MARCO_QUERIES, MARCO_QUERY_BATCH)
+    ]
+    check(len(marco_batches) == 110 and marco_batches[-1][0].numel() == 4 * MARCO_CANDIDATES,
+          "MS MARCO is 109 updates of 64 queries and one of 4")
+
+    def run_marco(device, data):
+        metrics = {key: getattr(metrics_tpu_torch, cls)(device=device, **kw) for key, (cls, kw, _, _) in RETRIEVAL.items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for p, t, i in data:
+            for m in metrics.values():
+                m.update(p, t, i)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t_updates = time.perf_counter()
+        values, compute_s = {}, {}
+        for key, m in metrics.items():
+            t0 = time.perf_counter()
+            values[key] = m.compute()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            compute_s[key] = time.perf_counter() - t0
+        return metrics, values, t_updates - t_start, compute_s, time.perf_counter() - t_start
+
+    def run_functionals(scores, target):
+        return {key: torch.stack([getattr(tF, fn)(scores[q], target[q], **kw) for q in range(scores.shape[0])])
+                for key, (_, _, fn, kw) in RETRIEVAL.items()}
+
+    reset_launches()
+    marco, marco_values, marco_update_s, marco_compute_s, marco_s = run_marco(dev, marco_batches)
+    marco_module_launches = launches()["retrieval_sort"]
+    head_s, head_t = m_scores[:MARCO_FUNCTIONAL_QUERIES], m_target[:MARCO_FUNCTIONAL_QUERIES]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    functional_values = run_functionals(head_s, head_t)
+    torch.cuda.synchronize()
+    functional_s = time.perf_counter() - t0
+    marco_launches = launches()["retrieval_sort"]
+    expected = len(RETRIEVAL) * (1 + MARCO_FUNCTIONAL_QUERIES)
+    check(marco_module_launches == len(RETRIEVAL) and marco_launches == expected,
+          f"retrieval_sort launched {marco_module_launches} times in the module computes and {marco_launches} in all"
+          f" on the MS MARCO path, not {len(RETRIEVAL)} and {expected}")
+    print(f"MS MARCO path on the card: {len(marco_batches)} updates of 8 metrics in {marco_update_s * 1e3:.1f} ms, "
+          f"computes {json.dumps({k: round(v * 1e3, 3) for k, v in marco_compute_s.items()})} ms, epoch "
+          f"{marco_s * 1e3:.1f} ms; functionals over {MARCO_FUNCTIONAL_QUERIES} queries {functional_s * 1e3:.1f} ms; "
+          f"retrieval_sort launches {marco_launches}")
+
+    cpu_marco_batches = [(p.cpu(), t.cpu(), i.cpu()) for p, t, i in marco_batches]
+    c_marco, c_marco_values, c_update_s, c_compute_s, c_marco_s = run_marco(cpu, cpu_marco_batches)
+    c_functional = run_functionals(head_s.cpu(), head_t.cpu())
+    print(f"same MS MARCO path on the CPU (plain versions): updates {c_update_s * 1e3:.1f} ms, epoch {c_marco_s * 1e3:.1f} ms")
+    for key, got in marco_values.items():
+        check(got.shape == () and got.dtype == torch.float32 and bool(torch.isfinite(got)), f"{key} is not a finite float32 scalar")
+        torch.testing.assert_close(got.cpu(), c_marco_values[key], rtol=1e-6, atol=0, msg=f"MS MARCO {key} differs from the CPU run")
+        torch.testing.assert_close(functional_values[key].cpu(), c_functional[key], rtol=1e-6, atol=0,
+                                   msg=f"functional {key} differs from the CPU run")
+    state = [dim_zero_cat(getattr(marco["map"], k)) for k in ("indexes", "preds", "target")]
+    pp, pt, _ = _pad_by_query(*state)
+    c_pp, c_pt, _ = _pad_by_query(*(s.cpu() for s in state))
+    check(pp.shape == (MARCO_QUERIES, 1024), f"MS MARCO pads to {tuple(pp.shape)}, not (6980, 1024)")
+    sorted_rel = sorted_by_preds(pp, pt > 0)
+    check(torch.equal(sorted_rel.cpu(), sorted_by_preds(c_pp, c_pt > 0)), "the sorted relevance matrix differs from the CPU run")
+    reference = numpy_retrieval(head_s.cpu().numpy(), head_t.cpu().numpy())
+    for key, ref in reference.items():
+        np.testing.assert_allclose(functional_values[key].cpu().double().numpy(), ref, rtol=1e-6, atol=0,
+                                   err_msg=f"functional {key} differs from the numpy argsort reference")
+    print(f"MS MARCO results: {json.dumps({k: round(float(v), 6) for k, v in marco_values.items()})}; equal to the CPU run "
+          f"(rtol 1e-6), sorted relevance equal, first {MARCO_FUNCTIONAL_QUERIES} queries equal to the numpy reference")
+
+    # ------------------------------------------------ 3d. slice 3: TREC DL 2019
+    tr_scores, tr_grade, tr_qids = trec_data(torch, dev)
+
+    def run_trec(device):
+        m = metrics_tpu_torch.RetrievalNormalizedDCG(k=10, device=device)
+        m.update(tr_scores.reshape(-1).to(device), tr_grade.reshape(-1).to(device), tr_qids.reshape(-1).to(device))
+        return m.compute()
+
+    reset_launches()
+    trec_value = run_trec(dev)
+    trec_launches = launches()["retrieval_sort"]
+    check(trec_launches == 1, f"retrieval_sort launched {trec_launches} times on the TREC DL path, not 1")
+    torch.testing.assert_close(trec_value.cpu(), run_trec(cpu), rtol=1e-6, atol=0, msg="TREC DL nDCG@10 differs from the CPU run")
+    trec_ref = numpy_retrieval(tr_scores.cpu().numpy(), tr_grade.cpu().numpy())["ndcg@10"].mean()
+    # float32 sums of 43 queries against float64
+    np.testing.assert_allclose(float(trec_value), trec_ref, rtol=1e-5, atol=0, err_msg="TREC DL nDCG@10 differs from numpy")
+    print(f"TREC DL 2019 graded nDCG@10 {float(trec_value):.6f} (numpy {trec_ref:.6f}); retrieval_sort launches {trec_launches}")
+
+    # ------------------------------------------- 3e. slice 3: click-log sketches
+    clicks = click_stream(torch, dev)
+    click_batches = [clicks[i:i + CLICK_BATCH] for i in range(0, CLICKS, CLICK_BATCH)]
+    check(len(click_batches) == 153 and click_batches[-1].numel() == CLICKS - 152 * CLICK_BATCH,
+          "the click stream is 152 batches of 65,536 and one partial")
+
+    def run_sketches(device, data):
+        sketches = (CountMinHeavyHitters(device=device), CountMinHeavyHitters(width=65536, device=device),
+                    HyperLogLog(precision=14, device=device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for x in data:
+            for s in sketches:
+                s.update(x)
+        totals = [s.compute() for s in sketches]
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return sketches, totals, time.perf_counter() - t_start
+
+    check(countmin_uses_shared(4, 1024, dev) and not countmin_uses_shared(4, 65536, dev),
+          "the count-min branches are not shared memory at 4 x 1024 and global atomics at 4 x 65536")
+    reset_launches()
+    sketches, sketch_totals, sketch_s = run_sketches(dev, click_batches)
+    click_launches = launches()["countmin"]
+    check(click_launches == 2 * len(click_batches), f"countmin launched {click_launches} times, not {2 * len(click_batches)}")
+    ids_np = clicks.cpu().numpy()
+    true_counts = torch.bincount(clicks.long(), minlength=CLICK_IDS)
+    top = torch.topk(true_counts, HEAVY_HITTERS)
+    overestimate = {}
+    for s, total in zip(sketches[:2], sketch_totals[:2]):
+        check(s.value.dtype == torch.float32 and bool((s.value.sum(dim=1) == CLICKS).all()),
+              f"a count-min row of width {s.width} does not sum to {CLICKS}")
+        check(float(total) == CLICKS, f"count-min compute {float(total)} is not {CLICKS}")
+        check(np.array_equal(s.value.cpu().numpy().astype(np.float64), numpy_countmin(ids_np, s.depth, s.width)),
+              f"the count-min table of width {s.width} differs from the numpy reference")
+        est = s.estimate(top.indices.float())
+        check(bool((est >= top.values).all()), f"a heavy hitter is underestimated at width {s.width}")
+        overestimate[s.width] = float((est - top.values).max())
+    hll = sketches[2]
+    distinct = int((true_counts > 0).sum())
+    hll_err = float(sketch_totals[2]) / distinct - 1.0
+    check(abs(hll_err) < 0.05, f"HyperLogLog estimate {float(sketch_totals[2])} is 5% or more off {distinct}")
+    c_hll = HyperLogLog(precision=14, device="cpu")
+    for x in click_batches:
+        c_hll.update(x.cpu())
+    check(torch.equal(hll.value.cpu(), c_hll.value), "HyperLogLog registers differ from the CPU run")
+    print(f"click stream on the card: {len(click_batches)} batches through 3 sketches in {sketch_s * 1e3:.1f} ms; countmin "
+          f"launches {click_launches}; rows sum to {CLICKS}, tables equal the numpy reference; top-{HEAVY_HITTERS} "
+          f"overestimate at most {json.dumps(overestimate)}; HyperLogLog {float(sketch_totals[2]):.1f} against {distinct} "
+          f"distinct ({hll_err * 100:+.3f}%), registers equal to the CPU run")
+
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000
     n = p.shape[0]
@@ -501,6 +811,22 @@ def main() -> int:
     # this batch's work: a compare per (row, class, threshold), an add to P per hit, an add to TP per true hit
     binned_ops = n * NUM_CLASSES * THRESHOLDS + int((b_tp + b_fp).sum()) + int(b_tp.sum())
 
+    # retrieval_sort at the MS MARCO module compute's input; countmin at a full click batch
+    rel32 = (pt > 0).to(torch.int32)
+    q_rows, l_cols = pp.shape
+    check(torch.equal(_sorted_by_preds_kernel(pp, rel32), _sorted_by_preds_plain(pp, rel32)),
+          "retrieval_sort differs from its plain version at the MS MARCO shape")
+    cm_x = click_batches[0]
+    cm_depth, cm_width, cm_n = 4, 1024, cm_x.numel()
+    cm_bits, cm_w, cm_seeds = _key_bits(cm_x), torch.ones_like(cm_x), sketches[0]._seeds()
+    cm_value = torch.zeros(cm_depth, cm_width, device=dev)
+    check(torch.equal(_countmin_kernel(cm_value, cm_bits, cm_w, cm_seeds), _countmin_plain(cm_value, cm_bits, cm_w, cm_seeds)),
+          "countmin differs from its plain version at the click batch")
+    cm_cols = sketches[0]._indices(cm_x)
+    cm_flat = (cm_cols + torch.arange(cm_depth, device=dev)[:, None] * cm_width).reshape(-1)
+    cm_w_rep = cm_w.repeat(cm_depth)
+    cm_flat_table = torch.zeros(cm_depth * cm_width, device=dev)
+
     rows = []
     # per kernel: kernel wrapper, plain version, one library call computing the same function (or None)
     # and its name, bytes moved once, operations this batch needs, shape
@@ -513,6 +839,7 @@ def main() -> int:
             n * (4 + 4 + 1 + 4) + 3 * NUM_CLASSES * 4,
             2 * n + int(correct.sum()),  # two adds a row and one a correct row
             {"B": n, "C": NUM_CLASSES},
+            None,
         ),
         "confusion_matrix": (
             lambda: confusion_matrix_counts(t32, p32, NUM_CLASSES),
@@ -522,20 +849,44 @@ def main() -> int:
             n * 8 + NUM_CLASSES * NUM_CLASSES * 4,
             n,  # one add a row
             {"B": n, "C": NUM_CLASSES},
+            None,
         ),
         "binned_stats": (
             lambda: _binned_stat_scores_kernel(p, y_onehot, thr_d),
             lambda: _binned_stat_scores_plain(p, y_onehot, thr_d),
-            None,  # no single PyTorch call computes it; the searchsorted yardstick is timed below
+            None,  # no single PyTorch call computes it
             None,
             n * NUM_CLASSES * (4 + 1) + 3 * NUM_CLASSES * THRESHOLDS * 4,
             binned_ops,
             {"B": n, "C": NUM_CLASSES, "T": THRESHOLDS},
+            (lambda: searchsorted_counts(torch, p, y_onehot, thr_d), "torch.searchsorted + 2x torch.bincount + cumsum"),
+        ),
+        "retrieval_sort": (
+            lambda: _sorted_by_preds_kernel(pp, rel32),
+            lambda: _sorted_by_preds_plain(pp, rel32),
+            None,  # no single PyTorch call: a sort gives the order, a gather the labels
+            None,
+            q_rows * l_cols * (4 + 4 + 4),
+            q_rows * l_cols * math.ceil(math.log2(l_cols)),  # the compares of a comparison sort
+            {"Q": q_rows, "L": l_cols},
+            (lambda: torch.gather(rel32, 1, torch.argsort(-pp, dim=1, stable=True)),
+             "torch.argsort(stable) + torch.gather (the plain version's two calls)"),
+        ),
+        "countmin": (
+            lambda: _countmin_kernel(cm_value, cm_bits, cm_w, cm_seeds),
+            lambda: _countmin_plain(cm_value, cm_bits, cm_w, cm_seeds),
+            None,  # no single PyTorch call: the hash is several, then index_add_
+            None,
+            cm_n * (4 + 4) + cm_depth * 4 + 2 * cm_depth * cm_width * 4,
+            cm_n * cm_depth * 11,  # the hash (9), the modulo and the add, a key and row
+            {"n": cm_n, "depth": cm_depth, "width": cm_width},
+            (lambda: cm_flat_table.index_add_(0, cm_flat, cm_w_rep), "index_add_ on precomputed cells (1 of 2+ calls)"),
         ),
     }
     path_launches = {"stat_scores": counts["stat_scores"], "confusion_matrix": counts["confusion_matrix"],
-                     "binned_stats": sum(binned_launches.values())}
-    for name, (kernel, plain, library, library_call, nbytes, ops, shape) in timing.items():
+                     "binned_stats": sum(binned_launches.values()), "retrieval_sort": marco_launches + trec_launches,
+                     "countmin": click_launches}
+    for name, (kernel, plain, library, library_call, nbytes, ops, shape, yardstick) in timing.items():
         # plain, kernel, kernel, plain: each pair within one call, the mean of the two readings
         plain_a, kernel_a, kernel_b, plain_b = (device_ms(torch, f) for f in (plain, kernel, kernel, plain))
         library_ms = device_ms(torch, library) if library else None
@@ -548,9 +899,8 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             "library_call": library_call, "ops": ops, "bytes": nbytes, "shape": shape,
         }
-        if name == "binned_stats":
-            row["yardstick_ms"] = device_ms(torch, lambda: searchsorted_counts(torch, p, y_onehot, thr_d))
-            row["yardstick_call"] = "torch.searchsorted + 2x torch.bincount + cumsum"
+        if yardstick:
+            row["yardstick_ms"], row["yardstick_call"] = device_ms(torch, yardstick[0]), yardstick[1]
         rows.append(row)
         print(f"{name} at {shape}: kernel {kernel_a:.5f}/{kernel_b:.5f} ms, plain {plain_a:.5f}/{plain_b:.5f} ms, "
               f"library {library_ms} ms, yardstick {row.get('yardstick_ms')} ms, bound {bound_ms:.6f} ms "
@@ -597,6 +947,38 @@ def main() -> int:
           + json.dumps(device_busy(torch, lambda: upd_ap.update(p, t))))
     warm = {"imagenet_ms": run_imagenet_binned(dev, batches)[-1] * 1e3, "coco_ms": run_coco_binned(dev, coco_batches)[-1] * 1e3}
     print("binned paths on the card, warm: " + json.dumps(warm))
+
+    mp, mt, mi = marco_batches[0]
+    upd_map = metrics_tpu_torch.RetrievalMAP(device=dev)
+    retrieval = {
+        "map_update_ms": host_ms(torch, lambda: upd_map.update(mp, mt, mi)),
+        "map_update_syncs": syncs_per_call(torch, lambda: upd_map.update(mp, mt, mi)),
+        "pad_by_query_ms": host_ms(torch, lambda: _pad_by_query(*state)),
+        "pad_by_query_syncs": syncs_per_call(torch, lambda: _pad_by_query(*state)),
+    }
+    for key, m in marco.items():
+        retrieval[f"{key}_compute_ms"] = host_ms(torch, m._compute_impl)
+        retrieval[f"{key}_compute_syncs"] = len(syncs_per_call(torch, m._compute_impl))
+    print(f"retrieval at (Q, L) = ({q_rows}, {l_cols}), updates of {mp.numel()} rows: " + json.dumps(retrieval))
+    print("RetrievalMAP compute under torch.profiler: "
+          + json.dumps(device_busy(torch, marco["map"]._compute_impl, steps=5)))
+    warm_marco = run_marco(dev, marco_batches)
+    print(f"MS MARCO path on the card, warm: updates {warm_marco[2] * 1e3:.1f} ms, epoch {warm_marco[4] * 1e3:.1f} ms")
+
+    upd_cm1, upd_cm64, upd_hll = (CountMinHeavyHitters(device=dev), CountMinHeavyHitters(width=65536, device=dev),
+                                  HyperLogLog(precision=14, device=dev))
+    wide_value = torch.zeros(cm_depth, 65536, device=dev)
+    streaming = {
+        "countmin_update_ms": host_ms(torch, lambda: upd_cm1.update(cm_x)),
+        "countmin_update_syncs": syncs_per_call(torch, lambda: upd_cm1.update(cm_x)),
+        "countmin_65536_update_ms": host_ms(torch, lambda: upd_cm64.update(cm_x)),
+        "hyperloglog_update_ms": host_ms(torch, lambda: upd_hll.update(cm_x)),
+        "countmin_65536_kernel_ms": device_ms(torch, lambda: _countmin_kernel(wide_value, cm_bits, cm_w, cm_seeds)),
+        "countmin_65536_plain_ms": device_ms(torch, lambda: _countmin_plain(wide_value, cm_bits, cm_w, cm_seeds)),
+    }
+    print(f"sketch updates of {cm_n} keys: " + json.dumps(streaming))
+    print("CountMinHeavyHitters update under torch.profiler: " + json.dumps(device_busy(torch, lambda: upd_cm1.update(cm_x))))
+    print(f"click stream on the card, warm: {run_sketches(dev, click_batches)[-1] * 1e3:.1f} ms")
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     hp = torch.rand(BATCH, HEADLINE_CLASSES, generator=g, device=dev)

@@ -7,6 +7,7 @@ kernels (:mod:`metrics_tpu_torch.ops`), on the CPU the kernels' plain
 PyTorch versions.
 """
 from metrics_tpu_torch import functional  # noqa: F401
+from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric  # noqa: F401
 from metrics_tpu_torch.classification.accuracy import Accuracy  # noqa: F401
 from metrics_tpu_torch.classification.avg_precision import AveragePrecision  # noqa: F401
 from metrics_tpu_torch.classification.binned_precision_recall import (  # noqa: F401
@@ -18,6 +19,23 @@ from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix  #
 from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve  # noqa: F401
 from metrics_tpu_torch.classification.stat_scores import StatScores  # noqa: F401
 from metrics_tpu_torch.metric import Metric  # noqa: F401
+from metrics_tpu_torch.retrieval import (  # noqa: F401
+    RetrievalFallOut,
+    RetrievalHitRate,
+    RetrievalMAP,
+    RetrievalMetric,
+    RetrievalMRR,
+    RetrievalNormalizedDCG,
+    RetrievalPrecision,
+    RetrievalRecall,
+    RetrievalRPrecision,
+)
+from metrics_tpu_torch.streaming import (  # noqa: F401
+    CountMinHeavyHitters,
+    HostQuantileSketch,
+    HyperLogLog,
+    QuantileSketch,
+)
 
 __all__ = [
     "Accuracy",
@@ -25,9 +43,27 @@ __all__ = [
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "CatMetric",
     "ConfusionMatrix",
+    "CountMinHeavyHitters",
+    "HostQuantileSketch",
+    "HyperLogLog",
+    "MaxMetric",
+    "MeanMetric",
     "Metric",
+    "MinMetric",
     "PrecisionRecallCurve",
+    "QuantileSketch",
+    "RetrievalFallOut",
+    "RetrievalHitRate",
+    "RetrievalMAP",
+    "RetrievalMRR",
+    "RetrievalMetric",
+    "RetrievalNormalizedDCG",
+    "RetrievalPrecision",
+    "RetrievalRPrecision",
+    "RetrievalRecall",
     "StatScores",
+    "SumMetric",
     "functional",
 ]

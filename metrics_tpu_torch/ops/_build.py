@@ -18,7 +18,7 @@ from typing import Dict, Iterable
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
-SOURCES = ("stat_scores", "confusion", "binned_stats")
+SOURCES = ("stat_scores", "confusion", "binned_stats", "retrieval_sort", "countmin")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 

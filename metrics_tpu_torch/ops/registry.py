@@ -12,7 +12,7 @@ from typing import Dict
 
 import torch
 
-KERNELS = ("stat_scores", "confusion_matrix", "binned_stats")
+KERNELS = ("stat_scores", "confusion_matrix", "binned_stats", "retrieval_sort", "countmin")
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 

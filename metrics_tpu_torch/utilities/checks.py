@@ -269,3 +269,57 @@ def _input_format_classification(
         preds, target = preds.squeeze(-1), target.squeeze(-1)
 
     return preds.to(torch.int32), target.to(torch.int32), case
+
+
+def _check_retrieval_functional_inputs(
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """Validate retrieval functional inputs; multi-dim inputs are flattened
+    (only empty or 0-d tensors are rejected)."""
+    if preds.shape != target.shape:
+        raise ValueError("`preds` and `target` must be of the same shape")
+    if preds.numel() == 0 or preds.ndim == 0:
+        raise ValueError("`preds` and `target` must be non-empty and non-scalar tensors")
+    return _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+
+
+def _check_retrieval_inputs(
+    indexes: Tensor,
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Validate retrieval module inputs; rows whose target equals
+    ``ignore_index`` are dropped (a boolean index, so one host sync)."""
+    if indexes.shape != preds.shape or preds.shape != target.shape:
+        raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
+    if not _is_integer(indexes):
+        raise ValueError("`indexes` must be a tensor of integers")
+    if ignore_index is not None:
+        valid = target != ignore_index
+        indexes, preds, target = indexes[valid], preds[valid], target[valid]
+    if indexes.numel() == 0 or indexes.ndim == 0:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty and non-scalar tensors")
+    preds, target = _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+    return indexes.reshape(-1).to(torch.int32), preds, target
+
+
+def _check_retrieval_target_and_prediction_types(
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool,
+) -> Tuple[Tensor, Tensor]:
+    """Targets may be bool, integer or float; binary-relevance metrics also
+    require values in [0, 1]. Scores become float32 (the JAX package's dtype
+    with x64 off); the target keeps its dtype."""
+    if target.is_complex():
+        raise ValueError("`target` must be a tensor of booleans, integers or floats")
+    if not _is_floating(preds):
+        raise ValueError("`preds` must be a tensor of floats")
+    # one host read for both bounds
+    if not allow_non_binary_target and target.numel() and bool((target.max() > 1) | (target.min() < 0)):
+        raise ValueError("`target` must contain `binary` values")
+    return preds.reshape(-1).to(torch.float32), target.reshape(-1)

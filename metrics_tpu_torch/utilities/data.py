@@ -34,6 +34,17 @@ def dim_zero_min(x: Tensor) -> Tensor:
     return torch.amin(x, dim=0)
 
 
+def bucket_pow2(n: int, minimum: int = 8) -> int:
+    """Round up to the next power of two (>= ``minimum``).
+
+    The JAX package pads retrieval's per-query rows to this length, and a
+    NaN score sorts after the ``-inf`` pads, so the port pads to the same
+    length to give the same results.
+    """
+    n = max(n, minimum)
+    return 1 << (n - 1).bit_length()
+
+
 def _flatten(x: List) -> list:
     """Flatten one level of nesting."""
     return [item for sublist in x for item in sublist]

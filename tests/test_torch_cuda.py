@@ -9,8 +9,18 @@ import pytest
 import torch
 
 import metrics_tpu_torch
-from metrics_tpu_torch.ops import binned_stat_scores, confusion_matrix_counts, launches, reset_launches, stat_scores_counts
+from metrics_tpu_torch.ops import (
+    binned_stat_scores,
+    confusion_matrix_counts,
+    countmin_update,
+    launches,
+    reset_launches,
+    sorted_by_preds,
+    stat_scores_counts,
+)
 from metrics_tpu_torch.ops.binned_stats import _binned_stat_scores_plain
+from metrics_tpu_torch.ops.retrieval import _sorted_by_preds_plain
+from metrics_tpu_torch.ops.sketch_ops import _countmin_plain
 from metrics_tpu_torch.ops.confusion import _confmat_plain
 from metrics_tpu_torch.ops.stat_scores import _stat_counts_plain
 
@@ -113,3 +123,62 @@ def test_metrics_on_the_card_equal_the_cpu(card):
     cpu, gpu = results["cpu"], results[str(card)]
     assert torch.equal(cpu[0], gpu[0]) and torch.equal(cpu[2], gpu[2])
     torch.testing.assert_close(gpu[1], cpu[1], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("q,l", [(1, 1), (1, 5), (3, 129), (2, 1000), (4, 3000), (64, 1024)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.bool, torch.int64, torch.uint8])
+def test_retrieval_sort_kernel_equals_plain(card, q, l, dtype):
+    g = torch.Generator(device=card).manual_seed(q * l)
+    preds = torch.round(torch.randn(q, l, generator=g, device=card) * 8) / 8  # ties and -0.0
+    preds[:, ::7] = float("nan")
+    preds[:, 3::11] = -float("inf")
+    target = torch.randint(0, 4, (q, l), generator=g, device=card).to(dtype)
+    reset_launches()
+    got = sorted_by_preds(preds, target)
+    torch.cuda.synchronize()
+    assert launches()["retrieval_sort"] == 1
+    assert got.dtype == dtype
+    assert torch.equal(got.cpu(), _sorted_by_preds_plain(preds.cpu(), target.cpu()))
+    assert torch.equal(sorted_by_preds(preds[0], target[0]).cpu(), got[0].cpu())
+
+
+def test_retrieval_modules_on_the_card_equal_the_cpu(card):
+    rng = np.random.RandomState(2)
+    n = 600
+    idx, preds, target = rng.randint(0, 40, n), rng.rand(n).astype(np.float32), rng.randint(0, 2, n)
+    preds[::37] = np.nan
+    for name in ("RetrievalMAP", "RetrievalMRR", "RetrievalNormalizedDCG", "RetrievalPrecision"):
+        values = []
+        for device in ("cpu", card):
+            m = getattr(metrics_tpu_torch, name)(device=device)
+            m.update(*(torch.from_numpy(a).to(device) for a in (preds, target, idx)))
+            values.append(m.compute().cpu())
+        torch.testing.assert_close(values[1], values[0], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 100, 65536])
+@pytest.mark.parametrize("depth,width", [(2, 128), (4, 1024), (4, 65536)])
+def test_countmin_kernel_equals_plain(card, n, depth, width):
+    g = torch.Generator(device=card).manual_seed(n + width)
+    value = torch.randint(0, 50, (depth, width), generator=g, device=card).float()
+    bits = torch.randint(-(2**31), 2**31 - 1, (n,), generator=g, device=card, dtype=torch.int32)
+    bits[::3] = bits[0].clone()  # a hot key
+    w = torch.randint(0, 3, (n,), generator=g, device=card).float()
+    seeds = torch.tensor([1, -1640531526, 1013904243, -626627284][:depth], dtype=torch.int32, device=card)
+    reset_launches()
+    got = countmin_update(value, bits, w, seeds)
+    torch.cuda.synchronize()
+    assert launches()["countmin"] == 1
+    assert torch.equal(got.cpu(), _countmin_plain(value.cpu(), bits.cpu(), w.cpu(), seeds.cpu()))
+
+
+def test_count_min_heavy_hitters_on_the_card_equals_the_cpu(card):
+    rng = np.random.RandomState(3)
+    stream = (rng.zipf(1.2, 20000) % 10000).astype(np.float32)
+    tables = []
+    for device in ("cpu", card):
+        m = metrics_tpu_torch.CountMinHeavyHitters(device=device)
+        for chunk in np.array_split(stream, 3):
+            m.update(torch.from_numpy(chunk).to(device))
+        tables.append(m.value.cpu())
+    assert torch.equal(tables[0], tables[1])

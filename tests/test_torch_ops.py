@@ -173,7 +173,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     target, pred, correct, w = _stat_inputs(64, 5, seed=3)
     _port_counts(target, pred, correct, w, 5)
     confusion_matrix_counts(torch.from_numpy(target), torch.from_numpy(pred), 5)
-    assert launches() == {"stat_scores": 0, "confusion_matrix": 0, "binned_stats": 0}
+    assert launches() == {name: 0 for name in registry.KERNELS}
+    assert set(registry.KERNELS) == {"stat_scores", "confusion_matrix", "binned_stats", "retrieval_sort", "countmin"}
 
 
 def test_other_devices_raise():
