@@ -7,6 +7,13 @@
    (one ``nvcc`` per source, all at once).
 2. Holds each kernel against its plain PyTorch version on the card over the
    JAX package's parity grid plus masked and padded rows: exact equality.
+   ``retrieval_sort`` also at every padded length of its bitonic branch and
+   across the switch to the all-pairs branch at ``L_MAX``, on rows of one
+   value, of NaN only and of +-0, +-inf and NaN, with the all-pairs branch
+   forced at the shorter lengths; ``countmin`` also at partial warps and
+   blocks, one hot cell a row, depth 1 and 8, widths 1000 and 1023, both
+   branches, fractional weights (rtol 1e-6), and the shared branch twice on
+   one input (the same bits).
 3. Runs the slices. Slice 1: ImageNet-1k validation (50,000 images, 1,000
    classes) in batches of 1,024 (48 full, one of 848) through
    ``Accuracy(average="macro")`` and ``ConfusionMatrix(update_method="matmul")``
@@ -47,6 +54,10 @@
    beside the least time the card allows (bytes over its memory rate or the
    operations the work needs over its float32 rate, whichever is larger),
    and times whole updates, ``compute`` and each path's epoch.
+   ``retrieval_sort`` is timed at both of its launch shapes, (6980, 1024)
+   and a functional call's (1, 1000), on each branch; ``countmin`` at both
+   widths of the click-log path; their rows carry these ``timings`` and the
+   launches by shape, each counted on the main path.
 
 The scores and labels are made on the card from a seeded generator: a model
 whose top-1 hits the label on about 76% of images, with random scores
@@ -344,12 +355,12 @@ def main() -> int:
     from metrics_tpu_torch.ops import countmin_update, sorted_by_preds
     from metrics_tpu_torch.ops.binned_stats import _binned_stat_scores_kernel, _binned_stat_scores_plain
     from metrics_tpu_torch.ops.confusion import _confmat_plain
-    from metrics_tpu_torch.ops.retrieval import _sorted_by_preds_kernel, _sorted_by_preds_plain
+    from metrics_tpu_torch.ops.retrieval import _WIDEN, L_MAX, _sorted_by_preds_kernel, _sorted_by_preds_plain, sort_branch
     from metrics_tpu_torch.ops.sketch_ops import _countmin_kernel, _countmin_plain, countmin_uses_shared
     from metrics_tpu_torch.retrieval.base import _pad_by_query
     from metrics_tpu_torch.streaming.sketch import _key_bits
     from metrics_tpu_torch.ops.stat_scores import _stat_counts_plain
-    from metrics_tpu_torch.utilities.data import dim_zero_cat, to_onehot
+    from metrics_tpu_torch.utilities.data import bucket_pow2, dim_zero_cat, to_onehot
 
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain one-hot product stays exact float32
@@ -434,9 +445,13 @@ def main() -> int:
                     max_err["binned_stats"] = max(max_err["binned_stats"], float((a - b).abs().max()) if a.numel() else 0.0)
                 cases += 1
 
-    def hold_sort(p, t, what):
-        """The kernel against its plain version on the card and on the CPU, bit for bit."""
-        got = sorted_by_preds(p, t)
+    def hold_sort(p, t, what, all_pairs=False):
+        """The kernel against its plain version on the card and on the CPU, bit for bit; ``all_pairs``
+        forces that branch at the kernel, with the labels widened as the public entry widens them."""
+        if all_pairs:
+            got = _sorted_by_preds_kernel(p, t.to(_WIDEN.get(t.dtype, t.dtype)), all_pairs=True).to(t.dtype)
+        else:
+            got = sorted_by_preds(p, t)
         ref = _sorted_by_preds_plain(p, t)
         check(got.dtype == ref.dtype == t.dtype and got.shape == ref.shape, f"retrieval_sort dtype or shape at {what}")
         check(torch.equal(got, ref), f"retrieval_sort differs from its plain version at {what}")
@@ -462,6 +477,25 @@ def main() -> int:
         for dtype in (torch.int32, torch.float32, torch.bool, torch.int64, torch.uint8):
             hold_sort(p, torch.randint(0, 4, (q, l), generator=g, device=dev).to(dtype), f"({q}, {l}) {dtype}")
             cases += 1
+    # the edges of both branches: every padded length of the bitonic sort and the switch at L_MAX, rows of
+    # one value, of NaN only and of +-0, +-inf and NaN among ties, every label dtype; the all-pairs branch
+    # forced at the shorter lengths
+    pool = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1.0, -1.0], device=dev)
+    for l in (1, 2, 31, 32, 33, 255, 257, 1000, 1024, 1025, 4097, L_MAX, L_MAX + 1):
+        q = 3 if l <= 4097 else 2
+        rows_by_kind = {
+            "ties": torch.round(torch.randn(q, l, generator=g, device=dev) * 4) / 4,
+            "all equal": torch.full((q, l), 0.5, device=dev),
+            "all nan": torch.full((q, l), float("nan"), device=dev),
+            "mixed": pool[torch.randint(0, pool.numel(), (q, l), generator=g, device=dev)],
+        }
+        check(sort_branch(l) == ("bitonic" if l <= L_MAX else "all_pairs"), f"retrieval_sort branch at L={l}")
+        for kind, p in rows_by_kind.items():
+            for all_pairs in ((False, True) if l <= 4097 else (False,)):
+                for dtype in (torch.int32, torch.float32, torch.bool, torch.int64, torch.uint8):
+                    t = torch.randint(0, 4, (q, l), generator=g, device=dev).to(dtype)
+                    hold_sort(p, t, f"({q}, {l}) {kind} {dtype} all_pairs={all_pairs}", all_pairs)
+                    cases += 1
     # count-min: the JAX parity grid and both branches, integral weights: exact
     for n in (1, 100, 128, 300, CLICK_BATCH):
         for depth, width in ((2, 128), (4, 1024), (4, 65536)):
@@ -476,8 +510,45 @@ def main() -> int:
                   f"countmin differs from its plain version at n={n} ({depth}, {width})")
             max_err["countmin"] = max(max_err["countmin"], float((got - ref).abs().max()))
             cases += 1
+    # the edges of the new design: partial warps and blocks, one hot cell a row, depth 1 and 8, widths
+    # that are not powers of two, both branches
+    for n in (1, 255, 257, CLICK_BATCH):
+        for depth, width in ((1, 1000), (8, 1023), (4, 1024), (4, 65536)):
+            for hot in ("none", "all"):
+                value = torch.randint(0, 50, (depth, width), generator=g, device=dev).float()
+                bits = torch.randint(-(2**31), 2**31 - 1, (n,), generator=g, device=dev, dtype=torch.int32)
+                if hot == "all":
+                    bits[:] = bits[0].clone()
+                w = torch.randint(0, 3, (n,), generator=g, device=dev).float()
+                seeds = torch.randint(-(2**31), 2**31 - 1, (depth,), generator=g, device=dev, dtype=torch.int32)
+                got = countmin_update(value, bits, w, seeds)
+                ref = _countmin_plain(value, bits, w, seeds)
+                check(torch.equal(got, ref), f"countmin differs from its plain version at n={n} ({depth}, {width}) hot={hot}")
+                max_err["countmin"] = max(max_err["countmin"], float((got - ref).abs().max()))
+                cases += 1
+    # fractional weights: a few keys a cell, so that two summation orders stay within rtol 1e-6; then the
+    # shared branch's fixed order: the same input of a full batch with a hot key gives the same bits again
+    frac_rel_err = 0.0
+    for depth, width in ((4, 1024), (8, 1023), (4, 65536)):
+        value = torch.randint(0, 50, (depth, width), generator=g, device=dev).float()
+        bits = torch.randint(-(2**31), 2**31 - 1, (4096,), generator=g, device=dev, dtype=torch.int32)
+        w = torch.rand(4096, generator=g, device=dev)
+        seeds = torch.randint(-(2**31), 2**31 - 1, (depth,), generator=g, device=dev, dtype=torch.int32)
+        got, ref = countmin_update(value, bits, w, seeds), _countmin_plain(value, bits, w, seeds)
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=0, msg=f"countmin fractional weights at ({depth}, {width})")
+        frac_rel_err = max(frac_rel_err, float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max()))
+        bits = torch.randint(-(2**31), 2**31 - 1, (CLICK_BATCH,), generator=g, device=dev, dtype=torch.int32)
+        bits[::3] = bits[0].clone()
+        w = torch.rand(CLICK_BATCH, generator=g, device=dev)
+        cases += 1
+        first = countmin_update(value, bits, w, seeds)
+        if countmin_uses_shared(depth, width, dev):
+            check(all(torch.equal(countmin_update(value, bits, w, seeds), first) for _ in range(3)),
+                  f"countmin's shared branch gave other bits on the same input at ({depth}, {width})")
+            cases += 1
     torch.cuda.synchronize()
-    print(f"kernel vs plain: {cases} cases equal, max_abs_err {max_err}")
+    print(f"kernel vs plain: {cases} cases equal (fractional count-min weights: largest relative difference "
+          f"{frac_rel_err:.3g}), max_abs_err {max_err}")
 
     # ------------------------------------------------------------ 3. the slice
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -744,25 +815,31 @@ def main() -> int:
           "the click stream is 152 batches of 65,536 and one partial")
 
     def run_sketches(device, data):
+        """The three sketches over ``data``; also the count-min launches each sketch's updates made."""
         sketches = (CountMinHeavyHitters(device=device), CountMinHeavyHitters(width=65536, device=device),
                     HyperLogLog(precision=14, device=device))
+        sketch_launches = [0] * len(sketches)
         if device.type == "cuda":
             torch.cuda.synchronize()
         t_start = time.perf_counter()
         for x in data:
-            for s in sketches:
+            for i, s in enumerate(sketches):
+                before = launches()["countmin"]
                 s.update(x)
+                sketch_launches[i] += launches()["countmin"] - before
         totals = [s.compute() for s in sketches]
         if device.type == "cuda":
             torch.cuda.synchronize()
-        return sketches, totals, time.perf_counter() - t_start
+        return sketches, totals, time.perf_counter() - t_start, sketch_launches
 
     check(countmin_uses_shared(4, 1024, dev) and not countmin_uses_shared(4, 65536, dev),
           "the count-min branches are not shared memory at 4 x 1024 and global atomics at 4 x 65536")
     reset_launches()
-    sketches, sketch_totals, sketch_s = run_sketches(dev, click_batches)
+    sketches, sketch_totals, sketch_s, sketch_launches = run_sketches(dev, click_batches)
     click_launches = launches()["countmin"]
     check(click_launches == 2 * len(click_batches), f"countmin launched {click_launches} times, not {2 * len(click_batches)}")
+    check(sketch_launches == [len(click_batches), len(click_batches), 0],
+          f"countmin launches by sketch {sketch_launches}, not one an update of each count-min sketch")
     ids_np = clicks.cpu().numpy()
     true_counts = torch.bincount(clicks.long(), minlength=CLICK_IDS)
     top = torch.topk(true_counts, HEAVY_HITTERS)
@@ -907,6 +984,65 @@ def main() -> int:
               f"({bound_by}: {nbytes} bytes, {ops} operations)")
     print(f"binned_stats launches per path: {json.dumps(binned_launches)}")
 
+    # retrieval_sort at both launch shapes of the path, each branch beside the plain version and the
+    # yardstick, in turns within this run; the all-pairs branch is the earlier design's kernel
+    fq_p, fq_t = head_s[:1].contiguous(), head_t[:1].to(torch.int32)  # a functional call's (1, 1000) cells
+    sort_shapes = {
+        "module compute": (pp, rel32, marco_module_launches),
+        "functional call": (fq_p, fq_t, marco_launches - marco_module_launches),
+    }
+    sort_rows = []
+    for launch, (sp, st, n_launches) in sort_shapes.items():
+        for all_pairs in (False, True):
+            check(torch.equal(_sorted_by_preds_kernel(sp, st, all_pairs=all_pairs), _sorted_by_preds_plain(sp, st)),
+                  f"retrieval_sort (all_pairs={all_pairs}) differs from its plain version at the {launch} shape")
+        bitonic_a, pairs_a, pairs_b, bitonic_b = (device_ms(torch, f) for f in (
+            lambda: _sorted_by_preds_kernel(sp, st), lambda: _sorted_by_preds_kernel(sp, st, all_pairs=True),
+            lambda: _sorted_by_preds_kernel(sp, st, all_pairs=True), lambda: _sorted_by_preds_kernel(sp, st)))
+        sq, sl = sp.shape
+        s_bound, s_by = bound(sq * sl * (4 + 4 + 4), sq * sl * math.ceil(math.log2(max(sl, 2))))
+        sort_rows.append({
+            "launch": launch, "shape": {"Q": sq, "L": sl}, "launches": n_launches, "branch": sort_branch(sl),
+            "ms": (bitonic_a + bitonic_b) / 2, "all_pairs_ms": (pairs_a + pairs_b) / 2,
+            "plain_ms": device_ms(torch, lambda: _sorted_by_preds_plain(sp, st)),
+            "yardstick_ms": device_ms(torch, lambda: torch.gather(st, 1, torch.argsort(-sp, dim=1, stable=True))),
+            "bound_ms": s_bound, "bound_by": s_by,
+        })
+    sort_rows.append({"launch": "TREC DL compute", "shape": {"Q": TREC_QUERIES, "L": bucket_pow2(MARCO_CANDIDATES)},
+                      "launches": trec_launches, "branch": sort_branch(bucket_pow2(MARCO_CANDIDATES)), "ms": None})
+    # countmin at both widths of the click-log path: the shared branch at 1024, the global one at 65,536
+    wide_value = torch.zeros(cm_depth, 65536, device=dev)
+    wide_flat = (sketches[1]._indices(cm_x) + torch.arange(cm_depth, device=dev)[:, None] * 65536).reshape(-1)
+    wide_flat_table = torch.zeros(cm_depth * 65536, device=dev)
+    cm_widths = {  # each width's launches: those of its sketch's updates on the main path
+        cm_width: (cm_value, cm_flat, cm_flat_table, sketch_launches[0]),
+        65536: (wide_value, wide_flat, wide_flat_table, sketch_launches[1]),
+    }
+    cm_rows = []
+    for width, (val, flat_cells, flat_table, n_launches) in cm_widths.items():
+        check(torch.equal(_countmin_kernel(val, cm_bits, cm_w, cm_seeds), _countmin_plain(val, cm_bits, cm_w, cm_seeds)),
+              f"countmin differs from its plain version at the click batch, width {width}")
+        plain_a, kernel_a, kernel_b, plain_b = (device_ms(torch, f) for f in (
+            lambda: _countmin_plain(val, cm_bits, cm_w, cm_seeds), lambda: _countmin_kernel(val, cm_bits, cm_w, cm_seeds),
+            lambda: _countmin_kernel(val, cm_bits, cm_w, cm_seeds), lambda: _countmin_plain(val, cm_bits, cm_w, cm_seeds)))
+        c_bound, c_by = bound(cm_n * (4 + 4) + cm_depth * 4 + 2 * cm_depth * width * 4, cm_n * cm_depth * 11)
+        cm_rows.append({
+            "shape": {"n": cm_n, "depth": cm_depth, "width": width}, "launches": n_launches,
+            "branch": "shared" if countmin_uses_shared(cm_depth, width, dev) else "global",
+            "ms": (kernel_a + kernel_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
+            "yardstick_ms": device_ms(torch, lambda: flat_table.index_add_(0, flat_cells, cm_w_rep)),
+            "bound_ms": c_bound, "bound_by": c_by,
+        })
+    for row in rows:
+        if row["name"] == "retrieval_sort":
+            row.update(branch=sort_rows[0]["branch"], timings=sort_rows,
+                       launches_by_shape={f"({r['shape']['Q']}, {r['shape']['L']})": r["launches"] for r in sort_rows})
+        if row["name"] == "countmin":
+            row.update(branch=cm_rows[0]["branch"], timings=cm_rows,
+                       launches_by_shape={f"width {r['shape']['width']}": r["launches"] for r in cm_rows})
+    print("retrieval_sort by launch shape and branch: " + json.dumps(sort_rows))
+    print("countmin by width and branch: " + json.dumps(cm_rows))
+
     upd_acc = Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev)
     upd_cm = ConfusionMatrix(num_classes=NUM_CLASSES, update_method="matmul", device=dev)
     updates = {
@@ -967,18 +1103,15 @@ def main() -> int:
 
     upd_cm1, upd_cm64, upd_hll = (CountMinHeavyHitters(device=dev), CountMinHeavyHitters(width=65536, device=dev),
                                   HyperLogLog(precision=14, device=dev))
-    wide_value = torch.zeros(cm_depth, 65536, device=dev)
     streaming = {
         "countmin_update_ms": host_ms(torch, lambda: upd_cm1.update(cm_x)),
         "countmin_update_syncs": syncs_per_call(torch, lambda: upd_cm1.update(cm_x)),
         "countmin_65536_update_ms": host_ms(torch, lambda: upd_cm64.update(cm_x)),
         "hyperloglog_update_ms": host_ms(torch, lambda: upd_hll.update(cm_x)),
-        "countmin_65536_kernel_ms": device_ms(torch, lambda: _countmin_kernel(wide_value, cm_bits, cm_w, cm_seeds)),
-        "countmin_65536_plain_ms": device_ms(torch, lambda: _countmin_plain(wide_value, cm_bits, cm_w, cm_seeds)),
     }
     print(f"sketch updates of {cm_n} keys: " + json.dumps(streaming))
     print("CountMinHeavyHitters update under torch.profiler: " + json.dumps(device_busy(torch, lambda: upd_cm1.update(cm_x))))
-    print(f"click stream on the card, warm: {run_sketches(dev, click_batches)[-1] * 1e3:.1f} ms")
+    print(f"click stream on the card, warm: {run_sketches(dev, click_batches)[2] * 1e3:.1f} ms")
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     hp = torch.rand(BATCH, HEADLINE_CLASSES, generator=g, device=dev)

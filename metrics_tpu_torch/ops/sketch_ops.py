@@ -4,9 +4,12 @@ Port of ``metrics_tpu/ops/sketch_ops.py``. :func:`countmin_update` adds
 ``w[i]`` at ``(d, hash_u32(bits[i] ^ seeds[d]) % width)`` of a
 ``(depth, width)`` float32 table for every key ``i`` and row ``d``. On a
 CUDA tensor the hash and the adds run in the hand-written kernel in
-``csrc/countmin.cu`` (uint32 registers, shared-memory or global float
-atomics, see the note there); on a CPU tensor in
-:func:`_countmin_plain`, one ``index_add_`` after the hash.
+``csrc/countmin.cu``, which sums the keys of a warp that hit the same cell
+before it adds; on a CPU tensor in :func:`_countmin_plain`, one
+``index_add_`` after the hash. :func:`countmin_plan` sizes the launch: a
+table that fits a block's shared memory is added per warp in shared memory
+on one block an SM and reduced in a fixed order (deterministic, no atomics),
+a wider one with global atomics.
 
 PyTorch has no full uint32 arithmetic on the CPU, so the port carries a
 uint32 bit pattern in an int32 tensor (``torch.uint32`` inputs are viewed
@@ -15,6 +18,7 @@ after every multiply: the products stay below 2^59, so it is exact.
 """
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 from torch import Tensor
@@ -24,15 +28,20 @@ from metrics_tpu_torch.ops import _build, registry
 _NAME = "countmin"
 _MASK = 0xFFFFFFFF
 _MULT = 0x45D9F3B
+_MAX_WARPS = 8  # a block of the shared branch: one private table a warp
+_KEYS_PER_BLOCK = 512  # the fewest keys a block of the shared branch is given
+_GLOBAL_THREADS = 256
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("countmin")
-    lib.countmin_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    lib.countmin_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    )
     lib.countmin_launch.restype = ctypes.c_int
-    lib.countmin_uses_shared.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.countmin_uses_shared.restype = ctypes.c_int
+    lib.countmin_device.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.countmin_device.restype = ctypes.c_int
     lib.countmin_error_string.argtypes = [ctypes.c_int]
     lib.countmin_error_string.restype = ctypes.c_char_p
     return lib
@@ -87,23 +96,57 @@ def _countmin_kernel(value: Tensor, bits: Tensor, w: Tensor, seeds: Tensor) -> T
         )
     if n >= 2**31 or depth * width >= 2**31:
         raise ValueError(f"countmin_update: {n} keys into ({depth}, {width}) is beyond the kernel's int32 indexing")
-    out = value.clone()
     if n == 0:
-        return out
+        return value.clone()
     lib = _lib()
+    branch, blocks, warps = countmin_plan(n, depth, width, *_device_limits(value.device))
+    out = torch.empty_like(value)
+    workspace = (torch.empty(blocks * depth * width, dtype=torch.float32, device=value.device)
+                 if branch == "shared" else None)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
-        err = lib.countmin_launch(bits.data_ptr(), w.data_ptr(), seeds.data_ptr(), n, depth, width, out.data_ptr(), stream)
+        err = lib.countmin_launch(
+            bits.data_ptr(), w.data_ptr(), seeds.data_ptr(), n, depth, width, value.data_ptr(), out.data_ptr(),
+            None if workspace is None else workspace.data_ptr(), blocks, warps, stream,
+        )
     if err != 0:
         raise RuntimeError(f"countmin kernel launch failed: {lib.countmin_error_string(err).decode()}")
     registry.note_launch(_NAME)
     return out
 
 
+def countmin_plan(n: int, depth: int, width: int, sms: int, shared_optin: int) -> Tuple[str, int, int]:
+    """``(branch, blocks, warps)`` of the kernel's launch for ``n`` keys into a
+    ``(depth, width)`` table, on a device of ``sms`` SMs whose blocks may use
+    ``shared_optin`` bytes of shared memory.
+
+    ``"shared"`` when one table (its stride rounded up to whole float4s) and
+    a warp's 32 staged weights fit that limit: up to 8 warps a block, each
+    with its own table, and one block an SM, fewer when a block would get
+    fewer than 512 keys. Otherwise ``"global"``: blocks of 256 threads, one
+    a 256 keys, at most 8 an SM.
+    """
+    warps = min(_MAX_WARPS, shared_optin // (4 * (-(-depth * width // 4) * 4 + 32)))
+    if warps >= 1:
+        return "shared", max(1, min(sms, -(-n // _KEYS_PER_BLOCK))), warps
+    return "global", max(1, min(8 * sms, -(-n // _GLOBAL_THREADS))), _GLOBAL_THREADS // 32
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(device: torch.device) -> Tuple[int, int]:
+    """The SM count and the opt-in shared memory a block may use on ``device``."""
+    sms, shared = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _lib()
+    with torch.cuda.device(device):
+        err = lib.countmin_device(ctypes.byref(sms), ctypes.byref(shared))
+    if err != 0:
+        raise RuntimeError(f"countmin: cannot read the device's limits: {lib.countmin_error_string(err).decode()}")
+    return sms.value, shared.value
+
+
 def countmin_uses_shared(depth: int, width: int, device: torch.device) -> bool:
     """Whether the kernel adds a ``(depth, width)`` table in shared memory on ``device``."""
-    with torch.cuda.device(device):
-        return bool(_lib().countmin_uses_shared(depth, width))
+    return countmin_plan(1, depth, width, *_device_limits(torch.device(device)))[0] == "shared"
 
 
 def countmin_update(value: Tensor, bits: Tensor, w: Tensor, seeds: Tensor) -> Tensor:
@@ -112,7 +155,9 @@ def countmin_update(value: Tensor, bits: Tensor, w: Tensor, seeds: Tensor) -> Te
     ``bits`` are the keys' 32-bit patterns ``(n,)`` and ``seeds`` one per
     table row, both int32 or uint32; ``w`` the per-key weights (0 for masked
     keys). Bit-identical between the kernel and the plain version, and to
-    the JAX package's scatter, for integral weights.
+    the JAX package's scatter, for integral weights; other weights agree to
+    float32 rounding. The kernel's shared-memory branch adds in a fixed order,
+    so it gives the same bits on every call on one device.
     """
     if value.ndim != 2 or bits.ndim != 1 or w.shape != bits.shape or seeds.shape != value.shape[:1]:
         raise ValueError(

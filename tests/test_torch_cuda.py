@@ -19,8 +19,8 @@ from metrics_tpu_torch.ops import (
     stat_scores_counts,
 )
 from metrics_tpu_torch.ops.binned_stats import _binned_stat_scores_plain
-from metrics_tpu_torch.ops.retrieval import _sorted_by_preds_plain
-from metrics_tpu_torch.ops.sketch_ops import _countmin_plain
+from metrics_tpu_torch.ops.retrieval import _WIDEN, L_MAX, _sorted_by_preds_kernel, _sorted_by_preds_plain
+from metrics_tpu_torch.ops.sketch_ops import _countmin_plain, countmin_uses_shared
 from metrics_tpu_torch.ops.confusion import _confmat_plain
 from metrics_tpu_torch.ops.stat_scores import _stat_counts_plain
 
@@ -125,7 +125,11 @@ def test_metrics_on_the_card_equal_the_cpu(card):
     torch.testing.assert_close(gpu[1], cpu[1], rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("q,l", [(1, 1), (1, 5), (3, 129), (2, 1000), (4, 3000), (64, 1024)])
+@pytest.mark.parametrize(
+    "q,l",
+    [(1, 1), (1, 5), (3, 129), (2, 1000), (4, 3000), (64, 1024), (3, 2), (3, 31), (3, 32), (3, 33), (3, 255),
+     (3, 257), (2, 1025), (2, 4097), (2, L_MAX), (2, L_MAX + 1)],
+)
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.bool, torch.int64, torch.uint8])
 def test_retrieval_sort_kernel_equals_plain(card, q, l, dtype):
     g = torch.Generator(device=card).manual_seed(q * l)
@@ -142,6 +146,35 @@ def test_retrieval_sort_kernel_equals_plain(card, q, l, dtype):
     assert torch.equal(sorted_by_preds(preds[0], target[0]).cpu(), got[0].cpu())
 
 
+def _edge_rows(kind, q, l, g, card):
+    if kind == "all equal":
+        return torch.full((q, l), 0.5, device=card)
+    if kind == "all nan":
+        return torch.full((q, l), float("nan"), device=card)
+    # +-0, +-inf and NaN among ties
+    pool = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1.0, -1.0], device=card)
+    return pool[torch.randint(0, pool.numel(), (q, l), generator=g, device=card)]
+
+
+@pytest.mark.parametrize("kind", ["all equal", "all nan", "mixed"])
+@pytest.mark.parametrize("l", [1, 33, 257, 1000, 1024, 4097])
+@pytest.mark.parametrize("all_pairs", [False, True])
+def test_retrieval_sort_edge_rows_on_both_branches(card, kind, l, all_pairs):
+    g = torch.Generator(device=card).manual_seed(l)
+    preds = _edge_rows(kind, 3, l, g, card)
+    for dtype in (torch.int32, torch.int64, torch.bool):
+        target = torch.randint(0, 4, (3, l), generator=g, device=card).to(dtype)
+        reset_launches()
+        if all_pairs:  # the branch forced at the kernel, labels widened as the public entry widens them
+            got = _sorted_by_preds_kernel(preds, target.to(_WIDEN.get(dtype, dtype)), all_pairs=True).to(dtype)
+        else:
+            got = sorted_by_preds(preds, target)
+        torch.cuda.synchronize()
+        assert launches()["retrieval_sort"] == 1
+        assert torch.equal(got, _sorted_by_preds_plain(preds, target))
+        assert torch.equal(got.cpu(), _sorted_by_preds_plain(preds.cpu(), target.cpu()))
+
+
 def test_retrieval_modules_on_the_card_equal_the_cpu(card):
     rng = np.random.RandomState(2)
     n = 600
@@ -156,15 +189,24 @@ def test_retrieval_modules_on_the_card_equal_the_cpu(card):
         torch.testing.assert_close(values[1], values[0], rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("n", [1, 100, 65536])
-@pytest.mark.parametrize("depth,width", [(2, 128), (4, 1024), (4, 65536)])
-def test_countmin_kernel_equals_plain(card, n, depth, width):
-    g = torch.Generator(device=card).manual_seed(n + width)
+def _countmin_inputs(n, depth, width, g, card, hot="third"):
     value = torch.randint(0, 50, (depth, width), generator=g, device=card).float()
     bits = torch.randint(-(2**31), 2**31 - 1, (n,), generator=g, device=card, dtype=torch.int32)
-    bits[::3] = bits[0].clone()  # a hot key
+    if hot == "third":
+        bits[::3] = bits[0].clone()  # a hot key
+    elif hot == "all":
+        bits[:] = bits[0].clone()  # one hot cell a row
     w = torch.randint(0, 3, (n,), generator=g, device=card).float()
-    seeds = torch.tensor([1, -1640531526, 1013904243, -626627284][:depth], dtype=torch.int32, device=card)
+    seeds = torch.randint(-(2**31), 2**31 - 1, (depth,), generator=g, device=card, dtype=torch.int32)
+    return value, bits, w, seeds
+
+
+@pytest.mark.parametrize("n", [1, 100, 65536, 255, 257])
+@pytest.mark.parametrize("depth,width", [(2, 128), (4, 1024), (4, 65536), (1, 1000), (8, 1023)])
+def test_countmin_kernel_equals_plain(card, n, depth, width):
+    g = torch.Generator(device=card).manual_seed(n + width)
+    value, bits, w, _ = _countmin_inputs(n, depth, width, g, card)
+    seeds = torch.tensor([1, -1640531526, 1013904243, -626627284, 7, 8, 9, 10][:depth], dtype=torch.int32, device=card)
     reset_launches()
     got = countmin_update(value, bits, w, seeds)
     torch.cuda.synchronize()
@@ -182,3 +224,30 @@ def test_count_min_heavy_hitters_on_the_card_equals_the_cpu(card):
             m.update(torch.from_numpy(chunk).to(device))
         tables.append(m.value.cpu())
     assert torch.equal(tables[0], tables[1])
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 65536])
+@pytest.mark.parametrize("depth,width", [(1, 1000), (4, 1024), (8, 1023), (4, 65536)])
+def test_countmin_single_hot_key_equals_plain(card, n, depth, width):
+    g = torch.Generator(device=card).manual_seed(7 * n + width)
+    value, bits, w, seeds = _countmin_inputs(n, depth, width, g, card, hot="all")
+    got = countmin_update(value, bits, w, seeds)
+    assert torch.equal(got, _countmin_plain(value, bits, w, seeds))
+
+
+@pytest.mark.parametrize("depth,width", [(4, 1024), (8, 1023), (4, 65536)])
+def test_countmin_fractional_weights_agree_and_the_shared_branch_repeats(card, depth, width):
+    # a few keys a cell, so that float32 sums in two orders stay within rtol 1e-6
+    g = torch.Generator(device=card).manual_seed(width)
+    value, bits, _, seeds = _countmin_inputs(4096, depth, width, g, card, hot="none")
+    w = torch.rand(4096, generator=g, device=card)
+    torch.testing.assert_close(countmin_update(value, bits, w, seeds), _countmin_plain(value, bits, w, seeds),
+                               rtol=1e-6, atol=0)
+    # the shared branch has no atomics: the same input gives the same bits, hot cells included
+    value, bits, _, seeds = _countmin_inputs(65536, depth, width, g, card)
+    w = torch.rand(65536, generator=g, device=card)
+    first = countmin_update(value, bits, w, seeds)
+    assert countmin_uses_shared(depth, width, card) == (width < 65536)
+    if width < 65536:
+        for _ in range(3):
+            assert torch.equal(countmin_update(value, bits, w, seeds), first)

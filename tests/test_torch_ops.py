@@ -23,6 +23,8 @@ from metrics_tpu.ops.confusion import confusion_matrix_counts as jax_confusion_m
 from metrics_tpu.ops.stat_scores import _stat_counts_pallas
 from metrics_tpu.ops.stat_scores import stat_scores_counts as jax_stat_scores_counts
 from metrics_tpu_torch.ops import _build, confusion_matrix_counts, launches, registry, stat_scores_counts
+from metrics_tpu_torch.ops.retrieval import L_MAX, sort_branch
+from metrics_tpu_torch.ops.sketch_ops import countmin_plan
 
 
 def _stat_inputs(n, c, seed):
@@ -183,6 +185,40 @@ def test_other_devices_raise():
         confusion_matrix_counts(meta, meta, 3)
     with pytest.raises(RuntimeError, match="same device"):
         confusion_matrix_counts(torch.zeros(4, dtype=torch.int32), meta, 3)
+
+
+# ----------------------------------------------------- launch rules (host side)
+@pytest.mark.parametrize(
+    "l,all_pairs,want",
+    [(1, False, "bitonic"), (1000, False, "bitonic"), (1024, False, "bitonic"), (4097, False, "bitonic"),
+     (L_MAX, False, "bitonic"), (L_MAX + 1, False, "all_pairs"), (100_000, False, "all_pairs"),
+     (1, True, "all_pairs"), (1024, True, "all_pairs")],
+)
+def test_retrieval_sort_branch_follows_the_row_length(l, all_pairs, want):
+    assert L_MAX == 16384  # 16,384 composites of 8 bytes fit a block's 227 KB of shared memory
+    assert sort_branch(l, all_pairs) == want
+
+
+H100 = (132, 232_448)  # SMs, and the opt-in shared memory of a block in bytes
+
+
+@pytest.mark.parametrize(
+    "n,depth,width,want",
+    [
+        (65536, 4, 1024, ("shared", 128, 8)),  # the click-stream batch: 512 keys a block, 128 of 132 SMs
+        (10_000_000, 4, 1024, ("shared", 132, 8)),  # one block an SM at most
+        (1, 4, 1024, ("shared", 1, 8)),
+        (257, 1, 1000, ("shared", 1, 8)),
+        (65536, 8, 1023, ("shared", 128, 7)),  # 7 private tables of 32 KB fit
+        (65536, 1, 58080, ("shared", 128, 1)),  # one table and 32 weights: exactly the limit
+        (65536, 1, 58081, ("global", 256, 8)),
+        (65536, 1, 58077, ("shared", 128, 1)),  # a table's stride is rounded up to whole float4s: 58,080
+        (65536, 4, 65536, ("global", 256, 8)),  # 1 MB: global atomics, one block a 256 keys
+        (10_000_000, 4, 65536, ("global", 1056, 8)),  # at most 8 blocks an SM
+    ],
+)
+def test_countmin_plan_sizes_the_grid_from_the_card(n, depth, width, want):
+    assert countmin_plan(n, depth, width, *H100) == want
 
 
 # ------------------------------------------------------------------ build

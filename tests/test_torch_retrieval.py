@@ -22,6 +22,7 @@ import metrics_tpu_torch.functional as tF
 from metrics_tpu.ops.retrieval import _sorted_by_preds_lax, _sorted_by_preds_pallas
 from metrics_tpu_torch.interop import load_jax_state_dict, to_jax_state_dict
 from metrics_tpu_torch.ops import launches, reset_launches, sorted_by_preds
+from metrics_tpu_torch.ops.retrieval import L_MAX
 from metrics_tpu_torch.utilities.data import bucket_pow2
 
 RTOL = 1e-6
@@ -47,7 +48,7 @@ def _assert_same(ref, got, exact):
 _DTYPES = {"int32": np.int32, "float32": np.float32, "bool": np.bool_}
 
 
-@pytest.mark.parametrize("n", [1, 5, 128, 129, 1000])
+@pytest.mark.parametrize("n", [1, 5, 128, 129, 1000, 1024])
 @pytest.mark.parametrize("dtype", list(_DTYPES))
 def test_sorted_by_preds_matches_jax_lax_and_pallas(n, dtype):
     # the grid of tests/ops/test_kernel_parity.py
@@ -80,17 +81,30 @@ def _special_rows():
     mixed[rng.randint(0, 257, 5)] = np.inf
     mixed[rng.randint(0, 257, 5)] = -np.inf
     rows["mixed 257"] = mixed
+    # the edges of the kernel's bitonic branch: one element, a full 1024 row, no order at all
+    rows["one"] = np.array([0.5], np.float32)
+    rows["all equal 1000"] = np.full(1000, 0.25, np.float32)
+    rows["all nan 1024"] = np.full(1024, np.nan, np.float32)
+    wide = (np.round(rng.randn(1024) * 4) / 4).astype(np.float32)
+    wide[rng.randint(0, 1024, 80)] = np.nan
+    wide[rng.randint(0, 1024, 40)] = -0.0
+    wide[rng.randint(0, 1024, 20)] = np.inf
+    wide[rng.randint(0, 1024, 20)] = -np.inf
+    rows["mixed 1024"] = wide
     return rows
 
 
 @pytest.mark.parametrize("case", list(_special_rows()))
 @pytest.mark.parametrize("dtype", ["int32", "float32"])
 def test_sorted_by_preds_nan_signed_zero_and_inf_match_argsort(case, dtype):
-    # NaN lies outside the Pallas kernel's contract: held against the lax path only
+    # NaN lies outside the Pallas kernel's contract: rows with NaN are held against the lax path only
     preds = _special_rows()[case]
     target = np.arange(preds.shape[0]).astype(_DTYPES[dtype])
     got = sorted_by_preds(_t(preds), _t(target))
     _assert_same(_sorted_by_preds_lax(jnp.asarray(preds), jnp.asarray(target)), got, exact=True)
+    if not np.isnan(preds).any():
+        pallas = _sorted_by_preds_pallas(jnp.asarray(preds), jnp.asarray(target), interpret=True)
+        _assert_same(pallas.astype(target.dtype), got, exact=True)
 
 
 def test_sorted_by_preds_issue_order():
@@ -113,6 +127,22 @@ def test_sorted_by_preds_rows_match_take_along_axis(dtype):
     _assert_same(ref, got, exact=True)
     for row in range(q):
         _assert_same(_sorted_by_preds_lax(jp[row], jt[row]), got[row], exact=True)
+
+
+@pytest.mark.parametrize("l", [L_MAX, L_MAX + 1])
+def test_sorted_by_preds_rows_either_side_of_the_branch_switch_run_plain_on_the_cpu(l):
+    # the kernel's branch changes at L_MAX; a CPU tensor takes the plain version on either side
+    rng = np.random.RandomState(l)
+    preds = (np.round(rng.randn(2, l) * 4) / 4).astype(np.float32)
+    preds[:, rng.randint(0, l, 64)] = np.nan
+    preds[:, rng.randint(0, l, 64)] = -0.0
+    target = rng.randint(0, 4, (2, l)).astype(np.int32)
+    reset_launches()
+    got = sorted_by_preds(_t(preds), _t(target))
+    jp, jt = jnp.asarray(preds), jnp.asarray(target)
+    for row in range(2):
+        _assert_same(_sorted_by_preds_lax(jp[row], jt[row]), got[row], exact=True)
+    assert launches()["retrieval_sort"] == 0
 
 
 def test_sorted_by_preds_rejects_bad_shapes_and_counts_no_cpu_launch():

@@ -91,8 +91,8 @@ def test_clz_matches_lax_clz():
 
 
 # ------------------------------------------------------------ countmin_update
-@pytest.mark.parametrize("n", [1, 100, 128, 300])
-@pytest.mark.parametrize("depth,width", [(2, 128), (4, 1024)])
+@pytest.mark.parametrize("n", [1, 100, 128, 255, 257, 300])
+@pytest.mark.parametrize("depth,width", [(2, 128), (4, 1024), (1, 1000), (8, 1023)])
 def test_countmin_plain_matches_jax_lax_and_pallas(n, depth, width):
     # the grid of tests/ops/test_kernel_parity.py: integral weights, exact
     rng = np.random.RandomState(n + depth)
@@ -104,6 +104,21 @@ def test_countmin_plain_matches_jax_lax_and_pallas(n, depth, width):
     jv, jb, jw, js = (jnp.asarray(a) for a in (value, bits, w, seeds))
     _assert_same(_countmin_lax(jv, jb, jw, js), got, exact=True)
     _assert_same(_countmin_pallas(jv, jb, jw, js, interpret=True), got, exact=True)
+
+
+@pytest.mark.parametrize("depth,width", [(4, 1000), (4, 1024), (1, 1023)])
+def test_countmin_single_hot_key_matches_jax_lax_and_pallas(depth, width):
+    # every key equal: one cell a row takes the whole batch (the kernel's warp-aggregation edge)
+    rng = np.random.RandomState(width)
+    value = rng.randint(0, 50, (depth, width)).astype(np.float32)
+    bits = np.full(257, 0xDEADBEEF, np.uint32)
+    w = rng.randint(0, 3, 257).astype(np.float32)
+    seeds = _seeds(depth)
+    got = countmin_update(_t(value), _t(bits), _t(w), _t(seeds))
+    jv, jb, jw, js = (jnp.asarray(a) for a in (value, bits, w, seeds))
+    _assert_same(_countmin_lax(jv, jb, jw, js), got, exact=True)
+    _assert_same(_countmin_pallas(jv, jb, jw, js, interpret=True), got, exact=True)
+    assert ((got.numpy() - value) != 0).sum(axis=1).tolist() == [1] * depth
 
 
 def test_countmin_fractional_weights_agree_to_float32_rounding():
