@@ -7,7 +7,18 @@
    (one ``nvcc`` per source, all at once).
 2. Holds each kernel against its plain PyTorch version on the card over the
    JAX package's parity grid plus masked and padded rows: exact equality.
-   ``retrieval_sort`` also at every padded length of its bitonic branch and
+   ``stat_scores`` on its plan's branch and the other shared-memory branch
+   forced (one block, many blocks), on both sides of the one-block limit and
+   of the shared-memory limit (C = 20,000 takes global atomics);
+   ``binned_stats`` on its plan's branch and, where that is the histogram
+   branch, the compare branch forced, over unsorted thresholds with
+   repeats, NaN, +-inf and -0.0, scores on thresholds and NaN, +-inf, -0.0
+   rows, COCO's (1024, 80, 100), both sides of the histogram's threshold
+   limit, and batches of 65,535 and 65,536 rows (packed and wide counters);
+   the cases that ran are counted by branch, and the plan's size of the
+   histogram's shared memory is held against the kernel's layout for every
+   T up to 1,024. ``retrieval_sort`` also at every padded length of its
+   bitonic branch and
    across the switch to the all-pairs branch at ``L_MAX``, on rows of one
    value, of NaN only and of +-0, +-inf and NaN, with the all-pairs branch
    forced at the shorter lengths; ``countmin`` also at partial warps and
@@ -54,10 +65,18 @@
    beside the least time the card allows (bytes over its memory rate or the
    operations the work needs over its float32 rate, whichever is larger),
    and times whole updates, ``compute`` and each path's epoch.
+   ``stat_scores`` is timed on both branches (one block, many blocks) at
+   (1024, 1000), bench.py's (1024, 128) and at 2,048 to 16,384 rows around
+   the one-block limit; ``binned_stats`` on both (histogram, compare) at
+   ImageNet's and COCO's batch and at COCO's width in batches of 4,096 and
+   in one update of all 40,504 rows, and on the plan's cluster size against
+   the other choice (clusters of 8, or one block a tile);
    ``retrieval_sort`` is timed at both of its launch shapes, (6980, 1024)
    and a functional call's (1, 1000), on each branch; ``countmin`` at both
    widths of the click-log path; their rows carry these ``timings`` and the
-   launches by shape, each counted on the main path.
+   launches by shape, each counted on the main path (``stat_scores`` and
+   ``binned_stats`` by the wrapper, per branch and shape). The command time
+   of each part is printed before the ``kernels`` line.
 
 The scores and labels are made on the card from a seeded generator: a model
 whose top-1 hits the label on about 76% of images, with random scores
@@ -118,6 +137,28 @@ RETRIEVAL = {
 def check(cond, message):
     if not cond:
         raise RuntimeError(f"chip_smoke: {message}")
+
+
+class Laps:
+    """Seconds of command time between successive marks, by the part that ended."""
+
+    def __init__(self):
+        self.s, self._t = {}, time.perf_counter()
+
+    def mark(self, part):
+        now = time.perf_counter()
+        self.s[part] = now - self._t
+        self._t = now
+
+
+def by_shape(counts):
+    """A wrapper's launches per ``(branch, shape)`` as JSON keys: ``"hist (1024, 1000, 100)"``."""
+    return {f"{branch} {shape}": n for (branch, shape), n in sorted(counts.items(), key=lambda kv: -kv[1])}
+
+
+def at_shape(counts, shape):
+    """The launches a wrapper counted at ``shape``, on any branch."""
+    return sum(n for (_, s), n in counts.items() if s == shape)
 
 
 def device_ms(torch, fn):
@@ -221,6 +262,13 @@ def stat_inputs(torch, preds, target):
     correct = pred_cls == target_cls
     w = torch.ones(preds.shape[0], dtype=torch.int32, device=preds.device)
     return target_cls, pred_cls, correct, w
+
+
+def binned_ops(n, c, t):
+    """The operations binned counts need: a binary search of ceil(log2(T + 1))
+    compares and one histogram add a score, then one suffix-sum add a (class,
+    threshold)."""
+    return n * c * (math.ceil(math.log2(t + 1)) + 1) + c * t
 
 
 def bound(nbytes, ops):
@@ -352,14 +400,26 @@ def main() -> int:
     import metrics_tpu_torch
     from metrics_tpu_torch import CountMinHeavyHitters, HyperLogLog
     from metrics_tpu_torch import functional as tF
-    from metrics_tpu_torch.ops import countmin_update, sorted_by_preds
-    from metrics_tpu_torch.ops.binned_stats import _binned_stat_scores_kernel, _binned_stat_scores_plain
+    from metrics_tpu_torch.ops import countmin_update, registry, sorted_by_preds
+    from metrics_tpu_torch.ops.binned_stats import (
+        _binned_stat_scores_kernel,
+        _binned_stat_scores_plain,
+        binned_branch,
+        hist_max_thresholds,
+        hist_shared_bytes,
+    )
+    from metrics_tpu_torch.ops.binned_stats import _lib as binned_lib
     from metrics_tpu_torch.ops.confusion import _confmat_plain
     from metrics_tpu_torch.ops.retrieval import _WIDEN, L_MAX, _sorted_by_preds_kernel, _sorted_by_preds_plain, sort_branch
     from metrics_tpu_torch.ops.sketch_ops import _countmin_kernel, _countmin_plain, countmin_uses_shared
     from metrics_tpu_torch.retrieval.base import _pad_by_query
     from metrics_tpu_torch.streaming.sketch import _key_bits
-    from metrics_tpu_torch.ops.stat_scores import _stat_counts_plain
+    from metrics_tpu_torch.ops.stat_scores import (
+        _ONE_BLOCK_ROWS,
+        _stat_counts_kernel,
+        _stat_counts_plain,
+        stat_scores_branch,
+    )
     from metrics_tpu_torch.utilities.data import bucket_pow2, dim_zero_cat, to_onehot
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -371,16 +431,36 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(card)
+    laps = Laps()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(dev)}")
     t0 = time.perf_counter()
     libs = _build.build()
     print(f"built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
+    laps.mark("1. build")
 
     # -------------------------------------------------- 2. kernel vs plain
     max_err = {name: 0 for name in KERNELS}
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases = 0
-    for n in (0, 1, 100, 128, 129, 512, 1024):
+    stat_cases = {"block": 0, "shared": 0, "global": 0}
+
+    def hold_stat(target, pred, correct, w, c, what):
+        """The public entry (the plan's branch), then the other shared-memory branch forced, against the
+        plain version: the one-block branch writes every cell, the multi-block branch adds into zeros."""
+        planned = stat_scores_branch(target.shape[0], c, dev)
+        ref = _stat_counts_plain(target, pred, correct, w, c)
+        runs = [(planned, lambda: stat_scores_counts(target, pred, correct, w, c))]
+        if planned != "global":
+            other = "shared" if planned == "block" else "block"
+            runs.append((other, lambda: _stat_counts_kernel(target, pred, correct, w, c, branch=other)))
+        for branch, run in runs:
+            for a, b in zip(run(), ref):
+                check(a.dtype == b.dtype == torch.int32, f"stat_scores dtype {a.dtype} at {what}")
+                check(torch.equal(a, b), f"stat_scores ({branch}) differs from its plain version at {what}")
+                max_err["stat_scores"] = max(max_err["stat_scores"], int((a - b).abs().max()) if a.numel() else 0)
+            stat_cases[branch] += target.shape[0] > 0
+
+    for n in (0, 1, 100, 128, 129, 512, 1024, _ONE_BLOCK_ROWS, _ONE_BLOCK_ROWS + 1):
         for c in (2, 7, 33, 40, 238, 239, 1000, 20000):
             target = torch.randint(0, c, (n,), generator=g, device=dev, dtype=torch.int32)
             pred = torch.randint(0, c, (n,), generator=g, device=dev, dtype=torch.int32)
@@ -388,12 +468,7 @@ def main() -> int:
                 w = (torch.randint(0, 2, (n,), generator=g, device=dev, dtype=torch.int32) if masked
                      else torch.ones(n, dtype=torch.int32, device=dev))
                 correct = (pred == target) & (w > 0)
-                got = stat_scores_counts(target, pred, correct, w, c)
-                ref = _stat_counts_plain(target, pred, correct, w, c)
-                for a, b in zip(got, ref):
-                    check(a.dtype == b.dtype == torch.int32, f"stat_scores dtype {a.dtype} at n={n} C={c}")
-                    check(torch.equal(a, b), f"stat_scores differs from its plain version at n={n} C={c} masked={masked}")
-                    max_err["stat_scores"] = max(max_err["stat_scores"], int((a - b).abs().max()) if n else 0)
+                hold_stat(target, pred, correct, w, c, f"n={n} C={c} masked={masked}")
                 cases += 1
             if c * c > 64_000_000:
                 continue
@@ -409,7 +484,7 @@ def main() -> int:
                 cases += 1
     # the flat-index rule of JAX's scatter: pred_cls == C (a NaN score row) adds to tp[0],
     # a negative target under w = 0 wraps into range with weight 0
-    for n, c in ((129, 7), (1024, 1000)):
+    for n, c in ((129, 7), (1024, 1000), (_ONE_BLOCK_ROWS + 1, 1000), (1024, 20000)):
         target = torch.randint(0, c, (n,), generator=g, device=dev, dtype=torch.int32)
         pred = torch.randint(0, c, (n,), generator=g, device=dev, dtype=torch.int32)
         w = torch.ones(n, dtype=torch.int32, device=dev)
@@ -417,33 +492,67 @@ def main() -> int:
         target[1::7], w[1::7] = -1, 0
         target[2::7], w[2::7] = -3 * c, 0
         correct = (pred == target) & (w > 0)
+        hold_stat(target, pred, correct, w, c, f"out-of-range classes, n={n} C={c}")
         got = stat_scores_counts(target, pred, correct, w, c)
-        ref = _stat_counts_plain(target, pred, correct, w, c)
-        for a, b in zip(got, ref):
-            check(a.dtype == b.dtype == torch.int32 and torch.equal(a, b),
-                  f"stat_scores differs from its plain version on out-of-range classes at n={n} C={c}")
         check(int(got[2][0]) >= int(((pred == c) & (w > 0)).sum()), "a pred_cls == C row did not reach tp[0]")
         cases += 1
+    laps.mark("2. stat_scores and confusion_matrix grid")
 
-    unsorted = torch.tensor([0.5, 0.1, 0.5, 0.9, -float("inf"), float("inf"), 0.0, 0.3, 1.0], device=dev)
-    for n in (0, 1, 100, 128, 129, 1024):
-        for c, t in ((1, 5), (5, 17), (3, 128), (80, 100), (1000, 100), (7, 1)):
+    # unsorted, with repeats, +-inf, NaN and -0.0 beside +0.0
+    unsorted = torch.tensor([0.5, 0.1, 0.5, 0.9, -float("inf"), float("inf"), 0.0, 0.3, 1.0, float("nan"), -0.0],
+                            device=dev)
+    optin = registry.device_limits(dev, binned_lib(), "binned_stats")[1]
+    t_packed, t_wide = hist_max_thresholds(False, optin), hist_max_thresholds(True, optin)
+    hist_bytes = binned_lib().binned_stats_hist_bytes
+    for wide in (False, True):
+        for t in range(1, 1025):
+            check(hist_bytes(t, int(wide)) == hist_shared_bytes(t, wide),
+                  f"the plan sizes the histogram at {hist_shared_bytes(t, wide)} bytes for T = {t} (wide {wide}), "
+                  f"the kernel's layout at {hist_bytes(t, int(wide))}")
+    binned_cases = {"hist": 0, "compare": 0}
+
+    def hold_binned(preds, target, thr, what):
+        """The public entry (the plan's branch) and, where that is the histogram branch, the compare
+        branch forced, against the plain version."""
+        n, c = preds.shape
+        planned = binned_branch(n, c, thr.shape[0], dev)[0]
+        ref = _binned_stat_scores_plain(preds, target == 1, thr)
+        runs = [(planned, lambda: binned_stat_scores(preds, target, thr))]
+        if planned == "hist":
+            runs.append(("compare", lambda: _binned_stat_scores_kernel(preds, target == 1, thr, compare=True)))
+        for branch, run in runs:
+            for a, b in zip(run(), ref):
+                check(a.dtype == b.dtype == torch.float32 and a.shape == b.shape == (c, thr.shape[0]),
+                      f"binned_stats dtype or shape at {what}")
+                check(torch.equal(a, b), f"binned_stats ({branch}) differs from its plain version at {what}")
+                max_err["binned_stats"] = max(max_err["binned_stats"], float((a - b).abs().max()) if a.numel() else 0.0)
+            binned_cases[branch] += n > 0
+
+    def binned_inputs(n, c, thr):
+        preds = torch.rand(n, c, generator=g, device=dev)
+        if n >= 8:
+            # scores exactly on thresholds, then NaN, +inf, -inf and -0.0 rows
+            preds[:4] = thr[torch.randint(0, thr.shape[0], (4, c), generator=g, device=dev)]
+            preds[4], preds[5], preds[6], preds[7] = float("nan"), float("inf"), -float("inf"), -0.0
+        return preds, torch.randint(0, 3, (n, c), generator=g, device=dev)  # 2 is not a positive
+
+    # the threshold limit of the histogram branch and one past it, then the path shapes
+    shapes = ((1, 5), (5, 17), (3, 128), (80, 100), (1000, 100), (7, 1), (5, t_packed), (5, t_packed + 1))
+    for n in (0, 1, 100, 128, 129, 568, 1024):
+        for c, t in shapes:
             thr_sets = [_linspace_thresholds(t, dev)] + ([unsorted] if c in (80, 1000) else [])
             for thr in thr_sets:
-                preds = torch.rand(n, c, generator=g, device=dev)
-                if n >= 8:
-                    # scores exactly on thresholds, then NaN, +inf and -inf rows
-                    preds[:4] = thr[torch.randint(0, thr.shape[0], (4, c), generator=g, device=dev)]
-                    preds[4], preds[5], preds[6] = float("nan"), float("inf"), -float("inf")
-                target = torch.randint(0, 3, (n, c), generator=g, device=dev)  # 2 is not a positive
-                got = binned_stat_scores(preds, target, thr)
-                ref = _binned_stat_scores_plain(preds, target == 1, thr)
-                for a, b in zip(got, ref):
-                    check(a.dtype == b.dtype == torch.float32 and a.shape == b.shape == (c, thr.shape[0]),
-                          f"binned_stats dtype or shape at n={n} C={c} T={thr.shape[0]}")
-                    check(torch.equal(a, b), f"binned_stats differs from its plain version at n={n} C={c} T={thr.shape[0]}")
-                    max_err["binned_stats"] = max(max_err["binned_stats"], float((a - b).abs().max()) if a.numel() else 0.0)
+                hold_binned(*binned_inputs(n, c, thr), thr, f"n={n} C={c} T={thr.shape[0]}")
                 cases += 1
+    laps.mark("2. binned_stats grid")
+    # long batches: the most rows of the packed counters, then the wide ones at COCO's width (unsorted
+    # thresholds too), ImageNet's, and the wide histogram's threshold limit and one past it
+    for n, c, t in ((65_535, 80, 100), (65_536, 80, 100), (65_536, 1000, 100), (65_536, 5, t_wide),
+                    (65_536, 5, t_wide + 1)):
+        for thr in (_linspace_thresholds(t, dev),) + ((unsorted,) if c == 80 else ()):
+            hold_binned(*binned_inputs(n, c, thr), thr, f"n={n} C={c} T={thr.shape[0]}")
+            cases += 1
+    laps.mark("2. binned_stats long batches")
 
     def hold_sort(p, t, what, all_pairs=False):
         """The kernel against its plain version on the card and on the CPU, bit for bit; ``all_pairs``
@@ -496,6 +605,7 @@ def main() -> int:
                     t = torch.randint(0, 4, (q, l), generator=g, device=dev).to(dtype)
                     hold_sort(p, t, f"({q}, {l}) {kind} {dtype} all_pairs={all_pairs}", all_pairs)
                     cases += 1
+    laps.mark("2. retrieval_sort grid")
     # count-min: the JAX parity grid and both branches, integral weights: exact
     for n in (1, 100, 128, 300, CLICK_BATCH):
         for depth, width in ((2, 128), (4, 1024), (4, 65536)):
@@ -547,8 +657,10 @@ def main() -> int:
                   f"countmin's shared branch gave other bits on the same input at ({depth}, {width})")
             cases += 1
     torch.cuda.synchronize()
+    laps.mark("2. countmin grid")
     print(f"kernel vs plain: {cases} cases equal (fractional count-min weights: largest relative difference "
-          f"{frac_rel_err:.3g}), max_abs_err {max_err}")
+          f"{frac_rel_err:.3g}), max_abs_err {max_err}; kernel runs by branch: stat_scores {json.dumps(stat_cases)}, "
+          f"binned_stats {json.dumps(binned_cases)} (histogram limits T = {t_packed} packed, {t_wide} wide)")
 
     # ------------------------------------------------------------ 3. the slice
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -584,9 +696,13 @@ def main() -> int:
     reset_launches()
     acc, cm, batch_vals, values, epoch_s = run_slice(dev, batches)
     counts = launches()
-    print(f"slice on the card: 49 batches in {epoch_s * 1e3:.1f} ms, launches {counts}")
+    stat_by_shape = registry.launches_by_shape("stat_scores")
+    print(f"slice on the card: 49 batches in {epoch_s * 1e3:.1f} ms, launches {counts}; stat_scores by branch and "
+          f"shape {json.dumps(by_shape(stat_by_shape))}")
     for name in ("stat_scores", "confusion_matrix"):
         check(counts[name] == 49, f"{name} launched {counts[name]} times in the slice, not 49")
+    check(sum(stat_by_shape.values()) == 49 and {b for b, _ in stat_by_shape} == {"block"},
+          f"stat_scores launches by branch and shape {stat_by_shape}: not 49 on the one-block branch")
 
     cpu = torch.device("cpu")
     cpu_batches = [(p.cpu(), t.cpu()) for p, t in batches]
@@ -629,6 +745,7 @@ def main() -> int:
         check(metric._update_count == 0 and all(int(getattr(metric, k).abs().sum()) == 0 for k in metric._defaults),
               f"{cls.__name__}.reset left state behind")
     print("state_dict round trip and reset: ok")
+    laps.mark("3. slice 1, card and CPU")
 
     # ------------------------------------------------- 3b. slice 2: binned curves
     def run_imagenet_binned(device, data):
@@ -675,16 +792,21 @@ def main() -> int:
                  (coco_scores, coco_target)),
     }
     binned_launches = {}
+    binned_by_shape = {}  # by path: the wrapper's launches per (branch, shape)
     binned_metrics = {}
     for path, (run, data, cpu_data, expected, (all_scores, all_target)) in binned_paths.items():
         reset_launches()
         metrics, values, card_s = run(dev, data)
         binned_launches[path] = launches()["binned_stats"]
+        path_by_shape = binned_by_shape[path] = registry.launches_by_shape("binned_stats")
         check(binned_launches[path] == expected,
               f"binned_stats launched {binned_launches[path]} times on the {path} path, not {expected}")
+        check(sum(path_by_shape.values()) == expected and all(b.startswith("hist") for b, _ in path_by_shape),
+              f"binned_stats launches by branch and shape on the {path} path: {path_by_shape}")
         c_metrics, c_values, cpu_path_s = run(cpu, cpu_data)
         print(f"{path} binned path: {len(data)} batches in {card_s * 1e3:.1f} ms on the card, "
-              f"{cpu_path_s * 1e3:.1f} ms on the CPU (plain versions); binned_stats launches {binned_launches[path]}")
+              f"{cpu_path_s * 1e3:.1f} ms on the CPU (plain versions); binned_stats launches {binned_launches[path]}, "
+              f"by branch and shape {json.dumps(by_shape(path_by_shape))}")
         ref = searchsorted_counts(torch, all_scores, all_target, thr_ref)
         for m, c_m in zip(metrics, c_metrics):
             for name, r in zip(("TPs", "FPs", "FNs"), ref):
@@ -709,6 +831,7 @@ def main() -> int:
             check(m._update_count == 0 and all(int(getattr(m, k).abs().sum()) == 0 for k in m._defaults),
                   f"{path} {type(m).__name__}.reset left state behind")
         binned_metrics[path] = values
+        laps.mark(f"3. {path} binned path, card and CPU")
     imagenet_values, coco_values = binned_metrics["imagenet"], binned_metrics["coco"]
     print(f"slice 2 results: ImageNet mean binned AP {float(imagenet_values[0].mean()):.6f}, mean recall at "
           f"precision {MIN_PRECISION} {float(imagenet_values[1].mean()):.6f}; COCO mAP {float(coco_values[0].mean()):.6f} "
@@ -789,6 +912,7 @@ def main() -> int:
                                    err_msg=f"functional {key} differs from the numpy argsort reference")
     print(f"MS MARCO results: {json.dumps({k: round(float(v), 6) for k, v in marco_values.items()})}; equal to the CPU run "
           f"(rtol 1e-6), sorted relevance equal, first {MARCO_FUNCTIONAL_QUERIES} queries equal to the numpy reference")
+    laps.mark("3. MS MARCO path, card and CPU")
 
     # ------------------------------------------------ 3d. slice 3: TREC DL 2019
     tr_scores, tr_grade, tr_qids = trec_data(torch, dev)
@@ -865,6 +989,7 @@ def main() -> int:
           f"launches {click_launches}; rows sum to {CLICKS}, tables equal the numpy reference; top-{HEAVY_HITTERS} "
           f"overestimate at most {json.dumps(overestimate)}; HyperLogLog {float(sketch_totals[2]):.1f} against {distinct} "
           f"distinct ({hll_err * 100:+.3f}%), registers equal to the CPU run")
+    laps.mark("3. TREC DL and click-log paths, card and CPU")
 
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000
@@ -882,11 +1007,8 @@ def main() -> int:
 
     y_onehot = to_onehot(t, NUM_CLASSES) == 1  # the binned update's canonical target
     thr_d = _linspace_thresholds(THRESHOLDS, dev)
-    b_tp, b_fp, _ = _binned_stat_scores_kernel(p, y_onehot, thr_d)
-    for a, b in zip((b_tp, b_fp), _binned_stat_scores_plain(p, y_onehot, thr_d)):
+    for a, b in zip(_binned_stat_scores_kernel(p, y_onehot, thr_d), _binned_stat_scores_plain(p, y_onehot, thr_d)):
         check(torch.equal(a, b), "binned_stats differs from its plain version at the slice's shape")
-    # this batch's work: a compare per (row, class, threshold), an add to P per hit, an add to TP per true hit
-    binned_ops = n * NUM_CLASSES * THRESHOLDS + int((b_tp + b_fp).sum()) + int(b_tp.sum())
 
     # retrieval_sort at the MS MARCO module compute's input; countmin at a full click batch
     rel32 = (pt > 0).to(torch.int32)
@@ -934,7 +1056,7 @@ def main() -> int:
             None,  # no single PyTorch call computes it
             None,
             n * NUM_CLASSES * (4 + 1) + 3 * NUM_CLASSES * THRESHOLDS * 4,
-            binned_ops,
+            binned_ops(n, NUM_CLASSES, THRESHOLDS),
             {"B": n, "C": NUM_CLASSES, "T": THRESHOLDS},
             (lambda: searchsorted_counts(torch, p, y_onehot, thr_d), "torch.searchsorted + 2x torch.bincount + cumsum"),
         ),
@@ -983,6 +1105,7 @@ def main() -> int:
               f"library {library_ms} ms, yardstick {row.get('yardstick_ms')} ms, bound {bound_ms:.6f} ms "
               f"({bound_by}: {nbytes} bytes, {ops} operations)")
     print(f"binned_stats launches per path: {json.dumps(binned_launches)}")
+    laps.mark("4. kernel timings at the slice's shapes")
 
     # retrieval_sort at both launch shapes of the path, each branch beside the plain version and the
     # yardstick, in turns within this run; the all-pairs branch is the earlier design's kernel
@@ -1033,13 +1156,116 @@ def main() -> int:
             "yardstick_ms": device_ms(torch, lambda: flat_table.index_add_(0, flat_cells, cm_w_rep)),
             "bound_ms": c_bound, "bound_by": c_by,
         })
+    laps.mark("4. retrieval_sort and countmin at each shape")
+
+    def launched_branch(name, fn):
+        """The branch one call of ``fn`` launches, from the wrapper's own count."""
+        reset_launches()
+        fn()
+        (branch, _), = registry.launches_by_shape(name)
+        return branch
+
+    # stat_scores and binned_stats at each shape of their paths, each branch beside the plain version and
+    # the library call or yardstick, in turns within this run; the multi-block and compare branches are
+    # the earlier designs' kernels. bench.py's headline shape is off the path. Each row's launches are
+    # those the wrapper counted at its shape on the main path, and its branch the one the timed call took.
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    hp = torch.rand(BATCH, HEADLINE_CLASSES, generator=g, device=dev)
+    ht = torch.randint(0, HEADLINE_CLASSES, (BATCH,), generator=g, device=dev)
+    h_inputs = stat_inputs(torch, hp, ht)
+    stat_shapes = {"ImageNet batch": (stat_inputs(torch, p, t), NUM_CLASSES), "bench.py headline": (h_inputs, HEADLINE_CLASSES)}
+    stat_rows = []
+    for launch, (inputs, c) in stat_shapes.items():
+        sn = inputs[0].shape[0]
+        ref = _stat_counts_plain(*inputs, c)
+        for branch in ("block", "shared"):
+            check(all(torch.equal(a, b) for a, b in zip(_stat_counts_kernel(*inputs, c, branch=branch), ref)),
+                  f"stat_scores ({branch}) differs from its plain version at the {launch} shape")
+        block_a, multi_a, multi_b, block_b = (device_ms(torch, f) for f in (
+            lambda: _stat_counts_kernel(*inputs, c, branch="block"), lambda: _stat_counts_kernel(*inputs, c, branch="shared"),
+            lambda: _stat_counts_kernel(*inputs, c, branch="shared"), lambda: _stat_counts_kernel(*inputs, c, branch="block")))
+        s_idx3 = torch.cat([inputs[0], inputs[1] + c, inputs[0] + 2 * c]).long()
+        s_wts3 = torch.cat([inputs[3], inputs[3], inputs[2].to(torch.int32)]).float()
+        s_bound, s_by = bound(sn * (4 + 4 + 1 + 4) + 3 * c * 4, 2 * sn + int(inputs[2].sum()))
+        stat_rows.append({
+            "launch": launch, "shape": {"B": sn, "C": c}, "launches": at_shape(stat_by_shape, (sn, c)),
+            "branch": launched_branch("stat_scores", lambda: stat_scores_counts(*inputs, c)),
+            "ms": (block_a + block_b) / 2, "multi_block_ms": (multi_a + multi_b) / 2,
+            "plain_ms": device_ms(torch, lambda: _stat_counts_plain(*inputs, c)),
+            "library_ms": device_ms(torch, lambda: torch.bincount(s_idx3, weights=s_wts3, minlength=3 * c)),
+            "bound_ms": s_bound, "bound_by": s_by,
+        })
+    # the one-block limit: both branches in turns at batches around it, C = 1000
+    one_block_sweep = []
+    for sn in (2048, 4096, 6144, 8192, 12288, 16384):
+        inputs = stat_inputs(torch, scores[:sn], labels[:sn])
+        block_a, multi_a, multi_b, block_b = (device_ms(torch, f) for f in (
+            lambda: _stat_counts_kernel(*inputs, NUM_CLASSES, branch="block"),
+            lambda: _stat_counts_kernel(*inputs, NUM_CLASSES, branch="shared"),
+            lambda: _stat_counts_kernel(*inputs, NUM_CLASSES, branch="shared"),
+            lambda: _stat_counts_kernel(*inputs, NUM_CLASSES, branch="block")))
+        one_block_sweep.append({"B": sn, "plan": stat_scores_branch(sn, NUM_CLASSES, dev),
+                                "block_ms": (block_a + block_b) / 2, "multi_block_ms": (multi_a + multi_b) / 2})
+    print(f"stat_scores one block against many blocks at C = {NUM_CLASSES} (one-block limit {_ONE_BLOCK_ROWS} rows): "
+          + json.dumps(one_block_sweep))
+    laps.mark("4. stat_scores branches")
+    # binned_stats at both path shapes, and at COCO's width in batches of 4,096 and in one update of the whole
+    # validation set (40,504 rows), where the plan splits each tile's rows over a cluster; the earlier design
+    # (compare) needs its zeroed scratch and a second kernel. The plan's cluster size is timed in turns against
+    # the other choice: clusters of 8 where the plan takes one block a tile, one block a tile where it clusters.
+    cp0, ct0 = coco_batches[0]
+    coco_y = (coco_target == 1).contiguous()
+    binned_shapes = {
+        "ImageNet batch": (p, y_onehot),
+        "COCO batch": (cp0, (ct0 == 1).contiguous()),
+        "COCO, batch of 4,096": (coco_scores[:4096], coco_y[:4096]),
+        "COCO val in one update": (coco_scores, coco_y),
+    }
+    binned_path_by_shape = {}  # both binned paths' launches per (branch, shape)
+    for path_by_shape in binned_by_shape.values():
+        for key, count in path_by_shape.items():
+            binned_path_by_shape[key] = binned_path_by_shape.get(key, 0) + count
+    binned_rows = []
+    for launch, (bp, by) in binned_shapes.items():
+        bn, bc = bp.shape
+        ref = _binned_stat_scores_plain(bp, by, thr_d)
+        branch, cluster, wide = binned_branch(bn, bc, THRESHOLDS, dev)
+        other = 8 if cluster == 1 else 1
+        for kwargs in ({}, {"compare": True}, {"cluster": other}):
+            check(all(torch.equal(a, b) for a, b in zip(_binned_stat_scores_kernel(bp, by, thr_d, **kwargs), ref)),
+                  f"binned_stats ({kwargs}) differs from its plain version at the {launch} shape")
+        hist_a, cmp_a, cmp_b, hist_b = (device_ms(torch, f) for f in (
+            lambda: _binned_stat_scores_kernel(bp, by, thr_d), lambda: _binned_stat_scores_kernel(bp, by, thr_d, compare=True),
+            lambda: _binned_stat_scores_kernel(bp, by, thr_d, compare=True), lambda: _binned_stat_scores_kernel(bp, by, thr_d)))
+        plan_a, other_a, other_b, plan_b = (device_ms(torch, f) for f in (
+            lambda: _binned_stat_scores_kernel(bp, by, thr_d), lambda: _binned_stat_scores_kernel(bp, by, thr_d, cluster=other),
+            lambda: _binned_stat_scores_kernel(bp, by, thr_d, cluster=other), lambda: _binned_stat_scores_kernel(bp, by, thr_d)))
+        b_bound, b_by = bound(bn * bc * (4 + 1) + 3 * bc * THRESHOLDS * 4, binned_ops(bn, bc, THRESHOLDS))
+        binned_rows.append({
+            "launch": launch, "shape": {"B": bn, "C": bc, "T": THRESHOLDS},
+            "launches": at_shape(binned_path_by_shape, (bn, bc, THRESHOLDS)),
+            "branch": launched_branch("binned_stats", lambda: binned_stat_scores(bp, by, thr_d)),
+            "ms": (hist_a + hist_b) / 2, "compare_ms": (cmp_a + cmp_b) / 2,
+            "plan_ms": (plan_a + plan_b) / 2, "other_cluster": other, "other_cluster_ms": (other_a + other_b) / 2,
+            "plain_ms": device_ms(torch, lambda: _binned_stat_scores_plain(bp, by, thr_d)),
+            "yardstick_ms": device_ms(torch, lambda: searchsorted_counts(torch, bp, by, thr_d)),
+            "bound_ms": b_bound, "bound_by": b_by,
+        })
+    laps.mark("4. binned_stats branches and clusters")
     for row in rows:
+        if row["name"] == "stat_scores":
+            row.update(branch=stat_rows[0]["branch"], timings=stat_rows, one_block_sweep=one_block_sweep,
+                       launches_by_shape=by_shape(stat_by_shape))
+        if row["name"] == "binned_stats":
+            row.update(branch=binned_rows[0]["branch"], timings=binned_rows, launches_by_shape=by_shape(binned_path_by_shape))
         if row["name"] == "retrieval_sort":
             row.update(branch=sort_rows[0]["branch"], timings=sort_rows,
                        launches_by_shape={f"({r['shape']['Q']}, {r['shape']['L']})": r["launches"] for r in sort_rows})
         if row["name"] == "countmin":
             row.update(branch=cm_rows[0]["branch"], timings=cm_rows,
                        launches_by_shape={f"width {r['shape']['width']}": r["launches"] for r in cm_rows})
+    print("stat_scores by launch shape and branch: " + json.dumps(stat_rows))
+    print("binned_stats by launch shape and branch: " + json.dumps(binned_rows))
     print("retrieval_sort by launch shape and branch: " + json.dumps(sort_rows))
     print("countmin by width and branch: " + json.dumps(cm_rows))
 
@@ -1113,10 +1339,6 @@ def main() -> int:
     print("CountMinHeavyHitters update under torch.profiler: " + json.dumps(device_busy(torch, lambda: upd_cm1.update(cm_x))))
     print(f"click stream on the card, warm: {run_sketches(dev, click_batches)[2] * 1e3:.1f} ms")
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    hp = torch.rand(BATCH, HEADLINE_CLASSES, generator=g, device=dev)
-    ht = torch.randint(0, HEADLINE_CLASSES, (BATCH,), generator=g, device=dev)
-    h_inputs = stat_inputs(torch, hp, ht)
     h_acc = Accuracy(num_classes=HEADLINE_CLASSES, average="macro", device=dev)
     headline = {
         "shape": {"B": BATCH, "C": HEADLINE_CLASSES},
@@ -1125,6 +1347,8 @@ def main() -> int:
     }
     print("bench.py headline shape: " + json.dumps(headline))
 
+    laps.mark("4. updates, computes and warm epochs")
+    print(f"command time by part (s), {sum(laps.s.values()):.1f} in all after nvidia-smi: " + json.dumps(laps.s))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "device.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // countmin_global and countmin_sum_partials
@@ -163,15 +165,8 @@ __global__ void __launch_bounds__(kThreads) countmin_global(const uint32_t* __re
 
 }  // namespace
 
-// The device's SM count and the shared memory a block may use (the opt-in
-// limit), from which the caller sizes the launch; returns a CUDA error code.
-extern "C" int countmin_device(int* sms, int* shared_optin) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(shared_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return static_cast<int>(err);
-}
+// The card's limits, from which the caller sizes the launch (device.cuh).
+extern "C" int countmin_device(int* sms, int* shared_optin) { return device_limits(sms, shared_optin); }
 
 // Writes the updated table to `out` on `stream` and returns cudaGetLastError()
 // (0 on success). `bits` (n,) uint32, `w` (n,) float32, `seeds` (depth,)

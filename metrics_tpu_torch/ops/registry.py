@@ -7,14 +7,19 @@ fallback: a kernel that fails to build or launch raises.
 
 Each wrapper adds one to its kernel's count where it launches the kernel,
 and nowhere else, so a run can show that its path went through the kernels.
+A wrapper may also name the branch it launched and the shape it launched
+at; those counts are kept per ``(branch, shape)`` beside the total.
 """
-from typing import Dict
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
 KERNELS = ("stat_scores", "confusion_matrix", "binned_stats", "retrieval_sort", "countmin")
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+_by_shape: Dict[str, Dict[Tuple[str, Tuple[int, ...]], int]] = {name: {} for name in KERNELS}
+_limits: Dict[torch.device, Tuple[int, int]] = {}
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -30,8 +35,11 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise RuntimeError(f"no kernel or plain version for tensors on {device}")
 
 
-def note_launch(name: str) -> None:
+def note_launch(name: str, branch: str = "", shape: Tuple[int, ...] = ()) -> None:
     _launches[name] += 1
+    if branch:
+        key = (branch, tuple(shape))
+        _by_shape[name][key] = _by_shape[name].get(key, 0) + 1
 
 
 def launches() -> Dict[str, int]:
@@ -39,6 +47,33 @@ def launches() -> Dict[str, int]:
     return dict(_launches)
 
 
+def launches_by_shape(name: str) -> Dict[Tuple[str, Tuple[int, ...]], int]:
+    """Launches of kernel ``name`` per ``(branch, shape)`` since the last
+    :func:`reset_launches`, for the wrappers that name them."""
+    return dict(_by_shape[name])
+
+
 def reset_launches() -> None:
     for name in _launches:
         _launches[name] = 0
+        _by_shape[name].clear()
+
+
+def device_limits(device: torch.device, lib: ctypes.CDLL, name: str) -> Tuple[int, int]:
+    """The SM count and the opt-in shared memory a block may use on CUDA
+    ``device``, from which the launch plans size their grids; read once
+    through the ``<name>_device`` export of the kernel library ``lib``
+    (``csrc/device.cuh``)."""
+    device = torch.device(device)
+    if device not in _limits:
+        sms, shared = ctypes.c_int(0), ctypes.c_int(0)
+        query = getattr(lib, f"{name}_device")
+        query.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        query.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            err = query(ctypes.byref(sms), ctypes.byref(shared))
+        if err != 0:
+            message = getattr(lib, f"{name}_error_string")(err).decode()
+            raise RuntimeError(f"{name}: cannot read the device's limits: {message}")
+        _limits[device] = (sms.value, shared.value)
+    return _limits[device]

@@ -40,8 +40,6 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     lib.countmin_launch.restype = ctypes.c_int
-    lib.countmin_device.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.countmin_device.restype = ctypes.c_int
     lib.countmin_error_string.argtypes = [ctypes.c_int]
     lib.countmin_error_string.restype = ctypes.c_char_p
     return lib
@@ -132,16 +130,9 @@ def countmin_plan(n: int, depth: int, width: int, sms: int, shared_optin: int) -
     return "global", max(1, min(8 * sms, -(-n // _GLOBAL_THREADS))), _GLOBAL_THREADS // 32
 
 
-@functools.lru_cache(maxsize=None)
 def _device_limits(device: torch.device) -> Tuple[int, int]:
     """The SM count and the opt-in shared memory a block may use on ``device``."""
-    sms, shared = ctypes.c_int(0), ctypes.c_int(0)
-    lib = _lib()
-    with torch.cuda.device(device):
-        err = lib.countmin_device(ctypes.byref(sms), ctypes.byref(shared))
-    if err != 0:
-        raise RuntimeError(f"countmin: cannot read the device's limits: {lib.countmin_error_string(err).decode()}")
-    return sms.value, shared.value
+    return registry.device_limits(device, _lib(), _NAME)
 
 
 def countmin_uses_shared(depth: int, width: int, device: torch.device) -> bool:

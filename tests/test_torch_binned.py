@@ -109,6 +109,92 @@ def test_binned_unsorted_repeated_thresholds_and_non_binary_targets():
     _assert_binned(preds, target, thr)
 
 
+_SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, np.nan], np.float32)
+
+
+def _edge_scores(rng, n, c):
+    """Scores on a 1/8 grid (so that many sit exactly on a threshold), with +-0, +-inf and NaN among them."""
+    preds = (np.round(rng.rand(n, c) * 8) / 8).astype(np.float32)
+    special = rng.rand(n, c) < 0.15
+    preds[special] = _SPECIALS[rng.randint(0, _SPECIALS.size, special.sum())]
+    return preds
+
+
+# unsorted, with repeats, NaN, +-inf and -0.0 beside +0.0
+_EDGE_THRESHOLDS = {
+    "nan thresholds": np.array([0.25, np.nan, 0.5, np.nan, 0.75], np.float32),
+    "signed zeros": np.array([-0.0, 0.5, 0.0, -0.0, 1.0], np.float32),
+    "unsorted mix": np.array([0.5, np.nan, -np.inf, 0.125, 0.5, np.inf, -0.0, 1.0, 0.0, np.nan, 0.125, np.inf],
+                             np.float32),
+    "unsorted mix, no -inf": np.array([0.5, np.nan, 0.125, 0.5, np.inf, -0.0, 1.0, 0.0, np.nan, 0.125, np.inf],
+                                      np.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_EDGE_THRESHOLDS))
+@pytest.mark.parametrize("n,c", [(1, 3), (64, 5), (300, 9)])
+def test_binned_edge_thresholds_and_scores_match_jax(case, n, c):
+    # the Pallas body is held too where no -inf threshold meets its -inf padding rows (_assert_binned)
+    rng = np.random.RandomState(n + c + len(case))
+    _assert_binned(_edge_scores(rng, n, c), rng.randint(0, 3, (n, c)), _EDGE_THRESHOLDS[case])
+
+
+def _ascending_key(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's order-preserving 32-bit key of float32 ``x``, in int64:
+    ascending in the value, -0.0 as +0.0, NaN last."""
+    bits = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where(x == 0, 0, bits)
+    key = torch.where(bits >= 2**31, ~bits & 0xFFFFFFFF, bits | 2**31)
+    return torch.where(torch.isnan(x), 0xFFFFFFFF, key)
+
+
+def _histogram_model(preds: torch.Tensor, target: torch.Tensor, thr: torch.Tensor):
+    """The arithmetic of the kernel's histogram branch in plain PyTorch.
+
+    Sort the thresholds by their key, ties in index order (the kernel's
+    64-bit composites); give each score its bin k, the number of sorted
+    non-NaN thresholds at or below it, and NaN scores bin 0; histogram k per
+    class, once for every row and once for the positives; suffix-sum, so
+    that sorted position j counts the rows with k > j; scatter back to the
+    thresholds' own columns.
+    """
+    n, c = preds.shape
+    t = thr.shape[0]
+    order = torch.argsort(_ascending_key(thr), stable=True)
+    valid = int((~torch.isnan(thr)).sum())
+    k = torch.searchsorted(thr[order][:valid].contiguous(), preds.contiguous(), right=True)
+    k = torch.where(torch.isnan(preds), 0, k)
+    y = target == 1
+    flat = (torch.arange(c)[None, :] * (t + 1) + k).reshape(-1)
+    hist_p = torch.bincount(flat, minlength=c * (t + 1)).reshape(c, t + 1)
+    hist_tp = torch.bincount(flat[y.reshape(-1)], minlength=c * (t + 1)).reshape(c, t + 1)
+    suffix_p, suffix_tp = (h.flip(1).cumsum(1).flip(1) for h in (hist_p, hist_tp))
+    tp, p = torch.empty((c, t), dtype=torch.int64), torch.empty((c, t), dtype=torch.int64)
+    tp[:, order], p[:, order] = suffix_tp[:, 1:], suffix_p[:, 1:]
+    pos = suffix_tp[:, :1]
+    return tp.float(), (p - tp).float(), (pos - tp).float()
+
+
+@pytest.mark.parametrize("case", sorted(_EDGE_THRESHOLDS) + ["linspace 100", "one threshold"])
+@pytest.mark.parametrize("n,c", [(1, 3), (64, 5), (300, 9)])
+def test_histogram_model_of_the_kernel_matches_jax(case, n, c):
+    thr = {"linspace 100": np.array(jnp.linspace(0, 1, 100)), "one threshold": np.array([0.5], np.float32)}.get(
+        case, _EDGE_THRESHOLDS.get(case))
+    rng = np.random.RandomState(7 * n + c)
+    preds, target = _edge_scores(rng, n, c), rng.randint(0, 3, (n, c))
+    got = _histogram_model(_t(preds), _t(target), _t(thr))
+    ref = jax_binned_stat_scores(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(thr), force_pallas=False)
+    _assert_same(ref, got, exact=True)
+    _assert_same(ref, binned_stat_scores(_t(preds), _t(target), _t(thr)), exact=True)
+
+
+def test_ascending_key_orders_like_the_values():
+    x = torch.tensor([np.nan, np.inf, 1.0, 1e-45, 0.0, -0.0, -1e-45, -1.0, -np.inf], dtype=torch.float32)
+    key = _ascending_key(x).tolist()
+    assert key[0] == 0xFFFFFFFF and key[4] == key[5] == 2**31
+    assert key[1] > key[2] > key[3] > key[4] > key[6] > key[7] > key[8] >= 0
+
+
 def test_binned_empty_batch_gives_zeros():
     empty = np.zeros((0, 3), np.float32)
     out = binned_stat_scores(_t(empty), _t(empty.astype(np.int64)), _linspace_thresholds(5))

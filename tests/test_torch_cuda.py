@@ -18,11 +18,17 @@ from metrics_tpu_torch.ops import (
     sorted_by_preds,
     stat_scores_counts,
 )
-from metrics_tpu_torch.ops.binned_stats import _binned_stat_scores_plain
+from metrics_tpu_torch.ops import registry
+from metrics_tpu_torch.ops.binned_stats import (
+    _binned_stat_scores_kernel,
+    _binned_stat_scores_plain,
+    binned_branch,
+    hist_max_thresholds,
+)
 from metrics_tpu_torch.ops.retrieval import _WIDEN, L_MAX, _sorted_by_preds_kernel, _sorted_by_preds_plain
 from metrics_tpu_torch.ops.sketch_ops import _countmin_plain, countmin_uses_shared
 from metrics_tpu_torch.ops.confusion import _confmat_plain
-from metrics_tpu_torch.ops.stat_scores import _stat_counts_plain
+from metrics_tpu_torch.ops.stat_scores import _ONE_BLOCK_ROWS, _lib, _stat_counts_kernel, _stat_counts_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +83,123 @@ def test_binned_stats_kernel_equals_plain(card, n, c, t):
     assert launches()["binned_stats"] == 1
     for a, b in zip(got, _binned_stat_scores_plain(preds, target == 1, thr)):
         assert a.dtype == b.dtype == torch.float32 and torch.equal(a, b)
+
+
+def _optin(card):
+    """The opt-in shared memory of a block on the card."""
+    return registry.device_limits(card, _lib(), "stat_scores")[1]
+
+
+@pytest.mark.parametrize("n", [1, 1024, _ONE_BLOCK_ROWS, _ONE_BLOCK_ROWS + 1])
+@pytest.mark.parametrize("c", [128, 1000, "shared limit", "shared limit + 1"])
+def test_stat_scores_every_branch_at_both_sides_of_the_plan_limits(card, n, c):
+    # the plan's branch, then every other branch that fits, on rows that follow the flat-index rule
+    if isinstance(c, str):
+        c = _optin(card) // 12 + (1 if c.endswith("+ 1") else 0)
+    rng = np.random.RandomState(n + c % 1000)
+    target = torch.from_numpy(rng.randint(0, c, n).astype(np.int32)).to(card)
+    pred = torch.from_numpy(rng.randint(0, c, n).astype(np.int32)).to(card)
+    w = torch.from_numpy(rng.randint(0, 2, n).astype(np.int32)).to(card)
+    pred[::5] = c  # a NaN score row: adds to tp[0]
+    target[1::7], w[1::7] = -1, 0  # wraps into range with weight 0
+    correct = (pred == target) & (w > 0)
+    ref = _stat_counts_plain(target, pred, correct, w, c)
+    fits = 12 * c <= _optin(card)
+    for branch in (None, "block", "shared") if fits else (None,):
+        reset_launches()
+        got = _stat_counts_kernel(target, pred, correct, w, c, branch=branch)
+        torch.cuda.synchronize()
+        assert launches()["stat_scores"] == 1
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype == torch.int32 and torch.equal(g, r), (branch, n, c)
+    if not fits:
+        with pytest.raises(ValueError, match="no 'block' branch"):
+            _stat_counts_kernel(target, pred, correct, w, c, branch="block")
+
+
+_EDGE_POOL = (0.0, -0.0, float("inf"), -float("inf"), float("nan"), 0.5, 1.0)
+
+
+def _binned_edge_inputs(n, c, t, seed, card):
+    """Unsorted thresholds with repeats, NaN, +-0 and +-inf among them; scores on the same 1/16 grid
+    (so that many sit exactly on a threshold) with the same specials; targets 0, 1 and 2 (not a positive)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    pool = torch.tensor(_EDGE_POOL, device=card)
+
+    def mixed(shape, share):
+        grid = torch.round(torch.rand(shape, generator=g, device=card) * 16) / 16
+        special = pool[torch.randint(0, pool.numel(), shape, generator=g, device=card)]
+        return torch.where(torch.rand(shape, generator=g, device=card) < share, special, grid)
+
+    return mixed((n, c), 0.1), torch.randint(0, 3, (n, c), generator=g, device=card), mixed((t,), 0.3)
+
+
+@pytest.mark.parametrize(
+    "n,c,t,want",
+    [
+        (1024, 1000, 100, ("hist", False)),  # ImageNet: one block a tile
+        (1024, 80, 100, ("hist", False)),  # COCO: one block a tile
+        (568, 80, 100, ("hist", False)),  # COCO's last batch
+        (1, 7, 1, ("hist", False)),
+        (129, 9, 17, ("hist", False)),  # a partial tile and a partial pass
+        (1025, 80, 100, ("hist", False)),  # clusters of 2
+        (3000, 17, 300, ("hist", False)),  # clusters of 3, thresholds in 10 chunks of 32 bins
+        (65535, 8, 100, ("hist", False)),  # the most rows of the packed counters, clusters of 8
+        (65536, 8, 100, ("hist", True)),  # one more: the wide counters
+        (64, 8, "packed limit", ("hist", False)),
+        (64, 8, "packed limit + 1", ("compare", False)),
+        (65536, 8, "wide limit", ("hist", True)),
+        (65536, 8, "wide limit + 1", ("compare", False)),
+    ],
+)
+def test_binned_stats_both_branches_at_both_sides_of_the_plan_limits(card, n, c, t, want):
+    if isinstance(t, str):
+        limit = hist_max_thresholds(t.startswith("wide"), _optin(card))
+        t = limit + (1 if t.endswith("+ 1") else 0)
+    preds, target, thr = _binned_edge_inputs(n, c, t, seed=n + c + t, card=card)
+    branch, cluster, wide = binned_branch(n, c, t, card)
+    assert (branch, wide) == want
+    assert cluster == (1 if n <= 1024 or branch == "compare" else min(8, -(-n // 1024)))
+    ref = _binned_stat_scores_plain(preds, target == 1, thr)
+    for compare in (False, True):
+        reset_launches()
+        got = (binned_stat_scores(preds, target, thr) if not compare
+               else _binned_stat_scores_kernel(preds, target == 1, thr, compare=True))
+        torch.cuda.synchronize()
+        assert launches()["binned_stats"] == 1
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape == (c, t)
+            assert torch.equal(a, b), (n, c, t, compare)
+
+
+def test_binned_plan_sizes_the_histogram_as_the_kernel_lays_it_out(card):
+    from metrics_tpu_torch.ops.binned_stats import _lib as binned_lib, hist_shared_bytes
+
+    hist_bytes = binned_lib().binned_stats_hist_bytes
+    for wide in (False, True):
+        for t in range(1, 1025):
+            assert hist_bytes(t, int(wide)) == hist_shared_bytes(t, wide), (t, wide)
+
+
+@pytest.mark.parametrize(
+    "n,c,t,want",
+    [(1024, 1000, 100, "hist"), (4096, 80, 100, "hist, clusters of 4"), (65536, 8, 100, "hist, clusters of 8, wide")],
+)
+def test_binned_launches_are_counted_by_branch_and_shape(card, n, c, t, want):
+    preds, target, thr = _binned_edge_inputs(n, c, t, seed=n + c, card=card)
+    reset_launches()
+    binned_stat_scores(preds, target, thr)
+    _binned_stat_scores_kernel(preds, target == 1, thr, compare=True)
+    assert registry.launches_by_shape("binned_stats") == {(want, (n, c, t)): 1, ("compare", (n, c, t)): 1}
+
+
+def test_stat_scores_launches_are_counted_by_branch_and_shape(card):
+    reset_launches()
+    for n in (1024, 1024, 848, _ONE_BLOCK_ROWS + 1):
+        target = torch.zeros(n, dtype=torch.int32, device=card)
+        stat_scores_counts(target, target, target == 0, torch.ones_like(target), 1000)
+    assert registry.launches_by_shape("stat_scores") == {
+        ("block", (1024, 1000)): 2, ("block", (848, 1000)): 1, ("shared", (_ONE_BLOCK_ROWS + 1, 1000)): 1}
 
 
 def test_binned_average_precision_on_the_card_equals_the_cpu(card):

@@ -24,7 +24,9 @@ from metrics_tpu.ops.stat_scores import _stat_counts_pallas
 from metrics_tpu.ops.stat_scores import stat_scores_counts as jax_stat_scores_counts
 from metrics_tpu_torch.ops import _build, confusion_matrix_counts, launches, registry, stat_scores_counts
 from metrics_tpu_torch.ops.retrieval import L_MAX, sort_branch
+from metrics_tpu_torch.ops.binned_stats import binned_plan, branch_name, hist_max_thresholds, hist_shared_bytes
 from metrics_tpu_torch.ops.sketch_ops import countmin_plan
+from metrics_tpu_torch.ops.stat_scores import stat_scores_plan
 
 
 def _stat_inputs(n, c, seed):
@@ -179,6 +181,26 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert set(registry.KERNELS) == {"stat_scores", "confusion_matrix", "binned_stats", "retrieval_sort", "countmin"}
 
 
+@pytest.mark.parametrize(
+    "notes,want",
+    [
+        ([("block", (1024, 1000))] * 48 + [("block", (848, 1000))], {("block", (1024, 1000)): 48, ("block", (848, 1000)): 1}),
+        ([("hist", (1024, 80, 100)), ("hist, clusters of 8", (40504, 80, 100)), ("hist", (1024, 80, 100))],
+         {("hist", (1024, 80, 100)): 2, ("hist, clusters of 8", (40504, 80, 100)): 1}),
+        ([("", ())] * 3, {}),  # a wrapper that names no branch adds to its total only
+    ],
+)
+def test_launches_are_counted_by_branch_and_shape(notes, want):
+    registry.reset_launches()
+    for branch, shape in notes:
+        registry.note_launch("binned_stats", branch, shape)
+    assert launches()["binned_stats"] == len(notes)
+    assert registry.launches_by_shape("binned_stats") == want
+    assert registry.launches_by_shape("stat_scores") == {}
+    registry.reset_launches()
+    assert registry.launches_by_shape("binned_stats") == {} and launches()["binned_stats"] == 0
+
+
 def test_other_devices_raise():
     meta = torch.empty(4, dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
@@ -219,6 +241,71 @@ H100 = (132, 232_448)  # SMs, and the opt-in shared memory of a block in bytes
 )
 def test_countmin_plan_sizes_the_grid_from_the_card(n, depth, width, want):
     assert countmin_plan(n, depth, width, *H100) == want
+
+
+@pytest.mark.parametrize(
+    "n,c,want",
+    [
+        (1024, 1000, ("block", 1, 1024)),  # ImageNet: one launch, no zeroed output
+        (848, 1000, ("block", 1, 1024)),  # ImageNet's last batch
+        (1024, 128, ("block", 1, 1024)),  # bench.py's headline shape
+        (1, 2, ("block", 1, 1024)),
+        (6144, 1000, ("block", 1, 1024)),  # the one-block limit
+        (6145, 1000, ("shared", 25, 256)),  # one more row: the multi-block branch and its zeroed output
+        (100_000, 1000, ("shared", 264, 256)),  # at most two blocks an SM
+        (1024, 19370, ("block", 1, 1024)),  # 3C ints: 232,440 bytes fit
+        (6145, 19370, ("shared", 25, 256)),
+        (1024, 19371, ("global", 4, 256)),  # 232,452 bytes do not
+        (1024, 20000, ("global", 4, 256)),  # chip_smoke.py's widest
+        (0, 5, ("block", 1, 1024)),
+    ],
+)
+def test_stat_scores_plan_takes_one_block_for_a_batch(n, c, want):
+    assert stat_scores_plan(n, c, H100[1]) == want
+
+
+@pytest.mark.parametrize(
+    "n,c,t,want",
+    [
+        (1024, 1000, 100, ("hist", 1, False)),  # ImageNet: 125 tiles of 8 classes, a block each
+        (848, 1000, 100, ("hist", 1, False)),
+        (1024, 80, 100, ("hist", 1, False)),  # COCO: one pass of rows a block, so no cluster
+        (568, 80, 100, ("hist", 1, False)),
+        (1, 1, 1, ("hist", 1, False)),
+        (1025, 80, 100, ("hist", 2, False)),  # past one pass: clusters split the rows of COCO's 10 tiles
+        (4096, 80, 100, ("hist", 4, False)),
+        (65535, 80, 100, ("hist", 8, False)),  # the most rows of the packed 16-bit counters
+        (65536, 80, 100, ("hist", 8, True)),  # one more: two 32-bit planes
+        (4096, 528, 100, ("hist", 2, False)),  # 66 tiles: two blocks each fill the 132 SMs
+        (4096, 536, 100, ("hist", 1, False)),  # 67 tiles: a second block would run in a second wave
+        (65536, 1000, 100, ("hist", 1, True)),
+        (1_000_000, 1000, 100, ("hist", 1, True)),
+        (1024, 80, 1024, ("hist", 1, False)),  # the threshold limit: one a thread when ranking
+        (1024, 80, 1025, ("compare", 1, False)),
+        (65536, 80, 844, ("hist", 8, True)),  # the wide histogram's shared-memory limit
+        (65536, 80, 845, ("compare", 1, False)),
+    ],
+)
+def test_binned_plan_bins_in_one_launch_up_to_its_limits(n, c, t, want):
+    assert binned_plan(n, c, t, *H100) == want
+
+
+@pytest.mark.parametrize(
+    "branch,cluster,wide,want",
+    [("hist", 1, False, "hist"), ("hist", 4, False, "hist, clusters of 4"), ("hist", 1, True, "hist, wide"),
+     ("hist", 8, True, "hist, clusters of 8, wide"), ("compare", 1, False, "compare")],
+)
+def test_binned_launches_are_named_by_branch_cluster_and_counters(branch, cluster, wide, want):
+    assert branch_name(branch, cluster, wide) == want
+
+
+def test_binned_hist_limits_follow_the_shared_memory():
+    # 100 composites and indices, a 127-node tree, 4 copies x 8 classes x 101 bins, 8 classes x 4 chunk totals
+    assert hist_shared_bytes(100, False) == 12 * 100 + 4 * 127 + 4 * 4 * 8 * 101 + 4 * 8 * 4
+    assert hist_shared_bytes(100, True) == hist_shared_bytes(100, False) + 4 * 4 * 8 * 101 + 4 * 8 * 4
+    assert hist_max_thresholds(False, H100[1]) == 1024 and hist_max_thresholds(True, H100[1]) == 844
+    assert hist_shared_bytes(844, True) <= H100[1] < hist_shared_bytes(845, True)
+    assert hist_max_thresholds(False, 48 * 1024) < 1024
 
 
 # ------------------------------------------------------------------ build
