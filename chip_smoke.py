@@ -4,12 +4,17 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and builds every CUDA kernel from ``metrics_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once).
+   (one ``nvcc`` per source, all at once), and the earlier design of
+   ``confusion_matrix`` (``csrc/confusion_atomic.cu``) to time against.
 2. Holds each kernel against its plain PyTorch version on the card over the
    JAX package's parity grid plus masked and padded rows: exact equality.
    ``stat_scores`` on its plan's branch and the other shared-memory branch
    forced (one block, many blocks), on both sides of the one-block limit and
    of the shared-memory limit (C = 20,000 takes global atomics);
+   ``confusion_matrix`` through the plan's launch and each branch forced (the
+   band; the split on one block and on 128 blocks), up to 2,097,152 rows at C = 2,
+   20, 238 and 239, on labels out of range at both ends, runs where every
+   lane of a warp adds to one cell, and a start off 16 bytes;
    ``binned_stats`` on its plan's branch and, where that is the histogram
    branch, the compare branch forced, over unsorted thresholds with
    repeats, NaN, +-inf and -0.0, scores on thresholds and NaN, +-inf, -0.0
@@ -28,10 +33,14 @@
 3. Runs the slices. Slice 1: ImageNet-1k validation (50,000 images, 1,000
    classes) in batches of 1,024 (48 full, one of 848) through
    ``Accuracy(average="macro")`` and ``ConfusionMatrix(update_method="matmul")``
-   with ``update``, ``forward``, ``compute``, ``state_dict`` and ``reset``.
-   Each kernel must launch once per batch (49 times), and the results must
-   equal the same run on the CPU (counts exactly, accuracy to rtol 1e-6) and
-   an independent reference computed from the scores. Slice 2: the same
+   and ``CohenKappa(weights="quadratic")``, ``MatthewsCorrCoef`` and
+   ``JaccardIndex`` (all on ``update_method="matmul"``) with ``update``,
+   ``forward``, ``compute``, ``state_dict`` and ``reset``. ``stat_scores``
+   must launch once per batch (49 times), ``confusion_matrix`` 4 x 49 times
+   on its band branch, and the results must equal the same run on the CPU
+   (counts exactly, values to rtol 1e-6) and an independent reference
+   computed from the scores (a bincount; its kappa, MCC and mean IoU in
+   float64 numpy to rtol 1e-5). Slice 2: the same
    ImageNet scores through ``BinnedAveragePrecision`` and
    ``BinnedRecallAtFixedPrecision`` (100 thresholds; 98 launches of
    ``binned_stats``), and MS-COCO 2014 val multilabel classification (40,504
@@ -58,6 +67,13 @@
    ``HyperLogLog(precision=14)``; every table row must sum to 10,000,000,
    each table must equal a numpy ``np.add.at`` reference exactly, and no
    estimate of the 100 most frequent ids may fall below its true count.
+   Semantic segmentation: the Cityscapes val geometry (500 images of 1024 x
+   2048, 19 classes and void, ``ignore_index=19``) through
+   ``JaccardIndex(update_method="matmul")``, one image an update (500
+   launches of ``confusion_matrix`` at 2,097,152 rows on its split branch);
+   synthetic label maps made on the card, a class a 32 x 32 patch. The
+   epoch's matrix must equal ``torch.bincount`` on the card, the first 8
+   images the CPU run (mean IoU to rtol 1e-6).
 4. Times each kernel, its plain version and the one PyTorch library call
    that computes the same function (``binned_stats``, ``retrieval_sort``
    and ``countmin`` have none, so a yardstick is timed and named instead)
@@ -74,9 +90,14 @@
    ``retrieval_sort`` is timed at both of its launch shapes, (6980, 1024)
    and a functional call's (1, 1000), on each branch; ``countmin`` at both
    widths of the click-log path; their rows carry these ``timings`` and the
-   launches by shape, each counted on the main path (``stat_scores`` and
-   ``binned_stats`` by the wrapper, per branch and shape). The command time
-   of each part is printed before the ``kernels`` line.
+   launches by shape, each counted on the main path by the wrapper, per
+   branch and shape. ``confusion_matrix`` is timed at both path shapes,
+   (1024, 1000) and (2097152, 20), in turns against its earlier design,
+   beside the other branch and ``torch.bincount``; three calls at each must be
+   three device kernels and no memset or fill under ``torch.profiler``; and both
+   branches are timed over C = 20 to 240 and 1,024 to 2,097,152 rows, where
+   the plan switches. The command time of each part is printed before the
+   ``kernels`` line.
 
 The scores and labels are made on the card from a seeded generator: a model
 whose top-1 hits the label on about 76% of images, with random scores
@@ -84,6 +105,7 @@ elsewhere. The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU mode: without a card the
 script fails.
 """
+import ctypes
 import json
 import math
 import statistics
@@ -111,6 +133,13 @@ TREC_QUERIES = 43  # TREC DL 2019 passage, graded 0-3
 TREC_GRADE_SHARES = (0.04, 0.04, 0.02)  # synthetic shares of grades 1, 2 and 3
 CLICKS, CLICK_IDS, CLICK_ZIPF, CLICK_BATCH = 10_000_000, 1_000_000, 1.1, 65_536
 HEAVY_HITTERS = 100
+# Cityscapes val as a segmentation model's evaluation sees it: 500 images of 1024 x 2048, 19 evaluated classes
+# and a void class (19, ignored), one image an update; synthetic label maps with a class per 32 x 32 patch
+SEG_IMAGES, SEG_H, SEG_W, SEG_CLASSES, SEG_VOID = 500, 1024, 2048, 20, 19
+SEG_PATCH, SEG_ZIPF, SEG_VOID_SHARE, SEG_RIGHT = 32, 1.1, 0.10, 0.94
+SEG_CPU_IMAGES = 8
+CONFMAT_SWEEP_CLASSES = (20, 64, 128, 240)
+CONFMAT_SWEEP_ROWS = (1024, 4096, 16384, 65536, 262144, 2097152)
 REPS, INNER = 25, 20
 SLEEP_CYCLES = 20_000_000  # ~10 ms of device time: the host queues a whole repetition behind it
 
@@ -161,16 +190,17 @@ def at_shape(counts, shape):
     return sum(n for (_, s), n in counts.items() if s == shape)
 
 
-def device_ms(torch, fn):
+def device_ms(torch, fn, reps=REPS):
     """Median device time of one call of ``fn``, from CUDA events around
     ``INNER`` back-to-back calls queued behind a device-side sleep, so that
-    the host's launch cost does not show unless the call itself waits."""
+    the host's launch cost does not show unless the call itself waits;
+    ``reps`` repetitions."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         for _ in range(INNER):
@@ -379,6 +409,66 @@ def numpy_retrieval(scores, target):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
+def numpy_confmat_scores(cm, ignore_index=None):
+    """Quadratic-weighted Cohen's kappa, the Matthews correlation coefficient and the mean IoU (absent
+    classes 0, the row and score of ``ignore_index`` left out) of a confusion matrix, in float64 numpy."""
+    cm = cm.astype(np.float64)
+    c, total = cm.shape[0], cm.sum()
+    rows, cols = cm.sum(1), cm.sum(0)
+    w = (np.arange(c)[:, None] - np.arange(c)[None, :]) ** 2.0
+    kappa = 1.0 - (w * cm).sum() / (w * np.outer(rows, cols) / total).sum()
+    mcc = (np.trace(cm) * total - rows @ cols) / np.sqrt((total**2 - cols @ cols) * (total**2 - rows @ rows))
+    if ignore_index is not None:
+        cm = cm.copy()
+        cm[ignore_index] = 0
+    inter = np.diag(cm)
+    union = cm.sum(0) + cm.sum(1) - inter
+    iou = np.where(union > 0, inter / np.maximum(union, 1), 0.0)
+    kept = [k for k in range(c) if k != ignore_index]
+    return {"kappa": kappa, "mcc": mcc, "miou": iou[kept].mean()}
+
+
+def segmentation_data(torch, dev):
+    """Cityscapes val geometry as uint8 label maps on the card: a class a 32 x 32 patch with shares
+    proportional to (k + 1)^-1.1 over the 19 evaluated classes, 10% of patches void, and predictions
+    equal to the target on 94% of pixels, a class drawn from the same shares elsewhere."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    cdf = torch.cumsum(torch.arange(1, SEG_VOID + 1, dtype=torch.float64, device=dev) ** -SEG_ZIPF, 0)
+    cdf = (cdf / cdf[-1]).float()
+
+    def draw(shape):
+        return torch.searchsorted(cdf, torch.rand(shape, generator=g, device=dev)).clamp(max=SEG_VOID - 1)
+
+    ph, pw = SEG_H // SEG_PATCH, SEG_W // SEG_PATCH
+    patch = draw((SEG_IMAGES, ph, 1, pw, 1))
+    patch = torch.where(torch.rand(patch.shape, generator=g, device=dev) < SEG_VOID_SHARE, SEG_VOID, patch)
+    target = patch.to(torch.uint8).expand(-1, -1, SEG_PATCH, -1, SEG_PATCH).reshape(SEG_IMAGES, SEG_H, SEG_W)
+    pred = torch.empty_like(target)
+    for i in range(SEG_IMAGES):  # an image at a time: the draws stay small
+        right = torch.rand((SEG_H, SEG_W), generator=g, device=dev) < SEG_RIGHT
+        pred[i] = torch.where(right, target[i], draw((SEG_H, SEG_W)).to(torch.uint8))
+    return target, pred, float(cdf[0])
+
+
+def device_kernels(torch, fn, calls=3, tries=3):
+    """The names of the device activities (kernels, memsets, copies) of ``calls`` calls of ``fn``, from
+    ``torch.profiler``; a capture that recorded no device activity at all is taken again, up to
+    ``tries`` times (the profiler can miss a whole window; an empty capture says nothing about ``fn``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        if names:
+            return names
+    return names
+
+
 def main() -> int:
     import torch
 
@@ -386,7 +476,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible; the port is measured on an NVIDIA card only", file=sys.stderr)
         return 1
 
-    from metrics_tpu_torch import Accuracy, BinnedAveragePrecision, BinnedRecallAtFixedPrecision, ConfusionMatrix
+    from metrics_tpu_torch import (
+        Accuracy,
+        BinnedAveragePrecision,
+        BinnedRecallAtFixedPrecision,
+        CohenKappa,
+        ConfusionMatrix,
+        JaccardIndex,
+        MatthewsCorrCoef,
+    )
     from metrics_tpu_torch.classification.binned_precision_recall import _linspace_thresholds
     from metrics_tpu_torch.functional.classification.confusion_matrix import _canonicalize_confmat_labels
     from metrics_tpu_torch.ops import (
@@ -409,7 +507,14 @@ def main() -> int:
         hist_shared_bytes,
     )
     from metrics_tpu_torch.ops.binned_stats import _lib as binned_lib
-    from metrics_tpu_torch.ops.confusion import _confmat_plain
+    from metrics_tpu_torch.ops.confusion import (
+        _confmat_kernel,
+        _confmat_plain,
+        confusion_branch,
+        confusion_plan,
+        split_shared_bytes,
+    )
+    from metrics_tpu_torch.ops.confusion import _lib as confusion_lib
     from metrics_tpu_torch.ops.retrieval import _WIDEN, L_MAX, _sorted_by_preds_kernel, _sorted_by_preds_plain, sort_branch
     from metrics_tpu_torch.ops.sketch_ops import _countmin_kernel, _countmin_plain, countmin_uses_shared
     from metrics_tpu_torch.retrieval.base import _pad_by_query
@@ -434,8 +539,21 @@ def main() -> int:
     laps = Laps()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(dev)}")
     t0 = time.perf_counter()
-    libs = _build.build()
+    # and the earlier confusion_matrix design (a zeroed output plus integer atomics), only to time against
+    libs = _build.build(_build.SOURCES + ("confusion_atomic",))
     print(f"built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
+    atomic_lib = ctypes.CDLL(str(libs["confusion_atomic"]))
+    atomic_lib.confusion_atomic_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    atomic_lib.confusion_atomic_launch.restype = ctypes.c_int
+
+    def confmat_earlier(target, pred, c):
+        """The earlier design's launch path: a zeroed output, then its kernel."""
+        out = torch.zeros((c, c), dtype=torch.int32, device=dev)
+        err = atomic_lib.confusion_atomic_launch(target.data_ptr(), pred.data_ptr(), target.shape[0], c, out.data_ptr(),
+                                                 torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"the earlier confusion_matrix design failed to launch: error {err}")
+        return out
+
     laps.mark("1. build")
 
     # -------------------------------------------------- 2. kernel vs plain
@@ -460,6 +578,25 @@ def main() -> int:
                 max_err["stat_scores"] = max(max_err["stat_scores"], int((a - b).abs().max()) if a.numel() else 0)
             stat_cases[branch] += target.shape[0] > 0
 
+    confmat_optin = registry.device_limits(dev, confusion_lib(), "confusion")[1]
+    confmat_cases = {}
+
+    def hold_confmat(target, pred, c, what):
+        """The public entry (the plan's launch), then each branch forced (the band; where the table fits
+        shared memory the split on one block and on 128 blocks), against the plain version."""
+        ref = _confmat_plain(target, pred, c)
+        runs = [("plan", lambda: confusion_matrix_counts(target, pred, c)),
+                ("band", lambda: _confmat_kernel(target, pred, c, branch="band"))]
+        if split_shared_bytes(c) <= confmat_optin:
+            runs += [(f"split on {b}", lambda b=b: _confmat_kernel(target, pred, c, branch="split", blocks=b))
+                     for b in (1, 128)]
+        for branch, run in runs:
+            got = run()
+            check(got.dtype == ref.dtype == torch.int32, f"confusion_matrix dtype {got.dtype}")
+            check(torch.equal(got, ref), f"confusion_matrix ({branch}) differs from its plain version at {what}")
+            max_err["confusion_matrix"] = max(max_err["confusion_matrix"], int((got - ref).abs().max()))
+            confmat_cases[branch] = confmat_cases.get(branch, 0) + (target.shape[0] > 0)
+
     for n in (0, 1, 100, 128, 129, 512, 1024, _ONE_BLOCK_ROWS, _ONE_BLOCK_ROWS + 1):
         for c in (2, 7, 33, 40, 238, 239, 1000, 20000):
             target = torch.randint(0, c, (n,), generator=g, device=dev, dtype=torch.int32)
@@ -476,11 +613,7 @@ def main() -> int:
             tpad = torch.where(torch.rand(n, generator=g, device=dev) < 0.1, -1, target)
             ppad = torch.where(torch.rand(n, generator=g, device=dev) < 0.1, -1, pred)
             for t_, p_ in ((target, pred), (tpad.to(torch.int32), ppad.to(torch.int32))):
-                got = confusion_matrix_counts(t_, p_, c)
-                ref = _confmat_plain(t_, p_, c)
-                check(got.dtype == ref.dtype == torch.int32, f"confusion_matrix dtype {got.dtype}")
-                check(torch.equal(got, ref), f"confusion_matrix differs from its plain version at n={n} C={c}")
-                max_err["confusion_matrix"] = max(max_err["confusion_matrix"], int((got - ref).abs().max()))
+                hold_confmat(t_, p_, c, f"n={n} C={c}")
                 cases += 1
     # the flat-index rule of JAX's scatter: pred_cls == C (a NaN score row) adds to tp[0],
     # a negative target under w = 0 wraps into range with weight 0
@@ -496,6 +629,21 @@ def main() -> int:
         got = stat_scores_counts(target, pred, correct, w, c)
         check(int(got[2][0]) >= int(((pred == c) & (w > 0)).sum()), "a pred_cls == C row did not reach tp[0]")
         cases += 1
+    # long batches up to a segmentation image's 2,097,152 pixels at few classes: labels with both ends out
+    # of range, runs of 512 rows on one cell (every lane of a warp adds to one cell), and a start that is not
+    # on 16 bytes (the row-by-row loads)
+    for n in (65_536, 2_097_152):
+        for c in (2, 20, 238, 239):
+            target = torch.randint(-1, c + 1, (n,), generator=g, device=dev, dtype=torch.int32)
+            pred = torch.randint(-1, c + 1, (n,), generator=g, device=dev, dtype=torch.int32)
+            target[::101], pred[1::103] = -(2**31), 2**31 - 1
+            runs_t = (torch.arange(n, device=dev) // 512 % c).to(torch.int32)
+            runs_p = runs_t.clone()
+            runs_p[::97] = (runs_p[::97] + 1) % c
+            for kind, (t_, p_) in {"random": (target, pred), "runs of one cell": (runs_t, runs_p),
+                                   "misaligned": (target[1:], pred[1:])}.items():
+                hold_confmat(t_, p_, c, f"n={n} C={c} {kind}")
+                cases += 1
     laps.mark("2. stat_scores and confusion_matrix grid")
 
     # unsorted, with repeats, +-inf, NaN and -0.0 beside +0.0
@@ -660,6 +808,7 @@ def main() -> int:
     laps.mark("2. countmin grid")
     print(f"kernel vs plain: {cases} cases equal (fractional count-min weights: largest relative difference "
           f"{frac_rel_err:.3g}), max_abs_err {max_err}; kernel runs by branch: stat_scores {json.dumps(stat_cases)}, "
+          f"confusion_matrix {json.dumps(confmat_cases)}, "
           f"binned_stats {json.dumps(binned_cases)} (histogram limits T = {t_packed} packed, {t_wide} wide)")
 
     # ------------------------------------------------------------ 3. the slice
@@ -674,9 +823,15 @@ def main() -> int:
     batches = [(scores[i:i + BATCH], labels[i:i + BATCH]) for i in range(0, N_VAL, BATCH)]
     check(len(batches) == 49 and batches[-1][0].shape[0] == 848, "the slice is 48 batches of 1024 and one of 848")
 
+    # the confusion-matrix family beside ConfusionMatrix, all on the confusion_matrix kernel
+    family_kinds = {"cohen_kappa": (CohenKappa, dict(weights="quadratic")), "matthews_corrcoef": (MatthewsCorrCoef, {}),
+                    "jaccard_index": (JaccardIndex, {})}
+
     def run_slice(device, data):
         acc = Accuracy(num_classes=NUM_CLASSES, average="macro", device=device)
         cm = ConfusionMatrix(num_classes=NUM_CLASSES, update_method="matmul", device=device)
+        family = {key: cls(num_classes=NUM_CLASSES, update_method="matmul", device=device, **kwargs)
+                  for key, (cls, kwargs) in family_kinds.items()}
         acc.reset()
         cm.reset()
         if device.type == "cuda":
@@ -685,28 +840,38 @@ def main() -> int:
         for i, (p, t) in enumerate(data):
             if i == len(data) - 1:
                 batch_vals = (acc(p, t), cm(p, t))  # forward: one update and the batch's value
+                family_batch = {key: m(p, t) for key, m in family.items()}
             else:
                 acc.update(p, t)
                 cm.update(p, t)
+                for m in family.values():
+                    m.update(p, t)
         values = (acc.compute(), cm.compute())
+        family_values = {key: m.compute() for key, m in family.items()}
         if device.type == "cuda":
             torch.cuda.synchronize()
-        return acc, cm, batch_vals, values, time.perf_counter() - t_start
+        return acc, cm, family, batch_vals, family_batch, values, family_values, time.perf_counter() - t_start
 
     reset_launches()
-    acc, cm, batch_vals, values, epoch_s = run_slice(dev, batches)
+    acc, cm, family, batch_vals, family_batch, values, family_values, epoch_s = run_slice(dev, batches)
     counts = launches()
     stat_by_shape = registry.launches_by_shape("stat_scores")
+    confmat_slice_by_shape = registry.launches_by_shape("confusion_matrix")
     print(f"slice on the card: 49 batches in {epoch_s * 1e3:.1f} ms, launches {counts}; stat_scores by branch and "
-          f"shape {json.dumps(by_shape(stat_by_shape))}")
-    for name in ("stat_scores", "confusion_matrix"):
-        check(counts[name] == 49, f"{name} launched {counts[name]} times in the slice, not 49")
+          f"shape {json.dumps(by_shape(stat_by_shape))}; confusion_matrix {json.dumps(by_shape(confmat_slice_by_shape))}")
+    check(counts["stat_scores"] == 49, f"stat_scores launched {counts['stat_scores']} times in the slice, not 49")
+    confmat_expected = 49 * (1 + len(family))  # ConfusionMatrix and the three of its family, a launch a batch each
+    check(counts["confusion_matrix"] == confmat_expected,
+          f"confusion_matrix launched {counts['confusion_matrix']} times in the slice, not {confmat_expected}")
     check(sum(stat_by_shape.values()) == 49 and {b for b, _ in stat_by_shape} == {"block"},
           f"stat_scores launches by branch and shape {stat_by_shape}: not 49 on the one-block branch")
+    check(confmat_slice_by_shape == {("band", (BATCH, NUM_CLASSES)): 48 * (1 + len(family)),
+                                     ("band", (N_VAL - 48 * BATCH, NUM_CLASSES)): 1 + len(family)},
+          f"confusion_matrix launches by branch and shape {confmat_slice_by_shape}: not all on the band branch")
 
     cpu = torch.device("cpu")
     cpu_batches = [(p.cpu(), t.cpu()) for p, t in batches]
-    c_acc, c_cm, c_batch_vals, c_values, cpu_s = run_slice(cpu, cpu_batches)
+    c_acc, c_cm, c_family, c_batch_vals, c_family_batch, c_values, c_family_values, cpu_s = run_slice(cpu, cpu_batches)
     print(f"same slice on the CPU (plain versions): {cpu_s * 1e3:.1f} ms")
     for name in ("tp", "fp", "tn", "fn"):
         a, b = getattr(acc, name), getattr(c_acc, name)
@@ -716,6 +881,13 @@ def main() -> int:
     for got, ref, what in ((values[0], c_values[0], "accuracy"), (batch_vals[0], c_batch_vals[0], "forward's batch accuracy")):
         check(got.shape == () and bool(torch.isfinite(got)), f"{what} is not a finite scalar: {got}")
         torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=0, msg=f"{what} differs from the CPU run")
+    for key, m in family.items():
+        check(m.confmat.dtype == torch.int32 and torch.equal(m.confmat.cpu(), c_family[key].confmat),
+              f"{key} confusion matrix differs from the CPU run")
+        for got, ref, what in ((family_values[key], c_family_values[key], key),
+                               (family_batch[key], c_family_batch[key], f"forward's batch {key}")):
+            check(got.shape == () and bool(torch.isfinite(got)), f"{what} is not a finite scalar: {got}")
+            torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=0, msg=f"{what} differs from the CPU run")
 
     # an independent reference from the scores: argmax labels, a bincount, macro recall
     ref_cm = torch.bincount(labels * NUM_CLASSES + scores.argmax(dim=1), minlength=NUM_CLASSES**2)
@@ -731,11 +903,23 @@ def main() -> int:
     for p, t in batches:
         bincount_cm.update(p, t)
     check(torch.equal(bincount_cm.compute(), values[1]), "update_method='bincount' differs from 'matmul'")
-    print(f"slice results: macro accuracy {float(values[0]):.6f}, confusion matrix total {int(values[1].sum())}")
+    # the family against the bincount matrix, and their values against float64 numpy from it (float32 sums of
+    # up to 10^6 cells against float64: rtol 1e-5)
+    family_ref = numpy_confmat_scores(ref_cm.cpu().numpy())
+    for (key, m), ref_key in zip(family.items(), ("kappa", "mcc", "miou")):
+        check(torch.equal(m.confmat.long(), ref_cm), f"{key} confusion matrix differs from the bincount of argmax labels")
+        np.testing.assert_allclose(float(family_values[key]), family_ref[ref_key], rtol=1e-5, atol=0,
+                                   err_msg=f"{key} differs from the float64 numpy value of the bincount matrix")
+    print(f"slice results: macro accuracy {float(values[0]):.6f}, confusion matrix total {int(values[1].sum())}, "
+          f"quadratic kappa {float(family_values['cohen_kappa']):.6f}, MCC {float(family_values['matthews_corrcoef']):.6f}, "
+          f"mean IoU {float(family_values['jaccard_index']):.6f} (numpy from the bincount matrix "
+          f"{json.dumps({k: round(v, 6) for k, v in family_ref.items()})})")
 
     for metric, cls, kwargs in (
         (acc, Accuracy, dict(num_classes=NUM_CLASSES, average="macro")),
         (cm, ConfusionMatrix, dict(num_classes=NUM_CLASSES, update_method="matmul")),
+        *((family[key], cls, dict(num_classes=NUM_CLASSES, update_method="matmul", **kwargs))
+          for key, (cls, kwargs) in family_kinds.items()),
     ):
         metric.persistent(True)
         fresh = cls(device=dev, **kwargs)
@@ -882,6 +1066,7 @@ def main() -> int:
     torch.cuda.synchronize()
     functional_s = time.perf_counter() - t0
     marco_launches = launches()["retrieval_sort"]
+    sort_path_by_shape = registry.launches_by_shape("retrieval_sort")
     expected = len(RETRIEVAL) * (1 + MARCO_FUNCTIONAL_QUERIES)
     check(marco_module_launches == len(RETRIEVAL) and marco_launches == expected,
           f"retrieval_sort launched {marco_module_launches} times in the module computes and {marco_launches} in all"
@@ -925,7 +1110,11 @@ def main() -> int:
     reset_launches()
     trec_value = run_trec(dev)
     trec_launches = launches()["retrieval_sort"]
+    for key, count in registry.launches_by_shape("retrieval_sort").items():
+        sort_path_by_shape[key] = sort_path_by_shape.get(key, 0) + count
     check(trec_launches == 1, f"retrieval_sort launched {trec_launches} times on the TREC DL path, not 1")
+    check(sum(sort_path_by_shape.values()) == marco_launches + trec_launches,
+          f"retrieval_sort launches by branch and shape {sort_path_by_shape}")
     torch.testing.assert_close(trec_value.cpu(), run_trec(cpu), rtol=1e-6, atol=0, msg="TREC DL nDCG@10 differs from the CPU run")
     trec_ref = numpy_retrieval(tr_scores.cpu().numpy(), tr_grade.cpu().numpy())["ndcg@10"].mean()
     # float32 sums of 43 queries against float64
@@ -961,6 +1150,8 @@ def main() -> int:
     reset_launches()
     sketches, sketch_totals, sketch_s, sketch_launches = run_sketches(dev, click_batches)
     click_launches = launches()["countmin"]
+    click_by_shape = registry.launches_by_shape("countmin")
+    check(sum(click_by_shape.values()) == click_launches, f"countmin launches by branch and shape {click_by_shape}")
     check(click_launches == 2 * len(click_batches), f"countmin launched {click_launches} times, not {2 * len(click_batches)}")
     check(sketch_launches == [len(click_batches), len(click_batches), 0],
           f"countmin launches by sketch {sketch_launches}, not one an update of each count-min sketch")
@@ -990,6 +1181,63 @@ def main() -> int:
           f"overestimate at most {json.dumps(overestimate)}; HyperLogLog {float(sketch_totals[2]):.1f} against {distinct} "
           f"distinct ({hll_err * 100:+.3f}%), registers equal to the CPU run")
     laps.mark("3. TREC DL and click-log paths, card and CPU")
+
+    # ------------------------------------- 3f. semantic segmentation, Cityscapes val
+    seg_target, seg_pred, top_share = segmentation_data(torch, dev)
+    laps.mark("3. segmentation data")
+
+    def seg_batch(i, device):
+        """Image ``i`` as one update gets it from a loader: int64 (1, H, W) label maps."""
+        return seg_pred[i : i + 1].to(device).long(), seg_target[i : i + 1].to(device).long()
+
+    def new_jaccard(device):
+        return JaccardIndex(num_classes=SEG_CLASSES, ignore_index=SEG_VOID, update_method="matmul", device=device)
+
+    jac = new_jaccard(dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for i in range(SEG_IMAGES):
+        jac.update(*seg_batch(i, dev))
+        if i == SEG_CPU_IMAGES - 1:
+            head_confmat, head_miou = jac.confmat.clone(), jac.compute()
+    seg_miou = jac.compute()
+    torch.cuda.synchronize()
+    seg_epoch_s = time.perf_counter() - t_start
+    seg_launches = launches()["confusion_matrix"]
+    seg_by_shape = registry.launches_by_shape("confusion_matrix")
+    check(seg_launches == SEG_IMAGES, f"confusion_matrix launched {seg_launches} times on the segmentation path")
+    check(sum(n for (b, _), n in seg_by_shape.items() if b.startswith("split")) == SEG_IMAGES,
+          f"confusion_matrix launches by branch and shape on the segmentation path {seg_by_shape}: not all split")
+    # the epoch's matrix against torch.bincount on the card, 50 images at a time
+    seg_ref = torch.zeros(SEG_CLASSES**2, dtype=torch.int64, device=dev)
+    for i in range(0, SEG_IMAGES, 50):
+        flat = seg_target[i : i + 50].reshape(-1).long() * SEG_CLASSES + seg_pred[i : i + 50].reshape(-1).long()
+        seg_ref += torch.bincount(flat, minlength=SEG_CLASSES**2)
+    check(torch.equal(jac.confmat.long().reshape(-1), seg_ref), "the segmentation confusion matrix differs from bincount")
+    c_jac = new_jaccard(cpu)
+    for i in range(SEG_CPU_IMAGES):
+        c_jac.update(*seg_batch(i, cpu))
+    check(torch.equal(head_confmat.cpu(), c_jac.confmat),
+          f"the confusion matrix of the first {SEG_CPU_IMAGES} images differs from the CPU run")
+    torch.testing.assert_close(head_miou.cpu(), c_jac.compute(), rtol=1e-6, atol=0,
+                               msg=f"mean IoU of the first {SEG_CPU_IMAGES} images differs from the CPU run")
+    seg_np = numpy_confmat_scores(seg_ref.reshape(SEG_CLASSES, SEG_CLASSES).cpu().numpy(), ignore_index=SEG_VOID)
+    np.testing.assert_allclose(float(seg_miou), seg_np["miou"], rtol=1e-5, atol=0,
+                               err_msg="the segmentation mean IoU differs from float64 numpy")
+    seg_update = new_jaccard(dev)
+    seg_img = seg_batch(0, dev)
+    seg_timing = {
+        "epoch_ms": seg_epoch_s * 1e3,
+        "update_ms": host_ms(torch, lambda: seg_update.update(*seg_img)),
+        "syncs": syncs_per_call(torch, lambda: seg_update.update(*seg_img)),
+    }
+    seg_timing["syncs_per_update"] = len(seg_timing["syncs"])
+    print(f"segmentation path (Cityscapes val geometry, {SEG_IMAGES} images of {SEG_H} x {SEG_W}, {SEG_CLASSES} classes, "
+          f"top class share {top_share:.3f}): mean IoU {float(seg_miou):.6f} (numpy {seg_np['miou']:.6f}); confusion "
+          f"matrix equal to bincount, first {SEG_CPU_IMAGES} images equal to the CPU run; confusion_matrix launches "
+          f"{json.dumps(by_shape(seg_by_shape))}; {json.dumps(seg_timing)}")
+    laps.mark("3. segmentation path, card and CPU")
 
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000
@@ -1082,7 +1330,7 @@ def main() -> int:
             (lambda: cm_flat_table.index_add_(0, cm_flat, cm_w_rep), "index_add_ on precomputed cells (1 of 2+ calls)"),
         ),
     }
-    path_launches = {"stat_scores": counts["stat_scores"], "confusion_matrix": counts["confusion_matrix"],
+    path_launches = {"stat_scores": counts["stat_scores"], "confusion_matrix": counts["confusion_matrix"] + seg_launches,
                      "binned_stats": sum(binned_launches.values()), "retrieval_sort": marco_launches + trec_launches,
                      "countmin": click_launches}
     for name, (kernel, plain, library, library_call, nbytes, ops, shape, yardstick) in timing.items():
@@ -1107,6 +1355,13 @@ def main() -> int:
     print(f"binned_stats launches per path: {json.dumps(binned_launches)}")
     laps.mark("4. kernel timings at the slice's shapes")
 
+    def launched_branch(name, fn):
+        """The branch one call of ``fn`` launches, from the wrapper's own count."""
+        reset_launches()
+        fn()
+        (branch, _), = registry.launches_by_shape(name)
+        return branch
+
     # retrieval_sort at both launch shapes of the path, each branch beside the plain version and the
     # yardstick, in turns within this run; the all-pairs branch is the earlier design's kernel
     fq_p, fq_t = head_s[:1].contiguous(), head_t[:1].to(torch.int32)  # a functional call's (1, 1000) cells
@@ -1125,14 +1380,17 @@ def main() -> int:
         sq, sl = sp.shape
         s_bound, s_by = bound(sq * sl * (4 + 4 + 4), sq * sl * math.ceil(math.log2(max(sl, 2))))
         sort_rows.append({
-            "launch": launch, "shape": {"Q": sq, "L": sl}, "launches": n_launches, "branch": sort_branch(sl),
+            "launch": launch, "shape": {"Q": sq, "L": sl}, "launches": at_shape(sort_path_by_shape, (sq, sl)),
+            "branch": launched_branch("retrieval_sort", lambda: _sorted_by_preds_kernel(sp, st)),
             "ms": (bitonic_a + bitonic_b) / 2, "all_pairs_ms": (pairs_a + pairs_b) / 2,
             "plain_ms": device_ms(torch, lambda: _sorted_by_preds_plain(sp, st)),
             "yardstick_ms": device_ms(torch, lambda: torch.gather(st, 1, torch.argsort(-sp, dim=1, stable=True))),
             "bound_ms": s_bound, "bound_by": s_by,
         })
-    sort_rows.append({"launch": "TREC DL compute", "shape": {"Q": TREC_QUERIES, "L": bucket_pow2(MARCO_CANDIDATES)},
-                      "launches": trec_launches, "branch": sort_branch(bucket_pow2(MARCO_CANDIDATES)), "ms": None})
+    trec_shape = (TREC_QUERIES, bucket_pow2(MARCO_CANDIDATES))
+    sort_rows.append({"launch": "TREC DL compute", "shape": {"Q": trec_shape[0], "L": trec_shape[1]},
+                      "launches": at_shape(sort_path_by_shape, trec_shape),
+                      "branch": next(b for (b, sh) in sort_path_by_shape if sh == trec_shape), "ms": None})
     # countmin at both widths of the click-log path: the shared branch at 1024, the global one at 65,536
     wide_value = torch.zeros(cm_depth, 65536, device=dev)
     wide_flat = (sketches[1]._indices(cm_x) + torch.arange(cm_depth, device=dev)[:, None] * 65536).reshape(-1)
@@ -1150,20 +1408,14 @@ def main() -> int:
             lambda: _countmin_kernel(val, cm_bits, cm_w, cm_seeds), lambda: _countmin_plain(val, cm_bits, cm_w, cm_seeds)))
         c_bound, c_by = bound(cm_n * (4 + 4) + cm_depth * 4 + 2 * cm_depth * width * 4, cm_n * cm_depth * 11)
         cm_rows.append({
-            "shape": {"n": cm_n, "depth": cm_depth, "width": width}, "launches": n_launches,
-            "branch": "shared" if countmin_uses_shared(cm_depth, width, dev) else "global",
+            "shape": {"n": cm_n, "depth": cm_depth, "width": width},
+            "launches": at_shape(click_by_shape, (cm_n, cm_depth, width)), "sketch_launches": n_launches,
+            "branch": launched_branch("countmin", lambda: _countmin_kernel(val, cm_bits, cm_w, cm_seeds)),
             "ms": (kernel_a + kernel_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
             "yardstick_ms": device_ms(torch, lambda: flat_table.index_add_(0, flat_cells, cm_w_rep)),
             "bound_ms": c_bound, "bound_by": c_by,
         })
     laps.mark("4. retrieval_sort and countmin at each shape")
-
-    def launched_branch(name, fn):
-        """The branch one call of ``fn`` launches, from the wrapper's own count."""
-        reset_launches()
-        fn()
-        (branch, _), = registry.launches_by_shape(name)
-        return branch
 
     # stat_scores and binned_stats at each shape of their paths, each branch beside the plain version and
     # the library call or yardstick, in turns within this run; the multi-block and compare branches are
@@ -1209,6 +1461,70 @@ def main() -> int:
     print(f"stat_scores one block against many blocks at C = {NUM_CLASSES} (one-block limit {_ONE_BLOCK_ROWS} rows): "
           + json.dumps(one_block_sweep))
     laps.mark("4. stat_scores branches")
+    # confusion_matrix at both path shapes: the plan's launch in turns with the earlier design (a zeroed output
+    # plus integer atomics, the same run), beside the other branch, the plain version, torch.bincount over C^2
+    # bins and the bound; launches by branch and shape as the wrapper counted them on the main paths. Three
+    # calls at each shape must be three device kernels and no memset or fill (torch.profiler).
+    seg_t32, seg_p32 = (x[0].reshape(-1).to(torch.int32) for x in (seg_target, seg_pred))
+    confmat_shapes = {
+        "ImageNet batch": (t32, p32, NUM_CLASSES, confmat_slice_by_shape),
+        "Cityscapes image": (seg_t32, seg_p32, SEG_CLASSES, seg_by_shape),
+    }
+    confmat_path_by_shape = dict(confmat_slice_by_shape)
+    for key, count in seg_by_shape.items():
+        confmat_path_by_shape[key] = confmat_path_by_shape.get(key, 0) + count
+    confmat_rows = []
+    for launch, (ct, cp, c, path_by_shape) in confmat_shapes.items():
+        cn = ct.shape[0]
+        ref = _confmat_plain(ct, cp, c)
+        other = "split" if confusion_plan(cn, c, *registry.device_limits(dev, confusion_lib(), "confusion"))[0] == "band" \
+            else "band"
+        other_fits = other == "band" or split_shared_bytes(c) <= confmat_optin
+        runs = {"the plan": lambda: confusion_matrix_counts(ct, cp, c), "the earlier design": lambda: confmat_earlier(ct, cp, c)}
+        if other_fits:
+            runs[other] = lambda: _confmat_kernel(ct, cp, c, branch=other)
+        for what, run in runs.items():
+            check(torch.equal(run(), ref), f"confusion_matrix ({what}) differs from its plain version at the {launch} shape")
+        activities = device_kernels(torch, lambda: confusion_matrix_counts(ct, cp, c), calls=3)
+        check(len(activities) == 3 and len(set(activities)) == 1
+              and not any(w in a.lower() for a in activities for w in ("memset", "fill")),
+              f"three confusion_matrix calls at the {launch} shape made {activities}, not one kernel each and no "
+              "memset or fill")
+        new_a, old_a, old_b, new_b = (device_ms(torch, f) for f in (
+            lambda: confusion_matrix_counts(ct, cp, c), lambda: confmat_earlier(ct, cp, c),
+            lambda: confmat_earlier(ct, cp, c), lambda: confusion_matrix_counts(ct, cp, c)))
+        c_flat = ct.long() * c + cp.long()
+        c_bound, c_by = bound(cn * 8 + c * c * 4, cn)
+        confmat_rows.append({
+            "launch": launch, "shape": {"n": cn, "C": c}, "launches": at_shape(path_by_shape, (cn, c)),
+            "branch": launched_branch("confusion_matrix", lambda: confusion_matrix_counts(ct, cp, c)),
+            "ms": (new_a + new_b) / 2, "earlier_design_ms": (old_a + old_b) / 2,
+            "other_branch": other, "other_branch_ms": device_ms(torch, lambda: _confmat_kernel(ct, cp, c, branch=other))
+            if other_fits else None,
+            "plain_ms": device_ms(torch, lambda: _confmat_plain(ct, cp, c)),
+            "library_ms": device_ms(torch, lambda: torch.bincount(c_flat, minlength=c * c)),
+            "library_call": "torch.bincount, C^2 bins", "bound_ms": c_bound, "bound_by": c_by,
+            "device_activities_3_calls": activities, "launches_by_shape": by_shape(path_by_shape),
+        })
+    # where the branches cross: the band, and the split on 1, 8, 32 and 128 blocks and on the plan's count,
+    # over C = 20 to 240 and 1,024 to 2,097,152 rows (labels right on 90% of rows)
+    confmat_sweep = []
+    for c in CONFMAT_SWEEP_CLASSES:
+        for cn in CONFMAT_SWEEP_ROWS:
+            ct = torch.randint(0, c, (cn,), generator=g, device=dev, dtype=torch.int32)
+            cp = torch.where(torch.rand(cn, generator=g, device=dev) < 0.9, ct,
+                             torch.randint(0, c, (cn,), generator=g, device=dev, dtype=torch.int32)).to(torch.int32)
+            plan = confusion_plan(cn, c, *registry.device_limits(dev, confusion_lib(), "confusion"))
+            point = {"C": c, "n": cn, "plan": confusion_branch(cn, c, dev),
+                     "band_ms": device_ms(torch, lambda: _confmat_kernel(ct, cp, c, branch="band"), reps=5)}
+            for blocks in sorted({1, 8, 32, 128} | ({plan[1]} if plan[0] == "split" else set())):
+                if blocks == 1 or cn >= blocks * 1024:
+                    point[f"split_{blocks}_ms"] = device_ms(
+                        torch, lambda: _confmat_kernel(ct, cp, c, branch="split", blocks=blocks), reps=5)
+            confmat_sweep.append(point)
+    print(f"confusion_matrix by launch shape: {json.dumps(confmat_rows)}; branches against the rows and classes "
+          f"(the split on 1 to 128 blocks): {json.dumps(confmat_sweep)}")
+    laps.mark("4. confusion_matrix branches and earlier design")
     # binned_stats at both path shapes, and at COCO's width in batches of 4,096 and in one update of the whole
     # validation set (40,504 rows), where the plan splits each tile's rows over a cluster; the earlier design
     # (compare) needs its zeroed scratch and a second kernel. The plan's cluster size is timed in turns against
@@ -1256,14 +1572,15 @@ def main() -> int:
         if row["name"] == "stat_scores":
             row.update(branch=stat_rows[0]["branch"], timings=stat_rows, one_block_sweep=one_block_sweep,
                        launches_by_shape=by_shape(stat_by_shape))
+        if row["name"] == "confusion_matrix":
+            row.update(branch=confmat_rows[0]["branch"], timings=confmat_rows, crossover=confmat_sweep,
+                       launches_by_shape=by_shape(confmat_path_by_shape))
         if row["name"] == "binned_stats":
             row.update(branch=binned_rows[0]["branch"], timings=binned_rows, launches_by_shape=by_shape(binned_path_by_shape))
         if row["name"] == "retrieval_sort":
-            row.update(branch=sort_rows[0]["branch"], timings=sort_rows,
-                       launches_by_shape={f"({r['shape']['Q']}, {r['shape']['L']})": r["launches"] for r in sort_rows})
+            row.update(branch=sort_rows[0]["branch"], timings=sort_rows, launches_by_shape=by_shape(sort_path_by_shape))
         if row["name"] == "countmin":
-            row.update(branch=cm_rows[0]["branch"], timings=cm_rows,
-                       launches_by_shape={f"width {r['shape']['width']}": r["launches"] for r in cm_rows})
+            row.update(branch=cm_rows[0]["branch"], timings=cm_rows, launches_by_shape=by_shape(click_by_shape))
     print("stat_scores by launch shape and branch: " + json.dumps(stat_rows))
     print("binned_stats by launch shape and branch: " + json.dumps(binned_rows))
     print("retrieval_sort by launch shape and branch: " + json.dumps(sort_rows))

@@ -15,6 +15,11 @@ from metrics_tpu_torch.functional.classification.confusion_matrix import (
 from metrics_tpu_torch.metric import _SYNC, Metric, not_ported
 
 
+def _validate_update_method(update_method: str) -> None:
+    if update_method not in ("bincount", "matmul"):
+        raise ValueError(f"Argument `update_method` must be 'bincount' or 'matmul', got {update_method}")
+
+
 class ConfusionMatrix(Metric):
     """Confusion matrix accumulated over batches.
 
@@ -56,8 +61,7 @@ class ConfusionMatrix(Metric):
         allowed_normalize = ("true", "pred", "all", "none", None)
         if normalize not in allowed_normalize:
             raise ValueError(f"Argument average needs to one of the following: {allowed_normalize}")
-        if update_method not in ("bincount", "matmul"):
-            raise ValueError(f"Argument `update_method` must be 'bincount' or 'matmul', got {update_method}")
+        _validate_update_method(update_method)
         if update_method == "matmul" and multilabel:
             raise ValueError("`update_method='matmul'` does not support `multilabel=True`")
         self.update_method = update_method

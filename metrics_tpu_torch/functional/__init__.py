@@ -1,7 +1,10 @@
 from metrics_tpu_torch.functional.classification import (  # noqa: F401
     accuracy,
     average_precision,
+    cohen_kappa,
     confusion_matrix,
+    jaccard_index,
+    matthews_corrcoef,
     precision_recall_curve,
     stat_scores,
 )
@@ -19,7 +22,10 @@ from metrics_tpu_torch.functional.retrieval import (  # noqa: F401
 __all__ = [
     "accuracy",
     "average_precision",
+    "cohen_kappa",
     "confusion_matrix",
+    "jaccard_index",
+    "matthews_corrcoef",
     "precision_recall_curve",
     "retrieval_average_precision",
     "retrieval_fall_out",

@@ -7,8 +7,8 @@ fallback: a kernel that fails to build or launch raises.
 
 Each wrapper adds one to its kernel's count where it launches the kernel,
 and nowhere else, so a run can show that its path went through the kernels.
-A wrapper may also name the branch it launched and the shape it launched
-at; those counts are kept per ``(branch, shape)`` beside the total.
+It names the branch it launched and the shape it launched at; those counts
+are kept per ``(branch, shape)`` beside the total.
 """
 import ctypes
 from typing import Dict, Tuple
@@ -35,11 +35,10 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise RuntimeError(f"no kernel or plain version for tensors on {device}")
 
 
-def note_launch(name: str, branch: str = "", shape: Tuple[int, ...] = ()) -> None:
+def note_launch(name: str, branch: str, shape: Tuple[int, ...]) -> None:
     _launches[name] += 1
-    if branch:
-        key = (branch, tuple(shape))
-        _by_shape[name][key] = _by_shape[name].get(key, 0) + 1
+    key = (branch, tuple(shape))
+    _by_shape[name][key] = _by_shape[name].get(key, 0) + 1
 
 
 def launches() -> Dict[str, int]:
@@ -49,7 +48,7 @@ def launches() -> Dict[str, int]:
 
 def launches_by_shape(name: str) -> Dict[Tuple[str, Tuple[int, ...]], int]:
     """Launches of kernel ``name`` per ``(branch, shape)`` since the last
-    :func:`reset_launches`, for the wrappers that name them."""
+    :func:`reset_launches`."""
     return dict(_by_shape[name])
 
 

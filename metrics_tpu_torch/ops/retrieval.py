@@ -81,7 +81,8 @@ def _sorted_by_preds_kernel(preds: Tensor, target: Tensor, all_pairs: bool = Fal
     if q == 0 or l == 0:
         return out
     lib = _lib()
-    use_all_pairs = sort_branch(l, all_pairs) == "all_pairs"
+    branch = sort_branch(l, all_pairs)
+    use_all_pairs = branch == "all_pairs"
     with torch.cuda.device(preds.device):
         stream = torch.cuda.current_stream(preds.device).cuda_stream
         err = lib.retrieval_sort_launch(
@@ -89,7 +90,7 @@ def _sorted_by_preds_kernel(preds: Tensor, target: Tensor, all_pairs: bool = Fal
         )
     if err != 0:
         raise RuntimeError(f"retrieval_sort kernel launch failed: {lib.retrieval_sort_error_string(err).decode()}")
-    registry.note_launch(_NAME)
+    registry.note_launch(_NAME, branch, (q, l))
     return out
 
 

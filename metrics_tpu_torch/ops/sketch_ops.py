@@ -109,7 +109,7 @@ def _countmin_kernel(value: Tensor, bits: Tensor, w: Tensor, seeds: Tensor) -> T
         )
     if err != 0:
         raise RuntimeError(f"countmin kernel launch failed: {lib.countmin_error_string(err).decode()}")
-    registry.note_launch(_NAME)
+    registry.note_launch(_NAME, branch, (n, depth, width))
     return out
 
 

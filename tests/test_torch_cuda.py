@@ -27,7 +27,7 @@ from metrics_tpu_torch.ops.binned_stats import (
 )
 from metrics_tpu_torch.ops.retrieval import _WIDEN, L_MAX, _sorted_by_preds_kernel, _sorted_by_preds_plain
 from metrics_tpu_torch.ops.sketch_ops import _countmin_plain, countmin_uses_shared
-from metrics_tpu_torch.ops.confusion import _confmat_plain
+from metrics_tpu_torch.ops.confusion import _confmat_kernel, _confmat_plain, confusion_branch, split_shared_bytes
 from metrics_tpu_torch.ops.stat_scores import _ONE_BLOCK_ROWS, _lib, _stat_counts_kernel, _stat_counts_plain
 
 pytestmark = pytest.mark.cuda
@@ -374,3 +374,78 @@ def test_countmin_fractional_weights_agree_and_the_shared_branch_repeats(card, d
     if width < 65536:
         for _ in range(3):
             assert torch.equal(countmin_update(value, bits, w, seeds), first)
+
+
+def _confusion_inputs(n, c, kind, card):
+    """(target, pred) int32 on the card: ``"random"`` labels in [-1, C] (both ends outside the matrix), or
+    ``"runs"`` of 512 rows on one cell (every lane of a warp on one cell) with one prediction in 97 off by one."""
+    g = torch.Generator(device=card).manual_seed(n + c)
+    if kind == "random":
+        target = torch.randint(-1, c + 1, (n,), generator=g, device=card, dtype=torch.int32)
+        pred = torch.randint(-1, c + 1, (n,), generator=g, device=card, dtype=torch.int32)
+        target[::101] = -(2**31)
+        pred[1::103] = 2**31 - 1
+        return target, pred
+    target = (torch.arange(n, device=card) // 512 % c).to(torch.int32)
+    pred = target.clone()
+    pred[::97] = (pred[::97] + 1) % c
+    return target, pred
+
+
+# up to 2,097,152 rows where the plain one-hot product stays within about 2 GB a side
+@pytest.mark.parametrize(
+    "n,c", [(n, c) for n in (1, 3, 129, 4099, 65536, 2097152) for c in (2, 20, 240, 241, 1000) if n * c <= 6e8]
+)
+@pytest.mark.parametrize("kind", ["random", "runs"])
+def test_confusion_both_branches_equal_plain(card, n, c, kind):
+    target, pred = _confusion_inputs(n, c, kind, card)
+    ref = _confmat_plain(target, pred, c)
+    runs = [dict(branch="band")]
+    if split_shared_bytes(c) <= registry.device_limits(card, _lib(), "stat_scores")[1]:
+        runs += [dict(branch="split", blocks=1), dict(branch="split", blocks=8), dict(branch="split", blocks=128)]
+    for kwargs in [{}] + runs:
+        reset_launches()
+        got = _confmat_kernel(target, pred, c, **kwargs)
+        torch.cuda.synchronize()
+        assert launches()["confusion_matrix"] == 1
+        assert got.dtype == torch.int32 and torch.equal(got, ref), kwargs
+    # an input that does not start on 16 bytes takes the row-by-row loads
+    if n > 4:
+        assert torch.equal(confusion_matrix_counts(target[1:], pred[1:], c), _confmat_plain(target[1:], pred[1:], c))
+
+
+def test_confusion_plan_at_the_path_shapes(card):
+    assert confusion_branch(1024, 1000, card) == "band"  # ImageNet's batch
+    assert confusion_branch(2097152, 20, card) == "split, 132 blocks"  # a Cityscapes image
+
+
+@pytest.mark.parametrize("name", ["confusion_matrix", "retrieval_sort", "countmin"])
+def test_one_call_records_one_branch_and_shape(card, name):
+    g = torch.Generator(device=card).manual_seed(9)
+    if name == "confusion_matrix":
+        t = torch.randint(0, 20, (2097152,), generator=g, device=card, dtype=torch.int32)
+        call, want = (lambda: confusion_matrix_counts(t, t, 20)), ("split, 132 blocks", (2097152, 20))
+    elif name == "retrieval_sort":
+        p = torch.rand(64, 1000, generator=g, device=card)
+        call, want = (lambda: sorted_by_preds(p, p > 0.5)), ("bitonic", (64, 1000))
+    else:
+        value, bits, w, seeds = _countmin_inputs(65536, 4, 1024, g, card)
+        call, want = (lambda: countmin_update(value, bits, w, seeds)), ("shared", (65536, 4, 1024))
+    reset_launches()
+    call()
+    assert registry.launches_by_shape(name) == {want: 1}
+
+
+def test_confusion_family_on_the_card_equals_the_cpu(card):
+    rng = np.random.RandomState(4)
+    batches = [(rng.rand(n, 30).astype(np.float32), rng.randint(0, 30, n)) for n in (256, 256, 100)]
+    for name, kwargs in (("CohenKappa", dict(weights="quadratic")), ("MatthewsCorrCoef", {}),
+                         ("JaccardIndex", dict(ignore_index=3))):
+        results = []
+        for device in ("cpu", card):
+            m = getattr(metrics_tpu_torch, name)(num_classes=30, update_method="matmul", device=device, **kwargs)
+            for p, t in batches:
+                m.update(torch.from_numpy(p).to(device), torch.from_numpy(t).to(device))
+            results.append((m.confmat.cpu(), m.compute().cpu()))
+        assert torch.equal(results[0][0], results[1][0])
+        torch.testing.assert_close(results[1][1], results[0][1], rtol=1e-6, atol=0)

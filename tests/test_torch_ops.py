@@ -25,6 +25,8 @@ from metrics_tpu.ops.stat_scores import stat_scores_counts as jax_stat_scores_co
 from metrics_tpu_torch.ops import _build, confusion_matrix_counts, launches, registry, stat_scores_counts
 from metrics_tpu_torch.ops.retrieval import L_MAX, sort_branch
 from metrics_tpu_torch.ops.binned_stats import binned_plan, branch_name, hist_max_thresholds, hist_shared_bytes
+from metrics_tpu_torch.ops.confusion import band_shared_bytes, confusion_plan, split_shared_bytes
+from metrics_tpu_torch.ops.confusion import branch_name as confusion_branch_name
 from metrics_tpu_torch.ops.sketch_ops import countmin_plan
 from metrics_tpu_torch.ops.stat_scores import stat_scores_plan
 
@@ -187,7 +189,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         ([("block", (1024, 1000))] * 48 + [("block", (848, 1000))], {("block", (1024, 1000)): 48, ("block", (848, 1000)): 1}),
         ([("hist", (1024, 80, 100)), ("hist, clusters of 8", (40504, 80, 100)), ("hist", (1024, 80, 100))],
          {("hist", (1024, 80, 100)): 2, ("hist, clusters of 8", (40504, 80, 100)): 1}),
-        ([("", ())] * 3, {}),  # a wrapper that names no branch adds to its total only
+        ([("bitonic", (6980, 1024))] * 3, {("bitonic", (6980, 1024)): 3}),
     ],
 )
 def test_launches_are_counted_by_branch_and_shape(notes, want):
@@ -241,6 +243,53 @@ H100 = (132, 232_448)  # SMs, and the opt-in shared memory of a block in bytes
 )
 def test_countmin_plan_sizes_the_grid_from_the_card(n, depth, width, want):
     assert countmin_plan(n, depth, width, *H100) == want
+
+
+@pytest.mark.parametrize(
+    "n,c,want",
+    [
+        (1024, 1000, ("band", 8, 1000)),  # ImageNet: 125 bands of 8 target rows, one a block, one wave
+        (848, 1000, ("band", 8, 1000)),  # ImageNet's last batch
+        (2_097_152, 20, ("split", 132, 1)),  # a Cityscapes image: sqrt(8n) / C = 204 blocks, one an SM
+        (1024, 20, ("split", 1, 1)),  # two rows a cell: one block holds the whole table
+        (799, 20, ("band", 1, 20)),  # fewer: 20 one-row bands
+        (16_384, 20, ("split", 1, 1)),  # two blocks of 8,192 rows lose to one
+        (32_768, 20, ("split", 4, 1)),  # four: a block a 8,192 rows
+        (262_144, 20, ("split", 32, 1)),
+        (4096, 64, ("band", 1, 64)),
+        (16_384, 64, ("split", 1, 1)),
+        (2_097_152, 64, ("split", 64, 1)),  # sqrt(8n) / C
+        (65_536, 240, ("band", 2, 240)),  # fewer than two rows a cell
+        (2_097_152, 240, ("split", 17, 1)),  # the last block sums 17 tables of 57,600 cells
+        (2_097_152, 241, ("split", 16, 1)),  # the widest table that fits a block's 227 KB
+        (2_097_152, 242, ("band", 2, 242)),
+        (8_650_752, 2, ("split", 132, 1)),  # at most one block an SM
+        (1, 58_112, ("band", 1, 58_106)),  # a row of cells fills shared memory: tiles of one row by 58,106
+        (1, 1, ("band", 1, 1)),
+    ],
+)
+def test_confusion_plan_picks_bands_or_a_split_table(n, c, want):
+    assert confusion_plan(n, c, *H100) == want
+    branch, a, b = want
+    shared = band_shared_bytes(a, b) if branch == "band" else split_shared_bytes(c)
+    assert shared <= H100[1]
+
+
+@pytest.mark.parametrize("c", [1, 2, 20, 132, 133, 241, 242, 1000, 3001, 58_110, 58_111, 58_112, 100_000])
+def test_confusion_band_tiles_cover_the_matrix_within_shared_memory(c):
+    branch, rows, cols = confusion_plan(0, c, *H100)  # no rows: always the band
+    assert branch == "band" and band_shared_bytes(rows, cols) <= H100[1]
+    assert cols == c or rows == 1
+    # at most one tile an SM, unless a taller band would not fit
+    assert -(-c // rows) * -(-c // cols) <= H100[0] or band_shared_bytes(rows + 1, cols) > H100[1]
+
+
+@pytest.mark.parametrize(
+    "plan,want",
+    [(("band", 8, 1000), "band"), (("split", 1, 1), "split"), (("split", 102, 1), "split, 102 blocks")],
+)
+def test_confusion_launches_are_named_by_branch_and_blocks(plan, want):
+    assert confusion_branch_name(*plan) == want
 
 
 @pytest.mark.parametrize(
