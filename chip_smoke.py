@@ -40,7 +40,28 @@
    on its band branch, and the results must equal the same run on the CPU
    (counts exactly, values to rtol 1e-6) and an independent reference
    computed from the scores (a bincount; its kappa, MCC and mean IoU in
-   float64 numpy to rtol 1e-5). Slice 2: the same
+   float64 numpy to rtol 1e-5). Slice 7: the same scores through one
+   ``MetricCollection`` of eleven members, as a validation epoch logs them
+   (``Accuracy``, ``Precision``, ``Recall``, ``F1Score``, ``FBetaScore(beta=0.5)``
+   and ``Specificity``, all macro; ``HammingDistance``; ``ConfusionMatrix``,
+   ``CohenKappa(weights="quadratic")``, ``MatthewsCorrCoef`` and
+   ``JaccardIndex``, all matmul; ``prefix="val_"``): ``update`` on every
+   batch, ``compute``, ``forward`` on the last batch, ``state_dict`` into a
+   fresh collection, ``reset``. The compute groups must be the JAX package's
+   three (the six stat-scores metrics, ``HammingDistance``, the four
+   confusion-matrix metrics); ``stat_scores`` must launch 6 + 48 times and
+   ``confusion_matrix`` 4 + 48 times over the epoch (one launch a member on
+   the first update, one a group after), and one a member in ``forward``.
+   The five slice-1 metrics' values (and forward values) must be bit-equal to
+   slice 1's standalone metrics, the other six match float64 numpy from the
+   bincount matrix (rtol 1e-5; the Hamming counts exactly and its float32
+   ``1 - correct / total`` also within atol 2**-23), the first 8 batches
+   grouped bit-equal to ungrouped (48 and 32 launches) and equal to the CPU run (counts exactly,
+   values to rtol 1e-6). ``2PR / (P + R)`` as a ``CompositionalMetric`` must
+   equal ``F1Score(average="micro")`` for micro P and R (rtol 1e-6) and
+   float64 numpy for macro ones (rtol 1e-5, four launches an update: P and R
+   each stand twice in the tree). The group detection must read the device
+   once. Slice 2: the same
    ImageNet scores through ``BinnedAveragePrecision`` and
    ``BinnedRecallAtFixedPrecision`` (100 thresholds; 98 launches of
    ``binned_stats``), and MS-COCO 2014 val multilabel classification (40,504
@@ -80,7 +101,10 @@
    at the slices' shapes with CUDA events (median of 25 repetitions),
    beside the least time the card allows (bytes over its memory rate or the
    operations the work needs over its float32 rate, whichever is larger),
-   and times whole updates, ``compute`` and each path's epoch.
+   and times whole updates, ``compute`` and each path's epoch (slice 7: a
+   grouped and an ungrouped collection update and its three group leaders'
+   own updates, timed in turns, the group detection and its host reads, a
+   grouped update's host syncs and its device busy share).
    ``stat_scores`` is timed on both branches (one block, many blocks) at
    (1024, 1000), bench.py's (1024, 128) and at 2,048 to 16,384 rows around
    the one-block limit; ``binned_stats`` on both (histogram, compare) at
@@ -94,7 +118,9 @@
    branch and shape. ``confusion_matrix`` is timed at both path shapes,
    (1024, 1000) and (2097152, 20), in turns against its earlier design,
    beside the other branch and ``torch.bincount``; three calls at each must be
-   three device kernels and no memset or fill under ``torch.profiler``; and both
+   three device kernels and no memset or fill under ``torch.profiler`` (a
+   capture with fewer device activities than the wrapper counts launches is
+   incomplete and taken again); and both
    branches are timed over C = 20 to 240 and 1,024 to 2,097,152 rows, where
    the plan switches. The command time of each part is printed before the
    ``kernels`` line.
@@ -138,10 +164,20 @@ HEAVY_HITTERS = 100
 SEG_IMAGES, SEG_H, SEG_W, SEG_CLASSES, SEG_VOID = 500, 1024, 2048, 20, 19
 SEG_PATCH, SEG_ZIPF, SEG_VOID_SHARE, SEG_RIGHT = 32, 1.1, 0.10, 0.94
 SEG_CPU_IMAGES = 8
+FBETA = 0.5
+COLLECTION_CPU_BATCHES = 8
+# the compute groups the JAX package forms for slice 7's collection (tests/test_torch_collections.py holds
+# the port's groups equal to them on the CPU)
+COLLECTION_GROUPS = {
+    0: ["Accuracy", "Precision", "Recall", "F1Score", "FBetaScore", "Specificity"],
+    1: ["HammingDistance"],
+    2: ["ConfusionMatrix", "CohenKappa", "MatthewsCorrCoef", "JaccardIndex"],
+}
 CONFMAT_SWEEP_CLASSES = (20, 64, 128, 240)
 CONFMAT_SWEEP_ROWS = (1024, 4096, 16384, 65536, 262144, 2097152)
 REPS, INNER = 25, 20
 SLEEP_CYCLES = 20_000_000  # ~10 ms of device time: the host queues a whole repetition behind it
+PROFILE_PAD_S = 0.01  # host time a profiler window holds on each side of the calls it records
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -225,6 +261,30 @@ def host_ms(torch, fn):
     return statistics.median(times)
 
 
+def host_ms_in_turns(torch, fns):
+    """Median wall time of one call of each of ``fns`` (a dict) up to the
+    device's completion, the calls timed in turns within each repetition
+    (forward order, then reverse: a, b, b, a) and each call's two readings
+    averaged, so that a drift of the host's speed over the repetitions falls
+    on every call alike."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    order = list(fns.items()) + list(reversed(fns.items()))
+    times = {key: [] for key in fns}
+    for _ in range(REPS):
+        lap = {key: 0.0 for key in fns}
+        for key, fn in order:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            lap[key] += (time.perf_counter() - t0) * 1e3 / 2
+        for key, ms in lap.items():
+            times[key].append(ms)
+    return {key: statistics.median(ms) for key, ms in times.items()}
+
+
 def syncs_per_call(torch, fn):
     """The host<->device synchronisations one call of ``fn`` makes, each as
     ``file:line`` of the innermost line of the port on the stack, from
@@ -253,24 +313,58 @@ def syncs_per_call(torch, fn):
     return found
 
 
-def device_busy(torch, fn, steps=10):
-    """Device kernel time over wall time for ``steps`` calls of ``fn`` under
-    ``torch.profiler``, and the kernels by total time; None where the
-    profiler saw no device activity."""
-    from torch.profiler import ProfilerActivity, profile
+def profiled(torch, fn, calls, warmup=True, pad_s=PROFILE_PAD_S):
+    """The device activities (kernels, memsets, copies) of ``calls`` calls of
+    ``fn`` under ``torch.profiler``, as (name, µs) pairs; the wall µs of those
+    calls; and each kernel's start less its launch call's start (µs), where the
+    capture holds as many launch calls as kernels, else None.
+
+    With ``warmup``, a first step of as many calls runs inside the same profiler
+    session with tracing set up and its events dropped, and only the second step
+    is kept. The recorded window holds ``pad_s`` of host time on each side of
+    the calls: the profiler keeps only the device activities whose times, moved
+    onto the host's clock, fall within its window, and that move can be off by
+    more than a few short kernels last. Neither makes every capture whole on
+    the card (part 4 prints how many of each way recorded every kernel), so a
+    count that matters is checked against the wrappers' own launch counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if warmup:
+        prof = profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1, repeat=1), acc_events=True)
+    else:
+        prof = profile(activities=activities)
+    with prof:
+        for _ in range(2 if warmup else 1):
+            time.sleep(pad_s)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            time.sleep(pad_s)
+            if warmup:
+                prof.step()
+    # the schedule's step span is also recorded on the device, as an annotation: not an activity
+    device = [e for e in prof.events() if str(e.device_type).endswith("CUDA") and not e.is_user_annotation]
+    kernels = sorted((e for e in device if "memcpy" not in e.name.lower() and "memset" not in e.name.lower()),
+                     key=lambda e: e.time_range.start)
+    launch_calls = sorted((e for e in prof.events() if e.name.startswith("cudaLaunch")), key=lambda e: e.time_range.start)
+    lag = ([k.time_range.start - c.time_range.start for k, c in zip(kernels, launch_calls)]
+           if kernels and len(kernels) == len(launch_calls) else None)
+    return [(e.name, e.time_range.elapsed_us()) for e in device], wall_us, lag
+
+
+def device_busy(torch, fn, steps=10):
+    """Device kernel time over wall time for ``steps`` calls of ``fn`` under
+    ``torch.profiler`` (after a warm-up step), and the kernels by total time;
+    None where the profiler saw no device activity."""
+    events, wall_us, _ = profiled(torch, fn, steps)
     by_kernel = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us in events:
+        by_kernel[name] = by_kernel.get(name, 0.0) + us
     if not by_kernel:
         return None
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
@@ -428,6 +522,36 @@ def numpy_confmat_scores(cm, ignore_index=None):
     return {"kappa": kappa, "mcc": mcc, "miou": iou[kept].mean()}
 
 
+def numpy_stat_family(cm, beta):
+    """Macro precision, recall, F1, F-beta and specificity and the Hamming distance of one-hot top-1
+    predictions, from a confusion matrix in float64 numpy: classes with no tp, fp or fn leave the
+    precision, recall and F averages; a zero denominator scores 0."""
+    cm = cm.astype(np.float64)
+    n, c = cm.sum(), cm.shape[0]
+    tp = np.diag(cm)
+    fp, fn = cm.sum(0) - tp, cm.sum(1) - tp
+    tn = n - tp - fp - fn
+    present = (tp + fp + fn) > 0
+
+    def ratio(num, den):
+        return np.where(den > 0, num / np.where(den > 0, den, 1.0), 0.0)
+
+    prec, rec = ratio(tp, tp + fp), ratio(tp, tp + fn)
+    f = {b: ratio((1 + b * b) * prec * rec, b * b * prec + rec) for b in (1.0, beta)}
+    return {"precision": prec[present].mean(), "recall": rec[present].mean(), "f1": f[1.0][present].mean(),
+            "fbeta": f[beta][present].mean(), "specificity": ratio(tn, tn + fp).mean(),
+            "hamming": 2.0 * (n - tp.sum()) / (n * c)}
+
+
+def merged(*counts):
+    """Launch counts by ``(branch, shape)`` of several paths, summed."""
+    out = {}
+    for by in counts:
+        for key, count in by.items():
+            out[key] = out.get(key, 0) + count
+    return out
+
+
 def segmentation_data(torch, dev):
     """Cityscapes val geometry as uint8 label maps on the card: a class a 32 x 32 patch with shares
     proportional to (k + 1)^-1.1 over the 19 evaluated classes, 10% of patches void, and predictions
@@ -450,23 +574,24 @@ def segmentation_data(torch, dev):
     return target, pred, float(cdf[0])
 
 
-def device_kernels(torch, fn, calls=3, tries=3):
+def device_kernels(torch, fn, kernel, calls=3, tries=8):
     """The names of the device activities (kernels, memsets, copies) of ``calls`` calls of ``fn``, from
-    ``torch.profiler``; a capture that recorded no device activity at all is taken again, up to
-    ``tries`` times (the profiler can miss a whole window; an empty capture says nothing about ``fn``)."""
-    from torch.profiler import ProfilerActivity, profile
+    ``torch.profiler`` (after a warm-up step), and the number of activities of each capture taken. A capture
+    that recorded fewer device activities than the wrapper of ``kernel`` counts launches for ``calls`` calls
+    is incomplete and is taken again, up to ``tries`` times: it says nothing about ``fn``, and an activity
+    more than the launches still shows."""
+    from metrics_tpu_torch.ops import launches
 
+    before = launches()[kernel]
     fn()
-    torch.cuda.synchronize()
+    launched = (launches()[kernel] - before) * calls
+    captured = []
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
-        if names:
-            return names
-    return names
+        names = [name for name, _ in profiled(torch, fn, calls)[0]]
+        captured.append(len(names))
+        if len(names) >= launched:
+            break
+    return names, captured
 
 
 def main() -> int:
@@ -482,8 +607,15 @@ def main() -> int:
         BinnedRecallAtFixedPrecision,
         CohenKappa,
         ConfusionMatrix,
+        F1Score,
+        FBetaScore,
+        HammingDistance,
         JaccardIndex,
         MatthewsCorrCoef,
+        MetricCollection,
+        Precision,
+        Recall,
+        Specificity,
     )
     from metrics_tpu_torch.classification.binned_precision_recall import _linspace_thresholds
     from metrics_tpu_torch.functional.classification.confusion_matrix import _canonicalize_confmat_labels
@@ -555,6 +687,19 @@ def main() -> int:
         return out
 
     laps.mark("1. build")
+    t_started = time.perf_counter()
+    probe_t = torch.arange(BATCH, device=dev, dtype=torch.int32) % NUM_CLASSES
+
+    def profiler_probe(where):
+        """Three confusion_matrix calls in one bare profiler window (no warm-up step, no padding): how many
+        kernels it recorded and each one's start less its launch call's (µs), at this point of the run. The
+        captures at the confusion_matrix shapes in part 4 read the same late in the run."""
+        acts, _, lag = profiled(torch, lambda: confusion_matrix_counts(probe_t, probe_t, NUM_CLASSES), 3,
+                                warmup=False, pad_s=0.0)
+        print(f"profiler probe {where}, {time.perf_counter() - t_started:.1f} s after the build: "
+              + json.dumps({"activities": len(acts), "kernel_less_launch_us": lag}))
+
+    profiler_probe("after the build")
 
     # -------------------------------------------------- 2. kernel vs plain
     max_err = {name: 0 for name in KERNELS}
@@ -930,6 +1075,185 @@ def main() -> int:
               f"{cls.__name__}.reset left state behind")
     print("state_dict round trip and reset: ok")
     laps.mark("3. slice 1, card and CPU")
+
+    # ------------------------------- 3a. slice 7: the ImageNet evaluation collection, compute groups
+    def collection_members(device):
+        macro = dict(num_classes=NUM_CLASSES, average="macro", device=device)
+        matmul = dict(update_method="matmul", device=device)
+        return [Accuracy(**macro), Precision(**macro), Recall(**macro), F1Score(**macro),
+                FBetaScore(beta=FBETA, **macro), Specificity(**macro), HammingDistance(device=device),
+                ConfusionMatrix(NUM_CLASSES, **matmul), CohenKappa(NUM_CLASSES, weights="quadratic", **matmul),
+                MatthewsCorrCoef(NUM_CLASSES, **matmul), JaccardIndex(NUM_CLASSES, **matmul)]
+
+    def run_collection(device, data, compute_groups=True):
+        """A validation epoch as a training loop logs it: ``update`` on every batch, then ``compute``."""
+        mc = MetricCollection(collection_members(device), prefix="val_", compute_groups=compute_groups)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for p_, t_ in data:
+            mc.update(p_, t_)
+        out = mc.compute()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return mc, out, time.perf_counter() - t_start
+
+    reset_launches()
+    coll, coll_values, coll_epoch_s = run_collection(dev, batches)
+    coll_launches = launches()
+    coll_stat_by_shape = registry.launches_by_shape("stat_scores")
+    coll_confmat_by_shape = registry.launches_by_shape("confusion_matrix")
+    check(coll.compute_groups == COLLECTION_GROUPS,
+          f"the collection formed the groups {coll.compute_groups}, not the JAX package's {COLLECTION_GROUPS}")
+    n_stat, n_conf = len(COLLECTION_GROUPS[0]), len(COLLECTION_GROUPS[2])
+    check(coll_launches["stat_scores"] == n_stat + len(batches) - 1,
+          f"stat_scores launched {coll_launches['stat_scores']} times in the grouped epoch, not {n_stat + len(batches) - 1}")
+    check(coll_launches["confusion_matrix"] == n_conf + len(batches) - 1,
+          f"confusion_matrix launched {coll_launches['confusion_matrix']} times in the grouped epoch, "
+          f"not {n_conf + len(batches) - 1}")
+    check({b for b, _ in coll_stat_by_shape} == {"block"} and {b for b, _ in coll_confmat_by_shape} == {"band"},
+          f"the grouped epoch's launches by branch: stat_scores {coll_stat_by_shape}, confusion_matrix {coll_confmat_by_shape}")
+    # bit-equal to slice 1's standalone metrics on the same scores
+    for key, ref in (("val_Accuracy", values[0]), ("val_ConfusionMatrix", values[1]),
+                     ("val_CohenKappa", family_values["cohen_kappa"]),
+                     ("val_MatthewsCorrCoef", family_values["matthews_corrcoef"]),
+                     ("val_JaccardIndex", family_values["jaccard_index"])):
+        check(coll_values[key].dtype == ref.dtype and torch.equal(coll_values[key], ref),
+              f"{key} of the collection differs from slice 1's standalone metric: {coll_values[key]} against {ref}")
+    # the rest of the family against float64 numpy from the epoch's bincount matrix (float32 sums of 1,000
+    # classes against float64: rtol 1e-5). The Hamming distance is 1 - correct / total in float32, as in the
+    # JAX package: near 1, correct / total carries an absolute error up to one float32 step at 1.0, which
+    # the difference keeps, so its counts are held exactly and its value also within atol 2**-23.
+    stat_ref = numpy_stat_family(ref_cm.cpu().numpy(), FBETA)
+    positions, wrong = int(ref_cm.sum()) * NUM_CLASSES, int(ref_cm.sum() - ref_cm.diag().sum())
+    hamming = coll["HammingDistance"]
+    check(int(hamming.total) == positions and int(hamming.correct) == positions - 2 * wrong,
+          f"HammingDistance counts {int(hamming.correct)} of {int(hamming.total)} positions: not "
+          f"{positions - 2 * wrong} of {positions}")
+    for key, ref_key in (("val_Precision", "precision"), ("val_Recall", "recall"), ("val_F1Score", "f1"),
+                         ("val_FBetaScore", "fbeta"), ("val_Specificity", "specificity"),
+                         ("val_HammingDistance", "hamming")):
+        got = coll_values[key]
+        check(got.shape == () and got.dtype == torch.float32 and bool(torch.isfinite(got)), f"{key} is {got}")
+        np.testing.assert_allclose(float(got), stat_ref[ref_key], rtol=1e-5, atol=2.0**-23 if ref_key == "hamming" else 0,
+                                   err_msg=f"{key} differs from the float64 numpy value of the bincount matrix")
+    # forward on the last batch: every member's batch value, bit-equal to slice 1's forward values
+    reset_launches()
+    coll_batch = coll(*batches[-1])
+    coll_fwd_launches = launches()
+    check(coll_fwd_launches["stat_scores"] == n_stat and coll_fwd_launches["confusion_matrix"] == n_conf,
+          f"the collection's forward launched {coll_fwd_launches}: not one a member")
+    for key, ref in (("val_Accuracy", batch_vals[0]), ("val_ConfusionMatrix", batch_vals[1]),
+                     ("val_CohenKappa", family_batch["cohen_kappa"]),
+                     ("val_MatthewsCorrCoef", family_batch["matthews_corrcoef"]),
+                     ("val_JaccardIndex", family_batch["jaccard_index"])):
+        check(torch.equal(coll_batch[key], ref), f"forward's {key} differs from slice 1's forward value")
+    # state_dict into a fresh collection (one checksum pass), then reset
+    coll.persistent(True)
+    fresh = MetricCollection(collection_members(dev), prefix="val_")
+    fresh.persistent(True)
+    payload = coll.state_dict()
+    fresh.load_state_dict(payload)
+    for key, got in fresh.compute().items():
+        check(torch.equal(got, coll.compute()[key]), f"the collection's state_dict round trip changed {key}")
+    coll.reset()
+    check(all(m._update_count == 0 and all(int(getattr(m, k).abs().sum()) == 0 for k in m._defaults)
+              for m in coll.values()), "the collection's reset left state behind")
+
+    # the first batches: grouped against ungrouped on the card (bit-equal), and the grouped run on the CPU
+    head = batches[:COLLECTION_CPU_BATCHES]
+    reset_launches()
+    off, off_values, _ = run_collection(dev, head, compute_groups=False)
+    off_launches = launches()
+    check(off_launches["stat_scores"] == n_stat * len(head) and off_launches["confusion_matrix"] == n_conf * len(head),
+          f"the ungrouped collection launched {off_launches} over {len(head)} batches")
+    on, on_values, _ = run_collection(dev, head)
+    for key, got in on_values.items():
+        check(got.dtype == off_values[key].dtype and torch.equal(got, off_values[key]),
+              f"{key}: grouped {got} against ungrouped {off_values[key]} on the first {len(head)} batches")
+    c_on, c_on_values, c_head_s = run_collection(cpu, [(p_.cpu(), t_.cpu()) for p_, t_ in head])
+    check(c_on.compute_groups == COLLECTION_GROUPS, f"the CPU run formed the groups {c_on.compute_groups}")
+    for name in on.keys(keep_base=True):
+        for k in on[name]._defaults:
+            a, b = getattr(on[name], k), getattr(c_on[name], k)
+            check(a.dtype == b.dtype and torch.equal(a.cpu(), b), f"{name}.{k} differs from the CPU run")
+    for key, got in on_values.items():
+        torch.testing.assert_close(got.cpu(), c_on_values[key], rtol=1e-6, atol=0,
+                                   msg=f"{key} of the first {len(head)} batches differs from the CPU run")
+
+    # a CompositionalMetric alone: 2PR / (P + R). Each of P and R stands twice in the tree, and an update
+    # reaches a metric once for each place it stands, as in the JAX package: macro P and R launch
+    # stat_scores four times an update; micro ones never (their counts need no per-class counts).
+    comps, comp_launches = {}, {}
+    for avg in ("micro", "macro"):
+        pr = Precision(num_classes=NUM_CLASSES, average=avg, device=dev)
+        rc = Recall(num_classes=NUM_CLASSES, average=avg, device=dev)
+        comps[avg] = 2 * pr * rc / (pr + rc)
+        reset_launches()
+        for p_, t_ in batches:
+            comps[avg].update(p_, t_)
+        comp_launches[avg] = launches()["stat_scores"]
+    comp_stat_by_shape = registry.launches_by_shape("stat_scores")  # the macro composition's
+    check(comp_launches == {"micro": 0, "macro": 4 * len(batches)},
+          f"the compositions launched stat_scores {comp_launches} times over {len(batches)} updates")
+    f1_micro = F1Score(num_classes=NUM_CLASSES, average="micro", device=dev)
+    for p_, t_ in batches:
+        f1_micro.update(p_, t_)
+    torch.testing.assert_close(comps["micro"].compute(), f1_micro.compute(), rtol=1e-6, atol=0,
+                               msg="2PR/(P+R) of micro precision and recall differs from F1Score(average='micro')")
+    harmonic = 2 * stat_ref["precision"] * stat_ref["recall"] / (stat_ref["precision"] + stat_ref["recall"])
+    np.testing.assert_allclose(float(comps["macro"].compute()), harmonic, rtol=1e-5, atol=0,
+                               err_msg="2PR/(P+R) of macro precision and recall differs from float64 numpy")
+
+    # timings: a grouped update against an ungrouped one and against the three leaders' own updates (one call
+    # updates the three standalone metrics), all in turns; each leader's own update alone after them
+    x_p, x_t = batches[-2]
+    leaders = {"accuracy": Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev),
+               "hamming": HammingDistance(device=dev),
+               "confmat": ConfusionMatrix(NUM_CLASSES, update_method="matmul", device=dev)}
+    grouped, ungrouped = (MetricCollection(collection_members(dev), compute_groups=cg) for cg in (True, False))
+    grouped.update(x_p, x_t)  # forms the groups
+
+    def leaders_update():
+        for m in leaders.values():
+            m.update(x_p, x_t)
+
+    in_turns = host_ms_in_turns(torch, {"leaders": leaders_update, "grouped": lambda: grouped.update(x_p, x_t),
+                                        "ungrouped": lambda: ungrouped.update(x_p, x_t)})
+    coll_timing = {"leaders_update_ms": in_turns["leaders"], "grouped_update_ms": in_turns["grouped"],
+                   "ungrouped_update_ms": in_turns["ungrouped"],
+                   "grouped_over_leaders": in_turns["grouped"] / in_turns["leaders"],
+                   "ungrouped_over_grouped": in_turns["ungrouped"] / in_turns["grouped"]}
+    coll_timing.update({f"{k}_update_ms": ms for k, ms in host_ms_in_turns(
+        torch, {k: lambda m=m: m.update(x_p, x_t) for k, m in leaders.items()}).items()})
+    coll_timing["grouped_syncs"] = syncs_per_call(torch, lambda: grouped.update(x_p, x_t))
+    coll_timing["grouped_syncs_per_update"] = len(coll_timing["grouped_syncs"])
+
+    def detect():
+        grouped._init_compute_groups()
+        grouped._merge_compute_groups()
+
+    grouped._compute_groups_create_state_ref()  # the members take their leaders' state: detection finds the groups
+    coll_timing["group_detection_ms"] = host_ms(torch, detect)
+    detection_reads = syncs_per_call(torch, detect)
+    check(len(detection_reads) == 1 and grouped.compute_groups == COLLECTION_GROUPS,
+          f"group detection read the device {len(detection_reads)} times ({detection_reads}) and formed "
+          f"{grouped.compute_groups}")
+    coll_timing["group_detection_host_reads"] = len(detection_reads)
+    coll_timing["grouped_update_under_profiler"] = device_busy(torch, lambda: grouped.update(x_p, x_t))
+    coll_timing["epoch_ms"] = coll_epoch_s * 1e3
+    coll_timing["cpu_first_batches_ms"] = c_head_s * 1e3
+    print(f"slice 7, the ImageNet evaluation collection ({len(coll)} members, groups "
+          f"{json.dumps(coll.compute_groups)}): epoch of {len(batches)} batches in {coll_epoch_s * 1e3:.1f} ms, "
+          f"launches {json.dumps(coll_launches)} (ungrouped over {len(head)} batches {json.dumps(off_launches)}, "
+          f"forward {json.dumps(coll_fwd_launches)}); values "
+          f"{json.dumps({k: round(float(v), 6) for k, v in coll_values.items() if v.ndim == 0})} (numpy "
+          f"{json.dumps({k: round(float(v), 6) for k, v in stat_ref.items()})}); 2PR/(P+R): micro "
+          f"{float(comps['micro'].compute()):.6f} against F1Score {float(f1_micro.compute()):.6f}, macro "
+          f"{float(comps['macro'].compute()):.6f}, stat_scores launches {json.dumps(comp_launches)}; "
+          f"{json.dumps(coll_timing)}")
+    profiler_probe("after slice 7")
+    laps.mark("3. slice 7, evaluation collection, card and CPU")
 
     # ------------------------------------------------- 3b. slice 2: binned curves
     def run_imagenet_binned(device, data):
@@ -1330,7 +1654,9 @@ def main() -> int:
             (lambda: cm_flat_table.index_add_(0, cm_flat, cm_w_rep), "index_add_ on precomputed cells (1 of 2+ calls)"),
         ),
     }
-    path_launches = {"stat_scores": counts["stat_scores"], "confusion_matrix": counts["confusion_matrix"] + seg_launches,
+    stat_path_by_shape = merged(stat_by_shape, coll_stat_by_shape, comp_stat_by_shape)
+    path_launches = {"stat_scores": counts["stat_scores"] + coll_launches["stat_scores"] + comp_launches["macro"],
+                     "confusion_matrix": counts["confusion_matrix"] + seg_launches + coll_launches["confusion_matrix"],
                      "binned_stats": sum(binned_launches.values()), "retrieval_sort": marco_launches + trec_launches,
                      "countmin": click_launches}
     for name, (kernel, plain, library, library_call, nbytes, ops, shape, yardstick) in timing.items():
@@ -1440,7 +1766,7 @@ def main() -> int:
         s_wts3 = torch.cat([inputs[3], inputs[3], inputs[2].to(torch.int32)]).float()
         s_bound, s_by = bound(sn * (4 + 4 + 1 + 4) + 3 * c * 4, 2 * sn + int(inputs[2].sum()))
         stat_rows.append({
-            "launch": launch, "shape": {"B": sn, "C": c}, "launches": at_shape(stat_by_shape, (sn, c)),
+            "launch": launch, "shape": {"B": sn, "C": c}, "launches": at_shape(stat_path_by_shape, (sn, c)),
             "branch": launched_branch("stat_scores", lambda: stat_scores_counts(*inputs, c)),
             "ms": (block_a + block_b) / 2, "multi_block_ms": (multi_a + multi_b) / 2,
             "plain_ms": device_ms(torch, lambda: _stat_counts_plain(*inputs, c)),
@@ -1464,15 +1790,14 @@ def main() -> int:
     # confusion_matrix at both path shapes: the plan's launch in turns with the earlier design (a zeroed output
     # plus integer atomics, the same run), beside the other branch, the plain version, torch.bincount over C^2
     # bins and the bound; launches by branch and shape as the wrapper counted them on the main paths. Three
-    # calls at each shape must be three device kernels and no memset or fill (torch.profiler).
+    # calls at each shape must be three device kernels and no memset or fill (torch.profiler, checked against
+    # the wrapper's launch count).
     seg_t32, seg_p32 = (x[0].reshape(-1).to(torch.int32) for x in (seg_target, seg_pred))
     confmat_shapes = {
-        "ImageNet batch": (t32, p32, NUM_CLASSES, confmat_slice_by_shape),
+        "ImageNet batch": (t32, p32, NUM_CLASSES, merged(confmat_slice_by_shape, coll_confmat_by_shape)),
         "Cityscapes image": (seg_t32, seg_p32, SEG_CLASSES, seg_by_shape),
     }
-    confmat_path_by_shape = dict(confmat_slice_by_shape)
-    for key, count in seg_by_shape.items():
-        confmat_path_by_shape[key] = confmat_path_by_shape.get(key, 0) + count
+    confmat_path_by_shape = merged(confmat_slice_by_shape, seg_by_shape, coll_confmat_by_shape)
     confmat_rows = []
     for launch, (ct, cp, c, path_by_shape) in confmat_shapes.items():
         cn = ct.shape[0]
@@ -1485,7 +1810,16 @@ def main() -> int:
             runs[other] = lambda: _confmat_kernel(ct, cp, c, branch=other)
         for what, run in runs.items():
             check(torch.equal(run(), ref), f"confusion_matrix ({what}) differs from its plain version at the {launch} shape")
-        activities = device_kernels(torch, lambda: confusion_matrix_counts(ct, cp, c), calls=3)
+        # the activities five captures of three calls recorded, in each way of taking them, and each kernel's
+        # start less its launch call's (µs) in the captures taken as device_kernels takes them
+        capture_ways = {"warm_up_and_padding": dict(), "warm_up_only": dict(pad_s=0.0),
+                        "bare": dict(warmup=False, pad_s=0.0)}
+        captured = {way: [profiled(torch, lambda: confusion_matrix_counts(ct, cp, c), 3, **kw)
+                          for _ in range(5)] for way, kw in capture_ways.items()}
+        capture_check = {way: [len(a) for a, _, _ in caps] for way, caps in captured.items()}
+        capture_check["kernel_less_launch_us"] = [lag for _, _, lag in captured["warm_up_and_padding"]]
+        print(f"profiler captures at the {launch} shape: " + json.dumps(capture_check))
+        activities, captures = device_kernels(torch, lambda: confusion_matrix_counts(ct, cp, c), "confusion_matrix")
         check(len(activities) == 3 and len(set(activities)) == 1
               and not any(w in a.lower() for a in activities for w in ("memset", "fill")),
               f"three confusion_matrix calls at the {launch} shape made {activities}, not one kernel each and no "
@@ -1504,7 +1838,9 @@ def main() -> int:
             "plain_ms": device_ms(torch, lambda: _confmat_plain(ct, cp, c)),
             "library_ms": device_ms(torch, lambda: torch.bincount(c_flat, minlength=c * c)),
             "library_call": "torch.bincount, C^2 bins", "bound_ms": c_bound, "bound_by": c_by,
-            "device_activities_3_calls": activities, "launches_by_shape": by_shape(path_by_shape),
+            "device_activities_3_calls": activities, "profiler_captures": captures,
+            "profiler_capture_ways": capture_check,
+            "launches_by_shape": by_shape(path_by_shape),
         })
     # where the branches cross: the band, and the split on 1, 8, 32 and 128 blocks and on the plan's count,
     # over C = 20 to 240 and 1,024 to 2,097,152 rows (labels right on 90% of rows)
@@ -1571,7 +1907,7 @@ def main() -> int:
     for row in rows:
         if row["name"] == "stat_scores":
             row.update(branch=stat_rows[0]["branch"], timings=stat_rows, one_block_sweep=one_block_sweep,
-                       launches_by_shape=by_shape(stat_by_shape))
+                       launches_by_shape=by_shape(stat_path_by_shape))
         if row["name"] == "confusion_matrix":
             row.update(branch=confmat_rows[0]["branch"], timings=confmat_rows, crossover=confmat_sweep,
                        launches_by_shape=by_shape(confmat_path_by_shape))

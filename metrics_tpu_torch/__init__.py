@@ -17,11 +17,16 @@ from metrics_tpu_torch.classification.binned_precision_recall import (  # noqa: 
 )
 from metrics_tpu_torch.classification.cohen_kappa import CohenKappa  # noqa: F401
 from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix  # noqa: F401
+from metrics_tpu_torch.classification.f_beta import F1Score, FBetaScore  # noqa: F401
+from metrics_tpu_torch.classification.hamming import HammingDistance  # noqa: F401
 from metrics_tpu_torch.classification.jaccard import JaccardIndex  # noqa: F401
 from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrCoef  # noqa: F401
+from metrics_tpu_torch.classification.precision_recall import Precision, Recall  # noqa: F401
 from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve  # noqa: F401
+from metrics_tpu_torch.classification.specificity import Specificity  # noqa: F401
 from metrics_tpu_torch.classification.stat_scores import StatScores  # noqa: F401
-from metrics_tpu_torch.metric import Metric  # noqa: F401
+from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
+from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
 from metrics_tpu_torch.retrieval import (  # noqa: F401
     RetrievalFallOut,
     RetrievalHitRate,
@@ -48,8 +53,12 @@ __all__ = [
     "BinnedRecallAtFixedPrecision",
     "CatMetric",
     "CohenKappa",
+    "CompositionalMetric",
     "ConfusionMatrix",
     "CountMinHeavyHitters",
+    "F1Score",
+    "FBetaScore",
+    "HammingDistance",
     "HostQuantileSketch",
     "HyperLogLog",
     "JaccardIndex",
@@ -57,9 +66,12 @@ __all__ = [
     "MaxMetric",
     "MeanMetric",
     "Metric",
+    "MetricCollection",
     "MinMetric",
+    "Precision",
     "PrecisionRecallCurve",
     "QuantileSketch",
+    "Recall",
     "RetrievalFallOut",
     "RetrievalHitRate",
     "RetrievalMAP",
@@ -69,6 +81,7 @@ __all__ = [
     "RetrievalPrecision",
     "RetrievalRPrecision",
     "RetrievalRecall",
+    "Specificity",
     "StatScores",
     "SumMetric",
     "functional",

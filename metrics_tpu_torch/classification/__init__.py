@@ -7,7 +7,11 @@ from metrics_tpu_torch.classification.binned_precision_recall import (  # noqa: 
 )
 from metrics_tpu_torch.classification.cohen_kappa import CohenKappa  # noqa: F401
 from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix  # noqa: F401
+from metrics_tpu_torch.classification.f_beta import F1Score, FBetaScore  # noqa: F401
+from metrics_tpu_torch.classification.hamming import HammingDistance  # noqa: F401
 from metrics_tpu_torch.classification.jaccard import JaccardIndex  # noqa: F401
 from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrCoef  # noqa: F401
+from metrics_tpu_torch.classification.precision_recall import Precision, Recall  # noqa: F401
 from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve  # noqa: F401
+from metrics_tpu_torch.classification.specificity import Specificity  # noqa: F401
 from metrics_tpu_torch.classification.stat_scores import StatScores  # noqa: F401

@@ -1,0 +1,577 @@
+"""``MetricCollection``: port of ``metrics_tpu/collections.py``, the eager core.
+
+Metrics that share a call pattern are updated, computed and checkpointed
+together. Compute groups merge members whose states are equal after the
+first update: from then on ``update`` runs one member of each group (its
+leader) and the others take the leader's state before they compute. So an
+``Accuracy``, ``Precision``, ``Recall`` and ``F1Score`` of one averaging
+make one ``stat_scores`` launch a batch between them, and the
+confusion-matrix family one ``confusion_matrix`` launch.
+
+Group detection compares every group leader with every other of the same
+state layout in one pass: the comparisons are queued on the device and
+their results come back to the host in one read.
+
+What is not ported: the fused single-launch update and forward
+(``fused_update=True``, ``scan_update``, ``dispatch_stats``,
+``forward_stats``: ROADMAP.md, Queue A item 4), collection sync
+(``sync``, ``unsync``, ``sync_context``, ``pure_sync``, ``sync_precision``,
+``sync_stats``: item 5) and ``telemetry_snapshot`` (item 10). They raise
+``NotImplementedError`` naming their item.
+"""
+import functools
+from collections import OrderedDict
+from copy import deepcopy
+from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.metric import _ENGINES, _SYNC, Metric, not_ported
+from metrics_tpu_torch.utilities.checksums import attach_checksums, verify_checksums
+from metrics_tpu_torch.utilities.data import _flatten_dict
+from metrics_tpu_torch.utilities.prints import rank_zero_warn
+
+_TELEMETRY = "ROADMAP.md, Queue A item 10 (observability)"
+
+
+def _comparable(values: Sequence[Tensor]) -> Tensor:
+    """``values`` flattened and stacked as (k, n) in one floating dtype, as
+    ``jnp.isclose`` compares them: promoted together, then integers and bools
+    as float32."""
+    dtype = functools.reduce(torch.promote_types, (v.dtype for v in values))
+    flat = torch.stack([v.reshape(-1).to(dtype) for v in values])
+    return flat if dtype.is_floating_point or dtype.is_complex else flat.to(torch.float32)
+
+
+def _allclose(a: Tensor, b: Tensor) -> bool:
+    """``jnp.allclose(a, b)``: rtol 1e-5, atol 1e-8, NaN never equal."""
+    a, b = _comparable((a, b))
+    return bool(torch.isclose(a, b).all())
+
+
+def _pairwise_equal(leaf_groups: List[Tuple[Tensor, ...]]) -> Tensor:
+    """(k, k) state equality of a bucket of k leaders, on their device.
+
+    ``leaf_groups`` holds one tuple a state leaf, with that leaf of each of
+    the k leaders. Each leaf is promoted on its own, as the JAX package
+    promotes it; the leaves of one comparison dtype are then laid side by
+    side as one (k, n) matrix and compared in one pass, so the launches do
+    not grow with the number of leaves. Two leaders are equal where every
+    element is close.
+    """
+    by_dtype: Dict[torch.dtype, List[Tensor]] = {}
+    for group in leaf_groups:
+        flat = _comparable(group)
+        by_dtype.setdefault(flat.dtype, []).append(flat)
+    out = None
+    for flats in by_dtype.values():
+        flat = flats[0] if len(flats) == 1 else torch.cat(flats, dim=1)
+        mat = torch.isclose(flat[:, None, :], flat[None, :, :]).all(dim=-1)
+        out = mat if out is None else out & mat
+    return out
+
+
+class MetricCollection:
+    """A dict of metrics updated and computed together.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import MaxMetric, MetricCollection, SumMetric
+        >>> mc = MetricCollection([SumMetric(device="cpu"), MaxMetric(device="cpu")])
+        >>> mc.update(torch.tensor([1.0, 2.0]))
+        >>> {k: float(v) for k, v in mc.compute().items()}
+        {'SumMetric': 3.0, 'MaxMetric': 2.0}
+
+    Args:
+        metrics: one metric, a sequence of metrics (their class names become
+            the keys) or a dict of metrics (its keys taken sorted).
+        additional_metrics: more metrics, where ``metrics`` is one or a sequence.
+        prefix / postfix: strings put around every output key.
+        compute_groups: ``True`` (found after the first update), ``False``
+            (off), or the groups as a list of lists of keys.
+        fused_update: ``None`` or ``False``: the eager loop, one member (or
+            one group leader) at a time. ``None`` will pick the fused update
+            of ROADMAP.md, Queue A item 4 on the card once that lands;
+            ``True`` raises until then.
+        sync_precision: not ported (Queue A item 5); anything but ``None`` raises.
+    """
+
+    def __init__(
+        self,
+        metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]],
+        *additional_metrics: Metric,
+        prefix: Optional[str] = None,
+        postfix: Optional[str] = None,
+        compute_groups: Union[bool, List[List[str]]] = True,
+        fused_update: Optional[bool] = None,
+        sync_precision: Optional[str] = None,
+    ) -> None:
+        if fused_update:
+            raise not_ported("fused_update=True", _ENGINES)
+        if sync_precision is not None:
+            raise not_ported("sync_precision", _SYNC)
+        self._modules: "OrderedDict[str, Metric]" = OrderedDict()
+        self.prefix = self._check_arg(prefix, "prefix")
+        self.postfix = self._check_arg(postfix, "postfix")
+        self._enable_compute_groups = compute_groups
+        self._groups_checked: bool = False
+        self._groups: Dict[int, List[str]] = {}
+        # the kwargs a member accepts, memoised by (member, kwarg names)
+        self._filter_kwargs_cache: Dict[Tuple[str, Tuple[str, ...]], Tuple[str, ...]] = {}
+
+        self.add_metrics(metrics, *additional_metrics)
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self._filter_kwargs_cache = {}
+
+    # --------------------------------------------------------------- mapping
+    def __getitem__(self, key: str) -> Metric:
+        return self._modules[key]
+
+    def __setitem__(self, key: str, value: Metric) -> None:
+        self._modules[key] = value
+        self._filter_kwargs_cache.clear()
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._modules
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules)
+
+    def __getattr__(self, name: str) -> Any:
+        modules = self.__dict__.get("_modules", {})
+        if name in modules:
+            return modules[name]
+        raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
+
+    def values(self, copy_state: bool = True) -> Iterable[Metric]:
+        """The members; with ``copy_state`` each group member first takes its leader's state."""
+        if copy_state:
+            self._compute_groups_create_state_ref()
+        return self._modules.values()
+
+    # ----------------------------------------------------------------- calls
+    def _filtered_kwargs(self, name: str, metric: Metric, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+        """``metric._filter_kwargs(**kwargs)``, with the accepted names memoised."""
+        if not kwargs:
+            return kwargs
+        cache_key = (name, tuple(sorted(kwargs)))
+        keep = self._filter_kwargs_cache.get(cache_key)
+        if keep is None:
+            keep = tuple(metric._filter_kwargs(**kwargs))
+            self._filter_kwargs_cache[cache_key] = keep
+        return {k: kwargs[k] for k in keep}
+
+    def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Every member's ``forward``: the batch values, and the batch accumulated."""
+        res = {k: m(*args, **self._filtered_kwargs(k, m, kwargs)) for k, m in self.items(keep_base=True)}
+        res = _flatten_dict(res)
+        return {self._set_name(k): v for k, v in res.items()}
+
+    __call__ = forward
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """Update every member, or once the groups are formed each group's leader."""
+        if self._groups_checked:
+            for cg in self._groups.values():
+                m0 = self._modules[cg[0]]
+                m0.update(*args, **self._filtered_kwargs(cg[0], m0, kwargs))
+        else:
+            for name, m in self.items(keep_base=True):
+                m.update(*args, **self._filtered_kwargs(name, m, kwargs))
+            if self._enable_compute_groups:
+                self._merge_compute_groups()
+                self._groups_checked = True
+
+    def compute(self) -> Dict[str, Any]:
+        """Every member's value; group members take their leader's state first."""
+        self._compute_groups_create_state_ref()
+        res = _flatten_dict({k: m.compute() for k, m in self.items(keep_base=True)})
+        return {self._set_name(k): v for k, v in res.items()}
+
+    def reset(self) -> None:
+        for m in self._modules.values():
+            m.reset()
+
+    # -------------------------------------------------------- compute groups
+    def _merge_compute_groups(self) -> None:
+        """Merge groups whose leaders' states are equal, leader by leader as
+        the JAX package merges them, on a table of every comparison read
+        from the device at once (:meth:`_batched_leader_equality`)."""
+        equal = self._batched_leader_equality()
+        n_groups = len(self._groups)
+        while True:
+            for cg_idx1, cg_members1 in deepcopy(self._groups).items():
+                for cg_idx2, cg_members2 in deepcopy(self._groups).items():
+                    if cg_idx1 == cg_idx2:
+                        continue
+                    if equal(cg_members1[0], cg_members2[0]):
+                        self._groups[cg_idx1].extend(self._groups.pop(cg_idx2))
+                        break
+                if len(self._groups) != n_groups:
+                    break
+            if len(self._groups) == n_groups:
+                break
+            n_groups = len(self._groups)
+
+        self._groups = dict(enumerate(deepcopy(self._groups).values()))
+
+    @staticmethod
+    def _state_signature(metric: Metric) -> tuple:
+        """The layout of a metric's state, read on the host: names, container
+        types and shapes (a list state's length and element shapes). Two
+        metrics' states can be equal only if their signatures are; dtype is
+        left out, since ``allclose`` compares across dtypes."""
+        sig = []
+        for key in sorted(metric._defaults):
+            state = getattr(metric, key)
+            if isinstance(state, list):
+                sig.append((key, "list", tuple(tuple(s.shape) for s in state)))
+            else:
+                sig.append((key, "tensor", tuple(state.shape)))
+        return tuple(sig)
+
+    def _batched_leader_equality(self):
+        """Every pairwise state equality among the group leaders, as a
+        ``(name_a, name_b) -> bool`` lookup.
+
+        Leaders are bucketed by :meth:`_state_signature`; each bucket's
+        comparison runs on the device (:func:`_pairwise_equal`) and all the
+        buckets' (k, k) tables come to the host in one read. Leaders in
+        different buckets are unequal.
+
+        The one difference from the JAX package: a leader with no state of
+        its own (``_defaults`` empty, e.g. a ``CompositionalMetric``) equals
+        no other. The JAX package counts two such leaders equal and merges
+        them: ``MetricCollection({'a': Precision() + Recall(), 'c':
+        Precision() * Recall()})`` updated on ``([.2, .8, .6], [0, 1, 1])``
+        then ``([.9, .8, .1, .7], [0, 0, 1, 1])`` gives ``c = 1.0`` grouped
+        against the right 0.45 ungrouped, since from the second update on
+        only ``a``'s operands are updated.
+        """
+        buckets: Dict[tuple, List[str]] = {}
+        for cg in self._groups.values():
+            name = cg[0]
+            if self._modules[name]._defaults:
+                buckets.setdefault(self._state_signature(self._modules[name]), []).append(name)
+
+        tables: List[Tuple[List[str], Tensor]] = []
+        for members in buckets.values():
+            k = len(members)
+            if k < 2:
+                continue
+            leaf_groups = []
+            for key in self._modules[members[0]]._defaults:
+                values = [getattr(self._modules[n], key) for n in members]
+                if isinstance(values[0], list):
+                    # equal lengths and element shapes, by the signature; empty lists add nothing
+                    leaf_groups.extend(zip(*values))
+                else:
+                    leaf_groups.append(tuple(values))
+            device = self._modules[members[0]].device
+            mat = _pairwise_equal(leaf_groups) if leaf_groups else torch.ones((k, k), dtype=torch.bool, device=device)
+            tables.append((members, mat))
+
+        table: Dict[Tuple[str, str], bool] = {}
+        if tables:
+            flat = torch.cat([mat.reshape(-1).to(tables[0][1].device) for _, mat in tables]).cpu().tolist()  # the one read
+            start = 0
+            for members, mat in tables:
+                k = len(members)
+                for i, a in enumerate(members):
+                    for j, b in enumerate(members):
+                        table[(a, b)] = bool(flat[start + i * k + j])
+                start += k * k
+        return lambda a, b: table.get((a, b), False)
+
+    @staticmethod
+    def _equal_metric_states(metric1: Metric, metric2: Metric) -> bool:
+        """Whether two metrics' states are equal (``allclose`` leaf by leaf);
+        a metric with no state equals none, as in :meth:`_batched_leader_equality`."""
+        if not metric1._defaults or not metric2._defaults:
+            return False
+        if metric1._defaults.keys() != metric2._defaults.keys():
+            return False
+        for key in metric1._defaults:
+            state1, state2 = getattr(metric1, key), getattr(metric2, key)
+            if type(state1) != type(state2):  # noqa: E721
+                return False
+            if isinstance(state1, Tensor):
+                if state1.shape != state2.shape or not _allclose(state1, state2):
+                    return False
+            elif isinstance(state1, list):
+                if len(state1) != len(state2) or not all(
+                    s1.shape == s2.shape and _allclose(s1, s2) for s1, s2 in zip(state1, state2)
+                ):
+                    return False
+        return True
+
+    def _compute_groups_create_state_ref(self) -> None:
+        """Give every group member its leader's state (the same tensors; a
+        list state as a new list of them) and update count.
+
+        A member whose state changes drops its memoised ``compute``. The JAX
+        package keeps it, so after update, compute, update, compute a member
+        answers its first value again (``Accuracy`` and ``F1Score``, macro,
+        C = 3: F1 0.2286 grouped against 0.2401 ungrouped).
+        """
+        if not (self._enable_compute_groups and self._groups_checked):
+            return
+        for cg in self._groups.values():
+            m0 = self._modules[cg[0]]
+            for name in cg[1:]:
+                mi = self._modules[name]
+                changed = mi._update_count != m0._update_count
+                for state in m0._defaults:
+                    value, held = getattr(m0, state), getattr(mi, state)
+                    if isinstance(value, list):
+                        changed |= len(value) != len(held) or any(a is not b for a, b in zip(value, held))
+                        value = list(value)
+                    else:
+                        changed |= value is not held
+                    object.__setattr__(mi, state, value)
+                mi._update_count = m0._update_count
+                if changed:
+                    mi._computed = None
+                    mi._bump_version()
+
+    @property
+    def compute_groups(self) -> Dict[int, List[str]]:
+        return self._groups
+
+    # ------------------------------------------------------------- pure API
+    def state(self) -> Dict[str, Dict[str, Any]]:
+        """``{name: metric.state()}``, group members first given their leader's state."""
+        self._compute_groups_create_state_ref()
+        return {name: m.state() for name, m in self.items(keep_base=True)}
+
+    def pure_update(self, states: Dict[str, Dict[str, Any]], *args: Any, **kwargs: Any) -> Dict[str, Dict[str, Any]]:
+        """The next state of every member (kwargs routed a member)."""
+        return {
+            name: m.pure_update(states[name], *args, **m._filter_kwargs(**kwargs))
+            for name, m in self.items(keep_base=True)
+        }
+
+    def pure_merge(
+        self,
+        states_a: Dict[str, Dict[str, Any]],
+        states_b: Dict[str, Dict[str, Any]],
+        counts: Any = 2,
+    ) -> Dict[str, Dict[str, Any]]:
+        """Merge two states member by member; ``counts`` is one count for
+        every member or a ``{name: count}`` dict (mean states only)."""
+        return {
+            name: m.pure_merge(states_a[name], states_b[name], count=counts[name] if isinstance(counts, dict) else counts)
+            for name, m in self.items(keep_base=True)
+        }
+
+    def pure_compute(self, states: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+        """Every member's value for a state (prefix and postfix applied)."""
+        res = _flatten_dict({name: m.pure_compute(states[name]) for name, m in self.items(keep_base=True)})
+        return {self._set_name(k): v for k, v in res.items()}
+
+    def load_pure_state(self, states: Dict[str, Dict[str, Any]], increment: bool = False) -> None:
+        """Take a state of the pure API into the members; ``increment`` counts
+        it as one more update, else the count is held at least 1."""
+        for name, m in self.items(keep_base=True):
+            m._load_state(states[name])
+            m._update_count = m._update_count + 1 if increment else max(m._update_count, 1)
+            m._computed = None
+            m._forward_cache = None
+            m._bump_version()
+
+    # ----------------------------------------------------------- checkpoints
+    def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
+        mc = deepcopy(self)
+        if prefix:
+            mc.prefix = self._check_arg(prefix, "prefix")
+        if postfix:
+            mc.postfix = self._check_arg(postfix, "postfix")
+        return mc
+
+    def persistent(self, mode: bool = True) -> None:
+        for m in self._modules.values():
+            m.persistent(mode)
+
+    def state_dict(self, prefix: str = "") -> Dict[str, Any]:
+        """Every member's ``state_dict`` under ``<member>.``, with one
+        checksum pass over the whole payload."""
+        self._compute_groups_create_state_ref()
+        destination: Dict[str, Any] = {}
+        for name, m in self.items(keep_base=True):
+            m.state_dict(destination, prefix=f"{prefix}{name}.")
+        return attach_checksums(destination)
+
+    def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "", strict: bool = True) -> None:
+        """Verify the payload's checksums once, then load every member."""
+        if not prefix:
+            verify_checksums(state_dict)
+        for name, m in self.items(keep_base=True):
+            m.load_state_dict(state_dict, prefix=f"{prefix}{name}.", strict=strict)
+
+    def to(self, device: Union[str, torch.device]) -> "MetricCollection":
+        for m in self._modules.values():
+            m.to(device)
+        return self
+
+    def set_dtype(self, dst_type: torch.dtype) -> "MetricCollection":
+        for m in self._modules.values():
+            m.set_dtype(dst_type)
+        return self
+
+    def float(self) -> "MetricCollection":
+        """No-op, as ``Metric.float``; use :meth:`set_dtype`."""
+        return self
+
+    def double(self) -> "MetricCollection":
+        """No-op; use :meth:`set_dtype`."""
+        return self
+
+    def half(self) -> "MetricCollection":
+        """No-op; use :meth:`set_dtype`."""
+        return self
+
+    def type(self, dst_type: Any = None) -> "MetricCollection":
+        """No-op; use :meth:`set_dtype`."""
+        return self
+
+    def memory_snapshot(self, top_n: int = 10) -> Dict[str, Any]:
+        """Bytes of state over every member, leaves named ``"<member>/<state>"``
+        (the shape of :meth:`Metric.memory_snapshot`)."""
+        leaves: List[Dict[str, Any]] = []
+        total = 0
+        for name, m in self.items(keep_base=True):
+            member = m.memory_snapshot(top_n=len(m._defaults))
+            total += member["total_bytes"]
+            leaves.extend({**leaf, "name": f"{name}/{leaf['name']}"} for leaf in member["leaves"])
+        leaves.sort(key=lambda leaf: (-leaf["nbytes"], leaf["name"]))
+        return {"total_bytes": total, "leaf_count": len(leaves), "leaves": leaves[: max(0, int(top_n))]}
+
+    # ----------------------------------------------------------- not ported
+    def sync(self, *_: Any, **__: Any) -> None:
+        raise not_ported("MetricCollection.sync", _SYNC)
+
+    def unsync(self, *_: Any, **__: Any) -> None:
+        raise not_ported("MetricCollection.unsync", _SYNC)
+
+    def sync_context(self, *_: Any, **__: Any) -> None:
+        raise not_ported("MetricCollection.sync_context", _SYNC)
+
+    def pure_sync(self, *_: Any, **__: Any) -> None:
+        raise not_ported("MetricCollection.pure_sync", _SYNC)
+
+    @property
+    def sync_stats(self) -> Dict[str, int]:
+        raise not_ported("MetricCollection.sync_stats", _SYNC)
+
+    def scan_update(self, *_: Any, **__: Any) -> None:
+        raise not_ported("MetricCollection.scan_update", _ENGINES)
+
+    @property
+    def dispatch_stats(self) -> Dict[str, int]:
+        raise not_ported("MetricCollection.dispatch_stats", _ENGINES)
+
+    @property
+    def forward_stats(self) -> Dict[str, Any]:
+        raise not_ported("MetricCollection.forward_stats", _ENGINES)
+
+    def telemetry_snapshot(self) -> Dict[str, Any]:
+        raise not_ported("MetricCollection.telemetry_snapshot", _TELEMETRY)
+
+    # --------------------------------------------------------------- adding
+    def add_metrics(
+        self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]], *additional_metrics: Metric
+    ) -> None:
+        """Add metrics to the collection."""
+        if isinstance(metrics, Metric):
+            metrics = [metrics]
+        if isinstance(metrics, Sequence):
+            metrics = list(metrics)
+            remain: list = []
+            for m in additional_metrics:
+                (metrics if isinstance(m, Metric) else remain).append(m)
+            if remain:
+                rank_zero_warn(
+                    f"You have passed extra arguments {remain} which are not `Metric` so they will be ignored."
+                )
+        elif additional_metrics:
+            raise ValueError(
+                f"You have passed extra arguments {additional_metrics} which are not compatible"
+                f" with first passed dictionary {metrics} so they will be ignored."
+            )
+
+        if isinstance(metrics, dict):
+            for name in sorted(metrics.keys()):
+                metric = metrics[name]
+                if not isinstance(metric, Metric):
+                    raise ValueError(f"Value {metric} belonging to key {name} is not an instance of `Metric`")
+                self[name] = metric
+        elif isinstance(metrics, Sequence):
+            for metric in metrics:
+                if not isinstance(metric, Metric):
+                    raise ValueError(f"Input {metric} to `MetricCollection` is not an instance of `Metric`")
+                name = metric.__class__.__name__
+                if name in self:
+                    raise ValueError(f"Encountered two metrics both named {name}")
+                self[name] = metric
+        else:
+            raise ValueError("Unknown input to MetricCollection.")
+
+        self._groups_checked = False
+        if self._enable_compute_groups:
+            self._init_compute_groups()
+        else:
+            self._groups = {}
+
+    def _init_compute_groups(self) -> None:
+        """The groups as given (no comparison then), or one a member until the first update."""
+        if isinstance(self._enable_compute_groups, list):
+            self._groups = dict(enumerate(self._enable_compute_groups))
+            for v in self._groups.values():
+                for metric in v:
+                    if metric not in self:
+                        raise ValueError(
+                            f"Input {metric} in `compute_groups` argument does not match a metric in the collection."
+                        )
+            self._groups_checked = True
+        else:
+            self._groups = {i: [str(k)] for i, k in enumerate(self.keys(keep_base=True))}
+
+    # ---------------------------------------------------------------- naming
+    def _set_name(self, base: str) -> str:
+        name = base if self.prefix is None else self.prefix + base
+        return name if self.postfix is None else name + self.postfix
+
+    def _to_renamed_ordered_dict(self) -> OrderedDict:
+        return OrderedDict((self._set_name(k), v) for k, v in self._modules.items())
+
+    def keys(self, keep_base: bool = False) -> Iterable[Hashable]:
+        if keep_base:
+            return self._modules.keys()
+        return self._to_renamed_ordered_dict().keys()
+
+    def items(self, keep_base: bool = False) -> Iterable[Tuple[str, Metric]]:
+        if keep_base:
+            return self._modules.items()
+        return self._to_renamed_ordered_dict().items()
+
+    @staticmethod
+    def _check_arg(arg: Optional[str], name: str) -> Optional[str]:
+        if arg is None or isinstance(arg, str):
+            return arg
+        raise ValueError(f"Expected input `{name}` to be a string, but got {type(arg)}")
+
+    def __repr__(self) -> str:
+        repr_str = self.__class__.__name__ + "(\n"
+        for k, v in self._modules.items():
+            repr_str += f"  ({k}): {v!r}\n"
+        if self.prefix:
+            repr_str += f"  prefix={self.prefix}\n"
+        if self.postfix:
+            repr_str += f"  postfix={self.postfix}\n"
+        return repr_str + ")"

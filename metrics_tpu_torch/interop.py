@@ -10,18 +10,25 @@ verifies in both packages:
 * :func:`to_jax_state_dict` gives a port metric's state as such a payload,
   ready for the JAX metric's ``load_state_dict``.
 
+Both also take a ``MetricCollection``: its payload's keys are
+``<member>.<state>`` (and ``<member>.aux:<name>``), checksummed in one pass
+over the whole payload, as the JAX package's collection writes them.
+
 Only persistent states are written, as in both packages: call
 ``metric.persistent(True)`` on the writing side first.
 """
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import torch
 
+from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utilities.checksums import CHECKSUM_PREFIX, attach_checksums
 
 
-def load_jax_state_dict(metric: Metric, payload: Dict[str, Any], strict: bool = True) -> Metric:
+def load_jax_state_dict(
+    metric: Union[Metric, MetricCollection], payload: Dict[str, Any], strict: bool = True
+) -> Union[Metric, MetricCollection]:
     """Verify ``payload``'s checksums, then load it into ``metric``."""
     metric.load_state_dict(payload, strict=strict)
     return metric
@@ -35,7 +42,7 @@ def _to_numpy(value: Any) -> Any:
     return value
 
 
-def to_jax_state_dict(metric: Metric) -> Dict[str, Any]:
+def to_jax_state_dict(metric: Union[Metric, MetricCollection]) -> Dict[str, Any]:
     """``metric``'s persistent state as numpy leaves with checksums."""
     payload = {
         key: _to_numpy(value)

@@ -6,7 +6,11 @@ state version), ``forward`` (one update per step when states merge, the
 double-update form otherwise), ``reset``, the pure ``(state, batch) -> state``
 functions, ``state_dict``/``load_state_dict`` with the JAX package's crc32
 checksum entries, and ``to(device)``, which also moves the tensor attributes a
-subclass names in ``_device_attributes``.
+subclass names in ``_device_attributes``; ``state()``, ``memory_snapshot``,
+``set_dtype`` (and ``float``/``double``/``half``/``type`` as no-ops), the
+operator overloads and :class:`CompositionalMetric`. ``to``, ``set_dtype``,
+``state_dict`` and ``load_state_dict`` recurse into child metrics held as
+attributes (``_children``).
 
 What is not: the dispatch engine, the fused forward, cross-process sync,
 telemetry, resilience, sharded state and quantised sync. The constructor
@@ -18,6 +22,7 @@ A metric's states live on its device, ``cuda`` unless the caller passes
 """
 import functools
 import inspect
+import operator
 from abc import ABC, abstractmethod
 from copy import deepcopy
 from enum import Enum
@@ -183,6 +188,11 @@ class Metric(ABC):
 
     def _copy_state(self) -> Dict[str, StateType]:
         return {k: list(v) if isinstance(v, list) else v for k, v in ((k, getattr(self, k)) for k in self._defaults)}
+
+    def state(self) -> Dict[str, StateType]:
+        """The current state as a dict: tensors are copies and lists are
+        shallow copies, so nothing done to the result reaches the metric."""
+        return {k: list(v) if isinstance(v, list) else v.clone() for k, v in self._copy_state().items()}
 
     def _load_state(self, state: Dict[str, StateType]) -> None:
         for k, v in state.items():
@@ -398,7 +408,78 @@ class Metric(ABC):
             if not isinstance(self._defaults[attr], list):
                 self._defaults[attr] = self._defaults[attr].to(self._device)
         self._computed = None
+        for _, child in self._children():
+            child.to(device)
         return self
+
+    def float(self) -> "Metric":
+        """No-op, as in the JAX package: only :meth:`set_dtype` changes a state's dtype."""
+        return self
+
+    def double(self) -> "Metric":
+        """No-op; use :meth:`set_dtype`."""
+        return self
+
+    def half(self) -> "Metric":
+        """No-op; use :meth:`set_dtype`."""
+        return self
+
+    def type(self, dst_type: Any = None) -> "Metric":
+        """No-op; use :meth:`set_dtype`."""
+        return self
+
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Cast the floating-point states, and their defaults, to ``dst_type``."""
+
+        def _cast(x: Any) -> Any:
+            return x.to(dst_type) if isinstance(x, Tensor) and x.is_floating_point() else x
+
+        for attr in self._defaults:
+            value = getattr(self, attr)
+            object.__setattr__(self, attr, [_cast(v) for v in value] if isinstance(value, list) else _cast(value))
+            if not isinstance(self._defaults[attr], list):
+                self._defaults[attr] = _cast(self._defaults[attr])
+        for _, child in self._children():
+            child.set_dtype(dst_type)
+        self._computed = None
+        self._bump_version()
+        return self
+
+    def _children(self) -> List:
+        """The child metrics held as attributes, directly or in a list, tuple
+        or dict, as ``(name, metric)``."""
+        out = []
+        for name, value in self.__dict__.items():
+            if isinstance(value, Metric):
+                out.append((name, value))
+            elif isinstance(value, (list, tuple)):
+                out.extend((f"{name}.{i}", v) for i, v in enumerate(value) if isinstance(v, Metric))
+            elif isinstance(value, dict):
+                out.extend((f"{name}.{k}", v) for k, v in value.items() if isinstance(v, Metric))
+        return out
+
+    def memory_snapshot(self, top_n: int = 10) -> Dict[str, Any]:
+        """Bytes of state a leaf: ``{"total_bytes", "leaf_count", "leaves"}``
+        with the ``top_n`` largest leaves as ``{"name", "shape", "dtype",
+        "nbytes", "logical_nbytes"}``. A list state is one entry summing its
+        elements (its shape is the element count). No state is sharded in the
+        port (ROADMAP.md, Queue A item 5), so ``logical_nbytes == nbytes``."""
+        leaves: List[Dict[str, Any]] = []
+        for name in self._defaults:
+            current = getattr(self, name)
+            if isinstance(current, list):
+                nbytes = sum(v.nbytes for v in current)
+                shape: tuple = (len(current),)
+                dtype = _dtype_name(current[0].dtype) if current else "empty-list"
+            else:
+                nbytes, shape, dtype = current.nbytes, tuple(current.shape), _dtype_name(current.dtype)
+            leaves.append({"name": name, "shape": shape, "dtype": dtype, "nbytes": nbytes, "logical_nbytes": nbytes})
+        leaves.sort(key=lambda leaf: (-leaf["nbytes"], leaf["name"]))
+        return {
+            "total_bytes": sum(leaf["nbytes"] for leaf in leaves),
+            "leaf_count": len(leaves),
+            "leaves": leaves[: max(0, int(top_n))],
+        }
 
     # ----------------------------------------------------------- checkpoints
     def persistent(self, mode: bool = False) -> None:
@@ -421,6 +502,8 @@ class Metric(ABC):
             value = getattr(self, name, None)
             if value is not None:
                 destination[f"{prefix}aux:{name}"] = value.value if isinstance(value, Enum) else value
+        for name, child in self._children():
+            child.state_dict(destination, prefix=f"{prefix}{name}.")
         if top_level:
             attach_checksums(destination)
         return destination
@@ -450,9 +533,240 @@ class Metric(ABC):
                 setattr(self, name, state_dict[key])
         self._computed = None
         self._bump_version()
+        for name, child in self._children():
+            child.load_state_dict(state_dict, prefix=f"{prefix}{name}.", strict=strict)
+
+    def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
+        """The kwargs this metric's ``update`` accepts (all of them if it takes ``**kwargs``)."""
+        params = self._update_signature.parameters
+        if any(p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values()):
+            return kwargs
+        var = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+        return {k: v for k, v in kwargs.items() if k in params and params[k].kind not in var}
 
     def __hash__(self) -> int:
         return hash((self.__class__.__name__, id(self)))
 
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
+
+    # Arithmetic on metrics builds a CompositionalMetric, as in the JAX
+    # package, quirks included: ``+m`` is ``abs(m)``, ``-m`` is ``-abs(m)``,
+    # and the reflected ``&``, ``|`` and ``^`` keep the metric on the left.
+    # ``==`` gives a (truthy) metric, so compare metrics by identity (``is``)
+    # or by key, never with ``==`` or ``in``.
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.sub, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.sub, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mul, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mul, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.truediv, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.truediv, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.floordiv, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.floordiv, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mod, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mod, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.and_, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.and_, self, other)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.or_, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.or_, self, other)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.xor, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.ge, self, other)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(operator.eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(operator.ne, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(operator.abs, self, None)
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        return CompositionalMetric(operator.abs, self, None)
+
+    def __inv__(self) -> "CompositionalMetric":
+        return CompositionalMetric(operator.inv, self, None)
+
+    __invert__ = __inv__
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(functools.partial(_getitem, idx=idx), self, None)
+
+    # ``__getitem__`` never raises IndexError, so the sequence protocol would
+    # make ``iter(metric)``, ``list(metric)`` and ``x in metric`` loop for
+    # ever: a metric is not iterable (the JAX package loops here)
+    __iter__ = None
+
+    def __getnewargs__(self) -> tuple:
+        return tuple()
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """``torch.int32`` as the JAX package names it: ``int32``."""
+    return str(dtype).replace("torch.", "")
+
+
+def _neg(x: Tensor) -> Tensor:
+    return -torch.abs(x)
+
+
+def _getitem(x: Tensor, idx: Any) -> Tensor:
+    return x[idx]
+
+
+def _operand(x: Any, device: torch.device) -> Any:
+    """A number or tensor operand as a tensor on the composition's device (a
+    number in the JAX package's 32-bit dtypes); a metric or None as it is."""
+    return _stable_default(x, device) if isinstance(x, (int, float, Tensor)) else x
+
+
+class CompositionalMetric(Metric):
+    """A metric built by arithmetic on metrics (and numbers or tensors):
+    ``update``, ``forward``, ``reset`` and ``persistent`` reach the operand
+    metrics, each with the kwargs its ``update`` accepts, and ``compute``
+    applies the operator to their values. It holds no state of its own; it
+    lives on its first operand metric's device.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import Precision, Recall
+        >>> p, r = Precision(device="cpu"), Recall(device="cpu")
+        >>> f1 = 2 * p * r / (p + r)
+        >>> f1.update(torch.tensor([0, 1, 1, 0]), torch.tensor([0, 1, 0, 0]))
+        >>> float(f1.compute())
+        0.75
+    """
+
+    full_state_update: Optional[bool] = True
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, float, int, Tensor, None],
+        metric_b: Union[Metric, float, int, Tensor, None],
+    ) -> None:
+        device = next((m.device for m in (metric_a, metric_b) if isinstance(m, Metric)), None)
+        super().__init__(device=device)
+        self.op = operator
+        self.metric_a = _operand(metric_a, self.device)
+        self.metric_b = _operand(metric_b, self.device)
+        # tensor operands follow the metric to another device
+        self._device_attributes = tuple(n for n in ("metric_a", "metric_b") if isinstance(getattr(self, n), Tensor))
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a = (
+            self.metric_a(*args, **self.metric_a._filter_kwargs(**kwargs))
+            if isinstance(self.metric_a, Metric)
+            else self.metric_a
+        )
+        val_b = (
+            self.metric_b(*args, **self.metric_b._filter_kwargs(**kwargs))
+            if isinstance(self.metric_b, Metric)
+            else self.metric_b
+        )
+        if val_a is None:
+            self._forward_cache = None
+        elif val_b is None:
+            self._forward_cache = None if isinstance(self.metric_b, Metric) else self.op(val_a)
+        else:
+            self._forward_cache = self.op(val_a, val_b)
+        return self._forward_cache
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+
+    def persistent(self, mode: bool = False) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.persistent(mode=mode)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.persistent(mode=mode)
+
+    def __repr__(self) -> str:
+        op = self.op.__name__ if hasattr(self.op, "__name__") else self.op
+        return f"{self.__class__.__name__}(\n  {op}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
+
+    def _wrap_update(self, update: Callable) -> Callable:
+        return update
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        return compute

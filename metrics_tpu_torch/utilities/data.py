@@ -3,7 +3,7 @@
 The ``dim_zero_*`` functions are the named reductions a metric state can
 declare; ``forward`` merges a batch state into the global one with them.
 """
-from typing import Any, List, Union
+from typing import Any, Dict, List, Union
 
 import torch
 from torch import Tensor
@@ -48,6 +48,17 @@ def bucket_pow2(n: int, minimum: int = 8) -> int:
 def _flatten(x: List) -> list:
     """Flatten one level of nesting."""
     return [item for sublist in x for item in sublist]
+
+
+def _flatten_dict(x: Dict) -> Dict:
+    """Flatten a dict of dicts one level."""
+    new_dict = {}
+    for key, value in x.items():
+        if isinstance(value, dict):
+            new_dict.update(value)
+        else:
+            new_dict[key] = value
+    return new_dict
 
 
 def to_onehot(label_tensor: Tensor, num_classes: int) -> Tensor:

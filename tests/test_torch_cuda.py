@@ -449,3 +449,64 @@ def test_confusion_family_on_the_card_equals_the_cpu(card):
             results.append((m.confmat.cpu(), m.compute().cpu()))
         assert torch.equal(results[0][0], results[1][0])
         torch.testing.assert_close(results[1][1], results[0][1], rtol=1e-6, atol=0)
+
+
+def _stat_trio(device, c):
+    macro = dict(num_classes=c, average="macro", device=device)
+    return [metrics_tpu_torch.Accuracy(**macro), metrics_tpu_torch.Precision(**macro), metrics_tpu_torch.Recall(**macro)]
+
+
+@pytest.mark.parametrize("c", [10, 1000])
+def test_grouped_collection_launches_stat_scores_once_a_group(card, c):
+    """Three stat-scores metrics in one group: 3 + (n - 1) launches over n updates, against 3n ungrouped;
+    the values bit-equal to the ungrouped collection's, the counts to the CPU run's and the values to
+    the CPU run's within rtol 1e-6 (float32 sums of the class scores in another order)."""
+    rng = np.random.RandomState(c)
+    n = 5
+    batches = [(torch.from_numpy(rng.rand(256, c).astype(np.float32)), torch.from_numpy(rng.randint(0, c, 256)))
+               for _ in range(n)]
+    runs = {}
+    for groups in (True, False):
+        mc = metrics_tpu_torch.MetricCollection(_stat_trio(card, c), compute_groups=groups)
+        reset_launches()
+        for p, t in batches:
+            mc.update(p.to(card), t.to(card))
+        torch.cuda.synchronize()
+        assert launches()["stat_scores"] == (3 + n - 1 if groups else 3 * n)
+        runs[groups] = (mc, mc.compute())
+    on, off = runs[True][1], runs[False][1]
+    assert all(on[k].dtype == off[k].dtype and torch.equal(on[k], off[k]) for k in on)
+    cpu = metrics_tpu_torch.MetricCollection(_stat_trio("cpu", c))
+    for p, t in batches:
+        cpu.update(p, t)
+    cpu_values = cpu.compute()
+    assert cpu.compute_groups == runs[True][0].compute_groups == {0: ["Accuracy", "Precision", "Recall"]}
+    for name in ("tp", "fp", "tn", "fn"):
+        assert torch.equal(getattr(runs[True][0]["Recall"], name).cpu(), getattr(cpu["Recall"], name))
+    for k in on:
+        torch.testing.assert_close(on[k].cpu(), cpu_values[k], rtol=1e-6, atol=0)
+
+
+def test_stat_family_and_composition_on_the_card_equal_the_cpu(card):
+    rng = np.random.RandomState(5)
+    batches = [(rng.rand(n, 40).astype(np.float32), rng.randint(0, 40, n)) for n in (256, 256, 100)]
+    for name, kwargs in (("Precision", {}), ("Recall", {}), ("F1Score", {}), ("FBetaScore", dict(beta=0.5)),
+                         ("Specificity", {}), ("HammingDistance", None)):
+        results = []
+        for device in ("cpu", card):
+            m = getattr(metrics_tpu_torch, name)(device=device, **(
+                {} if kwargs is None else dict(num_classes=40, average="macro", **kwargs)))
+            for p, t in batches:
+                m.update(torch.from_numpy(p).to(device), torch.from_numpy(t).to(device))
+            results.append(({k: getattr(m, k).cpu() for k in m._defaults}, m.compute().cpu()))
+        assert all(torch.equal(results[0][0][k], results[1][0][k]) for k in results[0][0]), name
+        torch.testing.assert_close(results[1][1], results[0][1], rtol=1e-6, atol=0)
+    p_, r_ = (getattr(metrics_tpu_torch, n)(num_classes=40, average="macro", device=card) for n in ("Precision", "Recall"))
+    comp = 2 * p_ * r_ / (p_ + r_)
+    reset_launches()
+    for p, t in batches:
+        comp.update(torch.from_numpy(p).to(card), torch.from_numpy(t).to(card))
+    torch.cuda.synchronize()
+    assert launches()["stat_scores"] == 4 * len(batches)  # P and R each stand twice in the tree
+    pv, rv = float(p_.compute()), float(r_.compute())
+    np.testing.assert_allclose(float(comp.compute()), 2 * pv * rv / (pv + rv), rtol=1e-6)
