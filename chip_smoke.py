@@ -94,7 +94,25 @@
    launches of ``confusion_matrix`` at 2,097,152 rows on its split branch);
    synthetic label maps made on the card, a class a 32 x 32 patch. The
    epoch's matrix must equal ``torch.bincount`` on the card, the first 8
-   images the CPU run (mean IoU to rtol 1e-6).
+   images the CPU run (mean IoU to rtol 1e-6). Slice 8, the engines: paths
+   1 and 7 again with ``jit_update=True`` (``Accuracy``, ``ConfusionMatrix``)
+   and ``fused_update=True`` (the collection), each an update epoch and a
+   fresh metric's forward epoch, and the click log through
+   ``CountMinHeavyHitters(jit_update=True)``: every update a replay of a
+   captured CUDA graph (one a shape bucket: 1 for ``Accuracy`` and the
+   sketch, 2 for ``ConfusionMatrix`` and the collection, which have no
+   masked update). The results must equal slices 1, 7 and 3e's bit for bit,
+   each path count a dispatch a batch and its kernels 49 times a member
+   (6 x 49 ``stat_scores`` and 4 x 49 ``confusion_matrix`` for the
+   collection, 153 ``countmin``), no engine demote, a warm update make no
+   host sync, and ``scan_update`` over 8 stacked batches equal the update
+   loop. An update epoch's ``compute`` value must stay as it was across a
+   ``reset`` and two more updates (a replay writes the graph's buffers in
+   place), and three warm updates of each path under ``torch.profiler``
+   must run as many of each kernel, by name, as the registry counted for
+   their replays. Each path's update is timed against its eager update in
+   turns, with and without the resilience snapshot, beside the capture (a
+   first call less a warm one) and the device busy share.
 4. Times each kernel, its plain version and the one PyTorch library call
    that computes the same function (``binned_stats``, ``retrieval_sort``
    and ``countmin`` have none, so a yardstick is timed and named instead)
@@ -134,6 +152,7 @@ script fails.
 import ctypes
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -594,6 +613,37 @@ def device_kernels(torch, fn, kernel, calls=3, tries=8):
     return names, captured
 
 
+# the device kernels of each wrapper's launch as the profiler names them: one a launch (count-min's shared branch
+# adds countmin_sum_partials, a second kernel of the same launch, not one of these)
+DEVICE_KERNELS = {"stat_scores": ("stat_counts_",), "confusion_matrix": ("confmat_band", "confmat_split"),
+                  "countmin": ("countmin_partials", "countmin_global")}
+
+
+def replayed_kernels(torch, fn, calls=3, tries=8):
+    """For ``calls`` warm calls of ``fn`` (engine updates, each a graph replay): per wrapper kernel, the launches
+    the registry added (``note_replay``, from the list the capture wrote down) and the device kernels of that
+    name ``torch.profiler`` recorded; and the activities of each capture taken. A capture that recorded fewer
+    of those kernels than the registry added is incomplete and is taken again, up to ``tries`` times; one
+    that recorded more still shows."""
+    from metrics_tpu_torch.ops import launches
+
+    before = launches()
+    fn()
+    per_call = {k: launches()[k] - before[k] for k in DEVICE_KERNELS}
+    captured = []
+    for _ in range(tries):
+        before = launches()
+        names = [name for name, _ in profiled(torch, fn, calls)[0]]
+        # profiled makes one call, a warm-up step and the kept step
+        added = {k: launches()[k] - before[k] for k in DEVICE_KERNELS}
+        seen = {k: sum(any(d in n for d in DEVICE_KERNELS[k]) for n in names) for k in DEVICE_KERNELS}
+        captured.append(len(names))
+        if all(seen[k] >= per_call[k] * calls for k in DEVICE_KERNELS):
+            break
+    return {k: {"per_update": per_call[k], "registry": per_call[k] * calls, "profiler": seen[k],
+                "registry_in_window": added[k], "window_updates": 1 + 2 * calls} for k in DEVICE_KERNELS}, captured
+
+
 def main() -> int:
     import torch
 
@@ -999,6 +1049,7 @@ def main() -> int:
 
     reset_launches()
     acc, cm, family, batch_vals, family_batch, values, family_values, epoch_s = run_slice(dev, batches)
+    slice1_values, slice1_batch_vals = values, batch_vals  # held for slice 8 (later phases reuse the names)
     counts = launches()
     stat_by_shape = registry.launches_by_shape("stat_scores")
     confmat_slice_by_shape = registry.launches_by_shape("confusion_matrix")
@@ -1087,7 +1138,8 @@ def main() -> int:
 
     def run_collection(device, data, compute_groups=True):
         """A validation epoch as a training loop logs it: ``update`` on every batch, then ``compute``."""
-        mc = MetricCollection(collection_members(device), prefix="val_", compute_groups=compute_groups)
+        mc = MetricCollection(collection_members(device), prefix="val_", compute_groups=compute_groups,
+                              fused_update=False)
         if device.type == "cuda":
             torch.cuda.synchronize()
         t_start = time.perf_counter()
@@ -1150,7 +1202,7 @@ def main() -> int:
         check(torch.equal(coll_batch[key], ref), f"forward's {key} differs from slice 1's forward value")
     # state_dict into a fresh collection (one checksum pass), then reset
     coll.persistent(True)
-    fresh = MetricCollection(collection_members(dev), prefix="val_")
+    fresh = MetricCollection(collection_members(dev), prefix="val_", fused_update=False)
     fresh.persistent(True)
     payload = coll.state_dict()
     fresh.load_state_dict(payload)
@@ -1211,7 +1263,8 @@ def main() -> int:
     leaders = {"accuracy": Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev),
                "hamming": HammingDistance(device=dev),
                "confmat": ConfusionMatrix(NUM_CLASSES, update_method="matmul", device=dev)}
-    grouped, ungrouped = (MetricCollection(collection_members(dev), compute_groups=cg) for cg in (True, False))
+    grouped, ungrouped = (MetricCollection(collection_members(dev), compute_groups=cg, fused_update=False)
+                          for cg in (True, False))
     grouped.update(x_p, x_t)  # forms the groups
 
     def leaders_update():
@@ -1506,6 +1559,207 @@ def main() -> int:
           f"distinct ({hll_err * 100:+.3f}%), registers equal to the CPU run")
     laps.mark("3. TREC DL and click-log paths, card and CPU")
 
+    # ---------------------------------------- 3g. slice 8: the engines (CUDA graphs)
+    # Paths 1-4 again through the engines: jit_update=True metrics (one captured graph a shape bucket; the 848-row
+    # batch shares the 1024 bucket of Accuracy and the count-min sketch, ConfusionMatrix and the collection get a
+    # graph a shape) and the collection's fused update and forward (every member in one graph, no compute groups).
+    # Each path's update epoch and a fresh metric's forward epoch must give slice 1's, 7's and 3e's results bit for
+    # bit, count one dispatch a batch, launch each kernel once a member and batch (replays counted by the registry),
+    # and never demote; a warm update must make no host sync.
+    engine_paths = {
+        "accuracy": lambda: Accuracy(num_classes=NUM_CLASSES, average="macro", jit_update=True, device=dev),
+        "confmat": lambda: ConfusionMatrix(NUM_CLASSES, update_method="matmul", jit_update=True, device=dev),
+        "collection": lambda: MetricCollection(collection_members(dev), prefix="val_", fused_update=True),
+    }
+    engine_expect = {  # (retraces, stat_scores launches, confusion_matrix launches) of an epoch
+        "accuracy": (1, len(batches), 0),
+        "confmat": (2, 0, len(batches)),
+        "collection": (2, n_stat * len(batches), n_conf * len(batches)),
+    }
+    engine = {}
+    engine_path_launches = {"stat_scores": 0, "confusion_matrix": 0, "countmin": 0}
+    engine_by_shape = {name: {} for name in engine_path_launches}  # the replays' launches by branch and shape
+
+    def note_engine_launches():
+        for name in engine_by_shape:
+            engine_path_launches[name] += launches()[name]
+            engine_by_shape[name] = merged(engine_by_shape[name], registry.launches_by_shape(name))
+
+    def engine_healthy(stats, what):
+        check(stats["demotions"] == 0 and not stats["permanent"], f"{what}: the engine demoted: {stats}")
+
+    for key, make in engine_paths.items():
+        retraces, want_stat, want_conf = engine_expect[key]
+        for mode in ("update", "forward"):
+            m = make()
+            reset_launches()
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            first_s, step_vals = None, []
+            for i, (p_, t_) in enumerate(batches):
+                t_call = time.perf_counter()
+                if mode == "update":
+                    m.update(p_, t_)
+                else:
+                    step_vals.append(m(p_, t_))
+                if i == 0:
+                    torch.cuda.synchronize()
+                    first_s = time.perf_counter() - t_call  # the first call: warm-up run and capture
+            out = m.compute()
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t_start
+            got = launches()
+            stats = m.dispatch_stats if mode == "update" else m.forward_stats
+            n_calls = stats["dispatches"] if mode == "update" else stats["launches"]
+            check(n_calls == len(batches) and stats["retraces"] == retraces,
+                  f"engine {key} {mode}: {n_calls} calls and {stats['retraces']} programs, not {len(batches)} and {retraces}")
+            engine_healthy(m.dispatch_stats, f"engine {key} {mode}")
+            engine_healthy(m.forward_stats, f"engine {key} {mode}")
+            if key == "collection":
+                check(not m._fuse_failed, f"the collection's fused {mode} failed for good")
+            check(got["stat_scores"] == want_stat and got["confusion_matrix"] == want_conf,
+                  f"engine {key} {mode} launched {got}: not {want_stat} stat_scores and {want_conf} confusion_matrix")
+            check({b for b, _ in registry.launches_by_shape("stat_scores")} <= {"block"}
+                  and {b for b, _ in registry.launches_by_shape("confusion_matrix")} <= {"band"},
+                  f"engine {key} {mode} launched off the slice's branches")
+            note_engine_launches()
+            # bit-equal to the eager runs of slices 1 and 7
+            if key == "accuracy":
+                check(torch.equal(out, slice1_values[0]),
+                      f"engine Accuracy {mode}: {out} against slice 1's {slice1_values[0]}")
+                if mode == "forward":
+                    check(torch.equal(step_vals[-1], slice1_batch_vals[0]), "engine Accuracy forward's last batch value")
+            elif key == "confmat":
+                check(torch.equal(m.confmat.long(), ref_cm) and torch.equal(out, slice1_values[1]),
+                      f"engine ConfusionMatrix {mode} differs from slice 1's matrix")
+                if mode == "forward":
+                    check(torch.equal(step_vals[-1], slice1_batch_vals[1]),
+                          "engine ConfusionMatrix forward's last batch value")
+            else:
+                for k, ref in coll_values.items():
+                    check(out[k].dtype == ref.dtype and torch.equal(out[k], ref),
+                          f"fused collection {mode}: {k} {out[k]} against slice 7's {ref}")
+                if mode == "forward":
+                    for k, ref in coll_batch.items():
+                        check(torch.equal(step_vals[-1][k], ref), f"fused collection forward's last batch {k}")
+                check(m.compute_groups == {i: [n] for i, n in enumerate(m.keys(keep_base=True))},
+                      "the fused collection formed compute groups")
+            engine[f"{key}_{mode}"] = {"epoch_ms": epoch_s * 1e3, "first_call_ms": first_s * 1e3, "retraces": retraces}
+            if mode == "update":
+                engine[f"{key}_update_metric"] = m
+                # the epoch's value is the epoch's: a reset and two more updates (replays) leave it as it was
+                held = {k: v.clone() for k, v in out.items()} if isinstance(out, dict) else out.clone()
+                m.reset()
+                for p_, t_ in batches[:2]:
+                    m.update(p_, t_)
+                torch.cuda.synchronize()
+                kept = all(torch.equal(out[k], held[k]) for k in held) if isinstance(out, dict) else torch.equal(out, held)
+                check(kept, f"engine {key}: the epoch's compute value changed under the next epoch's updates")
+            elif key == "accuracy":
+                # a forward value is a copy: the next step leaves it as it was
+                held = step_vals[0].clone()
+                m(*batches[1])
+                check(torch.equal(step_vals[0], held), "an engine forward value changed under the next step")
+
+    # path 4: the click log through CountMinHeavyHitters(jit_update=True), masked (the partial batch pads to 65,536)
+    cms = CountMinHeavyHitters(jit_update=True, device=dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for i, x in enumerate(click_batches):
+        cms.update(x)
+        if i == 0:
+            torch.cuda.synchronize()
+            cms_first_s = time.perf_counter() - t_start
+    cms_total = cms.compute()
+    torch.cuda.synchronize()
+    engine["countmin_update"] = {"epoch_ms": (time.perf_counter() - t_start) * 1e3, "first_call_ms": cms_first_s * 1e3,
+                                 "retraces": 1}
+    got = launches()
+    note_engine_launches()
+    check(cms.dispatch_stats["dispatches"] == len(click_batches) and cms.dispatch_stats["retraces"] == 1,
+          f"engine count-min: {cms.dispatch_stats}")
+    engine_healthy(cms.dispatch_stats, "engine count-min")
+    check(got["countmin"] == len(click_batches) and registry.launches_by_shape("countmin") == {
+        ("shared", (CLICK_BATCH, 4, 1024)): len(click_batches)}, f"engine count-min launched {got}")
+    check(torch.equal(cms.value, sketches[0].value) and float(cms_total) == CLICKS,
+          "the engine's count-min table differs from slice 3e's eager table")
+
+    # scan_update: a stack of 8 batches folded as one graph, against the update loop
+    stack_p = torch.stack([p_ for p_, _ in batches[:8]])
+    stack_t = torch.stack([t_ for _, t_ in batches[:8]])
+    scan_metric = Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev)
+    scanned = scan_metric.scan_update(scan_metric.default_state(), stack_p, stack_t)
+    again = scan_metric.scan_update(scan_metric.default_state(), stack_p, stack_t)  # a replay
+    loop = Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev)
+    for p_, t_ in batches[:8]:
+        loop.update(p_, t_)
+    for k in loop._defaults:
+        check(torch.equal(scanned[k], getattr(loop, k)) and torch.equal(again[k], getattr(loop, k)),
+              f"scan_update's {k} differs from the update loop")
+
+    # timings at a full batch, in turns: the eager update against the engine's, syncs of a warm update, the capture
+    # (a fresh metric's first call less a warm call), the snapshot's share (resilience off in turns) and device busy
+    x_p, x_t = batches[-2]
+    eager_of = {
+        "accuracy": Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev),
+        "confmat": ConfusionMatrix(NUM_CLASSES, update_method="matmul", device=dev),
+        "collection": MetricCollection(collection_members(dev), fused_update=False),
+    }
+    eager_of["collection"].update(x_p, x_t)  # forms the groups: the grouped eager update
+    x_click = click_batches[0]
+    eager_cms = CountMinHeavyHitters(device=dev)
+
+    def without_snapshot(fn):
+        def run():
+            os.environ["METRICS_TPU_RESILIENCE"] = "0"
+            try:
+                fn()
+            finally:
+                del os.environ["METRICS_TPU_RESILIENCE"]
+        return run
+
+    for key in ("accuracy", "confmat", "collection", "countmin"):
+        if key == "countmin":
+            eng, eag, args = cms, eager_cms, (x_click,)
+        else:
+            eng, eag, args = engine[f"{key}_update_metric"], eager_of[key], (x_p, x_t)
+        turns = host_ms_in_turns(torch, {"eager": lambda: eag.update(*args), "engine": lambda: eng.update(*args),
+                                         "engine_no_snapshot": without_snapshot(lambda: eng.update(*args))})
+        syncs = syncs_per_call(torch, lambda: eng.update(*args))
+        check(not syncs, f"a warm engine update of {key} synchronised with the host: {syncs}")
+        # the launches note_replay counts are the kernels the replays ran on the card, by name
+        replayed, replay_captures = replayed_kernels(torch, lambda: eng.update(*args))
+        for name, n in replayed.items():
+            check(n["registry_in_window"] == n["per_update"] * n["window_updates"] and n["profiler"] == n["registry"],
+                  f"three warm engine updates of {key}: the registry counted {n['registry']} {name} launches, "
+                  f"the profiler recorded {n['profiler']} ({replayed})")
+        row = engine.setdefault(f"{key}_update", {})
+        row.update({
+            "eager_update_ms": turns["eager"], "engine_update_ms": turns["engine"],
+            "engine_update_no_snapshot_ms": turns["engine_no_snapshot"],
+            "eager_over_engine": turns["eager"] / turns["engine"],
+            "engine_syncs_per_update": len(syncs),
+            "replayed_kernels_3_updates": replayed, "replay_profiler_captures": replay_captures,
+            "eager_syncs_per_update": len(syncs_per_call(torch, lambda: eag.update(*args))),
+            "engine_under_profiler": device_busy(torch, lambda: eng.update(*args)),
+            "eager_under_profiler": device_busy(torch, lambda: eag.update(*args)),
+        })
+        if "first_call_ms" in row:
+            row["capture_ms"] = row["first_call_ms"] - turns["engine"]
+        engine_healthy(eng.dispatch_stats, f"engine {key} after the timings")
+    fwd_m = engine_paths["accuracy"]()
+    fwd_turns = host_ms_in_turns(torch, {"eager": lambda: eager_of["accuracy"](x_p, x_t),
+                                         "engine": lambda: fwd_m(x_p, x_t)})
+    engine["accuracy_forward"].update({"eager_forward_ms": fwd_turns["eager"], "engine_forward_ms": fwd_turns["engine"],
+                                       "eager_over_engine": fwd_turns["eager"] / fwd_turns["engine"]})
+    engine_healthy(fwd_m.forward_stats, "engine Accuracy forward after the timings")
+    scan_ms = host_ms(torch, lambda: scan_metric.scan_update(scan_metric.default_state(), stack_p, stack_t))
+    engine["accuracy_scan"] = {"batches": stack_p.shape[0], "scan_ms": scan_ms, "per_batch_ms": scan_ms / stack_p.shape[0]}
+    print("slice 8, the engines: " + json.dumps(
+        {k: v for k, v in engine.items() if not k.endswith("_metric")}, default=str))
+    laps.mark("3. slice 8, the engines")
+
     # ------------------------------------- 3f. semantic segmentation, Cityscapes val
     seg_target, seg_pred, top_share = segmentation_data(torch, dev)
     laps.mark("3. segmentation data")
@@ -1654,11 +1908,14 @@ def main() -> int:
             (lambda: cm_flat_table.index_add_(0, cm_flat, cm_w_rep), "index_add_ on precomputed cells (1 of 2+ calls)"),
         ),
     }
-    stat_path_by_shape = merged(stat_by_shape, coll_stat_by_shape, comp_stat_by_shape)
-    path_launches = {"stat_scores": counts["stat_scores"] + coll_launches["stat_scores"] + comp_launches["macro"],
-                     "confusion_matrix": counts["confusion_matrix"] + seg_launches + coll_launches["confusion_matrix"],
+    stat_path_by_shape = merged(stat_by_shape, coll_stat_by_shape, comp_stat_by_shape, engine_by_shape["stat_scores"])
+    click_by_shape = merged(click_by_shape, engine_by_shape["countmin"])
+    path_launches = {"stat_scores": counts["stat_scores"] + coll_launches["stat_scores"] + comp_launches["macro"]
+                     + engine_path_launches["stat_scores"],
+                     "confusion_matrix": counts["confusion_matrix"] + seg_launches + coll_launches["confusion_matrix"]
+                     + engine_path_launches["confusion_matrix"],
                      "binned_stats": sum(binned_launches.values()), "retrieval_sort": marco_launches + trec_launches,
-                     "countmin": click_launches}
+                     "countmin": click_launches + engine_path_launches["countmin"]}
     for name, (kernel, plain, library, library_call, nbytes, ops, shape, yardstick) in timing.items():
         # plain, kernel, kernel, plain: each pair within one call, the mean of the two readings
         plain_a, kernel_a, kernel_b, plain_b = (device_ms(torch, f) for f in (plain, kernel, kernel, plain))
@@ -1794,10 +2051,12 @@ def main() -> int:
     # the wrapper's launch count).
     seg_t32, seg_p32 = (x[0].reshape(-1).to(torch.int32) for x in (seg_target, seg_pred))
     confmat_shapes = {
-        "ImageNet batch": (t32, p32, NUM_CLASSES, merged(confmat_slice_by_shape, coll_confmat_by_shape)),
+        "ImageNet batch": (t32, p32, NUM_CLASSES,
+                           merged(confmat_slice_by_shape, coll_confmat_by_shape, engine_by_shape["confusion_matrix"])),
         "Cityscapes image": (seg_t32, seg_p32, SEG_CLASSES, seg_by_shape),
     }
-    confmat_path_by_shape = merged(confmat_slice_by_shape, seg_by_shape, coll_confmat_by_shape)
+    confmat_path_by_shape = merged(confmat_slice_by_shape, seg_by_shape, coll_confmat_by_shape,
+                                   engine_by_shape["confusion_matrix"])
     confmat_rows = []
     for launch, (ct, cp, c, path_by_shape) in confmat_shapes.items():
         cn = ct.shape[0]

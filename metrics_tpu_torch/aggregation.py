@@ -15,6 +15,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utilities.checks import _is_traced
 from metrics_tpu_torch.utilities.data import dim_zero_cat
 
 
@@ -62,11 +63,12 @@ class BaseAggregator(Metric):
         return x.to(torch.float32)
 
     def _cast_and_nan_check_input(self, x: Union[float, Tensor]) -> Tensor:
-        """Cast to float32 and apply the NaN strategy, dropping NaN rows."""
+        """Cast to float32 and apply the NaN strategy, dropping NaN rows (in an
+        engine's program NaN rows are kept, as under ``jax.jit``)."""
         x = self._as_float32(x)
         if isinstance(self.nan_strategy, str):
             nans = torch.isnan(x)
-            if bool(nans.any()):
+            if not _is_traced() and bool(nans.any()):
                 if self.nan_strategy == "error":
                     raise RuntimeError("Encounted `nan` values in tensor")
                 if self.nan_strategy == "warn":
@@ -79,15 +81,20 @@ class BaseAggregator(Metric):
     def _cast_and_nan_mask_input(self, x: Union[float, Tensor]) -> Tuple[Tensor, Tensor]:
         """``(values, valid_mask)``: ``"error"`` raises on NaN, ``"warn"``
         warns, both ``"warn"`` and ``"ignore"`` mask NaN lanes out, and an
-        impute value replaces NaN and keeps every lane."""
+        impute value replaces NaN and keeps every lane. In an engine's program
+        (``metrics_tpu/aggregation.py:85-110`` under a tracer) nothing is read
+        back: no raise and no warning, and ``"error"`` keeps the NaN so that
+        the poisoned result stays visible."""
         x = self._as_float32(x)
         if isinstance(self.nan_strategy, str):
             nans = torch.isnan(x)
-            if bool(nans.any()):
+            if not _is_traced() and bool(nans.any()):
                 if self.nan_strategy == "error":
                     raise RuntimeError("Encounted `nan` values in tensor")
                 if self.nan_strategy == "warn":
                     warnings.warn("Encounted `nan` values in tensor. Will be removed.", UserWarning)
+            if self.nan_strategy == "error":
+                return x, torch.ones_like(x, dtype=torch.bool)
             return x, ~nans
         return torch.where(torch.isnan(x), self.nan_strategy, x), torch.ones_like(x, dtype=torch.bool)
 

@@ -103,6 +103,35 @@ class Accuracy(StatScores):
                 )
             )
 
+    # the fast-dispatch engine's padded batches (metrics_tpu/classification/accuracy.py:128-155)
+    def _masked_update_supported(self) -> bool:
+        return not self.subset_accuracy and super()._masked_update_supported()
+
+    def _masked_update(self, sample_mask: Tensor, preds: Tensor, target: Tensor) -> None:
+        """``update`` with a dim-0 validity mask (padded rows count zero)."""
+        mode = _mode(preds, target, self.threshold, self.top_k, self.num_classes, self.multiclass, self.ignore_index)
+        if not self.mode:
+            self.mode = mode
+        elif self.mode != mode:
+            raise ValueError(f"You can not use {mode} inputs with {self.mode} inputs.")
+        tp, fp, tn, fn = _accuracy_update(
+            preds,
+            target,
+            reduce=self.reduce,
+            mdmc_reduce=self.mdmc_reduce,
+            threshold=self.threshold,
+            num_classes=self.num_classes,
+            top_k=self.top_k,
+            multiclass=self.multiclass,
+            ignore_index=self.ignore_index,
+            mode=self.mode,
+            sample_mask=sample_mask,
+        )
+        self.tp = self.tp + tp
+        self.fp = self.fp + fp
+        self.tn = self.tn + tn
+        self.fn = self.fn + fn
+
     def compute(self) -> Tensor:
         """Accuracy from the accumulated state."""
         if not self.mode:

@@ -95,6 +95,30 @@ class StatScores(Metric):
             )
         )
 
+    # the fast-dispatch engine's padded batches (metrics_tpu/classification/stat_scores.py:109-131)
+    def _masked_update_supported(self) -> bool:
+        # the collapsing reduces make masked rows exact no-ops; the per-sample ones keep a row an input
+        return self.reduce in ("micro", "macro") and self.mdmc_reduce != MDMCAverageMethod.SAMPLEWISE
+
+    def _masked_update(self, sample_mask: Tensor, preds: Tensor, target: Tensor) -> None:
+        """``update`` with a dim-0 validity mask (padded rows count zero)."""
+        tp, fp, tn, fn = _stat_scores_update(
+            preds,
+            target,
+            reduce=self.reduce,
+            mdmc_reduce=self.mdmc_reduce,
+            threshold=self.threshold,
+            num_classes=self.num_classes,
+            top_k=self.top_k,
+            multiclass=self.multiclass,
+            ignore_index=self.ignore_index,
+            sample_mask=sample_mask,
+        )
+        self.tp = self.tp + tp
+        self.fp = self.fp + fp
+        self.tn = self.tn + tn
+        self.fn = self.fn + fn
+
     def _get_final_stats(self) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
         """Concatenate list states where needed."""
         tp = torch.cat(self.tp) if isinstance(self.tp, list) else self.tp

@@ -12,25 +12,40 @@ Group detection compares every group leader with every other of the same
 state layout in one pass: the comparisons are queued on the device and
 their results come back to the host in one read.
 
-What is not ported: the fused single-launch update and forward
-(``fused_update=True``, ``scan_update``, ``dispatch_stats``,
-``forward_stats``: ROADMAP.md, Queue A item 4), collection sync
-(``sync``, ``unsync``, ``sync_context``, ``pure_sync``, ``sync_precision``,
-``sync_stats``: item 5) and ``telemetry_snapshot`` (item 10). They raise
-``NotImplementedError`` naming their item.
+The fused update and forward (``metrics_tpu/collections.py:188-531``):
+with ``fused_update`` on, the whole collection's update, or its forward, is
+one program of the fast-dispatch engine (:mod:`metrics_tpu_torch.dispatch`;
+on the card one CUDA graph a shape), with every member's state leaves
+crossing as one flat tuple. As in the JAX package the program advances
+**every** member and does not consult the compute groups; a CUDA graph has
+no common-subexpression elimination, so the work the groups would share
+runs once a member on the device. ``scan_update`` folds a stack of batches
+as one program; ``dispatch_stats`` and ``forward_stats`` count the fused
+path's programs. Failures degrade to the eager loop through the resilience
+policy (:mod:`metrics_tpu_torch.resilience`).
+
+What is not ported: collection sync (``sync``, ``unsync``,
+``sync_context``, ``pure_sync``, ``sync_precision``, ``sync_stats``:
+ROADMAP.md, Queue A item 5) and ``telemetry_snapshot`` (item 10). They
+raise ``NotImplementedError`` naming their item.
 """
 import functools
 from collections import OrderedDict
 from copy import deepcopy
-from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.metric import _ENGINES, _SYNC, Metric, not_ported
+from metrics_tpu_torch import resilience
+from metrics_tpu_torch.dispatch import FastDispatcher, engine_owned, fast_dispatch_enabled
+from metrics_tpu_torch.forward_engine import fused_forward_enabled, make_collection_forward_factories, padded_mask
+from metrics_tpu_torch.metric import _SYNC, Metric, _raise_if_list_state, _scan_fold, _split_static_kwargs, not_ported
+from metrics_tpu_torch.utilities.checks import tracing
 from metrics_tpu_torch.utilities.checksums import attach_checksums, verify_checksums
-from metrics_tpu_torch.utilities.data import _flatten_dict
-from metrics_tpu_torch.utilities.prints import rank_zero_warn
+from metrics_tpu_torch.utilities.data import _flatten_dict, _squeeze_if_scalar
+from metrics_tpu_torch.utilities.prints import rank_zero_debug, rank_zero_warn
 
 _TELEMETRY = "ROADMAP.md, Queue A item 10 (observability)"
 
@@ -90,10 +105,10 @@ class MetricCollection:
         prefix / postfix: strings put around every output key.
         compute_groups: ``True`` (found after the first update), ``False``
             (off), or the groups as a list of lists of keys.
-        fused_update: ``None`` or ``False``: the eager loop, one member (or
-            one group leader) at a time. ``None`` will pick the fused update
-            of ROADMAP.md, Queue A item 4 on the card once that lands;
-            ``True`` raises until then.
+        fused_update: ``True``: the fused update and forward, one program
+            for the whole collection; ``False``: the eager loop, one member
+            (or one group leader) at a time; ``None``: fused where the members
+            live on a CUDA device, eager on the CPU.
         sync_precision: not ported (Queue A item 5); anything but ``None`` raises.
     """
 
@@ -107,8 +122,6 @@ class MetricCollection:
         fused_update: Optional[bool] = None,
         sync_precision: Optional[str] = None,
     ) -> None:
-        if fused_update:
-            raise not_ported("fused_update=True", _ENGINES)
         if sync_precision is not None:
             raise not_ported("sync_precision", _SYNC)
         self._modules: "OrderedDict[str, Metric]" = OrderedDict()
@@ -117,13 +130,25 @@ class MetricCollection:
         self._enable_compute_groups = compute_groups
         self._groups_checked: bool = False
         self._groups: Dict[int, List[str]] = {}
+        self._fused_update = fused_update
+        # set when this collection can never fuse (or the policy benched the fused path for good)
+        self._fuse_failed = False
+        self._fuse_resilience = resilience.ResiliencePolicy()
+        self._dispatcher: Optional[FastDispatcher] = None
+        self._dispatch_stats: Dict[str, int] = {"dispatches": 0, "retraces": 0}
+        self._forward_stats: Dict[str, Any] = {"launches": 0, "retraces": 0, "engine_us": 0.0}
         # the kwargs a member accepts, memoised by (member, kwarg names)
         self._filter_kwargs_cache: Dict[Tuple[str, Tuple[str, ...]], Tuple[str, ...]] = {}
 
         self.add_metrics(metrics, *additional_metrics)
 
+    def __getstate__(self) -> Dict[str, Any]:
+        # the engine's graphs and buffers are made again at the next fused call
+        return {k: v for k, v in self.__dict__.items() if k != "_dispatcher"}
+
     def __setstate__(self, state: Dict[str, Any]) -> None:
         self.__dict__.update(state)
+        self._dispatcher = None
         self._filter_kwargs_cache = {}
 
     # --------------------------------------------------------------- mapping
@@ -133,6 +158,7 @@ class MetricCollection:
     def __setitem__(self, key: str, value: Metric) -> None:
         self._modules[key] = value
         self._filter_kwargs_cache.clear()
+        self._dispatcher = None  # its programs take the old members' states
 
     def __contains__(self, key: str) -> bool:
         return key in self._modules
@@ -169,6 +195,10 @@ class MetricCollection:
 
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Every member's ``forward``: the batch values, and the batch accumulated."""
+        if self._fusion_enabled:
+            fused = self._try_fused_forward(*args, **kwargs)
+            if fused is not None:
+                return fused
         res = {k: m(*args, **self._filtered_kwargs(k, m, kwargs)) for k, m in self.items(keep_base=True)}
         res = _flatten_dict(res)
         return {self._set_name(k): v for k, v in res.items()}
@@ -177,6 +207,8 @@ class MetricCollection:
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update every member, or once the groups are formed each group's leader."""
+        if self._fusion_enabled and self._try_fused_update(*args, **kwargs):
+            return
         if self._groups_checked:
             for cg in self._groups.values():
                 m0 = self._modules[cg[0]]
@@ -197,6 +229,252 @@ class MetricCollection:
     def reset(self) -> None:
         for m in self._modules.values():
             m.reset()
+
+    # ---------------------------------------------------------- fused calls
+    @property
+    def _device(self) -> torch.device:
+        return next(iter(self._modules.values())).device
+
+    @property
+    def _fusion_enabled(self) -> bool:
+        """``fused_update`` resolved: ``None`` is fused on a CUDA device, where
+        a member's eager update is mostly host time, and eager on the CPU,
+        where the eager loop keeps the checks that read values."""
+        if self._fuse_failed:
+            return False
+        if self._fused_update is None:
+            return self._device.type == "cuda"
+        return bool(self._fused_update)
+
+    def _fuse_fallback(self, what: str, reason: Union[str, Exception]) -> None:
+        if isinstance(reason, Exception):
+            # a failed engine call: eager serves it, the fused path cools down (for good if unsupported)
+            resilience.record_degrade("MetricCollection", what, reason, self._fuse_resilience)
+            if self._fuse_resilience.permanent:
+                self._fuse_failed = True
+            msg = (
+                f"MetricCollection could not fuse `{what}` ({type(reason).__name__}: {reason}); falling back to"
+                " eager dispatch"
+                + ("." if self._fuse_failed else f" (cooldown {self._fuse_resilience.cooldown} calls).")
+            )
+        else:
+            # this collection or its inputs can never fuse
+            self._fuse_failed = True
+            msg = f"MetricCollection could not fuse `{what}` ({reason}); falling back to eager dispatch."
+        # an explicit fused_update=True hears of it; the default falls back quietly
+        (rank_zero_warn if self._fused_update is True else rank_zero_debug)(msg)
+
+    def _fusable(self, args: tuple, kwargs: dict) -> bool:
+        # the members are checked before the engine is built; changing them drops it (__setitem__)
+        for m in self._modules.values() if self._dispatcher is None else ():
+            if any(isinstance(d, list) for d in m._defaults.values()):
+                return False  # a growing list state changes the program's inputs every step
+            if m._children():
+                return False  # wrapped metrics hold state outside _defaults
+        return all(
+            isinstance(x, (Tensor, np.ndarray, np.number, int, float)) and not isinstance(x, bool)
+            for x in (*args, *kwargs.values())
+        )
+
+    def _layout(self) -> List[Tuple[str, str]]:
+        return [(name, key) for name, m in self._modules.items() for key in m._defaults]
+
+    def _make_dispatcher(self) -> FastDispatcher:
+        """The fused engine: every member's state crosses as one flat tuple
+        of leaves, read and written straight off the members."""
+        layout = self._layout()
+
+        def read_leaves() -> Tuple:
+            return tuple(getattr(self._modules[name], key) for name, key in layout)
+
+        def write_leaves(leaves: Tuple) -> None:
+            for (name, key), leaf in zip(layout, leaves):
+                object.__setattr__(self._modules[name], key, leaf)
+
+        def unflatten(leaves: Tuple) -> Dict[str, Dict[str, Any]]:
+            states: Dict[str, Dict[str, Any]] = {name: {} for name in self._modules}
+            for (name, key), leaf in zip(layout, leaves):
+                states[name][key] = leaf
+            return states
+
+        def flatten(states: Dict[str, Dict[str, Any]]) -> Tuple:
+            return tuple(states[name][key] for name, key in layout)
+
+        def make_update(static: Dict) -> Callable:
+            def fn(leaves, *args, **kwargs):
+                return flatten(self.pure_update(unflatten(leaves), *args, **kwargs))
+
+            return fn
+
+        def make_masked_update(static: Dict) -> Callable:
+            def fn(n_valid, leaves, *args, **kwargs):
+                mask = padded_mask(args, kwargs, n_valid)
+                states = unflatten(leaves)
+                return flatten({
+                    name: m._masked_pure_update(states[name], mask, *args, **m._filter_kwargs(**kwargs))
+                    for name, m in self.items(keep_base=True)
+                })
+
+            return fn
+
+        def make_scan(static: Dict) -> Callable:
+            def fn(leaves, *args, **kwargs):
+                return flatten(_scan_fold(self.pure_update, unflatten(leaves), args, {**kwargs, **static}))
+
+            return fn
+
+        def masking_ok() -> bool:
+            return all(m._masked_update_supported() for m in self._modules.values())
+
+        make_forward, make_masked_forward = make_collection_forward_factories(self, unflatten, flatten)
+        return FastDispatcher(
+            "MetricCollection",
+            self._device,
+            read_leaves,
+            write_leaves,
+            make_update,
+            make_masked_update,
+            masking_ok=masking_ok,
+            stats=self._dispatch_stats,
+            make_forward=make_forward,
+            make_masked_forward=make_masked_forward,
+            forward_stats=self._forward_stats,
+            make_scan=make_scan,
+        )
+
+    @property
+    def dispatch_stats(self) -> Dict[str, Any]:
+        """Fused-update counters (``dispatches``, ``retraces``, ``evictions``)
+        and the fused path's degradation state."""
+        stats: Dict[str, Any] = dict(self._dispatch_stats)
+        stats.update(self._fuse_resilience.stats())
+        return stats
+
+    @property
+    def forward_stats(self) -> Dict[str, Any]:
+        """Fused-forward counters (``launches``, ``retraces``, host
+        ``engine_us``) and the fused path's degradation state."""
+        stats: Dict[str, Any] = dict(self._forward_stats)
+        stats.update(self._fuse_resilience.stats())
+        return stats
+
+    def _snapshot_members(self) -> Optional[Dict[str, Dict[str, Any]]]:
+        """Every member's leaves before a fused call; ``None`` with resilience off."""
+        if not resilience.resilience_enabled():
+            return None
+        return {name: resilience.snapshot_state(m) for name, m in self.items(keep_base=True)}
+
+    def _restore_members(self, snaps: Dict[str, Dict[str, Any]]) -> None:
+        for name, m in self.items(keep_base=True):
+            resilience.restore_state(m, snaps[name])
+
+    def _verify_members(self, snaps: Dict[str, Dict[str, Any]], where: str) -> None:
+        if not resilience.verify_after_call():
+            return
+        check_values = resilience.verification_enabled()
+        for name, m in self.items(keep_base=True):
+            resilience.verify_engine_state(m, snaps[name], where=f"{where}:{name}", check_values=check_values)
+
+    def _try_fused_update(self, *args: Any, **kwargs: Any) -> bool:
+        if not fast_dispatch_enabled():
+            return False  # the kill switch: the eager loop
+        if not self._fuse_resilience.allow():
+            return False  # cooling down after a failure
+        if not self._fusable(args, kwargs):
+            self._fuse_fallback("update", "unfusable member or non-tensor inputs")
+            return False
+        # members of a group formed by eager updates take their leader's state first
+        self._compute_groups_create_state_ref()
+        snap = self._snapshot_members()
+        try:
+            if self._dispatcher is None:
+                self._dispatcher = self._make_dispatcher()
+            self._dispatcher.update({}, (), args, kwargs)
+            if snap is not None:
+                self._verify_members(snap, "fused-update")
+        except Exception as err:  # noqa: BLE001 -- degrade to the eager loop
+            if snap is not None:
+                self._restore_members(snap)
+            self._fuse_fallback("update", err)
+            return False
+        self._fuse_resilience.note_success()
+        for m in self._modules.values():
+            m._update_count += 1
+            m._computed = None
+            m._forward_cache = None
+            m._bump_version()
+        return True
+
+    def _fused_forward_impl(
+        self, update: Callable, states: Dict, counts: Dict, *args: Any, **kwargs: Any
+    ) -> Tuple[Dict, Dict]:
+        """Every member's forward step as pure functions: ``(new states, batch
+        values)``. ``update(member, state, *args, **kwargs)`` is a member's
+        state step: its ``pure_update``, or the masked program's
+        masked update."""
+        new_states, batch_vals = {}, {}
+        for name, m in self.items(keep_base=True):
+            kw = m._filter_kwargs(**kwargs)
+            batch_state = update(m, m.default_state(), *args, **kw)
+            if m.full_state_update or m.full_state_update is None:
+                new_states[name] = update(m, states[name], *args, **kw)
+            else:
+                new_states[name] = m.pure_merge(states[name], batch_state, count=counts[name])
+            batch_vals[name] = _squeeze_if_scalar(m.pure_compute(batch_state))
+        return new_states, batch_vals
+
+    def _try_fused_forward(self, *args: Any, **kwargs: Any) -> Optional[Dict[str, Any]]:
+        if not (fast_dispatch_enabled() and fused_forward_enabled()):
+            return None  # a kill switch: the eager loop
+        if not self._fuse_resilience.allow():
+            return None
+        if not self._fusable(args, kwargs):
+            self._fuse_fallback("forward", "unfusable member or non-tensor inputs")
+            return None
+        self._compute_groups_create_state_ref()
+        counts = {name: float(m._update_count + 1) for name, m in self.items(keep_base=True)}
+        snap = self._snapshot_members()
+        try:
+            if self._dispatcher is None:
+                self._dispatcher = self._make_dispatcher()
+            batch_vals = self._dispatcher.forward(counts, {}, (), args, kwargs)
+            if snap is not None:
+                self._verify_members(snap, "fused-forward")
+        except Exception as err:  # noqa: BLE001 -- degrade to the eager loop
+            if snap is not None:
+                self._restore_members(snap)
+            self._fuse_fallback("forward", err)
+            return None
+        self._fuse_resilience.note_success()
+        for name, m in self.items(keep_base=True):
+            m._update_count += 1
+            m._computed = None
+            m._forward_cache = batch_vals[name]
+            m._bump_version()
+        res = _flatten_dict(batch_vals)
+        return {self._set_name(k): v for k, v in res.items()}
+
+    def scan_update(
+        self, states: Dict[str, Dict[str, Any]], *batched_args: Any, **batched_kwargs: Any
+    ) -> Dict[str, Dict[str, Any]]:
+        """Fold a stack of batches into every member's state as one program
+        (on the card one CUDA graph a shape): :meth:`Metric.scan_update` with
+        :meth:`pure_update` as the step. Members need fixed-shape states."""
+        for name, m in self.items(keep_base=True):
+            _raise_if_list_state(m._defaults, f"collection member `{name}`")
+        if self._device.type == "cuda" and fast_dispatch_enabled():
+            static, dynamic = _split_static_kwargs(batched_kwargs, numeric_static=True)
+            if self._dispatcher is None:
+                self._dispatcher = self._make_dispatcher()
+            layout = self._layout()
+            out = self._dispatcher.scan(static, tuple(sorted(static.items())),
+                                        tuple(states[name][key] for name, key in layout), batched_args, dynamic)
+            new: Dict[str, Dict[str, Any]] = {name: {} for name in self._modules}
+            for (name, key), leaf in zip(layout, out):
+                new[name][key] = leaf
+            return new
+        with tracing():
+            return _scan_fold(self.pure_update, states, batched_args, batched_kwargs)
 
     # -------------------------------------------------------- compute groups
     def _merge_compute_groups(self) -> None:
@@ -319,6 +597,10 @@ class MetricCollection:
         package keeps it, so after update, compute, update, compute a member
         answers its first value again (``Accuracy`` and ``F1Score``, macro,
         C = 3: F1 0.2286 grouped against 0.2401 ungrouped).
+
+        A leader's leaf that an engine writes in place (a graph's state
+        buffer) is given as a copy, so that the leader's next replay does not
+        change the member's state under it.
         """
         if not (self._enable_compute_groups and self._groups_checked):
             return
@@ -332,6 +614,9 @@ class MetricCollection:
                     if isinstance(value, list):
                         changed |= len(value) != len(held) or any(a is not b for a, b in zip(value, held))
                         value = list(value)
+                    elif engine_owned(value):
+                        changed = True
+                        value = value.clone()
                     else:
                         changed |= value is not held
                     object.__setattr__(mi, state, value)
@@ -417,6 +702,7 @@ class MetricCollection:
     def to(self, device: Union[str, torch.device]) -> "MetricCollection":
         for m in self._modules.values():
             m.to(device)
+        self._dispatcher = None  # its programs and buffers are for the old device
         return self
 
     def set_dtype(self, dst_type: torch.dtype) -> "MetricCollection":
@@ -468,17 +754,6 @@ class MetricCollection:
     @property
     def sync_stats(self) -> Dict[str, int]:
         raise not_ported("MetricCollection.sync_stats", _SYNC)
-
-    def scan_update(self, *_: Any, **__: Any) -> None:
-        raise not_ported("MetricCollection.scan_update", _ENGINES)
-
-    @property
-    def dispatch_stats(self) -> Dict[str, int]:
-        raise not_ported("MetricCollection.dispatch_stats", _ENGINES)
-
-    @property
-    def forward_stats(self) -> Dict[str, Any]:
-        raise not_ported("MetricCollection.forward_stats", _ENGINES)
 
     def telemetry_snapshot(self) -> Dict[str, Any]:
         raise not_ported("MetricCollection.telemetry_snapshot", _TELEMETRY)

@@ -11,7 +11,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.ops import confusion_matrix_counts
-from metrics_tpu_torch.utilities.checks import _input_format_classification, _is_floating
+from metrics_tpu_torch.utilities.checks import _input_format_classification, _is_floating, _is_traced
 from metrics_tpu_torch.utilities.data import _bincount
 from metrics_tpu_torch.utilities.enums import DataType
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
@@ -76,9 +76,10 @@ def _confusion_matrix_compute(confmat: Tensor, normalize: Optional[str] = None) 
         elif normalize == "all":
             confmat = confmat / confmat.sum()
 
-        nan_elements = int(torch.isnan(confmat).sum())
-        if nan_elements:
-            rank_zero_warn(f"{nan_elements} nan values found in confusion matrix have been replaced with zeros.")
+        if not _is_traced():  # the count reads the device; an engine's program skips it, as under jax.jit
+            nan_elements = int(torch.isnan(confmat).sum())
+            if nan_elements:
+                rank_zero_warn(f"{nan_elements} nan values found in confusion matrix have been replaced with zeros.")
         confmat = torch.where(torch.isnan(confmat), 0.0, confmat)
     return confmat
 

@@ -12,10 +12,21 @@ operator overloads and :class:`CompositionalMetric`. ``to``, ``set_dtype``,
 ``state_dict`` and ``load_state_dict`` recurse into child metrics held as
 attributes (``_children``).
 
-What is not: the dispatch engine, the fused forward, cross-process sync,
-telemetry, resilience, sharded state and quantised sync. The constructor
-arguments that select them raise ``NotImplementedError`` naming the
-ROADMAP.md item that will port them.
+The engines (``metrics_tpu/metric.py:107-140, 449-474, 575, 595-668,
+719-925``): ``jit_update=True`` sends every update through the fast-dispatch
+engine (:mod:`metrics_tpu_torch.dispatch`: on the card one CUDA graph a
+static key, pow2 shape bucket and dtype, with padded rows masked out) and
+``forward`` through the fused forward (:mod:`metrics_tpu_torch.forward_engine`),
+both behind the resilience policy (:mod:`metrics_tpu_torch.resilience`);
+``scan_update`` folds a stack of batches as one program; ``dispatch_stats``
+and ``forward_stats`` count what they did. As under ``jax.jit``, an engine's
+program skips the input checks that read values back from the device
+(:func:`~metrics_tpu_torch.utilities.checks.tracing`), and so does the eager
+path that serves a ``jit_update`` call the engine declines.
+
+What is not ported: cross-process sync, telemetry, sharded state and
+quantised sync. The constructor arguments that select them raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them.
 
 A metric's states live on its device, ``cuda`` unless the caller passes
 ``device="cpu"``. Tensors given to ``update`` must lie on that device.
@@ -26,12 +37,15 @@ import operator
 from abc import ABC, abstractmethod
 from copy import deepcopy
 from enum import Enum
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch import forward_engine, resilience
+from metrics_tpu_torch.dispatch import FastDispatcher, copy_tensors, engine_owned, fast_dispatch_enabled
+from metrics_tpu_torch.utilities.checks import tracing
 from metrics_tpu_torch.utilities.checksums import attach_checksums, verify_checksums
 from metrics_tpu_torch.utilities.data import (
     _flatten,
@@ -42,6 +56,7 @@ from metrics_tpu_torch.utilities.data import (
     dim_zero_min,
     dim_zero_sum,
 )
+from metrics_tpu_torch.utilities.exceptions import MetricsUserError
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 StateType = Union[Tensor, List[Tensor]]
@@ -54,7 +69,6 @@ _REDUCTIONS = {
     "cat": dim_zero_cat,
 }
 
-_ENGINES = "ROADMAP.md, Queue A item 4 (engines)"
 _SYNC = "ROADMAP.md, Queue A item 5 (distributed sync)"
 _LIST_STATES = "ROADMAP.md, Queue A item 6 (curve metrics, which accumulate list states)"
 
@@ -72,6 +86,61 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def _raise_if_list_state(defaults: Dict[str, Any], owner: str) -> None:
+    """``scan_update`` needs fixed-shape states (``metrics_tpu/metric.py:107``)."""
+    for name, default in defaults.items():
+        if isinstance(default, list):
+            raise MetricsUserError(
+                f"`scan_update` requires fixed-shape states, but state `{name}` of"
+                f" {owner} is a list state. Use the per-batch `pure_update` loop"
+                " (or a Binned* variant) instead."
+            )
+
+
+def _is_static_scalar(v: Any, numeric: bool = False) -> bool:
+    """A flag-like argument that becomes part of an engine program's key
+    instead of an input: bool, str, None and numpy bools always; int and
+    float only with ``numeric``, so that a numeric kwarg that changes from
+    batch to batch builds no new program (``metrics_tpu/metric.py:118``)."""
+    if isinstance(v, (bool, str, np.bool_)) or v is None:
+        return True
+    return numeric and isinstance(v, (int, float))
+
+
+def _split_static_kwargs(kwargs: Dict, numeric_static: bool) -> Tuple[Dict, Dict]:
+    """``(static, dynamic)`` kwargs by :func:`_is_static_scalar`; numpy bools
+    become Python bools, so that keys hash alike."""
+    static = {
+        k: (bool(v) if isinstance(v, np.bool_) else v)
+        for k, v in kwargs.items()
+        if _is_static_scalar(v, numeric_static)
+    }
+    return static, {k: v for k, v in kwargs.items() if k not in static}
+
+
+def _scan_fold(update_fn: Callable, state: Any, batched_args: Tuple, batched_kwargs: Dict) -> Any:
+    """``update_fn`` folded over the leading axis of the batched args and
+    kwargs, as ``lax.scan`` folds it (``metrics_tpu/metric.py:143``); a
+    Python scalar kwarg is a static flag of every step. Run it under
+    :func:`~metrics_tpu_torch.utilities.checks.tracing`, as ``lax.scan``
+    traces its body."""
+    static_kwargs, batched_kwargs = _split_static_kwargs(batched_kwargs, numeric_static=True)
+    leaves = [x for x in (*batched_args, *batched_kwargs.values()) if isinstance(x, Tensor)]
+    if not leaves:
+        raise MetricsUserError(
+            "scan_update needs at least one batched argument (leading axis = "
+            "num_batches); got none, so the scan length cannot be inferred"
+        )
+    lengths = {x.shape[0] if x.ndim else None for x in leaves}
+    if len(lengths) != 1 or None in lengths:
+        raise ValueError(f"scan_update got batched arguments of leading lengths {sorted(map(str, lengths))}")
+    for i in range(lengths.pop()):
+        args = tuple(x[i] if isinstance(x, Tensor) else x for x in batched_args)
+        kwargs = {k: x[i] if isinstance(x, Tensor) else x for k, x in batched_kwargs.items()}
+        state = update_fn(state, *args, **kwargs, **static_kwargs)
+    return state
 
 
 def _stable_default(x: Any, device: torch.device) -> Tensor:
@@ -124,8 +193,6 @@ class Metric(ABC):
         sync_precision: Optional[str] = None,
         **kwargs: Any,
     ) -> None:
-        if jit_update:
-            raise not_ported("jit_update", _ENGINES)
         if compute_on_cpu:
             raise not_ported("compute_on_cpu", _LIST_STATES)
         for name, value in (
@@ -139,6 +206,14 @@ class Metric(ABC):
             if value is not None:
                 raise not_ported(name, _SYNC)
         self._device = resolve_device(device)
+        self._jit_update_requested = bool(jit_update)
+        # the fast-dispatch engine, built at the first engine call; its failures go through
+        # the resilience policies (eager serves the call, the engine is benched for a cooldown)
+        self._dispatcher: Optional[FastDispatcher] = None
+        self._dispatch_resilience = resilience.ResiliencePolicy()
+        self._dispatch_stats: Dict[str, int] = {"dispatches": 0, "retraces": 0}
+        self._forward_resilience = resilience.ResiliencePolicy()
+        self._forward_stats: Dict[str, Any] = {"launches": 0, "retraces": 0, "engine_us": 0.0}
 
         self._update_signature = inspect.signature(self.update)
         self._update_impl: Callable = self.update
@@ -222,6 +297,32 @@ class Metric(ABC):
         finally:
             self._load_state(saved)
 
+    def _masked_update_supported(self) -> bool:
+        """Whether :meth:`_masked_update` makes padded rows exact no-ops in
+        the metric's configuration; a metric that supports shape-bucketed
+        dispatch overrides both. The default opts out."""
+        return False
+
+    def _masked_update(self, sample_mask: Tensor, *args: Any, **kwargs: Any) -> None:
+        """``update`` with a dim-0 validity mask: rows where the mask is False
+        add nothing to the state."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement masked updates; "
+            "the fast-dispatch engine will use exact-shape programs."
+        )
+
+    def _masked_pure_update(
+        self, state: Dict[str, StateType], sample_mask: Tensor, *args: Any, **kwargs: Any
+    ) -> Dict[str, StateType]:
+        """:meth:`_masked_update` as ``(state, batch) -> state``, as :meth:`pure_update`."""
+        saved = self._copy_state()
+        try:
+            self._load_state(state)
+            self._masked_update(sample_mask, *args, **kwargs)
+            return self._copy_state()
+        finally:
+            self._load_state(saved)
+
     def pure_compute(self, state: Dict[str, StateType]) -> Any:
         """The metric's value for a state."""
         saved = self._copy_state()
@@ -245,19 +346,85 @@ class Metric(ABC):
             self._update_count = saved_count
             self._load_state(saved)
 
+    def scan_update(
+        self, state: Dict[str, StateType], *batched_args: Any, **batched_kwargs: Any
+    ) -> Dict[str, StateType]:
+        """Fold a stack of batches into ``state`` as one program.
+
+        The arguments carry a leading ``num_batches`` axis; each slice is one
+        :meth:`pure_update`, run as ``lax.scan`` runs its body (the input checks
+        that read values skipped). On the card the fold is one CUDA graph a
+        (stack, batch) shape; the metric's own state is left as it was.
+        Requires fixed-shape states.
+        """
+        _raise_if_list_state(self._defaults, f"{self.__class__.__name__}")
+        batched_args, batched_kwargs = self._normalize_update_args(batched_args, batched_kwargs)
+        if self._device.type == "cuda" and fast_dispatch_enabled():
+            static, dynamic = _split_static_kwargs(batched_kwargs, numeric_static=True)
+            if self._dispatcher is None:
+                self._dispatcher = self._make_dispatcher()
+            names = list(self._defaults)
+            out = self._dispatcher.scan(static, tuple(sorted(static.items())), tuple(state[k] for k in names),
+                                        batched_args, dynamic)
+            return dict(zip(names, out))
+        with tracing():
+            return _scan_fold(self.pure_update, state, batched_args, batched_kwargs)
+
     # --------------------------------------------------------------- forward
     def forward(self, *args: Any, **kwargs: Any) -> Any:
-        """Accumulate the batch and return the metric's value on it alone."""
+        """Accumulate the batch and return the metric's value on it alone.
+
+        With ``jit_update=True`` and tensor states the whole step is one
+        program of the fused forward (:mod:`metrics_tpu_torch.forward_engine`);
+        the eager branches serve it where the engine is off or declines.
+        """
+        if (
+            self._jit_update_requested
+            and not self._dispatch_resilience.permanent
+            and forward_engine.fused_forward_enabled()
+            and fast_dispatch_enabled()
+            and not any(isinstance(v, list) for v in self._defaults.values())
+            # last: allow() uses up a cooldown call
+            and self._forward_resilience.allow()
+        ):
+            snap = resilience.snapshot_state(self) if resilience.resilience_enabled() else None
+            try:
+                batch_val = forward_engine.metric_forward(self, args, kwargs)
+                if snap is not None and resilience.verify_after_call():
+                    resilience.verify_engine_state(self, snap, where="forward")
+                self._forward_resilience.note_success()
+                self._forward_cache = batch_val
+                return batch_val
+            except Exception as err:  # noqa: BLE001 -- degrade to the eager branches, never escape
+                if snap is not None:
+                    resilience.restore_state(self, snap)
+                resilience.record_degrade(type(self).__name__, "forward", err, self._forward_resilience)
         if self.full_state_update or self.full_state_update is None:
             self._forward_cache = self._forward_full_state_update(*args, **kwargs)
         else:
             self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
         return self._forward_cache
 
+    def _held_state(self) -> Dict[str, StateType]:
+        """:meth:`_copy_state` to hold across an update: a leaf an engine
+        writes in place is copied, every other leaf held as it is."""
+        return {k: v.clone() if engine_owned(v) else v for k, v in self._copy_state().items()}
+
+    def _engine_free(self, value: Any) -> Any:
+        """``value`` with each tensor that shares memory with a state leaf an
+        engine writes in place (this metric's or its collection's) copied, so
+        that later replays leave it as it is."""
+        owned = {
+            v.untyped_storage().data_ptr() for v in (getattr(self, k) for k in self._defaults) if engine_owned(v)
+        }
+        if not owned:
+            return value
+        return copy_tensors(value, lambda t: t.untyped_storage().data_ptr() in owned)
+
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """Two updates: one on the global state, one on a fresh state for the batch value."""
         self.update(*args, **kwargs)
-        cache = self._copy_state()
+        cache = self._held_state()
         update_count = self._update_count
         self.reset()
         self.update(*args, **kwargs)
@@ -271,7 +438,7 @@ class Metric(ABC):
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """One update on a fresh state, merged into the global one by the reductions."""
-        global_state = self._copy_state()
+        global_state = self._held_state()
         update_count = self._update_count
         self.reset()
         self.update(*args, **kwargs)
@@ -319,6 +486,38 @@ class Metric(ABC):
                     f"but found one on {value.device}"
                 )
 
+    def _normalize_update_args(self, args: Tuple, kwargs: Dict) -> Tuple[Tuple, Dict]:
+        """Bind ``update(*args, **kwargs)`` to the update's signature, named
+        positionals moved into kwargs (so that a flag is found however it was
+        passed); the pair as it was where binding fails."""
+        try:
+            bound = self._update_signature.bind(*args, **kwargs)
+        except TypeError:
+            return args, kwargs
+        out_args: list = []
+        out_kwargs: Dict[str, Any] = {}
+        for name, val in bound.arguments.items():
+            param = self._update_signature.parameters[name]
+            if param.kind is param.VAR_POSITIONAL:
+                out_args.extend(val)
+            elif param.kind is param.VAR_KEYWORD:
+                out_kwargs.update(val)
+            elif param.kind is param.POSITIONAL_ONLY:
+                out_args.append(val)
+            else:
+                out_kwargs[name] = val
+        return tuple(out_args), out_kwargs
+
+    def _split_update_args(self, args: Tuple, kwargs: Dict) -> Tuple[Tuple, Dict, Dict, Tuple]:
+        """``(args, static, dynamic, key)`` of an engine call: flag arguments
+        select Python control flow in ``update``, so they join the program's
+        key instead of its inputs; numbers stay inputs."""
+        if any(_is_static_scalar(v) for v in args) or any(_is_static_scalar(v) for v in kwargs.values()):
+            args, kwargs = self._normalize_update_args(args, kwargs)
+            static, dynamic = _split_static_kwargs(kwargs, numeric_static=False)
+            return args, static, dynamic, tuple(sorted(static.items()))
+        return args, {}, kwargs, ()
+
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
@@ -326,9 +525,108 @@ class Metric(ABC):
             self._computed = None
             self._update_count += 1
             self._bump_version()
-            update(*args, **kwargs)
+            if not self._jit_update_requested or any(isinstance(v, list) for v in self._defaults.values()):
+                update(*args, **kwargs)
+            elif self._engine_update(args, kwargs):
+                return  # the engine counted its dispatch
+            else:
+                # the eager path, as the JAX package's jax.jit fallback: the checks that read values skipped
+                with tracing():
+                    update(*args, **kwargs)
+            self._dispatch_stats["dispatches"] += 1
 
         return wrapped_func
+
+    def _engine_update(self, args: Tuple, kwargs: Dict) -> bool:
+        """One update through the fast-dispatch engine; False where it is off,
+        cooling down or failed (the state then as before the call)."""
+        if not fast_dispatch_enabled() or not self._dispatch_resilience.allow():
+            return False
+        call_args, static, dynamic, key = self._split_update_args(args, kwargs)
+        # the counters already moved, and the eager path serves a failed call: leaves only
+        snap = resilience.snapshot_state(self, counters=False) if resilience.resilience_enabled() else None
+        try:
+            if self._dispatcher is None:
+                self._dispatcher = self._make_dispatcher()
+            self._dispatcher.update(static, key, call_args, dynamic)
+            if snap is not None and resilience.verify_after_call():
+                resilience.verify_engine_state(self, snap, where="update")
+            self._dispatch_resilience.note_success()
+            return True
+        except Exception as err:  # noqa: BLE001 -- degrade to the eager path (cooldown; permanent if unsupported)
+            if snap is not None:
+                resilience.restore_state(self, snap)
+            resilience.record_degrade(type(self).__name__, "dispatch", err, self._dispatch_resilience)
+            if self._dispatch_resilience.permanent:
+                self._dispatcher = None
+            return False
+
+    def _make_dispatcher(self) -> FastDispatcher:
+        """This metric's fast-dispatch engine (``metrics_tpu/metric.py:854``)."""
+        names = list(self._defaults)
+
+        def read_leaves() -> Tuple:
+            return tuple(getattr(self, k) for k in names)
+
+        def write_leaves(leaves: Tuple) -> None:
+            for k, v in zip(names, leaves):
+                object.__setattr__(self, k, v)
+
+        def make_update(static: Dict) -> Callable:
+            def fn(leaves, *args, **dyn):
+                new = self.pure_update(dict(zip(names, leaves)), *args, **dyn, **static)
+                return tuple(new[k] for k in names)
+
+            return fn
+
+        def make_masked_update(static: Dict) -> Callable:
+            def fn(n_valid, leaves, *args, **dyn):
+                mask = forward_engine.padded_mask(args, dyn, n_valid)
+                new = self._masked_pure_update(dict(zip(names, leaves)), mask, *args, **dyn, **static)
+                return tuple(new[k] for k in names)
+
+            return fn
+
+        def make_scan(static: Dict) -> Callable:
+            def fn(leaves, *args, **dyn):
+                new = _scan_fold(self.pure_update, dict(zip(names, leaves)), args, {**dyn, **static})
+                return tuple(new[k] for k in names)
+
+            return fn
+
+        make_forward, make_masked_forward = forward_engine.make_metric_forward_factories(self, names)
+        return FastDispatcher(
+            type(self).__name__,
+            self._device,
+            read_leaves,
+            write_leaves,
+            make_update,
+            make_masked_update,
+            masking_ok=self._masked_update_supported,
+            stats=self._dispatch_stats,
+            make_forward=make_forward,
+            make_masked_forward=make_masked_forward,
+            forward_stats=self._forward_stats,
+            make_scan=make_scan,
+        )
+
+    @property
+    def dispatch_stats(self) -> Dict[str, Any]:
+        """Update counters: ``dispatches`` (updates), ``retraces`` (programs
+        built), ``evictions`` once the cache evicts, and the resilience
+        policy's ``demotions``, ``repromotions``, ``cooldown``, ``permanent``
+        and ``last_cause``."""
+        stats: Dict[str, Any] = dict(self._dispatch_stats)
+        stats.update(self._dispatch_resilience.stats())
+        return stats
+
+    @property
+    def forward_stats(self) -> Dict[str, Any]:
+        """Fused-forward counters: ``launches``, ``retraces``, host
+        ``engine_us``, and the forward policy's degradation state."""
+        stats: Dict[str, Any] = dict(self._forward_stats)
+        stats.update(self._forward_resilience.stats())
+        return stats
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
@@ -341,7 +639,7 @@ class Metric(ABC):
                     UserWarning,
                 )
             if self._computed is None:
-                self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+                self._computed = self._engine_free(_squeeze_if_scalar(compute(*args, **kwargs)))
             return self._computed
 
         return wrapped_func
@@ -372,11 +670,13 @@ class Metric(ABC):
     # -------------------------------------------------------------- pickling
     def __getstate__(self) -> Dict[str, Any]:
         # the wrapped bound methods are rebuilt in __setstate__
-        skip = ("update", "compute", "_update_impl", "_compute_impl", "_update_signature")
+        # and the engine's graphs and buffers are made again at the next engine call
+        skip = ("update", "compute", "_update_impl", "_compute_impl", "_update_signature", "_dispatcher")
         return {k: v for k, v in self.__dict__.items() if k not in skip}
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         self.__dict__.update(state)
+        self._dispatcher = None
         self._update_signature = inspect.signature(self.update)
         self._update_impl = type(self).update.__get__(self)
         self._compute_impl = type(self).compute.__get__(self)
@@ -397,6 +697,7 @@ class Metric(ABC):
         """Move every state (and its default), and the tensor attributes named
         in ``_device_attributes``, to ``device``."""
         self._device = resolve_device(device)
+        self._dispatcher = None  # its programs and buffers are for the old device
         for name in self._device_attributes:
             object.__setattr__(self, name, getattr(self, name).to(self._device))
         for attr in self._defaults:

@@ -103,7 +103,11 @@ def confusion_plan(n: int, num_classes: int, sms: int, shared_optin: int) -> Tup
 
 def _ticket(device: torch.device) -> Tensor:
     """The split branch's ticket for the current stream of ``device``: zeroed
-    once, then reset by each launch's last block."""
+    once, then reset by each launch's last block. A launch captured into a
+    CUDA graph gets a ticket of its own, zeroed by a node of that graph, so
+    that no two graphs, and no graph and an eager launch, share one."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(1, dtype=torch.int32, device=device)
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     if key not in _tickets:
         _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)

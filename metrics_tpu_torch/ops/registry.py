@@ -9,9 +9,15 @@ Each wrapper adds one to its kernel's count where it launches the kernel,
 and nowhere else, so a run can show that its path went through the kernels.
 It names the branch it launched and the shape it launched at; those counts
 are kept per ``(branch, shape)`` beside the total.
+
+A launch made while a CUDA graph is captured runs nothing then: inside
+:func:`recording` it is written down instead of counted, and the engine adds
+the written launches again on every replay of that graph
+(:func:`note_replay`), so the counts stay the kernels run on the card.
 """
 import ctypes
-from typing import Dict, Tuple
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, Tuple
 
 import torch
 
@@ -20,6 +26,8 @@ KERNELS = ("stat_scores", "confusion_matrix", "binned_stats", "retrieval_sort", 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _by_shape: Dict[str, Dict[Tuple[str, Tuple[int, ...]], int]] = {name: {} for name in KERNELS}
 _limits: Dict[torch.device, Tuple[int, int]] = {}
+# the launch lists of the captures under way, innermost last
+_recordings: List[List[Tuple[str, str, Tuple[int, ...]]]] = []
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -36,9 +44,32 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
 
 
 def note_launch(name: str, branch: str, shape: Tuple[int, ...]) -> None:
+    if _recordings:
+        _recordings[-1].append((name, branch, tuple(shape)))
+        return
+    _count(name, branch, tuple(shape))
+
+
+def _count(name: str, branch: str, shape: Tuple[int, ...]) -> None:
     _launches[name] += 1
-    key = (branch, tuple(shape))
-    _by_shape[name][key] = _by_shape[name].get(key, 0) + 1
+    _by_shape[name][(branch, shape)] = _by_shape[name].get((branch, shape), 0) + 1
+
+
+@contextmanager
+def recording() -> Iterator[List[Tuple[str, str, Tuple[int, ...]]]]:
+    """Write down, and do not count, the launches of the block (a capture)."""
+    launched: List[Tuple[str, str, Tuple[int, ...]]] = []
+    _recordings.append(launched)
+    try:
+        yield launched
+    finally:
+        _recordings.remove(launched)
+
+
+def note_replay(launched: List[Tuple[str, str, Tuple[int, ...]]]) -> None:
+    """Count the launches a replayed graph ran."""
+    for name, branch, shape in launched:
+        _count(name, branch, shape)
 
 
 def launches() -> Dict[str, int]:

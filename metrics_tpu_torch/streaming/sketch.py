@@ -13,9 +13,10 @@ Port of ``metrics_tpu/streaming/sketch.py``:
 
 Values are hashed by their float32 bit pattern with the JAX package's
 uint32 finalizer (:func:`metrics_tpu_torch.ops.hash_u32`, exact in int64).
-Not ported yet: the masked updates of the serving engines (ROADMAP.md
-Queue A item 4), the quantised-sync specs (item 5) and the telemetry
-events (item 10).
+The three device sketches take masked updates (``metrics_tpu/streaming/sketch.py:131,
+333, 417``), so the fast-dispatch engine pads their batches into shape
+buckets. Not ported yet: the quantised-sync specs (ROADMAP.md, Queue A item 5)
+and the telemetry events (item 10).
 """
 from typing import Any, Optional, Union
 
@@ -109,6 +110,16 @@ class QuantileSketch(BaseAggregator):
     def update(self, value: Union[float, Tensor]) -> None:
         value, mask = self._cast_and_nan_mask_input(value)
         value, mask = torch.atleast_1d(value), torch.atleast_1d(mask)
+        idx = self._index(torch.where(mask, value, 1.0))
+        self.value = self.value.index_add(0, idx.reshape(-1), mask.to(torch.float32).reshape(-1))
+
+    def _masked_update_supported(self) -> bool:
+        return True
+
+    def _masked_update(self, sample_mask: Tensor, value: Union[float, Tensor]) -> None:
+        value, mask = self._cast_and_nan_mask_input(value)
+        value, mask = torch.atleast_1d(value), torch.atleast_1d(mask)
+        mask = mask & torch.broadcast_to(torch.atleast_1d(sample_mask), mask.shape)
         idx = self._index(torch.where(mask, value, 1.0))
         self.value = self.value.index_add(0, idx.reshape(-1), mask.to(torch.float32).reshape(-1))
 
@@ -273,6 +284,16 @@ class HyperLogLog(BaseAggregator):
         idx, rank = self._ranks(value, mask)
         self.value = self.value.scatter_reduce(0, idx.reshape(-1), rank.reshape(-1), reduce="amax")
 
+    def _masked_update_supported(self) -> bool:
+        return True
+
+    def _masked_update(self, sample_mask: Tensor, value: Union[float, Tensor]) -> None:
+        value, mask = self._cast_and_nan_mask_input(value)
+        value, mask = torch.atleast_1d(value), torch.atleast_1d(mask)
+        mask = mask & torch.broadcast_to(torch.atleast_1d(sample_mask), mask.shape)
+        idx, rank = self._ranks(value, mask)
+        self.value = self.value.scatter_reduce(0, idx.reshape(-1), rank.reshape(-1), reduce="amax")
+
     def compute(self) -> Tensor:
         m = self.registers
         alpha_m = 0.7213 / (1.0 + 1.079 / m) if m >= 128 else {16: 0.673, 32: 0.697, 64: 0.709}[m]
@@ -337,6 +358,21 @@ class CountMinHeavyHitters(BaseAggregator):
         if isinstance(weight, Tensor):
             weight = torch.broadcast_to(weight.to(torch.float32), value.shape)
         else:  # a Python number: filled on the device, no copy from the host
+            weight = torch.full_like(value, float(weight))
+        self._add(value, weight, mask)
+
+    def _masked_update_supported(self) -> bool:
+        return True
+
+    def _masked_update(
+        self, sample_mask: Tensor, value: Union[float, Tensor], weight: Union[float, Tensor] = 1.0
+    ) -> None:
+        value, mask = self._cast_and_nan_mask_input(value)
+        value, mask = torch.atleast_1d(value), torch.atleast_1d(mask)
+        mask = mask & torch.broadcast_to(torch.atleast_1d(sample_mask), mask.shape)
+        if isinstance(weight, Tensor):
+            weight = torch.broadcast_to(weight.to(torch.float32), value.shape)
+        else:
             weight = torch.full_like(value, float(weight))
         self._add(value, weight, mask)
 

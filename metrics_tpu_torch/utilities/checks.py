@@ -5,14 +5,44 @@ same errors for the same inputs. The value checks (labels non-negative,
 below ``num_classes``) read ``min()``/``max()`` back to the host; on a CUDA
 tensor each read waits for the device. They stay, because they are what
 gives the JAX package's errors.
+
+The JAX package skips its value checks while ``jax.jit`` traces an update
+(``_is_traced``, ``metrics_tpu/utilities/checks.py:54``). A torch tensor is
+never a tracer, so the port's engines (:mod:`metrics_tpu_torch.dispatch`)
+say so themselves: they run a program inside :func:`tracing`, and
+:func:`_is_traced` reads that flag. Under it the checks the JAX package skips
+under tracing are skipped at the same places (its ``checks.py:88, 114, 179,
+235, 313, 399, 430``), so a program reads nothing back to the host and can be
+captured as a CUDA graph; outside it every check runs.
 """
-from typing import Optional, Tuple
+import threading
+from contextlib import contextmanager
+from typing import Iterator, Optional, Tuple
 
 import torch
 from torch import Tensor
 
 from metrics_tpu_torch.utilities.data import select_topk, to_onehot
 from metrics_tpu_torch.utilities.enums import DataType
+
+
+_TRACING = threading.local()
+
+
+@contextmanager
+def tracing() -> Iterator[None]:
+    """Run the block as the engines run a program: value checks skipped."""
+    depth = getattr(_TRACING, "depth", 0)
+    _TRACING.depth = depth + 1
+    try:
+        yield
+    finally:
+        _TRACING.depth = depth
+
+
+def _is_traced() -> bool:
+    """Whether an engine is building or running a program on this thread."""
+    return getattr(_TRACING, "depth", 0) > 0
 
 
 def _is_floating(x: Tensor) -> bool:
@@ -41,6 +71,9 @@ def _basic_input_validation(
     if not preds.shape[0] == target.shape[0]:
         raise ValueError("The `preds` and `target` should have the same first dimension.")
 
+    if _is_traced():
+        return  # the value checks read the device
+
     if target.min() < 0 and (ignore_index is None or ignore_index >= 0):
         raise ValueError("The `target` has to be a non-negative tensor.")
 
@@ -64,7 +97,7 @@ def _check_shape_and_type_consistency(preds: Tensor, target: Tensor) -> Tuple[Da
             raise ValueError(
                 f"The `preds` and `target` should have the same shape, got {tuple(preds.shape)} and {tuple(target.shape)}."
             )
-        if preds_float and target.numel() > 0 and target.max() > 1:
+        if preds_float and target.numel() > 0 and not _is_traced() and target.max() > 1:
             raise ValueError(
                 "If `preds` and `target` are of shape (N, ...) and `preds` are floats, `target` should be binary."
             )
@@ -127,7 +160,7 @@ def _check_num_classes_mc(
                 "You have set `multiclass=False`, but the implied number of classes"
                 " (from shape of inputs) does not match `num_classes`."
             )
-        if target.numel() > 0 and num_classes <= target.max():
+        if target.numel() > 0 and not _is_traced() and num_classes <= target.max():
             raise ValueError("The highest label in `target` should be smaller than `num_classes`.")
         if preds.shape != target.shape and num_classes != implied_classes:
             raise ValueError("The size of C dimension of `preds` does not match `num_classes`.")
@@ -181,7 +214,7 @@ def _check_classification_inputs(
                 "You have set `multiclass=False`, but have more than 2 classes in your data,"
                 " based on the C dimension of `preds`."
             )
-        if target.numel() > 0 and target.max() >= implied_classes:
+        if not _is_traced() and target.numel() > 0 and target.max() >= implied_classes:
             raise ValueError(
                 "The highest label in `target` should be smaller than the size of the `C` dimension of `preds`."
             )
@@ -248,8 +281,16 @@ def _input_format_classification(
             preds = select_topk(preds, top_k or 1)
         else:
             if num_classes is None:
-                # multiclass=False certifies binary {0,1} data
-                num_classes = 2 if multiclass is False else int(max(preds.max(), target.max())) + 1
+                if multiclass is False:
+                    # multiclass=False certifies binary {0,1} data
+                    num_classes = 2
+                elif _is_traced():
+                    raise ValueError(
+                        "`num_classes` must be given when formatting integer multi-class "
+                        "inputs under jit (cannot infer the class count from traced values)."
+                    )
+                else:
+                    num_classes = int(max(preds.max(), target.max())) + 1
             preds = to_onehot(preds, max(2, num_classes))
 
         target = to_onehot(target, max(2, int(num_classes)))
@@ -298,7 +339,7 @@ def _check_retrieval_inputs(
         raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
     if not _is_integer(indexes):
         raise ValueError("`indexes` must be a tensor of integers")
-    if ignore_index is not None:
+    if ignore_index is not None and not _is_traced():
         valid = target != ignore_index
         indexes, preds, target = indexes[valid], preds[valid], target[valid]
     if indexes.numel() == 0 or indexes.ndim == 0:
@@ -320,6 +361,7 @@ def _check_retrieval_target_and_prediction_types(
     if not _is_floating(preds):
         raise ValueError("`preds` must be a tensor of floats")
     # one host read for both bounds
-    if not allow_non_binary_target and target.numel() and bool((target.max() > 1) | (target.min() < 0)):
+    if (not allow_non_binary_target and not _is_traced() and target.numel()
+            and bool((target.max() > 1) | (target.min() < 0))):
         raise ValueError("`target` must contain `binary` values")
     return preds.reshape(-1).to(torch.float32), target.reshape(-1)

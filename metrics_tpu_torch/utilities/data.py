@@ -39,10 +39,21 @@ def bucket_pow2(n: int, minimum: int = 8) -> int:
 
     The JAX package pads retrieval's per-query rows to this length, and a
     NaN score sorts after the ``-inf`` pads, so the port pads to the same
-    length to give the same results.
+    length to give the same results. The engines pad a batch to it, so that
+    batch sizes within one bucket share one program.
     """
     n = max(n, minimum)
     return 1 << (n - 1).bit_length()
+
+
+def pad_axis0(x: Tensor, size: int) -> Tensor:
+    """Zero-pad ``x`` along dim 0 up to ``size`` rows (a no-op when already
+    there; 0-d tensors pass through). Port of ``metrics_tpu/utilities/data.py:55``:
+    the companion of :func:`bucket_pow2`, whose padded rows a validity mask
+    downstream makes no-ops."""
+    if x.ndim == 0 or x.shape[0] >= size:
+        return x
+    return torch.cat([x, x.new_zeros((size - x.shape[0],) + tuple(x.shape[1:]))])
 
 
 def _flatten(x: List) -> list:

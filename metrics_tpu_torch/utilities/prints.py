@@ -2,11 +2,14 @@
 
 The rank is ``torch.distributed``'s when a process group is up, else 0.
 """
+import logging
 import warnings
 from functools import wraps
 from typing import Any, Callable
 
 import torch
+
+log = logging.getLogger("metrics_tpu_torch")
 
 
 def _process_index() -> int:
@@ -28,3 +31,8 @@ def rank_zero_only(fn: Callable) -> Callable:
 @rank_zero_only
 def rank_zero_warn(message: str, *args: Any, stacklevel: int = 4, **kwargs: Any) -> None:
     warnings.warn(message, *args, stacklevel=stacklevel, **kwargs)
+
+
+@rank_zero_only
+def rank_zero_debug(message: str, *args: Any, **kwargs: Any) -> None:
+    log.debug(message, *args, **kwargs)

@@ -290,7 +290,6 @@ def test_mode_change_is_refused_like_jax():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        ({"jit_update": True}, "engines"),
         ({"compute_on_cpu": True}, "curve metrics"),
         ({"sync_env": object()}, "distributed sync"),
         ({"dist_sync_fn": lambda x: x}, "distributed sync"),
@@ -300,6 +299,8 @@ def test_mode_change_is_refused_like_jax():
         ({"process_group": "dp"}, "distributed sync"),
         ({"shard_state": "dp"}, "distributed sync"),
     ],
+    # the ids the cases had beside the jit_update one, which the engines (tests/test_torch_dispatch.py) retired
+    ids=[f"kwargs{i}-{item}" for i, item in enumerate(["curve metrics"] + ["distributed sync"] * 7, start=1)],
 )
 def test_unported_options_raise_naming_the_roadmap_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):

@@ -691,20 +691,15 @@ def test_kwargs_are_routed_to_the_members_that_take_them():
 @pytest.mark.parametrize(
     "call,item",
     [
-        (lambda: MetricCollection([TorchSum()], fused_update=True), "item 4"),
         (lambda: MetricCollection([TorchSum()], sync_precision="int8"), "item 5"),
         (lambda: MetricCollection([TorchSum()]).sync(), "item 5"),
         (lambda: MetricCollection([TorchSum()]).unsync(), "item 5"),
         (lambda: MetricCollection([TorchSum()]).sync_context(), "item 5"),
         (lambda: MetricCollection([TorchSum()]).pure_sync({}, "dp"), "item 5"),
         (lambda: MetricCollection([TorchSum()]).sync_stats, "item 5"),
-        (lambda: MetricCollection([TorchSum()]).scan_update({}), "item 4"),
-        (lambda: MetricCollection([TorchSum()]).dispatch_stats, "item 4"),
-        (lambda: MetricCollection([TorchSum()]).forward_stats, "item 4"),
         (lambda: MetricCollection([TorchSum()]).telemetry_snapshot(), "item 10"),
     ],
-    ids=["fused_update", "sync_precision", "sync", "unsync", "sync_context", "pure_sync", "sync_stats",
-         "scan_update", "dispatch_stats", "forward_stats", "telemetry_snapshot"],
+    ids=["sync_precision", "sync", "unsync", "sync_context", "pure_sync", "sync_stats", "telemetry_snapshot"],
 )
 def test_unported_parts_raise_naming_the_roadmap_item(call, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue A {item}"):

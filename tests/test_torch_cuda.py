@@ -460,14 +460,15 @@ def _stat_trio(device, c):
 def test_grouped_collection_launches_stat_scores_once_a_group(card, c):
     """Three stat-scores metrics in one group: 3 + (n - 1) launches over n updates, against 3n ungrouped;
     the values bit-equal to the ungrouped collection's, the counts to the CPU run's and the values to
-    the CPU run's within rtol 1e-6 (float32 sums of the class scores in another order)."""
+    the CPU run's within rtol 1e-6 (float32 sums of the class scores in another order). The eager loop
+    (``fused_update=False``): on the card the default is the fused update, which consults no groups."""
     rng = np.random.RandomState(c)
     n = 5
     batches = [(torch.from_numpy(rng.rand(256, c).astype(np.float32)), torch.from_numpy(rng.randint(0, c, 256)))
                for _ in range(n)]
     runs = {}
     for groups in (True, False):
-        mc = metrics_tpu_torch.MetricCollection(_stat_trio(card, c), compute_groups=groups)
+        mc = metrics_tpu_torch.MetricCollection(_stat_trio(card, c), compute_groups=groups, fused_update=False)
         reset_launches()
         for p, t in batches:
             mc.update(p.to(card), t.to(card))
@@ -510,3 +511,220 @@ def test_stat_family_and_composition_on_the_card_equal_the_cpu(card):
     assert launches()["stat_scores"] == 4 * len(batches)  # P and R each stand twice in the tree
     pv, rv = float(p_.compute()), float(r_.compute())
     np.testing.assert_allclose(float(comp.compute()), 2 * pv * rv / (pv + rv), rtol=1e-6)
+
+
+# ------------------------------------------------------------------ engines
+def _scores(rng, n, c, card):
+    return (torch.from_numpy(rng.rand(n, c).astype(np.float32)).to(card),
+            torch.from_numpy(rng.randint(0, c, n).astype(np.int32)).to(card))
+
+
+def _no_sync(fn):
+    """Run ``fn`` with every host<->device synchronisation an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("kind", ["accuracy", "confmat", "collection", "countmin"])
+def test_engine_updates_replay_without_a_sync_and_equal_eager(card, kind):
+    rng = np.random.RandomState(11)
+    c = 100
+    if kind == "countmin":
+        batches = [(torch.from_numpy(rng.randint(0, 500, n).astype(np.float32)).to(card),) for n in (300, 512, 512, 300)]
+    else:
+        batches = [_scores(rng, n, c, card) for n in (300, 512, 512, 300)]
+
+    def make(engine):
+        if kind == "accuracy":
+            return metrics_tpu_torch.Accuracy(num_classes=c, average="macro", jit_update=engine, device=card)
+        if kind == "confmat":
+            return metrics_tpu_torch.ConfusionMatrix(c, update_method="matmul", jit_update=engine, device=card)
+        if kind == "countmin":
+            return metrics_tpu_torch.CountMinHeavyHitters(jit_update=engine, device=card)
+        return metrics_tpu_torch.MetricCollection(
+            [metrics_tpu_torch.Accuracy(num_classes=c, average="macro", device=card),
+             metrics_tpu_torch.HammingDistance(device=card),
+             metrics_tpu_torch.CohenKappa(c, update_method="matmul", device=card)], fused_update=engine)
+
+    engine, eager = make(True), make(False)
+    for b in batches[:2]:  # builds every program: one a bucket (300 shares 512's) or one a shape
+        engine.update(*b)
+    for b in batches[2:]:
+        _no_sync(lambda b=b: engine.update(*b))
+    for b in batches:
+        eager.update(*b)
+    members = engine.values() if kind == "collection" else [engine]
+    others = eager.values() if kind == "collection" else [eager]
+    for m, e in zip(members, others):
+        for k in m._defaults:
+            assert torch.equal(getattr(m, k), getattr(e, k)), (type(m).__name__, k)
+    stats = engine.dispatch_stats
+    assert stats["dispatches"] == len(batches) and stats["demotions"] == 0 and not stats["permanent"]
+
+
+def test_engine_launch_counts_are_the_kernels_run(card):
+    rng = np.random.RandomState(12)
+    acc = metrics_tpu_torch.Accuracy(num_classes=1000, average="macro", jit_update=True, device=card)
+    cm = metrics_tpu_torch.ConfusionMatrix(1000, update_method="matmul", jit_update=True, device=card)
+    reset_launches()
+    for n in (1024, 1024, 848, 1024, 848):
+        p, t = _scores(rng, n, 1000, card)
+        acc.update(p, t)
+        cm.update(p, t)
+    torch.cuda.synchronize()
+    assert launches()["stat_scores"] == 5 and launches()["confusion_matrix"] == 5
+    assert acc.dispatch_stats["retraces"] == 1 and cm.dispatch_stats["retraces"] == 2
+    # the masked program launches at the bucket's shape, the exact ones at each batch's
+    assert registry.launches_by_shape("stat_scores") == {("block", (1024, 1000)): 5}
+    assert registry.launches_by_shape("confusion_matrix") == {("band", (1024, 1000)): 3, ("band", (848, 1000)): 2}
+
+
+def test_split_branch_ticket_is_right_under_two_graphs_and_eager_launches(card):
+    c, rows = 20, (65536, 131072)
+    g = torch.Generator(device=card).manual_seed(3)
+    engine = metrics_tpu_torch.JaccardIndex(c, update_method="matmul", jit_update=True, device=card)
+    total = torch.zeros(c * c, dtype=torch.int64, device=card)
+    for step in range(6):
+        n = rows[step % 2]
+        target = torch.randint(0, c, (n,), generator=g, device=card, dtype=torch.int32)
+        pred = torch.where(torch.rand(n, generator=g, device=card) < 0.9, target,
+                           torch.randint(0, c, (n,), generator=g, device=card, dtype=torch.int32))
+        assert confusion_branch(n, c, card).startswith("split, ")
+        engine.update(pred, target)  # a graph of each shape, replayed in turns
+        eager = confusion_matrix_counts(target, pred, c)  # the current stream's own ticket, between replays
+        total += torch.bincount(target.long() * c + pred.long(), minlength=c * c)
+        assert torch.equal(eager.long().reshape(-1), torch.bincount(target.long() * c + pred.long(), minlength=c * c))
+    assert torch.equal(engine.confmat.long().reshape(-1), total)
+    assert engine.dispatch_stats["retraces"] == 2
+
+
+@pytest.mark.parametrize("full_state_update", [False, True])
+def test_forward_value_is_a_copy_that_the_next_step_leaves_alone(card, full_state_update):
+    rng = np.random.RandomState(13)
+
+    class Acc(metrics_tpu_torch.Accuracy):
+        pass
+
+    Acc.full_state_update = full_state_update
+    engine = Acc(num_classes=50, average="macro", jit_update=True, device=card)
+    eager = Acc(num_classes=50, average="macro", device=card)
+    values = []
+    for n in (64, 40, 64, 33):
+        p, t = _scores(rng, n, 50, card)
+        values.append((engine(p, t), eager(p, t)))
+    for got, want in values:  # each step's value as it was, after the later steps
+        assert torch.equal(got, want)
+    assert engine.forward_stats["launches"] == 4 and engine.forward_stats["retraces"] == 1
+    for k in engine._defaults:
+        assert torch.equal(getattr(engine, k), getattr(eager, k))
+
+
+def test_engine_scan_update_equals_the_update_loop(card):
+    rng = np.random.RandomState(14)
+    m = metrics_tpu_torch.Accuracy(num_classes=30, average="macro", device=card)
+    p = torch.from_numpy(rng.rand(6, 128, 30).astype(np.float32)).to(card)
+    t = torch.from_numpy(rng.randint(0, 30, (6, 128)).astype(np.int32)).to(card)
+    first = m.scan_update(m.default_state(), p, t)
+    second = m.scan_update(first, p, t)  # a replay: the first result is held, not overwritten
+    for i in range(6):
+        m.update(p[i], t[i])
+    for k in m._defaults:
+        assert torch.equal(first[k], getattr(m, k))
+        assert torch.equal(second[k], 2 * getattr(m, k))
+
+
+def test_a_capture_survives_unreferenced_engine_metrics_collected_around_it(card):
+    """Engine metrics sit in reference cycles (the dispatcher's closures hold
+    the metric), so their graphs are freed by the garbage collector; one that
+    ran during a capture would destroy a graph mid-capture and spoil it."""
+    import gc
+
+    rng = np.random.RandomState(15)
+    p, t = _scores(rng, 256, 30, card)
+    for _ in range(3):
+        metrics_tpu_torch.Accuracy(num_classes=30, average="macro", jit_update=True, device=card).update(p, t)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)  # a collection at almost every allocation
+    try:
+        m = metrics_tpu_torch.ConfusionMatrix(30, update_method="matmul", jit_update=True, device=card)
+        for _ in range(3):
+            m.update(p, t)
+    finally:
+        gc.set_threshold(*threshold)
+    assert m.dispatch_stats["demotions"] == 0 and m.dispatch_stats["retraces"] == 1
+    ref = torch.bincount(t.long() * 30 + p.argmax(dim=1), minlength=900).reshape(30, 30)
+    assert torch.equal(m.confmat.long(), 3 * ref)
+
+
+def test_state_and_group_members_keep_their_values_across_engine_replays(card):
+    """A replay writes the engine's buffers in place: ``state()`` and a
+    compute-group member's adopted leaves are copies, so later replays leave
+    them as they were."""
+    rng = np.random.RandomState(16)
+    batches = [_scores(rng, 512, 40, card) for _ in range(4)]
+    m = metrics_tpu_torch.Accuracy(num_classes=40, average="macro", jit_update=True, device=card)
+    m.update(*batches[0])
+    held = m.state()
+    saved = {k: v.clone() for k, v in held.items()}
+    for b in batches[1:]:
+        m.update(*b)
+    assert all(torch.equal(held[k], saved[k]) for k in saved)
+    leader = metrics_tpu_torch.Accuracy(num_classes=40, average="macro", jit_update=True, device=card)
+    member = metrics_tpu_torch.Recall(num_classes=40, average="macro", jit_update=True, device=card)
+    mc = metrics_tpu_torch.MetricCollection([leader, member], fused_update=False)
+    for b in batches[:2]:
+        mc.update(*b)  # groups formed: the leader's engine updates for both
+    value = mc.compute()["Recall"]
+    member_tp = member.tp.clone()
+    for b in batches[2:]:
+        leader.update(*b)  # replays outside the collection: the member's adopted state stays
+    assert torch.equal(member.tp, member_tp) and torch.equal(member.compute(), value)
+
+
+@pytest.mark.parametrize("kind", ["confmat", "sum", "collection"])
+def test_compute_values_keep_their_values_across_reset_and_replays(card, kind):
+    """``ConfusionMatrix.compute`` (``normalize=None``) and ``SumMetric.compute``
+    return a state leaf, which under the engine is a graph's buffer: the value
+    is a copy, so an epoch's result held across ``reset`` and the next epoch's
+    replays stays that epoch's."""
+    rng = np.random.RandomState(17)
+    c = 40
+    epochs = [[_scores(rng, 512, c, card) for _ in range(3)] for _ in range(2)]
+    if kind == "confmat":
+        m = metrics_tpu_torch.ConfusionMatrix(c, update_method="matmul", jit_update=True, device=card)
+    elif kind == "sum":
+        m = metrics_tpu_torch.SumMetric(jit_update=True, device=card)
+    else:
+        m = metrics_tpu_torch.MetricCollection(
+            [metrics_tpu_torch.ConfusionMatrix(c, update_method="matmul", device=card),
+             metrics_tpu_torch.Accuracy(num_classes=c, average="macro", device=card)])  # fused on the card
+
+    def step(b):
+        m.update(b[0].sum(dim=1)) if kind == "sum" else m.update(*b)
+
+    held, saved = [], []
+    for batches in epochs:
+        for i, b in enumerate(batches):
+            step(b)
+            if i == 0:  # within an epoch: a value taken mid-epoch, then two more updates
+                mid = m.compute()
+                held.append(mid)
+                saved.append({k: v.clone() for k, v in mid.items()} if kind == "collection" else mid.clone())
+        value = m.compute()
+        held.append(value)
+        saved.append({k: v.clone() for k, v in value.items()} if kind == "collection" else value.clone())
+        m.reset()
+    for b in epochs[0]:  # and replays after the last reset
+        step(b)
+    torch.cuda.synchronize()
+    for got, want in zip(held, saved):
+        if kind == "collection":
+            assert all(torch.equal(got[k], want[k]) for k in want)
+        else:
+            assert torch.equal(got, want)
+    stats = m.dispatch_stats
+    assert stats["retraces"] >= 1 and stats["demotions"] == 0
