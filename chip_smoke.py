@@ -112,7 +112,28 @@
    must run as many of each kernel, by name, as the registry counted for
    their replays. Each path's update is timed against its eager update in
    turns, with and without the resilience snapshot, beside the capture (a
-   first call less a warm one) and the device busy share.
+   first call less a warm one) and the device busy share. Slice 9, sync over
+   ``torch.distributed``: four spawned ranks on this card in a gloo group
+   (``file://`` rendezvous; NCCL takes one rank a device), the states on the
+   card, each rank a contiguous quarter of the data: 12,500 ImageNet images
+   (12 batches of 1,024 and one of 212) through slice 7's collection eager
+   and fused, ``Accuracy(jit_update=True)`` (update, compute, update,
+   compute) and ``ConfusionMatrix(shard_state="world")`` (``pure_sync``:
+   250 rows a rank, one reduce-scatter, then assembled; the same state on
+   the int8 wire in one all-to-all); MS MARCO split by
+   query, unevenly, rank 3 holding none, through the eight retrieval metrics
+   (ragged sync, one ``retrieval_sort`` launch a compute); 2,500,000 clicks
+   through ``CountMinHeavyHitters`` and ``HyperLogLog(precision=14)`` with
+   ``sync_precision="int8"``. ``compute`` syncs: the collection in one bucket
+   pass (one collective), and with ``METRICS_TPU_FUSED_SYNC=0`` leaf by leaf.
+   Every ImageNet value must be bit-equal to slice 7's single-process epoch,
+   the assembled matrix too, MS MARCO's values slice 3's to rtol 1e-6, the
+   HyperLogLog registers bit-equal, each int8 count-min cell between the true
+   count and the true count plus the up codec's bound (and bit-equal with
+   ``METRICS_TPU_QUANT_SYNC=0``); the collectives each rank issued are
+   counted and held against ``sync_stats``; no rank may degrade, fail or
+   hang. The sync's host time (a ``compute`` less the same compute unsynced)
+   is timed fused against per-leaf, in turns.
 4. Times each kernel, its plain version and the one PyTorch library call
    that computes the same function (``binned_stats``, ``retrieval_sort``
    and ``countmin`` have none, so a yardstick is timed and named instead)
@@ -197,6 +218,13 @@ CONFMAT_SWEEP_ROWS = (1024, 4096, 16384, 65536, 262144, 2097152)
 REPS, INNER = 25, 20
 SLEEP_CYCLES = 20_000_000  # ~10 ms of device time: the host queues a whole repetition behind it
 PROFILE_PAD_S = 0.01  # host time a profiler window holds on each side of the calls it records
+# slice 9: four ranks on the one card in a gloo group (NCCL takes one rank a device), each a contiguous quarter
+SYNC_RANKS = 4
+SYNC_TIMEOUT_S = 300  # the group's timeout; the parent gives the whole phase SYNC_DEADLINE_S
+SYNC_DEADLINE_S = 600
+SYNC_TURNS = 7  # repetitions of the sync timings, each in turns (a, b, c, c, b, a)
+MARCO_SPLIT = (0, 3000, 3500, 6980, 6980)  # MS MARCO queries by rank: uneven, and rank 3 holds none
+SYNC_COLLECTIVES = ("all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor", "all_to_all_single")
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -280,19 +308,19 @@ def host_ms(torch, fn):
     return statistics.median(times)
 
 
-def host_ms_in_turns(torch, fns):
+def host_ms_in_turns(torch, fns, reps=REPS, warmup=3):
     """Median wall time of one call of each of ``fns`` (a dict) up to the
     device's completion, the calls timed in turns within each repetition
     (forward order, then reverse: a, b, b, a) and each call's two readings
     averaged, so that a drift of the host's speed over the repetitions falls
     on every call alike."""
     for fn in fns.values():
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
     torch.cuda.synchronize()
     order = list(fns.items()) + list(reversed(fns.items()))
     times = {key: [] for key in fns}
-    for _ in range(REPS):
+    for _ in range(reps):
         lap = {key: 0.0 for key in fns}
         for key, fn in order:
             t0 = time.perf_counter()
@@ -448,6 +476,19 @@ def coco_data(torch, dev):
     target = target.to(torch.int32)
     scores = torch.sigmoid(torch.randn(N_COCO, COCO_CLASSES, generator=g, device=dev) + 2.0 * target)
     return scores, target
+
+
+def imagenet_data(torch, dev):
+    """ImageNet-1k val as a classifier's evaluation sees it: ``(50000, 1000)``
+    softmax scores of seeded logits, the label on top for 76% of rows, and
+    the labels."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    labels = torch.randint(0, NUM_CLASSES, (N_VAL,), generator=g, device=dev)
+    logits = torch.randn(N_VAL, NUM_CLASSES, generator=g, device=dev)
+    hit = torch.rand(N_VAL, generator=g, device=dev) < 0.76
+    rows = torch.arange(N_VAL, device=dev)
+    logits[rows, labels] = torch.where(hit, logits.amax(dim=1) + 1.0, logits[rows, labels])
+    return torch.softmax(logits, dim=1), labels
 
 
 def marco_data(torch, dev):
@@ -642,6 +683,271 @@ def replayed_kernels(torch, fn, calls=3, tries=8):
             break
     return {k: {"per_update": per_call[k], "registry": per_call[k] * calls, "profiler": seen[k],
                 "registry_in_window": added[k], "window_updates": 1 + 2 * calls} for k in DEVICE_KERNELS}, captured
+
+
+def evaluation_members(M, device):
+    """Slice 7's eleven-member ImageNet evaluation collection (``M`` the port's package)."""
+    macro = dict(num_classes=NUM_CLASSES, average="macro", device=device)
+    matmul = dict(update_method="matmul", device=device)
+    return [M.Accuracy(**macro), M.Precision(**macro), M.Recall(**macro), M.F1Score(**macro),
+            M.FBetaScore(beta=FBETA, **macro), M.Specificity(**macro), M.HammingDistance(device=device),
+            M.ConfusionMatrix(NUM_CLASSES, **matmul), M.CohenKappa(NUM_CLASSES, weights="quadratic", **matmul),
+            M.MatthewsCorrCoef(NUM_CLASSES, **matmul), M.JaccardIndex(NUM_CLASSES, **matmul)]
+
+
+def sync_rank(torch, dist, rank, dev):
+    """Slice 9 on one rank of the group: its quarter of each path, synced by
+    ``compute``. Returns what the parent checks, as numpy arrays and numbers."""
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch import resilience
+    from metrics_tpu_torch.ops import launches, reset_launches
+    from metrics_tpu_torch.parallel import NoOpEnv
+
+    # every collective the gloo group runs, counted by call (the env reaches them as dist.<call>)
+    issued = {}
+    for name in SYNC_COLLECTIVES:
+        def counted(*args, _call=getattr(dist, name), _name=name, **kwargs):
+            issued[_name] = issued.get(_name, 0) + 1
+            return _call(*args, **kwargs)
+        setattr(dist, name, counted)
+
+    def members_of(mc):
+        return list(mc.values(copy_state=False))
+
+    def fresh(metrics):
+        for m in metrics:
+            m._computed = None
+
+    def timed_compute(metrics, compute, mode):
+        """``compute`` with every memo dropped: synced by buckets (``fused``), leaf by leaf (``per_leaf``), or
+        not at all (``local``: the same compute on this rank's states)."""
+        def run():
+            fresh(metrics)
+            os.environ["METRICS_TPU_FUSED_SYNC"] = "0" if mode == "per_leaf" else "1"
+            for m in metrics:
+                m._sync_env = NoOpEnv() if mode == "local" else None
+            try:
+                compute()
+            finally:
+                for m in metrics:
+                    m._sync_env = None
+                os.environ.pop("METRICS_TPU_FUSED_SYNC")
+        return run
+
+    def sync_times(metrics, compute, modes=("fused", "per_leaf", "local"), reps=SYNC_TURNS, warmup=3, **extra):
+        fns = {mode: timed_compute(metrics, compute, mode) for mode in modes}
+        return host_ms_in_turns(torch, {**fns, **extra}, reps=reps, warmup=warmup)
+
+    def npy(values):
+        return {k: v.cpu().numpy() for k, v in values.items()}
+
+    def call_counts():
+        out = dict(issued)
+        issued.clear()
+        return out
+
+    out = {"degrades_start": resilience.degrades()}
+    # ---------------- ImageNet-1k val: this rank's 12,500 images in batches of 1,024 (12 full, one of 212)
+    scores, labels = imagenet_data(torch, dev)
+    per = N_VAL // SYNC_RANKS
+    scores, labels = scores[rank * per:(rank + 1) * per].clone(), labels[rank * per:(rank + 1) * per].clone()
+    torch.cuda.empty_cache()
+    batches = [(scores[i:i + BATCH], labels[i:i + BATCH]) for i in range(0, per, BATCH)]
+    imagenet = {"batches": len(batches), "last": int(batches[-1][0].shape[0])}
+    collections = {}
+    for mode, fused in (("eager", False), ("fused", True)):
+        mc = M.MetricCollection(evaluation_members(M, dev), prefix="val_", fused_update=fused)
+        reset_launches()
+        for p, t in batches:
+            mc.update(p, t)
+        torch.cuda.synchronize()
+        launched = dict(launches())
+        call_counts()
+        values = mc.compute()
+        imagenet[mode] = {
+            "values": npy(values), "launches": launched, "issued": call_counts(), "sync_stats": mc.sync_stats,
+            "member_collectives": sum(m.sync_stats["collectives"] for m in members_of(mc)),
+            "demotions": mc.dispatch_stats["demotions"], "groups": mc.compute_groups,
+            "local_tp": mc["Accuracy"].tp.cpu().numpy(),
+        }
+        collections[mode] = mc
+    eager = collections["eager"]
+    os.environ["METRICS_TPU_FUSED_SYNC"] = "0"
+    fresh(members_of(eager))
+    before = sum(m.sync_stats["collectives"] for m in members_of(eager))
+    values = eager.compute()
+    imagenet["per_leaf"] = {"values": npy(values), "issued": call_counts(), "sync_stats": eager.sync_stats,
+                            "member_collectives": sum(m.sync_stats["collectives"] for m in members_of(eager)) - before}
+    os.environ.pop("METRICS_TPU_FUSED_SYNC")
+    imagenet["sync_ms"] = sync_times(members_of(eager), eager.compute)
+    call_counts()
+    # Accuracy through the engine: update, compute (synced), update, compute, against the eager metric
+    for jit in (False, True):
+        acc = M.Accuracy(num_classes=NUM_CLASSES, average="macro", jit_update=jit, device=dev)
+        reset_launches()
+        vals = []
+        for i, (p, t) in enumerate(batches):
+            acc.update(p, t)
+            if i in (5, len(batches) - 1):
+                vals.append(acc.compute().cpu().numpy())
+        imagenet[f"accuracy_jit{int(jit)}"] = {"values": vals, "launches": launches()["stat_scores"],
+                                              "demotions": acc.dispatch_stats["demotions"]}
+    # ConfusionMatrix sharded over the group: pure_sync leaves this rank C / 4 rows (one reduce-scatter)
+    cm = M.ConfusionMatrix(NUM_CLASSES, update_method="matmul", shard_state="world", device=dev)
+    reset_launches()
+    for p, t in batches:
+        cm.update(p, t)
+    launched = launches()["confusion_matrix"]
+    call_counts()
+    synced = cm.pure_sync(cm.state())
+    sharded_issued = call_counts()
+    imagenet["sharded"] = {
+        "launches": launched, "issued": sharded_issued, "sync_stats": cm.sync_stats,
+        "shard_shape": list(synced["confmat"].shape), "shard_nbytes": synced["confmat"].nbytes,
+        "assembled": cm.assemble_sharded(synced)["confmat"].cpu().numpy(),
+    }
+    # the same state on the int8 wire: a quantised sharded bucket crosses in one all-to-all (each rank's counts a
+    # cell stay below quant.INT_EXACT_BOUND, so the assembled matrix keeps its bits)
+    cm8 = M.ConfusionMatrix(NUM_CLASSES, update_method="matmul", shard_state="world", sync_precision="int8", device=dev)
+    call_counts()
+    synced8 = cm8.pure_sync(cm.state())
+    imagenet["sharded_int8"] = {
+        "issued": call_counts(), "sync_stats": cm8.sync_stats, "shard_shape": list(synced8["confmat"].shape),
+        "assembled": cm8.assemble_sharded(synced8)["confmat"].cpu().numpy(),
+    }
+    call_counts()
+    out["imagenet"] = imagenet
+    del scores, labels, batches, collections, eager, cm, synced, cm8, synced8
+    torch.cuda.empty_cache()
+
+    # ---------------- MS MARCO: this rank's queries (an uneven split; rank 3 holds none), updates of 64 queries
+    m_scores, m_target, m_qids = marco_data(torch, dev)
+    qlo, qhi = MARCO_SPLIT[rank], MARCO_SPLIT[rank + 1]
+    mine = [(m_scores[i:min(i + MARCO_QUERY_BATCH, qhi)].reshape(-1), m_target[i:min(i + MARCO_QUERY_BATCH, qhi)].reshape(-1),
+             m_qids[i:min(i + MARCO_QUERY_BATCH, qhi)].reshape(-1)) for i in range(qlo, qhi, MARCO_QUERY_BATCH)]
+    metrics = {key: getattr(M, cls)(device=dev, **kw) for key, (cls, kw, _, _) in RETRIEVAL.items()}
+    for p, t, i in mine:
+        for m in metrics.values():
+            m.update(p, t, i)
+    reset_launches()
+    call_counts()
+    stats0 = {key: m.sync_stats["collectives"] for key, m in metrics.items()}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # rank 3's metrics compute with no update of their own
+        values = {key: m.compute() for key, m in metrics.items()}
+        torch.cuda.synchronize()
+        marco = {"values": npy(values), "launches": launches()["retrieval_sort"], "issued": call_counts(),
+                 "collectives": sum(m.sync_stats["collectives"] - stats0[key] for key, m in metrics.items()),
+                 "queries": qhi - qlo, "updates": len(mine),
+                 "rows": sum(p.numel() for p, _, _ in mine)}
+        mp_ = metrics["map"]
+
+        def sync_unsync():
+            mp_.sync()
+            mp_.unsync()
+
+        # the ragged states are never bucketed, so fused and per-leaf run the same gathers; a local compute
+        # scores this rank's queries only (rank 3 has none), so the sync and unsync alone are timed instead
+        marco["sync_ms"] = sync_times([mp_], mp_.compute, modes=("fused", "per_leaf"), reps=3, warmup=1,
+                                      sync_unsync=sync_unsync)
+    call_counts()
+    out["marco"] = marco
+    del m_scores, m_target, m_qids, mine, metrics, values
+    torch.cuda.empty_cache()
+
+    # ---------------- the click log: this rank's 2,500,000 ids, count-min and HyperLogLog on the int8 wire
+    clicks = click_stream(torch, dev)
+    per = CLICKS // SYNC_RANKS
+    mine = clicks[rank * per:(rank + 1) * per].clone()
+    del clicks
+    click_batches = [mine[i:i + CLICK_BATCH] for i in range(0, per, CLICK_BATCH)]
+    sk = M.MetricCollection([M.CountMinHeavyHitters(device=dev), M.HyperLogLog(precision=14, device=dev)],
+                            sync_precision="int8", compute_groups=False, fused_update=False)
+    reset_launches()
+    for x in click_batches:
+        sk.update(x)
+    click = {"batches": len(click_batches), "launches": launches()["countmin"],
+             "local_table": sk["CountMinHeavyHitters"].value.cpu().numpy()}
+    for quant_on in ("1", "0"):
+        os.environ["METRICS_TPU_QUANT_SYNC"] = quant_on
+        before = dict(sk.sync_stats)
+        call_counts()
+        fresh(members_of(sk))  # a memoised member keeps its value and is left out of the collection's sync
+        with sk.sync_context():
+            click[f"table{quant_on}"] = sk["CountMinHeavyHitters"].value.cpu().numpy()
+            click[f"registers{quant_on}"] = sk["HyperLogLog"].value.cpu().numpy()
+            click[f"values{quant_on}"] = npy(sk.compute())
+        click[f"issued{quant_on}"] = call_counts()
+        click[f"wire{quant_on}"] = {k: v - before.get(k, 0) for k, v in sk.sync_stats.items()}
+        os.environ.pop("METRICS_TPU_QUANT_SYNC")
+    click["sync_ms"] = sync_times(members_of(sk), sk.compute)
+    call_counts()
+    out["click"] = click
+    out["degrades"] = resilience.degrades()
+    return out
+
+
+def sync_worker(rank, init, results):
+    """One rank of slice 9 (a spawned process): joins the gloo group, runs
+    :func:`sync_rank` on the card and puts ``(rank, result, error)``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=SYNC_RANKS,
+                                timeout=datetime.timedelta(seconds=SYNC_TIMEOUT_S))
+        try:
+            out = sync_rank(torch, dist, rank, torch.device("cuda", 0))
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, out, None))
+    except BaseException:  # noqa: BLE001 -- sent to the parent, which fails the run with it
+        results.put((rank, None, traceback.format_exc()))
+
+
+def run_sync_ranks():
+    """Slice 9's four ranks as spawned processes (CUDA is live in this one,
+    so no fork) meeting through a ``file://`` rendezvous in a temporary
+    directory. Their results by rank; any rank's error, a non-zero exit or
+    a hang past ``SYNC_DEADLINE_S`` fails the run, and every worker is
+    stopped before this returns."""
+    import multiprocessing
+    import queue
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=sync_worker, args=(r, init, results)) for r in range(SYNC_RANKS)]
+        for p in procs:
+            p.start()
+        outs, errors = {}, []
+        deadline = time.monotonic() + SYNC_DEADLINE_S
+        try:
+            while len(outs) + len(errors) < SYNC_RANKS:
+                try:
+                    rank, out, err = results.get(timeout=max(1.0, deadline - time.monotonic()))
+                except queue.Empty:
+                    raise RuntimeError(f"chip_smoke: slice 9's ranks did not finish in {SYNC_DEADLINE_S} s "
+                                       f"(done: {sorted(outs)})") from None
+                if err is not None:
+                    errors.append(f"rank {rank}:\n{err}")
+                else:
+                    outs[rank] = out
+            check(not errors, "slice 9 failed on a rank:\n" + "\n".join(errors))
+            for p in procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+                check(p.exitcode == 0, f"a slice 9 worker exited with {p.exitcode}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+    return [outs[r] for r in range(SYNC_RANKS)]
 
 
 def main() -> int:
@@ -1007,15 +1313,8 @@ def main() -> int:
           f"binned_stats {json.dumps(binned_cases)} (histogram limits T = {t_packed} packed, {t_wide} wide)")
 
     # ------------------------------------------------------------ 3. the slice
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    labels = torch.randint(0, NUM_CLASSES, (N_VAL,), generator=g, device=dev)
-    logits = torch.randn(N_VAL, NUM_CLASSES, generator=g, device=dev)
-    hit = torch.rand(N_VAL, generator=g, device=dev) < 0.76
-    rows = torch.arange(N_VAL, device=dev)
-    logits[rows, labels] = torch.where(hit, logits.amax(dim=1) + 1.0, logits[rows, labels])
-    scores = torch.softmax(logits, dim=1)
-    del logits
-    batches = [(scores[i:i + BATCH], labels[i:i + BATCH]) for i in range(0, N_VAL, BATCH)]
+    scores, labels = imagenet_data(torch, dev)
+    batches =[(scores[i:i + BATCH], labels[i:i + BATCH]) for i in range(0, N_VAL, BATCH)]
     check(len(batches) == 49 and batches[-1][0].shape[0] == 848, "the slice is 48 batches of 1024 and one of 848")
 
     # the confusion-matrix family beside ConfusionMatrix, all on the confusion_matrix kernel
@@ -1129,12 +1428,7 @@ def main() -> int:
 
     # ------------------------------- 3a. slice 7: the ImageNet evaluation collection, compute groups
     def collection_members(device):
-        macro = dict(num_classes=NUM_CLASSES, average="macro", device=device)
-        matmul = dict(update_method="matmul", device=device)
-        return [Accuracy(**macro), Precision(**macro), Recall(**macro), F1Score(**macro),
-                FBetaScore(beta=FBETA, **macro), Specificity(**macro), HammingDistance(device=device),
-                ConfusionMatrix(NUM_CLASSES, **matmul), CohenKappa(NUM_CLASSES, weights="quadratic", **matmul),
-                MatthewsCorrCoef(NUM_CLASSES, **matmul), JaccardIndex(NUM_CLASSES, **matmul)]
+        return evaluation_members(metrics_tpu_torch, device)
 
     def run_collection(device, data, compute_groups=True):
         """A validation epoch as a training loop logs it: ``update`` on every batch, then ``compute``."""
@@ -1817,6 +2111,128 @@ def main() -> int:
           f"{json.dumps(by_shape(seg_by_shape))}; {json.dumps(seg_timing)}")
     laps.mark("3. segmentation path, card and CPU")
 
+    # ------------------------------------ 3h. slice 9: sync over torch.distributed, four ranks on the card
+    # Four spawned ranks on this card in a gloo group, each a contiguous quarter of slices 7, 3 and 3e's data,
+    # synced by compute. Every value against the single-process epoch of those slices: bit-equal for the
+    # integer-count states (the collection eager and fused, bucketed and per-leaf; the sharded ConfusionMatrix
+    # assembled; the HyperLogLog registers), rtol 1e-6 for MS MARCO, the count-min table within the up codec's
+    # bound on the int8 wire and bit-equal without it; every collective counted, no degrade.
+    sync_outs = run_sync_ranks()
+    ref7 = {k: v.cpu().numpy() for k, v in coll_values.items()}
+
+    def same_bits(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+    n_sync = -(-(N_VAL // SYNC_RANKS) // BATCH)
+    n_click = -(-(CLICKS // SYNC_RANKS) // CLICK_BATCH)
+    true_table = sketches[0].value.cpu().numpy()
+    locals_ = [o["click"]["local_table"] for o in sync_outs]
+    check(np.array_equal(sum(t.astype(np.float64) for t in locals_), true_table.astype(np.float64)),
+          "the ranks' count-min tables do not add up to slice 3's")
+    # the up codec's bound a block of 256 cells: each rank's decoded table exceeds its own by at most its block's
+    # largest count over 126 (metrics_tpu/quant.py:43-46); the sum of the ranks' bounds
+    up_bound = np.repeat(np.stack([np.abs(t.reshape(-1, 256)).max(axis=1) / 126 for t in locals_]).sum(axis=0),
+                         256).reshape(true_table.shape)
+    sync_launches = {"stat_scores": 0, "confusion_matrix": 0, "retrieval_sort": 0, "countmin": 0}
+    for r, o in enumerate(sync_outs):
+        check(o["degrades"] == {} and o["degrades_start"] == {}, f"rank {r} degraded: {o['degrades']}")
+        im = o["imagenet"]
+        check(im["batches"] == n_sync and im["last"] == N_VAL // SYNC_RANKS - (n_sync - 1) * BATCH,
+              f"rank {r} took {im['batches']} batches")
+        for mode in ("eager", "fused", "per_leaf"):
+            got = im[mode]["values"]
+            check(got.keys() == ref7.keys(), f"rank {r} {mode}: keys {sorted(got)}")
+            for key, ref in ref7.items():
+                check(same_bits(got[key], ref), f"rank {r} {mode} sync: {key} differs from slice 7's single-process epoch")
+        for mode in ("eager", "fused"):
+            stats, issued = im[mode]["sync_stats"], im[mode]["issued"]
+            check(stats["collectives"] == stats["buckets"] == sum(issued.values()) == 1
+                  and im[mode]["member_collectives"] == 0,
+                  f"rank {r} {mode}: the collection's sync was not one bucket pass ({stats}, issued {issued})")
+        check(im["eager"]["groups"] == COLLECTION_GROUPS, f"rank {r} formed the groups {im['eager']['groups']}")
+        check(im["fused"]["demotions"] == 0, f"rank {r}: the fused collection demoted")
+        pl = im["per_leaf"]
+        check(pl["sync_stats"] == im["eager"]["sync_stats"] and pl["member_collectives"] == sum(pl["issued"].values())
+              > sum(im["eager"]["issued"].values()),
+              f"rank {r} per-leaf: {pl['member_collectives']} collectives counted, issued {pl['issued']}")
+        check(im["eager"]["launches"]["stat_scores"] == 6 + n_sync - 1
+              and im["eager"]["launches"]["confusion_matrix"] == 4 + n_sync - 1
+              and im["fused"]["launches"]["stat_scores"] == 6 * n_sync
+              and im["fused"]["launches"]["confusion_matrix"] == 4 * n_sync,
+              f"rank {r} kernel launches: eager {im['eager']['launches']}, fused {im['fused']['launches']}")
+        a0, a1 = im["accuracy_jit0"], im["accuracy_jit1"]
+        check(all(same_bits(x, y) for x, y in zip(a0["values"], a1["values"])) and same_bits(a1["values"][-1], ref7["val_Accuracy"])
+              and a0["launches"] == a1["launches"] == n_sync and a1["demotions"] == 0,
+              f"rank {r}: Accuracy(jit_update=True) synced {a1['values']} against eager {a0['values']} and slice 1's "
+              f"{ref7['val_Accuracy']}, launches {a0['launches']}/{a1['launches']}")
+        sh = im["sharded"]
+        check(same_bits(sh["assembled"], ref7["val_ConfusionMatrix"])
+              and sh["shard_shape"] == [NUM_CLASSES // SYNC_RANKS, NUM_CLASSES]
+              and sh["sync_stats"]["sharded_buckets"] == 1 and sh["issued"] == {"reduce_scatter_tensor": 1}
+              and sh["launches"] == n_sync,
+              f"rank {r}: the sharded ConfusionMatrix ({sh['shard_shape']}, {sh['sync_stats']}, issued {sh['issued']})")
+        s8 = im["sharded_int8"]
+        check(same_bits(s8["assembled"], ref7["val_ConfusionMatrix"])
+              and s8["shard_shape"] == [NUM_CLASSES // SYNC_RANKS, NUM_CLASSES]
+              and s8["sync_stats"]["sharded_buckets"] == 1 and s8["issued"] == {"all_to_all_single": 1}
+              and s8["sync_stats"]["bytes_on_wire"] < s8["sync_stats"]["bytes_logical"],
+              f"rank {r}: the int8 sharded ConfusionMatrix ({s8['shard_shape']}, {s8['sync_stats']}, issued {s8['issued']})")
+        mo = o["marco"]
+        check(mo["launches"] == len(RETRIEVAL), f"rank {r}: retrieval_sort launched {mo['launches']} times")
+        for key, ref in marco_values.items():
+            np.testing.assert_allclose(mo["values"][key], ref.cpu().numpy(), rtol=1e-6, atol=0,
+                                       err_msg=f"rank {r}: MS MARCO {key} differs from slice 3's")
+        cl = o["click"]
+        check(cl["batches"] == n_click and cl["launches"] == n_click, f"rank {r}: {cl['launches']} count-min launches")
+        hll_ref = sketches[2].value.cpu().numpy()
+        check(same_bits(cl["registers1"], hll_ref) and same_bits(cl["registers0"], hll_ref),
+              f"rank {r}: the synced HyperLogLog registers differ from slice 3's")
+        check(same_bits(cl["values1"]["HyperLogLog"], sketch_totals[2].cpu().numpy()),
+              f"rank {r}: the synced HyperLogLog estimate differs from slice 3's")
+        check(same_bits(cl["table0"], true_table), f"rank {r}: the full-precision count-min table differs from slice 3's")
+        excess = cl["table1"].astype(np.float64) - true_table
+        check(bool((excess >= 0).all()) and bool((excess <= up_bound * (1 + 1e-6)).all()),
+              f"rank {r}: an int8 count-min cell lies outside [true, true + bound]: excess {excess.min()}..{excess.max()}")
+        check(cl["wire1"]["buckets"] == 2 and sum(cl["issued1"].values()) == 2 == cl["wire1"]["collectives"],
+              f"rank {r}: the sketches' sync {cl['wire1']}, issued {cl['issued1']}")
+        for name, n in (("stat_scores", im["eager"]["launches"]["stat_scores"] + im["fused"]["launches"]["stat_scores"]
+                         + a0["launches"] + a1["launches"]),
+                        ("confusion_matrix", im["eager"]["launches"]["confusion_matrix"]
+                         + im["fused"]["launches"]["confusion_matrix"] + sh["launches"]),
+                        ("retrieval_sort", mo["launches"]), ("countmin", cl["launches"])):
+            sync_launches[name] += n
+    check(sum(o["marco"]["queries"] for o in sync_outs) == MARCO_QUERIES and sync_outs[-1]["marco"]["updates"] == 0,
+          "the MS MARCO split is not every query, with one rank holding none")
+    card = sync_outs[0]
+    for path, key in (("ImageNet collection", "imagenet"), ("MS MARCO RetrievalMAP", "marco"), ("click log", "click")):
+        times = [o[key]["sync_ms"] for o in sync_outs]
+        print(f"slice 9, {path}, host ms by rank (compute synced fused, per_leaf; local: unsynced on this rank's "
+              f"states; sync_unsync: sync and unsync alone; median of {SYNC_TURNS if key != 'marco' else 3} turns): "
+              + json.dumps(times))
+    im = card["imagenet"]
+    print("slice 9, ImageNet on 4 ranks (rank 0): " + json.dumps({
+        mode: {"sync_stats": im[mode]["sync_stats"], "issued": im[mode]["issued"],
+               "member_collectives": im[mode]["member_collectives"], "launches": im[mode].get("launches")}
+        for mode in ("eager", "fused", "per_leaf")})
+        + f"; sharded ConfusionMatrix {json.dumps({k: v for k, v in im['sharded'].items() if k != 'assembled'})}"
+        + f"; on the int8 wire {json.dumps({k: v for k, v in im['sharded_int8'].items() if k != 'assembled'})}")
+    print("slice 9, MS MARCO by rank: " + json.dumps([{k: o["marco"][k] for k in ("queries", "updates", "rows", "launches",
+                                                                                   "collectives", "issued")}
+                                                      for o in sync_outs]))
+    print("slice 9, click log (rank 0): " + json.dumps({k: card["click"][k] for k in ("wire1", "wire0", "issued1",
+                                                                                      "issued0", "launches")})
+          + f"; int8 table excess over the true counts at most {float((card['click']['table1'] - true_table).max())}")
+    print("slice 9 kernel launches a rank: " + json.dumps([{
+        "stat_scores": o["imagenet"]["eager"]["launches"]["stat_scores"] + o["imagenet"]["fused"]["launches"]["stat_scores"]
+        + o["imagenet"]["accuracy_jit0"]["launches"] + o["imagenet"]["accuracy_jit1"]["launches"],
+        "confusion_matrix": o["imagenet"]["eager"]["launches"]["confusion_matrix"]
+        + o["imagenet"]["fused"]["launches"]["confusion_matrix"] + o["imagenet"]["sharded"]["launches"],
+        "retrieval_sort": o["marco"]["launches"], "countmin": o["click"]["launches"]} for o in sync_outs]))
+    print(f"slice 9: {SYNC_RANKS} ranks, every value equal to the single-process slices (bit-equal, MS MARCO rtol 1e-6, "
+          "count-min within the up codec's bound), no degrade")
+    laps.mark("3. slice 9: sync on four ranks")
+
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000
     n = p.shape[0]
@@ -1910,12 +2326,14 @@ def main() -> int:
     }
     stat_path_by_shape = merged(stat_by_shape, coll_stat_by_shape, comp_stat_by_shape, engine_by_shape["stat_scores"])
     click_by_shape = merged(click_by_shape, engine_by_shape["countmin"])
+    # slice 9's launches are the four ranks' together
     path_launches = {"stat_scores": counts["stat_scores"] + coll_launches["stat_scores"] + comp_launches["macro"]
-                     + engine_path_launches["stat_scores"],
+                     + engine_path_launches["stat_scores"] + sync_launches["stat_scores"],
                      "confusion_matrix": counts["confusion_matrix"] + seg_launches + coll_launches["confusion_matrix"]
-                     + engine_path_launches["confusion_matrix"],
-                     "binned_stats": sum(binned_launches.values()), "retrieval_sort": marco_launches + trec_launches,
-                     "countmin": click_launches + engine_path_launches["countmin"]}
+                     + engine_path_launches["confusion_matrix"] + sync_launches["confusion_matrix"],
+                     "binned_stats": sum(binned_launches.values()),
+                     "retrieval_sort": marco_launches + trec_launches + sync_launches["retrieval_sort"],
+                     "countmin": click_launches + engine_path_launches["countmin"] + sync_launches["countmin"]}
     for name, (kernel, plain, library, library_call, nbytes, ops, shape, yardstick) in timing.items():
         # plain, kernel, kernel, plain: each pair within one call, the mean of the two readings
         plain_a, kernel_a, kernel_b, plain_b = (device_ms(torch, f) for f in (plain, kernel, kernel, plain))

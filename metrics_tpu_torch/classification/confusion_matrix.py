@@ -12,7 +12,7 @@ from metrics_tpu_torch.functional.classification.confusion_matrix import (
     _confusion_matrix_update,
     _confusion_matrix_update_matmul,
 )
-from metrics_tpu_torch.metric import _SYNC, Metric, not_ported
+from metrics_tpu_torch.metric import Metric
 
 
 def _validate_update_method(update_method: str) -> None:
@@ -47,11 +47,9 @@ class ConfusionMatrix(Metric):
         threshold: float = 0.5,
         multilabel: bool = False,
         update_method: str = "bincount",
-        shard_state: Optional[str] = None,
+        shard_state: Any = None,
         **kwargs: Any,
     ) -> None:
-        if shard_state is not None:
-            raise not_ported("shard_state", _SYNC)
         super().__init__(**kwargs)
         self.num_classes = num_classes
         self.normalize = normalize
@@ -67,7 +65,10 @@ class ConfusionMatrix(Metric):
         self.update_method = update_method
 
         shape = (num_classes, 2, 2) if multilabel else (num_classes, num_classes)
-        self.add_state("confmat", default=torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum")
+        # shard_state places the (C, ...) row axis over a process group: pure_sync over it is one reduce-scatter
+        # and leaves each rank C/N rows, an O(C^2 / N) state a rank
+        self.add_state("confmat", default=torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum",
+                       shard_state=shard_state)
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         if self.update_method == "matmul":

@@ -24,24 +24,33 @@ as one program; ``dispatch_stats`` and ``forward_stats`` count the fused
 path's programs. Failures degrade to the eager loop through the resilience
 policy (:mod:`metrics_tpu_torch.resilience`).
 
-What is not ported: collection sync (``sync``, ``unsync``,
-``sync_context``, ``pure_sync``, ``sync_precision``, ``sync_stats``:
-ROADMAP.md, Queue A item 5) and ``telemetry_snapshot`` (item 10). They
-raise ``NotImplementedError`` naming their item.
+Sync (``metrics_tpu/collections.py:659, 710-867, 935``): ``compute`` syncs
+the whole collection once, in one bucket pass of the sync engine across every
+compute-group leader (:mod:`metrics_tpu_torch.sync_engine`); each leader then
+syncs its remaining list and ragged states, and the followers take their
+leader's synced state with no collective. ``sync``, ``unsync``,
+``sync_context``, ``pure_sync``, ``sync_precision`` and ``sync_stats`` as in
+the JAX package.
+
+What is not ported: ``telemetry_snapshot`` (ROADMAP.md, Queue A item 10),
+which raises ``NotImplementedError`` naming its item.
 """
 import functools
 from collections import OrderedDict
+from contextlib import contextmanager
 from copy import deepcopy
-from typing import Any, Callable, Dict, Hashable, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Generator, Hashable, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch import resilience
+from metrics_tpu_torch import resilience, sync_engine
 from metrics_tpu_torch.dispatch import FastDispatcher, engine_owned, fast_dispatch_enabled
 from metrics_tpu_torch.forward_engine import fused_forward_enabled, make_collection_forward_factories, padded_mask
-from metrics_tpu_torch.metric import _SYNC, Metric, _raise_if_list_state, _scan_fold, _split_static_kwargs, not_ported
+from metrics_tpu_torch.metric import Metric, _raise_if_list_state, _scan_fold, _split_static_kwargs, not_ported
+from metrics_tpu_torch.parallel.dist_env import DistEnv, default_env, group_env
+from metrics_tpu_torch.utilities.exceptions import MetricsUserError
 from metrics_tpu_torch.utilities.checks import tracing
 from metrics_tpu_torch.utilities.checksums import attach_checksums, verify_checksums
 from metrics_tpu_torch.utilities.data import _flatten_dict, _squeeze_if_scalar
@@ -109,7 +118,8 @@ class MetricCollection:
             for the whole collection; ``False``: the eager loop, one member
             (or one group leader) at a time; ``None``: fused where the members
             live on a CUDA device, eager on the CPU.
-        sync_precision: not ported (Queue A item 5); anything but ``None`` raises.
+        sync_precision: ``"int8"`` gives every member that chose none of its
+            own the quantised sync wire.
     """
 
     def __init__(
@@ -122,8 +132,6 @@ class MetricCollection:
         fused_update: Optional[bool] = None,
         sync_precision: Optional[str] = None,
     ) -> None:
-        if sync_precision is not None:
-            raise not_ported("sync_precision", _SYNC)
         self._modules: "OrderedDict[str, Metric]" = OrderedDict()
         self.prefix = self._check_arg(prefix, "prefix")
         self.postfix = self._check_arg(postfix, "postfix")
@@ -139,8 +147,19 @@ class MetricCollection:
         self._forward_stats: Dict[str, Any] = {"launches": 0, "retraces": 0, "engine_us": 0.0}
         # the kwargs a member accepts, memoised by (member, kwarg names)
         self._filter_kwargs_cache: Dict[Tuple[str, Tuple[str, ...]], Tuple[str, ...]] = {}
+        # the collection's own sync counters, and the members its sync touched (with their flags to restore)
+        self._sync_stats: Dict[str, int] = {"collectives": 0, "buckets": 0, "bytes_on_wire": 0}
+        self._synced_members: Optional[List[Tuple[Metric, bool, bool]]] = None
 
         self.add_metrics(metrics, *additional_metrics)
+        if sync_precision is not None:
+            if sync_precision != "int8":
+                raise ValueError(
+                    f'Expected keyword argument `sync_precision` to be None or "int8" but got {sync_precision}'
+                )
+            for m in self._modules.values():
+                if m.sync_precision is None:
+                    m.sync_precision = sync_precision
 
     def __getstate__(self) -> Dict[str, Any]:
         # the engine's graphs and buffers are made again at the next fused call
@@ -221,9 +240,13 @@ class MetricCollection:
                 self._groups_checked = True
 
     def compute(self) -> Dict[str, Any]:
-        """Every member's value; group members take their leader's state first."""
-        self._compute_groups_create_state_ref()
-        res = _flatten_dict({k: m.compute() for k, m in self.items(keep_base=True)})
+        """Every member's value; group members take their leader's state first.
+        Across processes the whole collection syncs first, in one bucket pass
+        (:meth:`sync_context`); inside a sync the caller holds, it stays synced."""
+        already_synced = self._synced_members is not None
+        with self.sync_context(should_sync=not already_synced, should_unsync=not already_synced):
+            self._compute_groups_create_state_ref()
+            res = _flatten_dict({k: m.compute() for k, m in self.items(keep_base=True)})
         return {self._set_name(k): v for k, v in res.items()}
 
     def reset(self) -> None:
@@ -738,22 +761,171 @@ class MetricCollection:
         leaves.sort(key=lambda leaf: (-leaf["nbytes"], leaf["name"]))
         return {"total_bytes": total, "leaf_count": len(leaves), "leaves": leaves[: max(0, int(top_n))]}
 
-    # ----------------------------------------------------------- not ported
-    def sync(self, *_: Any, **__: Any) -> None:
-        raise not_ported("MetricCollection.sync", _SYNC)
-
-    def unsync(self, *_: Any, **__: Any) -> None:
-        raise not_ported("MetricCollection.unsync", _SYNC)
-
-    def sync_context(self, *_: Any, **__: Any) -> None:
-        raise not_ported("MetricCollection.sync_context", _SYNC)
-
-    def pure_sync(self, *_: Any, **__: Any) -> None:
-        raise not_ported("MetricCollection.pure_sync", _SYNC)
-
+    # ------------------------------------------------------------------ sync
     @property
     def sync_stats(self) -> Dict[str, int]:
-        raise not_ported("MetricCollection.sync_stats", _SYNC)
+        """The collection's own sync counters: the bucket pass's collectives,
+        buckets and bytes. What a member syncs itself (its list and ragged
+        states) counts in its own ``sync_stats``."""
+        return dict(self._sync_stats)
+
+    @staticmethod
+    def _sync_fusable(m: Metric, env: DistEnv) -> bool:
+        """Whether ``m`` joins the shared bucket pass: it syncs by the stock
+        protocol (no custom gather, no sync of its own, no env of its own
+        other than ``env``) and is neither synced nor memoised."""
+        return (
+            type(m)._sync_dist is Metric._sync_dist
+            and type(m).sync is Metric.sync
+            and type(m).unsync is Metric.unsync
+            and m.dist_sync_fn is None
+            and not m._is_synced
+            and m._computed is None
+            and (m._sync_env is None or m._sync_env is env)
+        )
+
+    def sync(self, env: Optional[DistEnv] = None, should_sync: bool = True) -> None:
+        """Sync every member across the environment once.
+
+        The fixed-shape states of every compute-group leader share one bucket
+        pass (one collective a wire dtype and reduction, for the whole
+        collection); each leader then syncs its list and ragged states, and
+        the followers take their leader's synced state with no collective.
+        Synced members neither sync again nor unsync in their own ``compute``;
+        :meth:`unsync` restores them. Does nothing where the env is not
+        distributed or with ``METRICS_TPU_FUSED_SYNC=0``: each member then
+        syncs itself in its ``compute``.
+        """
+        if self._synced_members is not None:
+            if should_sync:
+                raise MetricsUserError("The MetricCollection has already been synced.")
+            return
+        if env is None:
+            env = next((m._sync_env for m in self._modules.values() if m._sync_env is not None), None) or default_env()
+        if not should_sync or not env.is_distributed() or not sync_engine.fused_sync_enabled():
+            return
+
+        self._compute_groups_create_state_ref()
+        use_groups = bool(self._enable_compute_groups and self._groups_checked)
+        leaders = [self._modules[cg[0]] for cg in self._groups.values()] if use_groups else list(self._modules.values())
+        fused_members = [m for m in leaders if self._sync_fusable(m, env)]
+
+        synced: List[Metric] = []
+        try:
+            for m in fused_members:
+                m._cache = m._copy_state()
+            specs: List[Any] = []
+            handled: Dict[int, set] = {}
+            for i, m in enumerate(fused_members):
+                member_specs = sync_engine.plan_metric_leaves(m, {a: getattr(m, a) for a in m._reductions}, tag=i)
+                specs.extend(member_specs)
+                handled[i] = {spec.key[1] for spec in member_specs}
+            results = sync_engine.execute_buckets(env, specs, owner="MetricCollection", stats=self._sync_stats)
+            for (i, attr), val in results.items():
+                object.__setattr__(fused_members[i], attr, val)
+            # each leader's other states (list, ragged, custom reductions) by the per-leaf protocol
+            for i, m in enumerate(fused_members):
+                m._sync_dist(None, env=env, exclude=tuple(handled[i]))
+                m._is_synced = True
+                synced.append(m)
+        except Exception as err:  # noqa: BLE001 -- every member restored; each then syncs itself in compute
+            for m in fused_members:
+                if m not in synced and m._cache is not None:
+                    m._load_state(m._cache)
+                    m._cache = None
+            for m in synced:
+                m.unsync()
+            if not resilience.resilience_enabled():
+                raise
+            resilience.record_degrade("MetricCollection", "sync", err)
+            rank_zero_warn(
+                f"fused collection sync failed ({type(err).__name__}: {err}); "
+                "members will sync individually inside compute()"
+            )
+            return
+
+        # followers take their leader's synced state: no collective. Their unsync restores the leader's local
+        # state (an engine's buffer as a copy, so that the leader's next replay leaves it as it is)
+        if use_groups:
+            for cg in self._groups.values():
+                m0 = self._modules[cg[0]]
+                if m0 not in fused_members:
+                    continue
+                for name in cg[1:]:
+                    mi = self._modules[name]
+                    if mi._is_synced or mi._computed is not None:
+                        continue
+                    mi._cache = {k: list(v) if isinstance(v, list) else (v.clone() if engine_owned(v) else v)
+                                 for k, v in m0._cache.items()}
+                    for state in m0._defaults:
+                        value = getattr(m0, state)
+                        object.__setattr__(mi, state, list(value) if isinstance(value, list) else value)
+                    mi._update_count = m0._update_count
+                    mi._is_synced = True
+                    synced.append(mi)
+
+        self._synced_members = []
+        for m in synced:
+            # a synced member's compute neither syncs again nor unsyncs
+            self._synced_members.append((m, m._to_sync, m._should_unsync))
+            m._to_sync = False
+            m._should_unsync = False
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore every member the last :meth:`sync` touched."""
+        if not should_unsync:
+            return
+        members, self._synced_members = self._synced_members, None
+        for m, to_sync, should in members or ():
+            m._to_sync = to_sync
+            m._should_unsync = should
+            if m._is_synced:
+                m.unsync()
+
+    @contextmanager
+    def sync_context(
+        self, env: Optional[DistEnv] = None, should_sync: bool = True, should_unsync: bool = True
+    ) -> Generator[None, None, None]:
+        """The collection's sync, the block, unsync."""
+        self.sync(env=env, should_sync=should_sync)
+        try:
+            yield
+        finally:
+            self.unsync(should_unsync=should_unsync)
+
+    def pure_sync(
+        self, states: Dict[str, Dict[str, Any]], group: Any = None, env: Optional[DistEnv] = None
+    ) -> Dict[str, Dict[str, Any]]:
+        """Every member's state synced over ``group`` (the default group where
+        None; ``env`` gives the collectives explicitly instead). With the
+        bucketed sync on, the fixed-shape states of all members share one
+        collective a bucket; list and ragged states sync a member at a time."""
+        env = env or group_env(group)
+        if not sync_engine.fused_sync_enabled():
+            return {name: m.pure_sync(states[name], env=env) for name, m in self.items(keep_base=True)}
+        specs: List[Any] = []
+        for name, m in self.items(keep_base=True):
+            if type(m)._sync_dist is not Metric._sync_dist:
+                continue  # a sync of its own stays the member's
+            member_states = {k: v for k, v in states[name].items() if k in m._reductions}
+            specs.extend(sync_engine.plan_metric_leaves(m, member_states, tag=name))
+        fused = sync_engine.execute_buckets(env, specs, owner="MetricCollection", stats=self._sync_stats)
+        out: Dict[str, Dict[str, Any]] = {}
+        for name, m in self.items(keep_base=True):
+            handled = {attr: val for (n, attr), val in fused.items() if n == name}
+            if not handled:
+                out[name] = m.pure_sync(states[name], env=env)
+                continue
+            saved = m._copy_state()
+            try:
+                m._load_state(states[name])
+                m._sync_dist(dist_sync_fn=None, env=env, exclude=tuple(handled))
+                synced = m._copy_state()
+            finally:
+                m._load_state(saved)
+            synced.update(handled)
+            out[name] = synced
+        return out
 
     def telemetry_snapshot(self) -> Dict[str, Any]:
         raise not_ported("MetricCollection.telemetry_snapshot", _TELEMETRY)

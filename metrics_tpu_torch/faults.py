@@ -1,10 +1,11 @@
-"""Fault injection at the engines' seams: port of the engine-facing part of
-``metrics_tpu/faults.py`` (its lines 159-338).
+"""Fault injection at the engines' seams: port of the engine- and
+sync-facing part of ``metrics_tpu/faults.py`` (its lines 18-60 and 159-338).
 
 A test activates a named fault, and the engines (:mod:`metrics_tpu_torch.dispatch`
-and the forward and collection paths built on it) probe for it where they can
-fail, so that the real recovery path runs: the same snapshot, restore and
-degrade code that a genuine capture error or a failed launch takes.
+and the forward and collection paths built on it, the sync engine and the
+``ProcessEnv`` collectives) probe for it where they can fail, so that the real
+recovery path runs: the same snapshot, restore and degrade code that a genuine
+capture error, a failed launch or a failed collective takes.
 
 ========================= ==============================================
 fault name                where it fires
@@ -12,6 +13,11 @@ fault name                where it fires
 ``compile``               while the engine builds a program (on the card:
                           its warm-up run and CUDA-graph capture)
 ``launch``                just before a program runs (a graph replay)
+``collective``            inside a ``ProcessEnv`` collective's attempt,
+                          before it reaches the backend (so the retry and
+                          the local-only degrade are both reachable)
+``quant-corruption``      a quantised sync bucket's codec raises (the
+                          bucket crosses at full precision instead)
 ``nan-input``             the program's float inputs are replaced by NaN
                           (caught by the state verification that runs
                           while a fault is active)

@@ -24,9 +24,23 @@ program skips the input checks that read values back from the device
 (:func:`~metrics_tpu_torch.utilities.checks.tracing`), and so does the eager
 path that serves a ``jit_update`` call the engine declines.
 
-What is not ported: cross-process sync, telemetry, sharded state and
-quantised sync. The constructor arguments that select them raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them.
+Sync (``metrics_tpu/metric.py:224-390, 510-573, 612-686, 928, 1013-1433``):
+``compute`` syncs the states across the processes of a ``torch.distributed``
+group (:mod:`metrics_tpu_torch.parallel`), through the bucketed sync engine
+(:mod:`metrics_tpu_torch.sync_engine`: one collective per wire dtype and
+reduction, optionally on the int8 wire of :mod:`metrics_tpu_torch.quant`),
+then the ragged list states, then the per-leaf rest, and restores the local
+states afterwards; ``dist_sync_on_step``, ``process_group``, ``dist_sync_fn``,
+``sync_env``, ``sync_dtype``, ``sync_precision``, ``add_state(quantize=,
+shard_state=)``, ``sync``/``unsync``/``sync_context``, ``pure_sync``,
+``assemble_sharded`` and ``sync_stats`` as in the JAX package, a process group
+where it names a mesh axis. Sync never writes a state buffer: the synced
+leaves are new tensors, and ``unsync`` restores the leaves an engine's graphs
+go on from.
+
+What is not ported: telemetry (ROADMAP.md, Queue A item 10) and
+``compute_on_cpu`` (item 6); ``compute_on_cpu=True`` raises
+``NotImplementedError`` naming its item.
 
 A metric's states live on its device, ``cuda`` unless the caller passes
 ``device="cpu"``. Tensors given to ``update`` must lie on that device.
@@ -35,16 +49,19 @@ import functools
 import inspect
 import operator
 from abc import ABC, abstractmethod
+from contextlib import contextmanager
 from copy import deepcopy
 from enum import Enum
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Generator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import Tensor
 
-from metrics_tpu_torch import forward_engine, resilience
+from metrics_tpu_torch import forward_engine, resilience, sync_engine
 from metrics_tpu_torch.dispatch import FastDispatcher, copy_tensors, engine_owned, fast_dispatch_enabled
+from metrics_tpu_torch.parallel.dist_env import DistEnv, ProcessEnv, default_env, group_env
 from metrics_tpu_torch.utilities.checks import tracing
 from metrics_tpu_torch.utilities.checksums import attach_checksums, verify_checksums
 from metrics_tpu_torch.utilities.data import (
@@ -55,6 +72,7 @@ from metrics_tpu_torch.utilities.data import (
     dim_zero_mean,
     dim_zero_min,
     dim_zero_sum,
+    dtype_name,
 )
 from metrics_tpu_torch.utilities.exceptions import MetricsUserError
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
@@ -69,7 +87,6 @@ _REDUCTIONS = {
     "cat": dim_zero_cat,
 }
 
-_SYNC = "ROADMAP.md, Queue A item 5 (distributed sync)"
 _LIST_STATES = "ROADMAP.md, Queue A item 6 (curve metrics, which accumulate list states)"
 
 
@@ -170,6 +187,19 @@ class Metric(ABC):
 
     Args:
         device: where the states live and the updates run; ``cuda`` by default.
+        dist_sync_on_step: sync the states inside every ``forward`` too.
+        process_group: the ``torch.distributed`` process group a sync runs
+            over (the default group where None).
+        dist_sync_fn: a custom gather ``(tensor, env) -> List[Tensor]``.
+        sync_env: an explicit :class:`~metrics_tpu_torch.parallel.DistEnv`;
+            by default a ``ProcessEnv`` where ``torch.distributed`` is
+            initialised with more than one rank, else none.
+        jit_update: run updates through the fast-dispatch engine.
+        sync_dtype: a float dtype (e.g. ``torch.bfloat16``) in which wider
+            float states cross the wire, reduced at full precision after the
+            cast back; integer and bool states always cross exact.
+        sync_precision: ``"int8"``: the quantised wire for eligible states
+            (:mod:`metrics_tpu_torch.quant`).
     """
 
     is_differentiable: Optional[bool] = None
@@ -185,26 +215,38 @@ class Metric(ABC):
         device: Optional[Union[str, torch.device]] = None,
         compute_on_cpu: bool = False,
         dist_sync_on_step: bool = False,
-        process_group: Optional[str] = None,
+        process_group: Optional["dist.ProcessGroup"] = None,
         dist_sync_fn: Optional[Callable] = None,
-        sync_env: Any = None,
+        sync_env: Optional[DistEnv] = None,
         jit_update: bool = False,
-        sync_dtype: Any = None,
+        sync_dtype: Optional[torch.dtype] = None,
         sync_precision: Optional[str] = None,
         **kwargs: Any,
     ) -> None:
         if compute_on_cpu:
             raise not_ported("compute_on_cpu", _LIST_STATES)
-        for name, value in (
-            ("dist_sync_on_step", dist_sync_on_step or None),
-            ("process_group", process_group),
-            ("dist_sync_fn", dist_sync_fn),
-            ("sync_env", sync_env),
-            ("sync_dtype", sync_dtype),
-            ("sync_precision", sync_precision),
-        ):
-            if value is not None:
-                raise not_ported(name, _SYNC)
+        if not isinstance(dist_sync_on_step, bool):
+            raise ValueError(f"Expected keyword argument `dist_sync_on_step` to be a bool but got {dist_sync_on_step}")
+        self.dist_sync_on_step = dist_sync_on_step
+        if process_group is not None and not isinstance(process_group, dist.ProcessGroup):
+            raise ValueError(
+                f"Expected keyword argument `process_group` to be a torch.distributed process group but got {process_group}"
+            )
+        self.process_group = process_group
+        if dist_sync_fn is not None and not callable(dist_sync_fn):
+            raise ValueError(f"Expected keyword argument `dist_sync_fn` to be a callable but got {dist_sync_fn}")
+        self.dist_sync_fn = dist_sync_fn
+        if isinstance(sync_dtype, str):  # a dtype's name, as jnp.dtype takes it
+            sync_dtype = getattr(torch, sync_dtype, sync_dtype)
+        if sync_dtype is not None and not (isinstance(sync_dtype, torch.dtype) and sync_dtype.is_floating_point):
+            raise ValueError(f"Expected keyword argument `sync_dtype` to be a float dtype but got {sync_dtype}")
+        self.sync_dtype = sync_dtype
+        if sync_precision is not None and sync_precision != "int8":
+            raise ValueError(
+                f'Expected keyword argument `sync_precision` to be None or "int8" but got {sync_precision}'
+            )
+        self.sync_precision = sync_precision
+        self._sync_env = sync_env
         self._device = resolve_device(device)
         self._jit_update_requested = bool(jit_update)
         # the fast-dispatch engine, built at the first engine call; its failures go through
@@ -214,6 +256,8 @@ class Metric(ABC):
         self._dispatch_stats: Dict[str, int] = {"dispatches": 0, "retraces": 0}
         self._forward_resilience = resilience.ResiliencePolicy()
         self._forward_stats: Dict[str, Any] = {"launches": 0, "retraces": 0, "engine_us": 0.0}
+        # the sync path's counters: collectives issued, buckets among them, payload bytes
+        self._sync_stats: Dict[str, int] = {"collectives": 0, "buckets": 0, "bytes_on_wire": 0}
 
         self._update_signature = inspect.signature(self.update)
         self._update_impl: Callable = self.update
@@ -225,10 +269,19 @@ class Metric(ABC):
         self._update_count = 0
         # bumped on every edge that can change what compute() returns
         self._version = 0
+        # compute's sync: whether it syncs, and whether it restores the local states afterwards
+        self._to_sync = True
+        self._should_unsync = True
 
         self._defaults: Dict[str, StateType] = {}
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Callable]] = {}
+        # per leaf: whether it may cross the quantised wire, and the group its leading dim shards over
+        self._quantize: Dict[str, bool] = {}
+        self._shard_state: Dict[str, Any] = {}
+
+        self._is_synced = False
+        self._cache: Optional[Dict[str, StateType]] = None
 
     # ------------------------------------------------------------------ state
     def add_state(
@@ -237,15 +290,35 @@ class Metric(ABC):
         default: Union[Tensor, List, float, int],
         dist_reduce_fx: Optional[Union[str, Callable]] = None,
         persistent: bool = False,
+        quantize: bool = True,
+        shard_state: Any = None,
     ) -> None:
         """Declare a metric state: a tensor (or Python number) or an empty list.
 
-        The reduction governs ``forward``'s merge of a batch state into the
-        global one: ``"sum"``, ``"mean"``, ``"max"``, ``"min"``, ``"cat"``,
-        a callable on the stacked pair, or None.
+        The reduction governs the sync across processes and ``forward``'s
+        merge of a batch state into the global one: ``"sum"``, ``"mean"``,
+        ``"max"``, ``"min"``, ``"cat"``, a callable on the stacked states, or
+        None. ``quantize=False`` keeps the leaf off the quantised wire.
+
+        ``shard_state`` declares the leaf's leading dim sharded over a
+        process group (a ``torch.distributed`` group, or ``"world"`` for the
+        default one): ``pure_sync(state, group)`` over that group leaves each
+        rank its own ``d0/N`` rows (one reduce-scatter), and
+        :meth:`assemble_sharded` / :meth:`pure_compute_sharded` gather them
+        when needed. Every other sync, and ``METRICS_TPU_SHARD_STATE=0``,
+        keeps the leaf whole.
         """
         if not isinstance(default, (list, int, float, Tensor)) or (isinstance(default, list) and default):
             raise ValueError("state variable must be an array or an empty list (where you can append arrays)")
+        if shard_state is not None:
+            if not (shard_state == "world" or isinstance(shard_state, dist.ProcessGroup)):
+                raise ValueError(
+                    f"`shard_state` must be a torch.distributed process group, \"world\" or None, got {shard_state!r}"
+                )
+            if isinstance(default, list):
+                raise ValueError(f"state {name!r}: list states cannot be sharded (no fixed leading dim)")
+            if not isinstance(default, Tensor) or default.ndim < 1:
+                raise ValueError(f"state {name!r}: shard_state needs a leading dimension to shard, got a scalar default")
         if isinstance(dist_reduce_fx, str):
             if dist_reduce_fx not in _REDUCTIONS:
                 raise ValueError(
@@ -260,6 +333,11 @@ class Metric(ABC):
         self._defaults[name] = default
         self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
+        self._quantize[name] = bool(quantize)
+        if shard_state is not None:
+            self._shard_state[name] = shard_state
+        else:
+            self._shard_state.pop(name, None)
 
     def _copy_state(self) -> Dict[str, StateType]:
         return {k: list(v) if isinstance(v, list) else v for k, v in ((k, getattr(self, k)) for k in self._defaults)}
@@ -346,6 +424,56 @@ class Metric(ABC):
             self._update_count = saved_count
             self._load_state(saved)
 
+    def pure_sync(
+        self, state: Dict[str, StateType], group: Optional["dist.ProcessGroup"] = None, env: Optional[DistEnv] = None
+    ) -> Dict[str, StateType]:
+        """``state`` synced over the ranks of ``group`` (the default group
+        where None), the metric's own state left as it was: the JAX package's
+        ``pure_sync(state, axis_name)``. Leaves declared ``shard_state=`` over
+        that group come back sharded (each rank its own rows). ``env`` gives
+        the collectives explicitly instead (a loopback env in tests)."""
+        env = env or group_env(group)
+        saved = self._copy_state()
+        try:
+            self._load_state(state)
+            self._sync_dist(dist_sync_fn=None, env=env)
+            return self._copy_state()
+        finally:
+            self._load_state(saved)
+
+    def sharded_axes(self) -> Dict[str, Any]:
+        """``{leaf: group}`` of the leaves declared ``shard_state=``; empty with
+        ``METRICS_TPU_SHARD_STATE=0``, which keeps every leaf whole."""
+        if not self._shard_state or not sync_engine.shard_state_enabled():
+            return {}
+        return dict(self._shard_state)
+
+    def assemble_sharded(
+        self, state: Dict[str, StateType], group: Optional["dist.ProcessGroup"] = None, env: Optional[DistEnv] = None
+    ) -> Dict[str, StateType]:
+        """The sharded leaves of a synced ``state`` gathered back to their
+        full shape over ``group`` (one gather a leaf); whole leaves pass
+        through, so the call is safe on either layout."""
+        axes = self.sharded_axes()
+        if not axes:
+            return dict(state)
+        env = env or group_env(group)
+        out = dict(state)
+        for attr, declared in axes.items():
+            v = out.get(attr)
+            if not sync_engine.shards_group(env, declared) or not isinstance(v, Tensor) or v.ndim < 1:
+                continue
+            if v.shape[0] < self._defaults[attr].shape[0]:
+                out[attr] = torch.cat(env.all_gather_uniform(v))
+        return out
+
+    def pure_compute_sharded(
+        self, state: Dict[str, StateType], group: Optional["dist.ProcessGroup"] = None, env: Optional[DistEnv] = None
+    ) -> Any:
+        """:meth:`pure_compute` of a sharded synced state, assembled first:
+        every rank gets the full value."""
+        return self.pure_compute(self.assemble_sharded(state, group, env))
+
     def scan_update(
         self, state: Dict[str, StateType], *batched_args: Any, **batched_kwargs: Any
     ) -> Dict[str, StateType]:
@@ -378,8 +506,15 @@ class Metric(ABC):
         program of the fused forward (:mod:`metrics_tpu_torch.forward_engine`);
         the eager branches serve it where the engine is off or declines.
         """
+        if self._is_synced:
+            raise MetricsUserError(
+                "The Metric shouldn't be synced when performing ``forward``. "
+                "HINT: Did you forget to call ``unsync``?"
+            )
         if (
             self._jit_update_requested
+            # a sync each step is a collective, which a graph does not hold
+            and not self.dist_sync_on_step
             and not self._dispatch_resilience.permanent
             and forward_engine.fused_forward_enabled()
             and fast_dispatch_enabled()
@@ -399,7 +534,7 @@ class Metric(ABC):
                 if snap is not None:
                     resilience.restore_state(self, snap)
                 resilience.record_degrade(type(self).__name__, "forward", err, self._forward_resilience)
-        if self.full_state_update or self.full_state_update is None:
+        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
             self._forward_cache = self._forward_full_state_update(*args, **kwargs)
         else:
             self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
@@ -422,16 +557,25 @@ class Metric(ABC):
         return copy_tensors(value, lambda t: t.untyped_storage().data_ptr() in owned)
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
-        """Two updates: one on the global state, one on a fresh state for the batch value."""
+        """Two updates: one on the global state, one on a fresh state for the
+        batch value (synced across processes only with ``dist_sync_on_step``)."""
         self.update(*args, **kwargs)
+        self._to_sync = self.dist_sync_on_step
         cache = self._held_state()
         update_count = self._update_count
         self.reset()
         self.update(*args, **kwargs)
+        self._should_unsync = False
         batch_val = self.compute()
 
         self._update_count = update_count
         self._load_state(cache)
+        # the batch value's sync is dropped with its state. The JAX package leaves _is_synced set here
+        # (metrics_tpu/metric.py:649-667), so its next forward raises; TorchMetrics clears it, as here
+        self._is_synced = False
+        self._cache = None
+        self._should_unsync = True
+        self._to_sync = True
         self._computed = None
         self._bump_version()
         return batch_val
@@ -441,11 +585,15 @@ class Metric(ABC):
         global_state = self._held_state()
         update_count = self._update_count
         self.reset()
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
         self.update(*args, **kwargs)
         batch_val = self.compute()
 
         self._update_count = update_count + 1
         self._reduce_states(global_state)
+        self._should_unsync = True
+        self._to_sync = True
         self._computed = None
         self._bump_version()
         return batch_val
@@ -639,10 +787,277 @@ class Metric(ABC):
                     UserWarning,
                 )
             if self._computed is None:
-                self._computed = self._engine_free(_squeeze_if_scalar(compute(*args, **kwargs)))
+                with self.sync_context(
+                    dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+                ):
+                    self._computed = self._engine_free(_squeeze_if_scalar(compute(*args, **kwargs)))
             return self._computed
 
         return wrapped_func
+
+    # ------------------------------------------------------------------ sync
+    @property
+    def sync_stats(self) -> Dict[str, int]:
+        """The sync path's counters: ``collectives`` issued, ``buckets``
+        among them, ``bytes_on_wire``, and once a bucket ran
+        ``bytes_logical`` (the states' own bytes) and ``sharded_buckets``."""
+        return dict(self._sync_stats)
+
+    def _sync_dist(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        env: Optional[DistEnv] = None,
+        exclude: Sequence[str] = (),
+    ) -> None:
+        """Gather every state across the participants and reduce it
+        (``metrics_tpu/metric.py:1013-1264``). ``exclude`` names states a
+        caller synced already (a collection's shared bucket pass).
+
+        Every rank issues the same collectives in the same order: the
+        emptiness probe of the list states, then the buckets, then the
+        ragged states, then the per-leaf rest. Nothing is written into a
+        state tensor: every synced leaf is a new tensor.
+        """
+        env = env or self._resolve_env()
+        # a collective runs when the env is distributed or the user gave a gather of their own
+        will_communicate = env.is_distributed() or dist_sync_fn is not None
+
+        def _record(x: Tensor) -> None:
+            if will_communicate:
+                self._sync_stats["collectives"] += 1
+                self._sync_stats["bytes_on_wire"] += x.numel() * x.element_size()
+
+        if dist_sync_fn is not None:
+            def base_gather(x: Tensor) -> List[Tensor]:
+                _record(x)
+                return dist_sync_fn(x, env)
+
+            uniform_gather = base_gather  # a custom gather sees every state as it is
+        else:
+            def base_gather(x: Tensor) -> List[Tensor]:
+                _record(x)
+                return env.all_gather(x)
+
+            def uniform_gather(x: Tensor) -> List[Tensor]:
+                # fixed-shape states have one shape on every rank: no size exchange
+                _record(x)
+                return env.all_gather_uniform(x)
+
+        def _would_compress(x: Tensor) -> bool:
+            return (
+                self.sync_dtype is not None
+                and will_communicate
+                and x.is_floating_point()
+                and x.dtype.itemsize > self.sync_dtype.itemsize
+            )
+
+        def _compressed(inner: Callable) -> Callable:
+            # float states cross in sync_dtype and come back in their own dtype, reduced at full precision
+            def gather(x: Tensor) -> List[Tensor]:
+                if _would_compress(x):
+                    return [g.to(x.dtype) for g in inner(x.to(self.sync_dtype))]
+                return inner(x)
+
+            return gather
+
+        input_dict = {attr: getattr(self, attr) for attr in self._reductions if attr not in exclude}
+        # ragged list states re-split by their gathered lengths; a deterministic order on every rank
+        ragged_specs = getattr(self, "_ragged_state_specs", None) or {}
+        ragged_attrs = [a for a in ragged_specs if isinstance(input_dict.get(a), list)]
+
+        # the list states' emptiness, probed in one int32 collective before anything is written: all
+        # empty is a no-op, mixed emptiness raises on every rank (an empty rank has nothing to contribute,
+        # and the collectives would fall out of step), all non-empty goes on
+        if will_communicate:
+            probe_attrs = [a for a, v in input_dict.items() if isinstance(v, list) and a not in ragged_attrs]
+            if probe_attrs:
+                counts_vec = uniform_gather(
+                    torch.tensor([len(input_dict[a]) for a in probe_attrs], dtype=torch.int32, device=self._device)
+                )
+                per_rank = [c.cpu().tolist() for c in counts_vec]
+                for i, attr in enumerate(probe_attrs):
+                    counts = [int(r[i]) for r in per_rank]
+                    if max(counts) == 0:
+                        object.__setattr__(self, attr, [])
+                        del input_dict[attr]
+                    elif min(counts) == 0:
+                        raise MetricsUserError(
+                            f"Cross-process sync of list state `{attr}`: some ranks"
+                            f" never updated it (per-rank element counts {counts})."
+                            " A generic list state needs at least one element on"
+                            " every rank: either ensure every rank updates, or"
+                            " declare `_ragged_state_specs` for it (a"
+                            " (trailing_shape, dtype) spec lets empty ranks join"
+                            " the collectives, see retrieval/base.py)."
+                        )
+
+        # the buckets: every fixed-shape leaf of a named reduction, one collective a (wire dtype, op); a custom
+        # gather sees every state, so it is never bucketed
+        if dist_sync_fn is None and will_communicate and sync_engine.fused_sync_enabled():
+            try:
+                specs = sync_engine.plan_metric_leaves(self, input_dict)
+                if specs:
+                    fused = sync_engine.execute_buckets(env, specs, owner=type(self).__name__, stats=self._sync_stats)
+                    for attr, val in fused.items():
+                        object.__setattr__(self, attr, val)
+                        del input_dict[attr]
+            except Exception as err:  # noqa: BLE001 -- the per-leaf protocol below serves every leaf
+                if not resilience.resilience_enabled():
+                    raise
+                resilience.record_degrade(type(self).__name__, "sync", err)
+                rank_zero_warn(
+                    f"fused sync engine failed for {type(self).__name__} "
+                    f"({type(err).__name__}: {err}); syncing per-leaf instead"
+                )
+
+        lengths_cache: Dict[str, Any] = {}
+        for attr in ragged_attrs:
+            object.__setattr__(self, attr, self._gather_ragged(attr, input_dict.pop(attr), base_gather, lengths_cache))
+
+        for attr in input_dict:
+            # a list state crosses as one concatenated tensor
+            if isinstance(input_dict[attr], list) and len(input_dict[attr]) >= 1:
+                input_dict[attr] = [dim_zero_cat(input_dict[attr])]
+
+        output_dict: Dict[str, Any] = {}
+        for attr, value in input_dict.items():
+            # a named reduction is one native collective, where the env has one and nothing narrows the leaf
+            if dist_sync_fn is None and not isinstance(value, list) and not _would_compress(value):
+                op = sync_engine.NATIVE_REDUCE_OPS.get(self._reductions[attr])
+                if op is not None:
+                    reduced = env.all_reduce(value, op)
+                    if reduced is not None:
+                        _record(value)
+                        object.__setattr__(self, attr, reduced)
+                        continue
+            # raw samples (list and cat states, _sample_state_names) are never narrowed: they would stay so
+            samples = (
+                isinstance(value, list)
+                or self._reductions[attr] is dim_zero_cat
+                or attr in getattr(self, "_sample_state_names", ())
+            )
+            if isinstance(value, list):
+                output_dict[attr] = [base_gather(v) for v in value]
+            else:
+                # only cat-reduced tensors may have rank-dependent leading dims
+                inner = base_gather if self._reductions[attr] is dim_zero_cat else uniform_gather
+                output_dict[attr] = inner(value) if samples else _compressed(inner)(value)
+
+        for attr, out in output_dict.items():
+            reduction_fn = self._reductions[attr]
+            if isinstance(out, list) and len(out) == 0:
+                object.__setattr__(self, attr, [])
+                continue
+            if isinstance(out[0], list):  # a list state: the ranks' lists flattened
+                out = _flatten(out)
+            elif isinstance(out[0], Tensor):
+                out = torch.stack(out)
+            object.__setattr__(self, attr, reduction_fn(out) if reduction_fn is not None else out)
+
+    def _gather_ragged(
+        self, attr: str, value: list, base_gather: Callable, lengths_cache: Dict[str, Any]
+    ) -> list:
+        """Gather a list state whose elements' boundaries matter
+        (``metrics_tpu/metric.py:1266``): declared
+        ``_ragged_state_specs[attr] = (trailing_shape, dtype[, lengths_group])``.
+
+        The elements' lengths and their concatenation cross in two gathers,
+        and every rank's data is split again by its lengths, so ranks with
+        different (even zero) element counts stay in step: the declared
+        trailing shape and dtype make an empty rank's placeholder. States of
+        one ``lengths_group`` share one lengths gather.
+        """
+        spec = self._ragged_state_specs[attr]
+        trailing, dtype, group = spec if len(spec) == 3 else (*spec, None)
+        local_lengths = tuple(int(v.shape[0]) for v in value)
+        if group is not None and group in lengths_cache:
+            cached_local, gathered_lengths = lengths_cache[group]
+            if cached_local != local_lengths:
+                raise MetricsUserError(
+                    f"Ragged states in lengths_group {group!r} disagree on element"
+                    f" lengths ({attr}: {local_lengths} vs {cached_local}); states in"
+                    " one group must always be updated together."
+                )
+        else:
+            lengths = torch.tensor(local_lengths, dtype=torch.int32, device=self._device)
+            gathered_lengths = [g.cpu().tolist() for g in base_gather(lengths)]
+            if group is not None:
+                lengths_cache[group] = (local_lengths, gathered_lengths)
+        data = dim_zero_cat(value).to(dtype) if value else torch.zeros((0, *trailing), dtype=dtype, device=self._device)
+        out: list = []
+        for rank_lengths, rank_data in zip(gathered_lengths, base_gather(data)):
+            if rank_lengths:
+                out.extend(torch.split(rank_data, list(rank_lengths)))
+        return out
+
+    def _resolve_env(self) -> DistEnv:
+        if self._sync_env is not None:
+            return self._sync_env
+        if self.process_group is not None:
+            return ProcessEnv(self.process_group)
+        return default_env()
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional["dist.ProcessGroup"] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+        env: Optional[DistEnv] = None,
+    ) -> None:
+        """Sync the states across the environment: ``env``, else a
+        ``ProcessEnv`` over ``process_group`` where given, else the metric's
+        own (``sync_env``, ``process_group``, or the ambient default). The
+        local states are kept for :meth:`unsync`."""
+        if self._is_synced and should_sync:
+            raise MetricsUserError("The Metric has already been synced.")
+        if not should_sync:
+            return
+        if env is None:
+            env = ProcessEnv(process_group) if process_group is not None else self._resolve_env()
+        if not (env.is_distributed() if distributed_available is None else bool(distributed_available())):
+            return
+        if dist_sync_fn is None:
+            dist_sync_fn = self.dist_sync_fn
+        self._cache = self._copy_state()
+        self._sync_dist(dist_sync_fn, env=env)
+        self._is_synced = True
+        self._bump_version()
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the local states :meth:`sync` kept (the very tensors, so an
+        engine's graphs go on from their own buffers)."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise MetricsUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise MetricsUserError("The internal cache should exist to unsync the Metric.")
+        self._load_state(self._cache)
+        self._is_synced = False
+        self._cache = None
+        self._bump_version()
+
+    @contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional["dist.ProcessGroup"] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = None,
+        env: Optional[DistEnv] = None,
+    ) -> Generator[None, None, None]:
+        """sync, the block, unsync."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+            env=env,
+        )
+        yield
+        self.unsync(should_unsync=self._is_synced and should_unsync)
 
     @abstractmethod
     def update(self, *_: Any, **__: Any) -> None:
@@ -660,9 +1075,22 @@ class Metric(ABC):
         self._bump_version()
         for attr, default in self.default_state().items():
             object.__setattr__(self, attr, default)
+        self._cache = None
+        self._is_synced = False
 
     def clone(self) -> "Metric":
         return deepcopy(self)
+
+    def __deepcopy__(self, memo: Dict[int, Any]) -> "Metric":
+        # a process group (and an env over one) is a live communicator: a copy shares it. It cannot be pickled,
+        # so a metric that holds one does not pickle either
+        for held in (self.process_group, self._sync_env, *self._shard_state.values()):
+            if held is not None and not isinstance(held, str):
+                memo[id(held)] = held
+        new = type(self).__new__(type(self))
+        memo[id(self)] = new
+        new.__setstate__(deepcopy(self.__getstate__(), memo))
+        return new
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         return self.forward(*args, **kwargs)
@@ -763,18 +1191,25 @@ class Metric(ABC):
         """Bytes of state a leaf: ``{"total_bytes", "leaf_count", "leaves"}``
         with the ``top_n`` largest leaves as ``{"name", "shape", "dtype",
         "nbytes", "logical_nbytes"}``. A list state is one entry summing its
-        elements (its shape is the element count). No state is sharded in the
-        port (ROADMAP.md, Queue A item 5), so ``logical_nbytes == nbytes``."""
+        elements (its shape is the element count). ``nbytes`` is what this
+        process holds; ``logical_nbytes`` the whole leaf, larger only for a
+        ``shard_state=`` leaf that holds a shard (``nbytes`` times N)."""
+        sharded = self.sharded_axes()
         leaves: List[Dict[str, Any]] = []
         for name in self._defaults:
             current = getattr(self, name)
             if isinstance(current, list):
                 nbytes = sum(v.nbytes for v in current)
                 shape: tuple = (len(current),)
-                dtype = _dtype_name(current[0].dtype) if current else "empty-list"
+                dtype = dtype_name(current[0].dtype) if current else "empty-list"
             else:
-                nbytes, shape, dtype = current.nbytes, tuple(current.shape), _dtype_name(current.dtype)
-            leaves.append({"name": name, "shape": shape, "dtype": dtype, "nbytes": nbytes, "logical_nbytes": nbytes})
+                nbytes, shape, dtype = current.nbytes, tuple(current.shape), dtype_name(current.dtype)
+            logical = nbytes
+            if name in sharded and shape:
+                full_d0 = int(self._defaults[name].shape[0])
+                if 0 < shape[0] < full_d0 and full_d0 % shape[0] == 0:
+                    logical = nbytes * (full_d0 // shape[0])
+            leaves.append({"name": name, "shape": shape, "dtype": dtype, "nbytes": nbytes, "logical_nbytes": logical})
         leaves.sort(key=lambda leaf: (-leaf["nbytes"], leaf["name"]))
         return {
             "total_bytes": sum(leaf["nbytes"] for leaf in leaves),
@@ -966,11 +1401,6 @@ class Metric(ABC):
         return tuple()
 
 
-def _dtype_name(dtype: torch.dtype) -> str:
-    """``torch.int32`` as the JAX package names it: ``int32``."""
-    return str(dtype).replace("torch.", "")
-
-
 def _neg(x: Tensor) -> Tensor:
     return -torch.abs(x)
 
@@ -1030,6 +1460,10 @@ class CompositionalMetric(Metric):
         if val_b is None:
             return self.op(val_a)
         return self.op(val_a, val_b)
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, env: Optional[DistEnv] = None,
+                   exclude: Sequence[str] = ()) -> None:
+        """No sync of its own: the operand metrics sync in their ``compute``."""
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         val_a = (

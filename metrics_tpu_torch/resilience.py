@@ -19,10 +19,19 @@ Port of ``metrics_tpu/resilience.py:75-306``:
   check when it builds a program is the one check: a replay cannot change a
   buffer's shape or dtype.
 
-The checkpoint checksums are in :mod:`metrics_tpu_torch.utilities.checksums`;
-the collective retry (``run_collective``) comes with distributed sync
-(ROADMAP.md, Queue A item 5), and the ``degrade`` telemetry span with
-observability (item 10): :func:`record_degrade` updates the policy's counters.
+* **Collective retry** (``metrics_tpu/resilience.py:364-455``):
+  :func:`run_collective` runs each collective of a
+  :class:`~metrics_tpu_torch.parallel.ProcessEnv` with bounded retries, and
+  on exhaustion degrades that sync to local-only state. A collective's
+  deadline is its process group's own timeout (the JAX package's
+  ``METRICS_TPU_COLLECTIVE_TIMEOUT_S`` has no counterpart), and a group a
+  collective failed in is issued nothing more (:func:`group_broken`).
+
+Every degrade, of an engine, of the sync engine or of a collective, is
+counted by :func:`record_degrade` (:func:`degrades`). The checkpoint
+checksums are in :mod:`metrics_tpu_torch.utilities.checksums`; the
+``degrade`` telemetry span comes with observability (ROADMAP.md, Queue A
+item 10).
 
 Environment knobs:
 
@@ -34,16 +43,19 @@ Environment knobs:
                                 value check)
 ``METRICS_TPU_BACKOFF_BASE``    first cooldown, in calls (default 4)
 ``METRICS_TPU_BACKOFF_MAX``     longest cooldown, in calls (default 256)
+``METRICS_TPU_COLLECTIVE_       attempts after a collective's first one
+RETRIES``                       (default 2)
 =============================== ========================================
 """
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from metrics_tpu_torch import faults
 from metrics_tpu_torch.utilities.exceptions import StateCorruptionError
-from metrics_tpu_torch.utilities.prints import rank_zero_debug
+from metrics_tpu_torch.utilities.prints import rank_zero_debug, rank_zero_warn
 
 __all__ = [
     "StateCorruptionError",
@@ -56,6 +68,9 @@ __all__ = [
     "snapshot_state",
     "restore_state",
     "verify_engine_state",
+    "run_collective",
+    "group_broken",
+    "degrades",
 ]
 
 
@@ -159,18 +174,34 @@ def classify(err: BaseException) -> str:
     return type(err).__name__
 
 
-def record_degrade(owner: str, engine: str, err: BaseException, policy: ResiliencePolicy) -> str:
-    """Account one failure of ``owner``'s ``engine``: ``policy`` benches the
-    engine (for good where the input is unsupported) and the demotion is
-    logged at debug level; returns the cause tag. The JAX package's
-    ``degrade`` telemetry span waits for ROADMAP.md, Queue A item 10."""
+# degrades counted by engine kind since the process started: like the kernels' launch counts, a process-wide
+# tally a run reads at its end
+_degrades: Dict[str, int] = {}
+
+
+def record_degrade(owner: str, engine: str, err: BaseException, policy: Optional[ResiliencePolicy] = None) -> str:
+    """Account one failure of ``owner``'s ``engine``, count it under
+    ``engine`` (:func:`degrades`) and log it at debug level; returns the
+    cause tag. With a ``policy`` the engine is benched (for good where the
+    input is unsupported). The JAX package's ``degrade`` telemetry span
+    waits for ROADMAP.md, Queue A item 10."""
     cause = classify(err)
+    _degrades[engine] = _degrades.get(engine, 0) + 1
+    if policy is None:
+        rank_zero_debug(f"{engine} of {owner} degraded ({type(err).__name__}: {err})")
+        return cause
     policy.note_failure(cause, permanent=cause == "unsupported")
     rank_zero_debug(
         f"{engine} engine of {owner} degraded ({type(err).__name__}: {err}); the eager path serves the call"
         + (" from now on." if policy.permanent else f" (cooldown {policy.cooldown} calls).")
     )
     return cause
+
+
+def degrades() -> Dict[str, int]:
+    """Degrades counted so far, by engine (``dispatch``, ``forward``,
+    ``sync``, ``quant-sync``, ``shard-sync``, ``collective``, ...)."""
+    return dict(_degrades)
 
 
 def _tensor_leaf_names(metric: Any) -> Tuple[str, ...]:
@@ -214,3 +245,103 @@ def verify_engine_state(metric: Any, snap: Dict[str, Any], where: str = "",
             )
         if check_values and after.is_floating_point() and not bool(torch.isfinite(after).all()):
             raise StateCorruptionError(f"engine call left non-finite values in state leaf '{name}'{at}")
+
+
+# ------------------------------------------------------------ collective retry
+def _collective_retries() -> int:
+    try:
+        return max(0, int(os.environ.get("METRICS_TPU_COLLECTIVE_RETRIES", "2")))
+    except ValueError:
+        return 2
+
+
+class CollectiveIssued(RuntimeError):
+    """A collective failed after it reached the backend (past the group's
+    timeout, a peer gone): it cannot be tried again."""
+
+
+# Process groups a collective failed in, by id (the group is held, so its id is not reused). None is the default
+# group. A failed collective leaves the group's sequence out of step between ranks, so none is issued on it again.
+_BROKEN_GROUPS: Dict[int, Any] = {}
+
+
+def _group_key(group: Any) -> Any:
+    return dist.group.WORLD if group is None else group
+
+
+def group_broken(group: Any = None) -> bool:
+    """Whether a collective on ``group`` (None: the default group) failed
+    inside the backend in this process: every later collective on it is
+    served locally, and only a new group (``torch.distributed.new_group``)
+    syncs again."""
+    return id(_group_key(group)) in _BROKEN_GROUPS
+
+
+def _call_with_timeout(fn: Callable[[], Any], desc: str) -> Any:
+    """One attempt of a collective, under the process group's own timeout.
+
+    A ``torch.distributed`` collective that passed a deadline cannot be
+    abandoned safely: its buffers stay with the backend and the peers'
+    matching calls stay pending, so the next call on the group would pair
+    with a peer's other collective. So no thread watches the attempt (the
+    JAX package's way) and the port has no ``METRICS_TPU_COLLECTIVE_TIMEOUT_S``:
+    the deadline is the group's ``timeout`` (``init_process_group(timeout=)``,
+    ``new_group(timeout=)``), which the backend enforces. A failure past
+    that point is raised as :class:`CollectiveIssued`, which
+    :func:`run_collective` does not retry."""
+    try:
+        return fn()
+    except RuntimeError as err:
+        if isinstance(err, faults.InjectedFault):
+            raise
+        raise CollectiveIssued(f"collective '{desc}' failed in the backend: {err}") from err
+
+
+def run_collective(
+    attempt: Callable[[], Any],
+    fallback: Callable[[], Any],
+    owner: str,
+    desc: str,
+    group: Any = None,
+) -> Any:
+    """Bounded retries for one collective of a ``ProcessEnv`` over ``group``
+    (None: the default group).
+
+    ``attempt()`` runs up to ``1 + METRICS_TPU_COLLECTIVE_RETRIES`` times,
+    each probing the ``collective`` fault point first, so tests reach both
+    the retry that succeeds and the exhausted path. A failure before the
+    collective reached the backend is retried; one inside it
+    (:class:`CollectiveIssued`) is not (see :func:`_call_with_timeout`), and
+    marks ``group`` broken: this and every later collective on it are served
+    by ``fallback`` without being issued (:func:`group_broken`). On
+    exhaustion the degrade is counted (:func:`degrades`, kind
+    ``collective``), a warning is given, and ``fallback`` (local-only,
+    world-size-1 semantics) serves the call: partial data rather than a hang,
+    and the state stays valid for a later sync."""
+    key = _group_key(group)
+    if id(key) in _BROKEN_GROUPS:
+        record_degrade(owner, "collective", CollectiveIssued(f"collective '{desc}' not issued: its group is broken"))
+        return fallback()
+    retries = _collective_retries() if resilience_enabled() else 0
+    last_err: Optional[BaseException] = None
+    for _ in range(1 + retries):
+
+        def guarded() -> Any:
+            faults.check("collective", desc)
+            return attempt()
+
+        try:
+            return _call_with_timeout(guarded, desc)
+        except CollectiveIssued as err:
+            last_err = err
+            _BROKEN_GROUPS[id(key)] = key
+            break
+        except Exception as err:  # noqa: BLE001 -- retried, then degraded; never a hang or a crash of the sync
+            last_err = err
+    cause = record_degrade(owner, "collective", last_err)
+    rank_zero_warn(
+        f"collective '{desc}' failed ({cause}: {last_err}); degrading to local-only state for this sync:"
+        " cross-process results reflect this process only until a later sync succeeds"
+        + (" on a new process group: this one issues no further collective" if group_broken(group) else "")
+    )
+    return fallback()

@@ -85,6 +85,15 @@ class RetrievalMetric(Metric, ABC):
         self.add_state("indexes", default=[], dist_reduce_fx=None)
         self.add_state("preds", default=[], dist_reduce_fx=None)
         self.add_state("target", default=[], dist_reduce_fx=None)
+        # ragged sync (Metric._gather_ragged): a rank that holds no row still joins every collective through
+        # the declared placeholder, and the three states share one lengths gather ("rows"). Indexes cross as
+        # int32, preds and targets as float32 (binary and graded targets are exact in float32); unsync
+        # restores the local states
+        self._ragged_state_specs = {
+            "indexes": ((), torch.int32, "rows"),
+            "preds": ((), torch.float32, "rows"),
+            "target": ((), torch.float32, "rows"),
+        }
 
     def update(self, preds: Tensor, target: Tensor, indexes: Tensor) -> None:
         """Validate, flatten and append."""

@@ -15,8 +15,11 @@ Values are hashed by their float32 bit pattern with the JAX package's
 uint32 finalizer (:func:`metrics_tpu_torch.ops.hash_u32`, exact in int64).
 The three device sketches take masked updates (``metrics_tpu/streaming/sketch.py:131,
 333, 417``), so the fast-dispatch engine pads their batches into shape
-buckets. Not ported yet: the quantised-sync specs (ROADMAP.md, Queue A item 5)
-and the telemetry events (item 10).
+buckets. Each device sketch registers its codec for the quantised sync wire
+(``_quant_state_specs``, used where ``sync_precision="int8"``): q8 for the
+quantile histogram, lossless bit planes for the HyperLogLog registers, and q8
+rounded up for the count-min table, so that it never underestimates. Not
+ported yet: the telemetry events (ROADMAP.md, Queue A item 10).
 """
 from typing import Any, Optional, Union
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch import quant
 from metrics_tpu_torch.aggregation import BaseAggregator
 from metrics_tpu_torch.ops.sketch_ops import as_u32_bits, countmin_update, hash_u32
 
@@ -90,6 +94,8 @@ class QuantileSketch(BaseAggregator):
         if not 0.0 < alpha < 1.0:
             raise ValueError(f"alpha must be in (0, 1), got {alpha}")
         super().__init__("sum", torch.zeros((2 * bins + 1,), dtype=torch.float32), nan_strategy, **kwargs)
+        # histogram counts are float32 sums whose error budget is loose (the sketch is alpha-approximate)
+        self._quant_state_specs = {"value": quant.QuantCodec("q8")}
         self.bins = bins
         self.alpha = alpha
         self.gamma = (1.0 + alpha) / (1.0 - alpha)
@@ -268,6 +274,8 @@ class HyperLogLog(BaseAggregator):
         if not 4 <= precision <= 16:
             raise ValueError(f"precision must be in [4, 16], got {precision}")
         super().__init__("max", torch.zeros((1 << precision,), dtype=torch.int32), nan_strategy, **kwargs)
+        # registers are ranks of at most 32 - precision + 1: bit planes, lossless, so the max is the exact union
+        self._quant_state_specs = {"value": quant.QuantCodec("pack", bits=quant.bits_for_bound(32 - precision + 1))}
         self.precision = precision
         self.registers = 1 << precision
 
@@ -332,6 +340,8 @@ class CountMinHeavyHitters(BaseAggregator):
         if depth <= 0 or width <= 0:
             raise ValueError(f"depth and width must be positive, got depth={depth} width={width}")
         super().__init__("sum", torch.zeros((depth, width), dtype=torch.float32), nan_strategy, **kwargs)
+        # ceil codes: each rank's decoded table only over-counts, so the sum never underestimates
+        self._quant_state_specs = {"value": quant.QuantCodec("q8", rounding="up")}
         self.depth = depth
         self.width = width
         # one hash seed a row, d * 0x9E3779B9 + 1 mod 2^32, held as int32 bits

@@ -18,12 +18,20 @@ def dim_zero_cat(x: Union[Tensor, List[Tensor]]) -> Tensor:
     return x
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.int32`` as the JAX package names it: ``int32``."""
+    return str(dtype).replace("torch.", "")
+
+
 def dim_zero_sum(x: Tensor) -> Tensor:
-    return torch.sum(x, dim=0)
+    """The sum over dim 0 in ``jnp.sum``'s dtype (32-bit): integers and
+    bools count in int32, not int64."""
+    return torch.sum(x, dim=0, dtype=None if x.is_floating_point() or x.is_complex() else torch.int32)
 
 
 def dim_zero_mean(x: Tensor) -> Tensor:
-    return torch.mean(x, dim=0)
+    """The mean over dim 0; integers and bools give a float32 mean, as ``jnp.mean``."""
+    return torch.mean(x if x.is_floating_point() or x.is_complex() else x.to(torch.float32), dim=0)
 
 
 def dim_zero_max(x: Tensor) -> Tensor:

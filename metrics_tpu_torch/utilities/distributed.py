@@ -1,9 +1,8 @@
-"""Reduction helpers shared across metrics: port of ``metrics_tpu/utilities/distributed.py``.
-
-Only ``reduce`` and ``class_reduce``; the cross-process gather belongs to the
-distributed sync (ROADMAP.md, Queue A item 5).
+"""Reduction helpers shared across metrics: port of ``metrics_tpu/utilities/distributed.py``,
+and ``gather_all_tensors`` (``metrics_tpu/parallel/dist_env.py:226``), the
+cross-process gather of :mod:`metrics_tpu_torch.parallel`.
 """
-from typing import Optional
+from typing import Any, List, Optional
 
 import torch
 from torch import Tensor
@@ -39,3 +38,12 @@ def class_reduce(num: Tensor, denom: Tensor, weights: Tensor, class_reduction: s
     if class_reduction == "none" or class_reduction is None:
         return fraction
     raise ValueError(f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}")
+
+
+def gather_all_tensors(x: Tensor, env: Optional[Any] = None) -> List[Tensor]:
+    """``x`` from every rank of ``env``, a
+    :class:`~metrics_tpu_torch.parallel.DistEnv` (the ambient one by
+    default), leading dims allowed to differ: one tensor a rank."""
+    from metrics_tpu_torch.parallel.dist_env import default_env  # the package imports this module
+
+    return (env or default_env()).all_gather(x)

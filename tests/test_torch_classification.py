@@ -288,23 +288,32 @@ def test_mode_change_is_refused_like_jax():
 
 
 @pytest.mark.parametrize(
-    "kwargs,item",
+    "kwargs,item,refusal",
     [
-        ({"compute_on_cpu": True}, "curve metrics"),
-        ({"sync_env": object()}, "distributed sync"),
-        ({"dist_sync_fn": lambda x: x}, "distributed sync"),
-        ({"sync_dtype": "bfloat16"}, "distributed sync"),
-        ({"sync_precision": "int8"}, "distributed sync"),
-        ({"dist_sync_on_step": True}, "distributed sync"),
-        ({"process_group": "dp"}, "distributed sync"),
-        ({"shard_state": "dp"}, "distributed sync"),
+        ({"compute_on_cpu": True}, "curve metrics", (NotImplementedError, "ROADMAP.md.*curve metrics")),
+        # distributed sync is ported (ROADMAP.md, Queue A item 5): its options are taken, as in the JAX package
+        ({"sync_env": metrics_tpu_torch.parallel.NoOpEnv()}, "distributed sync", None),
+        ({"dist_sync_fn": lambda x, env: [x]}, "distributed sync", None),
+        ({"sync_dtype": "bfloat16"}, "distributed sync", None),
+        ({"sync_precision": "int8"}, "distributed sync", None),
+        ({"dist_sync_on_step": True}, "distributed sync", None),
+        # a mesh-axis name, where the port takes a torch.distributed process group, is refused
+        ({"process_group": "dp"}, "distributed sync", (ValueError, "process group")),
+        ({"shard_state": "dp"}, "distributed sync", (ValueError, "process group")),
     ],
     # the ids the cases had beside the jit_update one, which the engines (tests/test_torch_dispatch.py) retired
     ids=[f"kwargs{i}-{item}" for i, item in enumerate(["curve metrics"] + ["distributed sync"] * 7, start=1)],
 )
-def test_unported_options_raise_naming_the_roadmap_item(kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        metrics_tpu_torch.ConfusionMatrix(num_classes=3, device="cpu", **kwargs)
+def test_unported_options_raise_naming_the_roadmap_item(kwargs, item, refusal):
+    """An option of a module not ported yet raises naming its ROADMAP.md item;
+    the distributed-sync options are ported and taken."""
+    if refusal is not None:
+        with pytest.raises(refusal[0], match=refusal[1]):
+            metrics_tpu_torch.ConfusionMatrix(num_classes=3, device="cpu", **kwargs)
+        return
+    m = metrics_tpu_torch.ConfusionMatrix(num_classes=3, device="cpu", **kwargs)
+    m.update(torch.tensor([0, 1, 2]), torch.tensor([0, 1, 1]))
+    assert m.compute().tolist() == [[1, 0, 0], [0, 1, 1], [0, 0, 0]]
 
 
 def test_inputs_on_another_device_raise():

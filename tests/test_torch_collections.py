@@ -691,19 +691,35 @@ def test_kwargs_are_routed_to_the_members_that_take_them():
 @pytest.mark.parametrize(
     "call,item",
     [
-        (lambda: MetricCollection([TorchSum()], sync_precision="int8"), "item 5"),
-        (lambda: MetricCollection([TorchSum()]).sync(), "item 5"),
-        (lambda: MetricCollection([TorchSum()]).unsync(), "item 5"),
-        (lambda: MetricCollection([TorchSum()]).sync_context(), "item 5"),
-        (lambda: MetricCollection([TorchSum()]).pure_sync({}, "dp"), "item 5"),
-        (lambda: MetricCollection([TorchSum()]).sync_stats, "item 5"),
+        # the sync is ported (ROADMAP.md, Queue A item 5): one process, so each is a no-op or an empty count
+        (lambda: MetricCollection([TorchSum()], sync_precision="int8")["TorchSum"].sync_precision, "int8"),
+        (lambda: MetricCollection([TorchSum()]).sync(), None),
+        (lambda: MetricCollection([TorchSum()]).unsync(), None),
+        (lambda: _entered(MetricCollection([TorchSum()]).sync_context()), True),
+        (lambda: _synced_alone(MetricCollection([TorchSum()])), 1.0),
+        (lambda: MetricCollection([TorchSum()]).sync_stats, {"collectives": 0, "buckets": 0, "bytes_on_wire": 0}),
         (lambda: MetricCollection([TorchSum()]).telemetry_snapshot(), "item 10"),
     ],
     ids=["sync_precision", "sync", "unsync", "sync_context", "pure_sync", "sync_stats", "telemetry_snapshot"],
 )
 def test_unported_parts_raise_naming_the_roadmap_item(call, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue A {item}"):
-        call()
+    """A part not ported yet raises naming its ROADMAP.md item; the sync's
+    parts are ported and give a one-process collection its own state."""
+    if item == "item 10":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue A {item}"):
+            call()
+    else:
+        assert call() == item
+
+
+def _entered(context):
+    with context:
+        return True
+
+
+def _synced_alone(mc):
+    mc.update(torch.tensor(1.0))
+    return float(mc.pure_sync(mc.state())["TorchSum"]["x"])
 
 
 def test_fused_update_none_and_false_take_the_eager_loop():

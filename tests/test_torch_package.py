@@ -21,7 +21,8 @@ def _env():
 
 def test_import_leaves_jax_and_the_jax_package_out():
     code = (
-        "import sys, metrics_tpu_torch, metrics_tpu_torch.interop\n"
+        "import sys, metrics_tpu_torch, metrics_tpu_torch.interop, metrics_tpu_torch.parallel,"
+        " metrics_tpu_torch.quant, metrics_tpu_torch.sync_engine\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'metrics_tpu' or m.startswith('metrics_tpu.')]\n"
         "print(bad)\n"
