@@ -133,7 +133,26 @@
    ``METRICS_TPU_QUANT_SYNC=0``); the collectives each rank issued are
    counted and held against ``sync_stats``; no rank may degrade, fail or
    hang. The sync's host time (a ``compute`` less the same compute unsynced)
-   is timed fused against per-leaf, in turns.
+   is timed fused against per-leaf, in turns. Slice 10, curves, calibration
+   and ranking: ImageNet's epoch through a ``MetricCollection`` of
+   ``Accuracy(average="macro")``, ``AUROC`` macro and weighted and
+   ``CalibrationError(n_bins=15)`` with the l1 (ECE) and max norms (the JAX
+   package's three compute groups; the AUROC group's list states hold the
+   epoch's 200 MB of scores on the card), and alone ``ROC``, ``HingeLoss``
+   on the log-scores, ``KLDivergence`` and ``KLDivergence(log_prob=True)``
+   against a seeded teacher distribution, ``dice_score`` over the epoch and
+   ``AUROC(compute_on_cpu=True)``, whose list states must be on the CPU after
+   every update and whose value must equal the card's to rtol 1e-6; MS-COCO
+   2014 val through ``CoverageError``, ``LabelRankingAveragePrecision``,
+   ``LabelRankingLoss`` and ``AUROC`` micro and macro; MS MARCO's 6,980,000
+   candidate rows as one binary task through ``AUROC(max_fpr=0.1)`` and
+   ``ROC``. ``stat_scores`` must launch 49 times (the ``Accuracy`` member)
+   and no other kernel; every value must equal the same modules on the CPU
+   (rtol 1e-6, the ROC curves bit for bit), the macro AUROC a float64
+   Mann-Whitney reference from ``scipy.stats.rankdata``, ECE and MCE a
+   float64 numpy histogram, the ranking trio numpy on COCO's first 1,024 rows
+   and the partial AUC a float64 numpy McClish reference (rtol 1e-5). Each
+   module's update and compute are timed and its host syncs counted.
 4. Times each kernel, its plain version and the one PyTorch library call
    that computes the same function (``binned_stats``, ``retrieval_sort``
    and ``countmin`` have none, so a yardstick is timed and named instead)
@@ -225,6 +244,14 @@ SYNC_DEADLINE_S = 600
 SYNC_TURNS = 7  # repetitions of the sync timings, each in turns (a, b, c, c, b, a)
 MARCO_SPLIT = (0, 3000, 3500, 6980, 6980)  # MS MARCO queries by rank: uneven, and rank 3 holds none
 SYNC_COLLECTIVES = ("all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor", "all_to_all_single")
+# slice 10: the compute groups the JAX package forms for the curve collection (tests/test_torch_curves.py holds
+# the port's groups equal to them on the CPU), ECE's bins, the teacher's noise, MS MARCO's partial AUC
+CURVE_GROUPS = {0: ["acc"], 1: ["auroc", "auroc_weighted"], 2: ["ece", "mce"]}
+ECE_BINS = 15
+TEACHER_NOISE = 0.5
+MARCO_MAX_FPR = 0.1
+RANKING_REF_ROWS = 1024
+SYNC_SITES_SAMPLED = 200  # the syncs of a compute whose line in the port is looked up
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -294,13 +321,13 @@ def device_ms(torch, fn, reps=REPS):
     return statistics.median(times)
 
 
-def host_ms(torch, fn):
+def host_ms(torch, fn, reps=REPS):
     """Median wall time of one call of ``fn`` up to the device's completion."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -685,6 +712,200 @@ def replayed_kernels(torch, fn, calls=3, tries=8):
                 "registry_in_window": added[k], "window_updates": 1 + 2 * calls} for k in DEVICE_KERNELS}, captured
 
 
+def curve_members(M, device):
+    """Slice 10's ImageNet curve-and-calibration collection; its keys are those of
+    ``tests/test_torch_curves.py``, which holds the port's compute groups equal to the JAX package's."""
+    return {
+        "acc": M.Accuracy(num_classes=NUM_CLASSES, average="macro", device=device),
+        "auroc": M.AUROC(num_classes=NUM_CLASSES, device=device),
+        "auroc_weighted": M.AUROC(num_classes=NUM_CLASSES, average="weighted", device=device),
+        "ece": M.CalibrationError(n_bins=ECE_BINS, device=device),
+        "mce": M.CalibrationError(n_bins=ECE_BINS, norm="max", device=device),
+    }
+
+
+def teacher_data(torch, scores):
+    """A seeded teacher distribution over the ImageNet classes: the scores'
+    log-probabilities plus N(0, 0.5^2) noise, renormalised."""
+    g = torch.Generator(device=scores.device).manual_seed(SEED + 6)
+    noise = torch.randn(scores.shape, generator=g, device=scores.device)
+    return torch.softmax(torch.log(scores) + TEACHER_NOISE * noise, dim=1)
+
+
+def one_call_syncs(torch, fn):
+    """The host syncs of one call of ``fn`` (already warm), as :func:`syncs_per_call` finds them: their
+    number, and the most frequent ``file:line`` of the port among the first ``SYNC_SITES_SAMPLED`` (a stack
+    walk a sync would cost more than the call itself)."""
+    torch.cuda.set_sync_debug_mode("warn")
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    found, count = {}, [0]
+
+    def note(message, *_args, **_kwargs):
+        if "synchroniz" in str(message):
+            count[0] += 1
+            if count[0] > SYNC_SITES_SAMPLED:
+                return
+            frames = [f for f in traceback.extract_stack() if "metrics_tpu_torch" in f.filename]
+            where = frames[-1] if frames else traceback.extract_stack()[-3]
+            key = f"{where.filename.rsplit('metrics_tpu_torch/', 1)[-1]}:{where.lineno}"
+            found[key] = found.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return count[0], dict(sorted(found.items(), key=lambda kv: -kv[1])[:4])
+
+
+def run_slice10_imagenet(torch, M, device, data, teacher, on_card=False):
+    """ImageNet's epoch through the curve collection and the standalone slice-10 modules: the modules,
+    their values, the update seconds and each compute's seconds. ``on_card``: also the
+    ``compute_on_cpu=True`` AUROC (held against the collection's own AUROC), its states checked after
+    every update."""
+    coll = M.MetricCollection(curve_members(M, device))
+    alone = {
+        "roc": M.ROC(num_classes=NUM_CLASSES, device=device),
+        "hinge": M.HingeLoss(device=device),
+        "kl": M.KLDivergence(device=device),
+        "kl_log_prob": M.KLDivergence(log_prob=True, device=device),
+    }
+    if on_card:
+        alone["auroc_compute_on_cpu"] = M.AUROC(num_classes=NUM_CLASSES, compute_on_cpu=True, device=device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for (p, t), q in zip(data, teacher):
+        coll.update(p, t)
+        alone["roc"].update(p, t)
+        log_p = torch.log(p)
+        alone["hinge"].update(log_p, t)
+        alone["kl"].update(q, p)  # D_KL(teacher || model)
+        alone["kl_log_prob"].update(torch.log(q), log_p)
+        if on_card:
+            moved = alone["auroc_compute_on_cpu"]
+            moved.update(p, t)
+            check(all(v.device.type == "cpu" for v in moved.preds + moved.target),
+                  "AUROC(compute_on_cpu=True) holds a list state off the CPU after an update")
+    sync()
+    update_s = time.perf_counter() - t0
+    values, compute_s = {}, {}
+    calls = [("collection", coll.compute)] + [(k, m.compute) for k, m in alone.items()]
+    calls.append(("dice_score", lambda: M.functional.dice_score(torch.cat([p for p, _ in data]),
+                                                                torch.cat([t for _, t in data]))))
+    for key, fn in calls:
+        sync()
+        t0 = time.perf_counter()
+        values[key] = fn()
+        sync()
+        compute_s[key] = time.perf_counter() - t0
+    return coll, alone, values, update_s, compute_s
+
+
+def coco_ranking_modules(M, device):
+    return {
+        "coverage_error": M.CoverageError(device=device),
+        "label_ranking_average_precision": M.LabelRankingAveragePrecision(device=device),
+        "label_ranking_loss": M.LabelRankingLoss(device=device),
+        "auroc_micro": M.AUROC(num_classes=COCO_CLASSES, average="micro", device=device),
+        "auroc_macro": M.AUROC(num_classes=COCO_CLASSES, device=device),
+    }
+
+
+def marco_binary_modules(M, device):
+    return {"auroc_max_fpr": M.AUROC(pos_label=1, max_fpr=MARCO_MAX_FPR, device=device),
+            "roc": M.ROC(pos_label=1, device=device)}
+
+
+def run_slice10_modules(torch, mods, device, data):
+    """Every batch of ``data`` into each of ``mods``, then each one's ``compute``: the modules, their values,
+    the update seconds and each compute's seconds."""
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for batch in data:
+        for m in mods.values():
+            m.update(*batch)
+    sync()
+    update_s = time.perf_counter() - t0
+    values, compute_s = {}, {}
+    for key, m in mods.items():
+        t0 = time.perf_counter()
+        values[key] = m.compute()
+        sync()
+        compute_s[key] = time.perf_counter() - t0
+    return mods, values, update_s, compute_s
+
+
+def numpy_macro_auroc(scores, labels):
+    """Macro one-vs-rest AUROC in float64 by the Mann-Whitney statistic:
+    average ranks (``scipy.stats.rankdata``, ties counted half) of each
+    class's scores, the positives' rank sum less its least value, over the
+    positive-negative pairs."""
+    from scipy.stats import rankdata
+
+    n, c = scores.shape
+    ranks = rankdata(np.ascontiguousarray(scores.T, dtype=np.float64), axis=1)  # (C, N)
+    n_pos = np.bincount(labels, minlength=c).astype(np.float64)
+    rank_pos = np.bincount(labels, weights=ranks[labels, np.arange(n)], minlength=c)
+    auc = (rank_pos - n_pos * (n_pos + 1) / 2) / (n_pos * (n - n_pos))
+    return float(auc.mean())
+
+
+def numpy_calibration(conf, correct, bounds):
+    """ECE and MCE in float64 from a histogram of float32 confidences over the given boundaries."""
+    n_bins = bounds.size - 1
+    idx = np.clip(np.searchsorted(bounds, conf, side="left") - 1, 0, n_bins - 1)
+    count = np.bincount(idx, minlength=n_bins).astype(np.float64)
+    conf_sum = np.bincount(idx, weights=conf.astype(np.float64), minlength=n_bins)
+    acc_sum = np.bincount(idx, weights=correct.astype(np.float64), minlength=n_bins)
+    safe = np.maximum(count, 1)
+    gap = np.abs(acc_sum / safe - conf_sum / safe)
+    return float((gap * count / count.sum()).sum()), float(gap.max())
+
+
+def numpy_partial_auc(scores, target, max_fpr):
+    """Binary partial AUC over [0, max_fpr] with the McClish correction in
+    float64: the ROC at the distinct scores (a stable descending sort), cut
+    by a linear interpolation at ``max_fpr``."""
+    order = np.argsort(-scores, kind="stable")
+    s, y = scores[order].astype(np.float64), target[order].astype(np.float64)
+    idx = np.r_[np.nonzero(np.diff(s))[0], y.size - 1]
+    tps = np.cumsum(y)[idx]
+    fps = 1 + idx - tps
+    fpr, tpr = np.r_[0.0, fps] / fps[-1], np.r_[0.0, tps] / tps[-1]
+    stop = int(np.searchsorted(fpr, max_fpr, side="right"))
+    tpr_cut = tpr[stop - 1] + (max_fpr - fpr[stop - 1]) / (fpr[stop] - fpr[stop - 1]) * (tpr[stop] - tpr[stop - 1])
+    x, yv = np.r_[fpr[:stop], max_fpr], np.r_[tpr[:stop], tpr_cut]
+    partial = float(np.sum(np.diff(x) * (yv[1:] + yv[:-1]) / 2))
+    min_area = 0.5 * max_fpr**2
+    return 0.5 * (1 + (partial - min_area) / (max_fpr - min_area))
+
+
+def numpy_ranking(scores, target):
+    """Coverage error, label ranking average precision and label ranking loss
+    in float64 (scikit-learn's definitions) for scores with no ties in a row."""
+    n, c = scores.shape
+    rel = target == 1
+    n_rel = rel.sum(1)
+    lowest_rel = np.where(rel, scores, np.inf).min(1)
+    coverage = np.where(n_rel > 0, (scores >= lowest_rel[:, None]).sum(1), 0).astype(np.float64)
+    lrap = np.ones(n)
+    loss = np.zeros(n)
+    for i in range(n):
+        if 0 < n_rel[i] < c:
+            geq = scores[i][None, :] >= scores[i][rel[i]][:, None]  # (relevant, all)
+            lrap[i] = np.mean(geq[:, rel[i]].sum(1) / geq.sum(1))
+            wrong = (scores[i][~rel[i]][None, :] > scores[i][rel[i]][:, None]).sum()
+            loss[i] = wrong / (n_rel[i] * (c - n_rel[i]))
+    return {"coverage_error": coverage.mean(), "label_ranking_average_precision": lrap.mean(),
+            "label_ranking_loss": loss.mean()}
+
+
 def evaluation_members(M, device):
     """Slice 7's eleven-member ImageNet evaluation collection (``M`` the port's package)."""
     macro = dict(num_classes=NUM_CLASSES, average="macro", device=device)
@@ -948,6 +1169,178 @@ def run_sync_ranks():
                     p.kill()
                     p.join(10)
     return [outs[r] for r in range(SYNC_RANKS)]
+
+
+def run_slice10(torch, dev, batches, coco_batches, marco_batches, laps):
+    """Slice 10 (see the module's docstring): returns the kernels' launches on its path and ``stat_scores``'s by
+    branch and shape."""
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch.ops import launches, registry, reset_launches
+
+    cpu = torch.device("cpu")
+    teacher = teacher_data(torch, torch.cat([p for p, _ in batches]))
+    teacher_batches = [teacher[i:i + BATCH] for i in range(0, N_VAL, BATCH)]
+    marco_binary = [(p, t.to(torch.int32)) for p, t, _ in marco_batches]
+    reset_launches()
+    coll10, alone10, im10, im10_update_s, im10_compute_s = run_slice10_imagenet(
+        torch, M, dev, batches, teacher_batches, on_card=True)
+    coco_mods, coco10, coco10_update_s, coco10_compute_s = run_slice10_modules(
+        torch, coco_ranking_modules(M, dev), dev, coco_batches)
+    marco_mods, marco10, marco10_update_s, marco10_compute_s = run_slice10_modules(
+        torch, marco_binary_modules(M, dev), dev, marco_binary)
+    slice10_launches = launches()
+    slice10_stat_by_shape = registry.launches_by_shape("stat_scores")
+    check(slice10_launches == {**{k: 0 for k in slice10_launches}, "stat_scores": len(batches)},
+          f"slice 10 launched {slice10_launches}, not stat_scores once a batch ({len(batches)}) and nothing else")
+    check(coll10.compute_groups == CURVE_GROUPS,
+          f"the curve collection formed the groups {coll10.compute_groups}, not the JAX package's {CURVE_GROUPS}")
+    def state_bytes(m):
+        states = [getattr(m, k) for k in m._defaults]
+        return sum(v.numel() * v.element_size() for x in states for v in (x if isinstance(x, list) else [x]))
+
+    leader_bytes = {group[0]: state_bytes(coll10[group[0]]) for group in CURVE_GROUPS.values()}
+    check(all(v.device == dev for v in coll10["auroc"].preds) and
+          sum(v.numel() * 4 for v in coll10["auroc"].preds) == N_VAL * NUM_CLASSES * 4,
+          "the AUROC group's list state does not hold the epoch's 200 MB of scores on the card")
+    moved = alone10["auroc_compute_on_cpu"]
+    check(all(v.device.type == "cpu" for v in moved.preds + moved.target), "AUROC(compute_on_cpu=True) states")
+    laps.mark("3. slice 10 on the card")
+
+    cpu_im = [(p.cpu(), t.cpu()) for p, t in batches]
+    _, _, c_im10, c_im10_update_s, c_im10_compute_s = run_slice10_imagenet(
+        torch, M, cpu, cpu_im, [q.cpu() for q in teacher_batches])
+    _, c_coco10, _, c_coco10_compute_s = run_slice10_modules(
+        torch, coco_ranking_modules(M, cpu), cpu, [(p.cpu(), t.cpu()) for p, t in coco_batches])
+    _, c_marco10, _, c_marco10_compute_s = run_slice10_modules(
+        torch, marco_binary_modules(M, cpu), cpu, [(p.cpu(), t.cpu()) for p, t in marco_binary])
+    laps.mark("3. slice 10 on the CPU")
+
+    def same_curves(a, b, what):
+        a, b = (a, b) if isinstance(a[0], list) else ([[x] for x in a], [[x] for x in b])
+        for part_a, part_b, name in zip(a, b, ("fpr", "tpr", "thresholds")):
+            check(len(part_a) == len(part_b) and all(x.dtype == y.dtype and torch.equal(x.cpu(), y)
+                                                     for x, y in zip(part_a, part_b)),
+                  f"{what}: the {name} curves differ from the CPU run")
+
+    def close(got, want, what):
+        check(bool(torch.isfinite(got).all()), f"{what} is not finite: {got}")
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0, msg=f"{what} differs from the CPU run")
+
+    for key, got in im10["collection"].items():
+        close(got, c_im10["collection"][key], f"ImageNet {key}")
+    for key in ("hinge", "kl", "kl_log_prob", "dice_score"):
+        close(im10[key], c_im10[key], f"ImageNet {key}")
+    close(im10["auroc_compute_on_cpu"], c_im10["collection"]["auroc"], "ImageNet AUROC(compute_on_cpu=True)")
+    check(im10["auroc_compute_on_cpu"].device.type == "cpu", "AUROC(compute_on_cpu=True) computed off the CPU")
+    torch.testing.assert_close(im10["auroc_compute_on_cpu"], im10["collection"]["auroc"].cpu(), rtol=1e-6, atol=0,
+                               msg="AUROC(compute_on_cpu=True) differs from the AUROC on the card")
+    same_curves(im10["roc"], c_im10["roc"], "ImageNet ROC")
+    check(len(im10["roc"][0]) == NUM_CLASSES, "ImageNet ROC is not a curve a class")
+    for key in coco10:
+        close(coco10[key], c_coco10[key], f"COCO {key}")
+    close(marco10["auroc_max_fpr"], c_marco10["auroc_max_fpr"], "MS MARCO AUROC(max_fpr=0.1)")
+    same_curves(marco10["roc"], c_marco10["roc"], "MS MARCO ROC")
+
+    # independent float64 references
+    np_scores = torch.cat([p for p, _ in cpu_im]).numpy()
+    np_labels = torch.cat([t for _, t in cpu_im]).numpy()
+    ref_auroc = numpy_macro_auroc(np_scores, np_labels)
+    np.testing.assert_allclose(float(im10["collection"]["auroc"]), ref_auroc, rtol=1e-5, atol=0,
+                               err_msg="macro AUROC differs from the float64 Mann-Whitney reference")
+    conf = np_scores.max(1)
+    correct = np_scores.argmax(1) == np_labels
+    ref_ece, ref_mce = numpy_calibration(conf, correct, coll10["ece"].bin_boundaries.cpu().numpy())
+    np.testing.assert_allclose(float(im10["collection"]["ece"]), ref_ece, rtol=1e-5, atol=0,
+                               err_msg="ECE differs from the float64 numpy histogram")
+    np.testing.assert_allclose(float(im10["collection"]["mce"]), ref_mce, rtol=1e-5, atol=0,
+                               err_msg="MCE differs from the float64 numpy histogram")
+    c0p, c0t = (x.cpu() for x in coco_batches[0])
+    check(c0p.shape[0] == RANKING_REF_ROWS, "the ranking reference's rows")
+    np_c0p = c0p.numpy()
+    check(all(np.unique(row).size == row.size for row in np_c0p), "COCO's first rows hold tied scores")
+    ref_rank = numpy_ranking(np_c0p, c0t.numpy())
+    for key, ref in ref_rank.items():
+        got = getattr(M.functional, key)(*(x.to(dev) for x in (c0p, c0t)))
+        np.testing.assert_allclose(float(got), ref, rtol=1e-5, atol=0,
+                                   err_msg=f"COCO {key} on the first {RANKING_REF_ROWS} rows differs from numpy")
+    m_np_scores = torch.cat([p for p, _ in marco_binary]).cpu().numpy()
+    m_np_target = torch.cat([t for _, t in marco_binary]).cpu().numpy()
+    ref_pauc = numpy_partial_auc(m_np_scores, m_np_target, MARCO_MAX_FPR)
+    np.testing.assert_allclose(float(marco10["auroc_max_fpr"]), ref_pauc, rtol=1e-5, atol=0,
+                               err_msg="MS MARCO partial AUC differs from the float64 numpy McClish reference")
+    print(f"slice 10 values: " + json.dumps({
+        "imagenet": {k: float(v) for k, v in im10["collection"].items()},
+        "imagenet_alone": {k: float(im10[k]) for k in ("hinge", "kl", "kl_log_prob", "dice_score", "auroc_compute_on_cpu")},
+        "coco": {k: float(v) for k, v in coco10.items()},
+        "marco_auroc_max_fpr": float(marco10["auroc_max_fpr"]), "marco_roc_points": int(marco10["roc"][0].numel()),
+        "references": {"macro_auroc_mann_whitney": ref_auroc, "ece": ref_ece, "mce": ref_mce,
+                       "marco_partial_auc": ref_pauc, **{f"coco_{k}": v for k, v in ref_rank.items()}}}))
+    print(f"slice 10: compute groups {json.dumps(coll10.compute_groups)}; group leaders' state bytes "
+          f"{json.dumps(leader_bytes)}; launches {json.dumps(slice10_launches)}, stat_scores by branch and shape "
+          f"{json.dumps(by_shape(slice10_stat_by_shape))}; every value equal to the CPU run and the references")
+    laps.mark("3. slice 10 references")
+
+    # each module's update (a full batch, fresh metric) and compute (the epoch's, timed above), and the host
+    # syncs of one more compute
+    p, t = batches[-2]
+    q = teacher_batches[-2]
+    cp, ct = coco_batches[0]
+    mp, mt = marco_binary[0]
+    update_fns = {
+        "Accuracy": (M.Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev), (p, t)),
+        "AUROC": (M.AUROC(num_classes=NUM_CLASSES, device=dev), (p, t)),
+        "CalibrationError": (M.CalibrationError(n_bins=ECE_BINS, device=dev), (p, t)),
+        "curve collection": (M.MetricCollection(curve_members(M, dev)), (p, t)),
+        "ROC": (M.ROC(num_classes=NUM_CLASSES, device=dev), (p, t)),
+        "HingeLoss": (M.HingeLoss(device=dev), (torch.log(p), t)),
+        "KLDivergence": (M.KLDivergence(device=dev), (q, p)),
+        "AUROC(compute_on_cpu=True)": (M.AUROC(num_classes=NUM_CLASSES, compute_on_cpu=True, device=dev), (p, t)),
+        "COCO CoverageError": (M.CoverageError(device=dev), (cp, ct)),
+        "COCO LabelRankingAveragePrecision": (M.LabelRankingAveragePrecision(device=dev), (cp, ct)),
+        "COCO LabelRankingLoss": (M.LabelRankingLoss(device=dev), (cp, ct)),
+        "COCO AUROC": (M.AUROC(num_classes=COCO_CLASSES, device=dev), (cp, ct)),
+        "MS MARCO AUROC(max_fpr=0.1)": (M.AUROC(pos_label=1, max_fpr=MARCO_MAX_FPR, device=dev), (mp, mt)),
+    }
+    slice10_update_ms = {k: host_ms(torch, lambda m=m, a=a: m.update(*a), reps=10) for k, (m, a) in update_fns.items()}
+    slice10_update_syncs = {k: one_call_syncs(torch, lambda m=m, a=a: m.update(*a))[0] for k, (m, a) in update_fns.items()}
+    compute_ms = {**{f"ImageNet {k}": s * 1e3 for k, s in im10_compute_s.items()},
+                  **{f"COCO {k}": s * 1e3 for k, s in coco10_compute_s.items()},
+                  **{f"MS MARCO {k}": s * 1e3 for k, s in marco10_compute_s.items()}}
+    cpu_compute_ms = {**{f"ImageNet {k}": s * 1e3 for k, s in c_im10_compute_s.items()},
+                      **{f"COCO {k}": s * 1e3 for k, s in c_coco10_compute_s.items()},
+                      **{f"MS MARCO {k}": s * 1e3 for k, s in c_marco10_compute_s.items()}}
+    # the compute_on_cpu AUROC computes on CPU tensors (9 s): no device sync to count there
+    on_card = [(f"ImageNet {k}", coll10[k]) for k in coll10.keys()]
+    on_card += [(f"ImageNet {k}", m) for k, m in alone10.items() if k != "auroc_compute_on_cpu"]
+    on_card += [(f"COCO {k}", m) for k, m in coco_mods.items()] + [(f"MS MARCO {k}", m) for k, m in marco_mods.items()]
+    compute_syncs, sync_sites, warm_compute_ms = {}, {}, {}
+    for key, m in on_card:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m._compute_impl()
+        torch.cuda.synchronize()
+        warm_compute_ms[key] = (time.perf_counter() - t0) * 1e3
+        compute_syncs[key], sites = one_call_syncs(torch, m._compute_impl)
+        if sites:
+            sync_sites[key] = sites
+    # one AUROC compute under the profiler (no warm-up step: a compute records ~50,000 device activities)
+    events, wall_us, _ = profiled(torch, coll10["auroc"]._compute_impl, 1, warmup=False)
+    auroc_busy = {"wall_ms": wall_us / 1e3, "device_ms": sum(us for _, us in events) / 1e3,
+                  "busy_share": sum(us for _, us in events) / wall_us, "activities": len(events)}
+    print("slice 10 update ms at a full batch (median of 10): " + json.dumps(slice10_update_ms))
+    print("slice 10 host syncs an update: " + json.dumps(slice10_update_syncs))
+    print(f"slice 10 epoch updates: ImageNet (collection and five standalone modules) {im10_update_s * 1e3:.1f} ms on "
+          f"the card, {c_im10_update_s * 1e3:.1f} ms on the CPU; COCO {coco10_update_s * 1e3:.1f} ms; MS MARCO "
+          f"{marco10_update_s * 1e3:.1f} ms")
+    print("slice 10 compute ms on the card (the epoch's compute, one call): " + json.dumps(compute_ms))
+    print("slice 10 compute ms on the card, a member's own compute again (one call): " + json.dumps(warm_compute_ms))
+    print("slice 10 compute ms on the CPU (plain versions): " + json.dumps(cpu_compute_ms))
+    print("slice 10 host syncs a compute (on the card): " + json.dumps(compute_syncs))
+    print(f"slice 10 compute syncs by the port's line (the first {SYNC_SITES_SAMPLED}): " + json.dumps(sync_sites))
+    print("ImageNet AUROC compute under torch.profiler: " + json.dumps(auroc_busy))
+    laps.mark("3. slice 10 timings")
+
+    return slice10_launches, slice10_stat_by_shape
 
 
 def main() -> int:
@@ -2233,6 +2626,9 @@ def main() -> int:
           "count-min within the up codec's bound), no degrade")
     laps.mark("3. slice 9: sync on four ranks")
 
+    # ------------------------------------------ 3i. slice 10: curves, calibration and ranking
+    slice10_launches, slice10_stat_by_shape = run_slice10(torch, dev, batches, coco_batches, marco_batches, laps)
+
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000
     n = p.shape[0]
@@ -2324,11 +2720,13 @@ def main() -> int:
             (lambda: cm_flat_table.index_add_(0, cm_flat, cm_w_rep), "index_add_ on precomputed cells (1 of 2+ calls)"),
         ),
     }
-    stat_path_by_shape = merged(stat_by_shape, coll_stat_by_shape, comp_stat_by_shape, engine_by_shape["stat_scores"])
+    stat_path_by_shape = merged(stat_by_shape, coll_stat_by_shape, comp_stat_by_shape, engine_by_shape["stat_scores"],
+                                slice10_stat_by_shape)
     click_by_shape = merged(click_by_shape, engine_by_shape["countmin"])
     # slice 9's launches are the four ranks' together
     path_launches = {"stat_scores": counts["stat_scores"] + coll_launches["stat_scores"] + comp_launches["macro"]
-                     + engine_path_launches["stat_scores"] + sync_launches["stat_scores"],
+                     + engine_path_launches["stat_scores"] + sync_launches["stat_scores"]
+                     + slice10_launches["stat_scores"],
                      "confusion_matrix": counts["confusion_matrix"] + seg_launches + coll_launches["confusion_matrix"]
                      + engine_path_launches["confusion_matrix"] + sync_launches["confusion_matrix"],
                      "binned_stats": sum(binned_launches.values()),

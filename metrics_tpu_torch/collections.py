@@ -290,6 +290,8 @@ class MetricCollection:
     def _fusable(self, args: tuple, kwargs: dict) -> bool:
         # the members are checked before the engine is built; changing them drops it (__setitem__)
         for m in self._modules.values() if self._dispatcher is None else ():
+            if m.compute_on_cpu or m.dist_sync_on_step:
+                return False  # a move to the host or a collective each step, which a graph does not hold
             if any(isinstance(d, list) for d in m._defaults.values()):
                 return False  # a growing list state changes the program's inputs every step
             if m._children():

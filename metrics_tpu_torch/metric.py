@@ -38,9 +38,11 @@ where it names a mesh axis. Sync never writes a state buffer: the synced
 leaves are new tensors, and ``unsync`` restores the leaves an engine's graphs
 go on from.
 
-What is not ported: telemetry (ROADMAP.md, Queue A item 10) and
-``compute_on_cpu`` (item 6); ``compute_on_cpu=True`` raises
-``NotImplementedError`` naming its item.
+``compute_on_cpu=True`` (``metrics_tpu/metric.py:848-849, 1004-1009``)
+moves every list state to the CPU after each update, so that ``compute``
+runs there; the list states still sync through the metric's env.
+
+What is not ported: telemetry (ROADMAP.md, Queue A item 10).
 
 A metric's states live on its device, ``cuda`` unless the caller passes
 ``device="cpu"``. Tensors given to ``update`` must lie on that device.
@@ -86,9 +88,6 @@ _REDUCTIONS = {
     "min": dim_zero_min,
     "cat": dim_zero_cat,
 }
-
-_LIST_STATES = "ROADMAP.md, Queue A item 6 (curve metrics, which accumulate list states)"
-
 
 def not_ported(argument: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"`{argument}` is not ported to metrics_tpu_torch yet; see {item}.")
@@ -187,6 +186,8 @@ class Metric(ABC):
 
     Args:
         device: where the states live and the updates run; ``cuda`` by default.
+        compute_on_cpu: move the list states to the CPU after each update
+            (and so run ``compute`` there).
         dist_sync_on_step: sync the states inside every ``forward`` too.
         process_group: the ``torch.distributed`` process group a sync runs
             over (the default group where None).
@@ -223,8 +224,9 @@ class Metric(ABC):
         sync_precision: Optional[str] = None,
         **kwargs: Any,
     ) -> None:
-        if compute_on_cpu:
-            raise not_ported("compute_on_cpu", _LIST_STATES)
+        if not isinstance(compute_on_cpu, bool):
+            raise ValueError(f"Expected keyword argument `compute_on_cpu` to be a bool but got {compute_on_cpu}")
+        self.compute_on_cpu = compute_on_cpu
         if not isinstance(dist_sync_on_step, bool):
             raise ValueError(f"Expected keyword argument `dist_sync_on_step` to be a bool but got {dist_sync_on_step}")
         self.dist_sync_on_step = dist_sync_on_step
@@ -682,8 +684,17 @@ class Metric(ABC):
                 with tracing():
                     update(*args, **kwargs)
             self._dispatch_stats["dispatches"] += 1
+            if self.compute_on_cpu:
+                self._move_list_states_to_cpu()
 
         return wrapped_func
+
+    def _move_list_states_to_cpu(self) -> None:
+        """Move every list state's elements to the CPU."""
+        for key in self._defaults:
+            current = getattr(self, key)
+            if isinstance(current, list):
+                object.__setattr__(self, key, [v.cpu() for v in current])
 
     def _engine_update(self, args: Tuple, kwargs: Dict) -> bool:
         """One update through the fast-dispatch engine; False where it is off,

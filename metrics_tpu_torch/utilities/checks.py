@@ -58,6 +58,15 @@ def _check_for_empty_tensors(preds: Tensor, target: Tensor) -> bool:
     return preds.numel() == 0 and target.numel() == 0
 
 
+def _check_same_shape(preds: Tensor, target: Tensor) -> None:
+    """Raise if predictions and target differ in shape."""
+    if preds.shape != target.shape:
+        raise RuntimeError(
+            f"Predictions and targets are expected to have the same shape, "
+            f"but got {tuple(preds.shape)} and {tuple(target.shape)}."
+        )
+
+
 def _basic_input_validation(
     preds: Tensor, target: Tensor, threshold: float, multiclass: Optional[bool], ignore_index: Optional[int]
 ) -> None:

@@ -92,6 +92,12 @@ def to_onehot(label_tensor: Tensor, num_classes: int) -> Tensor:
     return torch.movedim(onehot, -1, 1)
 
 
+def to_categorical(x: Tensor, argmax_dim: int = 1) -> Tensor:
+    """Probabilities or logits to the class index along ``argmax_dim`` (the
+    first of tied maxima, as ``jnp.argmax``)."""
+    return torch.argmax(x, dim=argmax_dim)
+
+
 def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     """int32 mask of the ``topk`` highest entries along ``dim``."""
     moved = torch.movedim(prob_tensor, dim, -1)

@@ -290,7 +290,8 @@ def test_mode_change_is_refused_like_jax():
 @pytest.mark.parametrize(
     "kwargs,item,refusal",
     [
-        ({"compute_on_cpu": True}, "curve metrics", (NotImplementedError, "ROADMAP.md.*curve metrics")),
+        # compute_on_cpu is ported with the curve metrics (ROADMAP.md, Queue A item 6): taken, as in the JAX package
+        ({"compute_on_cpu": True}, "curve metrics", None),
         # distributed sync is ported (ROADMAP.md, Queue A item 5): its options are taken, as in the JAX package
         ({"sync_env": metrics_tpu_torch.parallel.NoOpEnv()}, "distributed sync", None),
         ({"dist_sync_fn": lambda x, env: [x]}, "distributed sync", None),
@@ -306,7 +307,7 @@ def test_mode_change_is_refused_like_jax():
 )
 def test_unported_options_raise_naming_the_roadmap_item(kwargs, item, refusal):
     """An option of a module not ported yet raises naming its ROADMAP.md item;
-    the distributed-sync options are ported and taken."""
+    ``compute_on_cpu`` and the distributed-sync options are ported and taken."""
     if refusal is not None:
         with pytest.raises(refusal[0], match=refusal[1]):
             metrics_tpu_torch.ConfusionMatrix(num_classes=3, device="cpu", **kwargs)

@@ -728,3 +728,84 @@ def test_compute_values_keep_their_values_across_reset_and_replays(card, kind):
             assert torch.equal(got, want)
     stats = m.dispatch_stats
     assert stats["retraces"] >= 1 and stats["demotions"] == 0
+
+
+# ------------------------------------------- slice 10: curves, calibration, ranking
+def _slice10_runs(device):
+    """Every slice-10 module on one seeded epoch on ``device``: the values on the CPU."""
+    rng = np.random.RandomState(40)
+    logits = rng.randn(3, 100, 12).astype(np.float32)
+    scores = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    labels = rng.randint(0, 12, (3, 100))
+    ml_target = rng.randint(0, 2, (3, 100, 12))
+    binary = np.round(rng.rand(3, 100) * 16) / 16
+    bin_target = rng.randint(0, 2, (3, 100))
+    M = metrics_tpu_torch
+    mods = {
+        "auroc": M.AUROC(num_classes=12, device=device),
+        "auroc_weighted": M.AUROC(num_classes=12, average="weighted", device=device),
+        "auroc_ml_micro": M.AUROC(num_classes=12, average="micro", device=device),
+        "auroc_pauc": M.AUROC(pos_label=1, max_fpr=0.1, device=device),
+        "roc": M.ROC(num_classes=12, device=device),
+        "ece": M.CalibrationError(device=device),
+        "rmsce": M.CalibrationError(norm="l2", device=device),
+        "hinge": M.HingeLoss(device=device),
+        "kl": M.KLDivergence(device=device),
+        "kl_none": M.KLDivergence(reduction="none", device=device),
+        "coverage": M.CoverageError(device=device),
+        "lrap": M.LabelRankingAveragePrecision(device=device),
+        "lrl": M.LabelRankingLoss(device=device),
+    }
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    for b in range(3):
+        s, y = t(scores[b]), t(labels[b])
+        for key in ("auroc", "auroc_weighted", "roc", "ece", "rmsce"):
+            mods[key].update(s, y)
+        mods["auroc_ml_micro"].update(s, t(ml_target[b]))
+        mods["auroc_pauc"].update(t(binary[b].astype(np.float32)), t(bin_target[b]))
+        mods["hinge"].update(torch.log(s), y)
+        mods["kl"].update(s, t(scores[(b + 1) % 3]))
+        mods["kl_none"].update(s, t(scores[(b + 1) % 3]))
+        for key in ("coverage", "lrap", "lrl"):
+            mods[key].update(s, t(ml_target[b]))
+    out = {}
+    for key, m in mods.items():
+        v = m.compute()
+        out[key] = [[c.cpu() for c in x] for x in v] if key == "roc" else v.cpu()
+    out["dice"] = metrics_tpu_torch.functional.dice_score(t(scores.reshape(-1, 12)), t(labels.reshape(-1))).cpu()
+    out["auc"] = metrics_tpu_torch.functional.auc(t(np.linspace(0, 1, 50, dtype=np.float32)), t(rng.rand(50).astype(np.float32))).cpu()
+    return out
+
+
+def test_slice10_modules_on_the_card_equal_the_cpu(card):
+    cpu, gpu = _slice10_runs("cpu"), _slice10_runs(card)
+    for key in cpu:
+        if key == "roc":
+            for a, b in zip(cpu[key], gpu[key]):  # fpr, tpr and thresholds a class: the same curves
+                for x, y in zip(a, b):
+                    assert torch.equal(x, y), key
+            continue
+        torch.testing.assert_close(gpu[key], cpu[key], rtol=1e-6, atol=0, msg=key)
+
+
+def test_compute_on_cpu_moves_the_list_states_off_the_card(card):
+    rng = np.random.RandomState(41)
+    batches = [(torch.from_numpy(rng.rand(64, 6).astype(np.float32)).to(card), torch.from_numpy(rng.randint(0, 6, 64)).to(card))
+               for _ in range(3)]
+    on_card = metrics_tpu_torch.AUROC(num_classes=6, device=card)
+    moved = metrics_tpu_torch.AUROC(num_classes=6, compute_on_cpu=True, device=card)
+    ce = metrics_tpu_torch.CalibrationError(compute_on_cpu=True, device=card)
+    assert ce.bin_boundaries.device.type == "cuda"
+    for p, t in batches:
+        on_card.update(p, t)
+        moved.update(p, t)
+        ce.update(p, t)
+        assert all(v.device.type == "cpu" for v in moved.preds + moved.target + ce.confidences)
+    value = moved.compute()
+    assert value.device.type == "cpu"
+    torch.testing.assert_close(value, on_card.compute().cpu(), rtol=1e-6, atol=0)
+    ce_card = metrics_tpu_torch.CalibrationError(device="cpu").to(card)  # the boundaries follow .to()
+    assert ce_card.bin_boundaries.device.type == "cuda"
+    for p, t in batches:
+        ce_card.update(p, t)
+    torch.testing.assert_close(ce.compute(), ce_card.compute().cpu(), rtol=1e-6, atol=0)

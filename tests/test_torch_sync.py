@@ -16,6 +16,7 @@ states and ``sync_stats`` must be equal; float states agree to rtol 1e-6
 (float32 sums of a few values in another order), and so do float values.
 """
 import threading
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -734,3 +735,61 @@ def test_constructor_checks_like_jax():
         MetricCollection([metrics_tpu_torch.SumMetric(device="cpu")], sync_precision="fp8")
     with pytest.raises(ValueError, match="scalar default"):
         TorchVec().add_state("bad", 0.0, shard_state="world")
+
+
+# ------------------------------------------------- compute_on_cpu, fused fallback
+@pytest.mark.parametrize("member", ["dist_sync_on_step", "compute_on_cpu"])
+def test_fused_collection_serves_a_member_that_syncs_on_step_or_moves_to_the_cpu_eagerly_like_jax(member):
+    """A member with ``dist_sync_on_step`` or ``compute_on_cpu`` keeps the
+    collection off the fused engine, as in the JAX package
+    (``metrics_tpu/collections.py:283``). Before that exclusion the fused
+    forward gave ``s`` the unsynced batch value, 3.0, where the eager forward
+    and the JAX package give the synced 6.0."""
+    x = np.array([1.0, 2.0], np.float32)
+    kw = {"dist_sync_on_step": True} if member == "dist_sync_on_step" else {"compute_on_cpu": True}
+    values, fused_calls = {}, {}
+    for fused in (False, True):
+        mc = MetricCollection({"s": metrics_tpu_torch.SumMetric(sync_env=TorchFake2(), device="cpu", **kw),
+                               "t": metrics_tpu_torch.SumMetric(device="cpu")}, fused_update=fused)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the explicit fused_update=True hears of the fallback
+            values[fused] = {k: np_of(v) for k, v in mc(torch.from_numpy(x)).items()}
+        fused_calls[fused] = mc.forward_stats.get("launches", 0)
+    jm = metrics_tpu.MetricCollection({"s": metrics_tpu.SumMetric(sync_env=JaxFake2(), **kw),
+                                       "t": metrics_tpu.SumMetric()}, fused_update=True)
+    jv = jm(jnp.asarray(x))
+    want_s = 6.0 if member == "dist_sync_on_step" else 3.0
+    for fused in (False, True):
+        assert float(values[fused]["s"]) == float(jv["s"]) == want_s
+        assert float(values[fused]["t"]) == float(jv["t"]) == 3.0
+    assert fused_calls[True] == 0
+
+
+def test_compute_on_cpu_list_states_sync_through_the_env_like_jax():
+    """``compute_on_cpu`` list states, on the CPU after every update, sync
+    through the metric's env: a loopback env against the JAX package's, and
+    two rank threads against one metric over both ranks' data."""
+    rng = np.random.RandomState(30)
+    # int32 labels: the JAX package holds them so (x64 off), and the bytes on the wire are compared
+    data = [[(rng.rand(20, 4).astype(np.float32), rng.randint(0, 4, 20).astype(np.int32)) for _ in range(2)]
+            for _ in range(2)]
+    jm = metrics_tpu.AUROC(num_classes=4, compute_on_cpu=True, sync_env=JaxFake2())
+    tm = metrics_tpu_torch.AUROC(num_classes=4, compute_on_cpu=True, sync_env=TorchFake2(), device="cpu")
+    for p, t in data[0]:
+        jm.update(jnp.asarray(p), jnp.asarray(t))
+        tm.update(torch.from_numpy(p), torch.from_numpy(t))
+    np.testing.assert_allclose(np_of(tm.compute()), np_of(jm.compute()), rtol=1e-5, atol=0)
+    assert tm.sync_stats == jm.sync_stats and tm.sync_stats["collectives"] > 0
+    assert all(v.device.type == "cpu" for v in tm.preds) and len(tm.preds) == 2  # local again after compute
+
+    def rank_fn(rank, env):
+        m = metrics_tpu_torch.AUROC(num_classes=4, compute_on_cpu=True, sync_env=env, device="cpu")
+        for p, t in data[rank]:
+            m.update(torch.from_numpy(p), torch.from_numpy(t))
+        return np_of(m.compute())
+
+    whole = metrics_tpu.AUROC(num_classes=4)
+    for p, t in data[0] + data[1]:
+        whole.update(jnp.asarray(p), jnp.asarray(t))
+    for value in run_ranks(rank_fn, TorchPair):
+        np.testing.assert_allclose(value, np_of(whole.compute()), rtol=1e-5, atol=0)
