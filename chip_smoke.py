@@ -152,8 +152,39 @@
    Mann-Whitney reference from ``scipy.stats.rankdata``, ECE and MCE a
    float64 numpy histogram, the ranking trio numpy on COCO's first 1,024 rows
    and the partial AUC a float64 numpy McClish reference (rtol 1e-5). Each
-   module's update and compute are timed and its host syncs counted.
-4. Times each kernel, its plain version and the one PyTorch library call
+   module's update and compute are timed and its host syncs counted. Slice 11,
+   regression and pairwise, at each dataset's published size: the NYU-Depth v2
+   test split (654 depth maps of 480 x 640, 0.5-10 m, predictions the target
+   times log-normal noise, an image an update) through a ``MetricCollection``
+   of MSE, RMSE, MAE, MSLE, MAPE (AbsRel), R2 and explained variance, eager,
+   with ``fused_update=True`` and with its members on ``jit_update=True``
+   (the JAX package's six compute groups: MSE and RMSE share their states;
+   both engine paths bit-equal to eager), and its surface normals (307,200 x 3
+   an image) through ``R2Score(num_outputs=3, multioutput="variance_weighted")``
+   and ``ExplainedVariance(multioutput="raw_values")``; GLUE STS-B dev (1,500
+   pairs of 768-d embeddings, gold 0-5 in steps of 0.2) through
+   ``PearsonCorrCoef``, ``SpearmanCorrCoef`` (also ``compute_on_cpu=True``)
+   and ``CosineSimilarity``, in updates of 32; KonIQ-10k (10,073 MOS, the
+   predictions on a 1/256 grid) through PLCC and SROCC, and Pearson in four
+   contiguous quarters whose states, stacked in rank order as a sync's gather
+   stacks them, must merge to the single instance's value (rtol 1e-5); the M4
+   competition's test horizons (100,000 series, 1,277,717 points, an update a
+   frequency) through SMAPE, MAPE and WMAPE; freMTPL2 (678,013 policies, ~96%
+   without a claim, ``TweedieDevianceScore(power=1)``; 26,639 claim amounts,
+   ``power=2`` and ``1.5``) eager and with ``jit_update=True`` (bit-equal);
+   MS MARCO dense scoring (6,980 queries of 768 floats against 65,536
+   passages) through the pairwise cosine, euclidean and linear functionals
+   with ``reduction=None`` and ``"mean"``, the queries against themselves
+   (the diagonal zeroed), and manhattan at 1,024 x 8,192 x 768 in row blocks,
+   with TF32 off throughout. No kernel of the registry may launch. The values
+   must equal the CPU run (NYU-Depth on its first 64 images, the card on the
+   same images; rtol 1e-6, counts and Spearman's ranks bit for bit), float64
+   closed forms (rtol 1e-5; Tweedie 1e-4), ``scipy.stats.pearsonr`` and
+   ``spearmanr`` (rtol 1e-5), and the first 64 rows of each dense matrix
+   float64 numpy and the CPU run within float32's bound for the formula. Each
+   path's update (eager, fused and engine in turns), compute and epoch are
+   timed, host syncs counted, and the depth update's busy share profiled.
+4. Times each kernel, itsplain version and the one PyTorch library call
    that computes the same function (``binned_stats``, ``retrieval_sort``
    and ``countmin`` have none, so a yardstick is timed and named instead)
    at the slices' shapes with CUDA events (median of 25 repetitions),
@@ -252,6 +283,25 @@ TEACHER_NOISE = 0.5
 MARCO_MAX_FPR = 0.1
 RANKING_REF_ROWS = 1024
 SYNC_SITES_SAMPLED = 200  # the syncs of a compute whose line in the port is looked up
+
+# slice 11: regression and pairwise at the datasets' published sizes
+NYU_IMAGES, NYU_H, NYU_W = 654, 480, 640  # NYU-Depth v2 test split, an image an update
+NYU_DEPTH_M, NYU_LOG_NOISE, NYU_NORMAL_NOISE = (0.5, 10.0), 0.1, 0.2  # depth in metres; prediction noise
+NYU_CPU_IMAGES = 64  # the CPU rerun's contiguous run of images (the card runs all 654)
+STSB_PAIRS, STSB_BATCH, STSB_LEVELS, STSB_NOISE = 1500, 32, 26, 0.15  # GLUE STS-B dev: gold 0-5 in steps of 0.2
+EMBED_DIM = 768
+KONIQ_IMAGES, KONIQ_BATCH, KONIQ_NOISE, KONIQ_QUARTERS = 10_073, 1024, 0.35, 4  # KonIQ-10k, MOS 1-5
+M4_HORIZONS = {"yearly": (23_000, 6), "quarterly": (24_000, 8), "monthly": (48_000, 18), "weekly": (359, 13),
+               "daily": (4_227, 14), "hourly": (414, 48)}  # M4 competition: series, test horizon
+M4_POINTS, M4_NOISE = 1_277_717, 0.12
+FREMTPL_POLICIES, FREMTPL_CLAIMS, FREMTPL_BATCH, FREMTPL_RATE = 678_013, 26_639, 65_536, 0.07  # freMTPL2
+DENSE_QUERIES, DENSE_PASSAGES, DENSE_REF_ROWS = 6980, 65_536, 64  # MS MARCO dev queries against a passage shard
+MANHATTAN_SHAPE = (1024, 8192, 768)
+PAIRWISE = {"cosine": "pairwise_cosine_similarity", "euclidean": "pairwise_euclidean_distance",
+            "linear": "pairwise_linear_similarity", "manhattan": "pairwise_manhattan_distance"}
+# the compute groups the JAX package forms for the depth collection (tests/test_torch_collections.py holds the
+# port's groups equal to them on the CPU)
+DEPTH_GROUPS = {0: ["abs_rel"], 1: ["explained_variance"], 2: ["mae"], 3: ["mse", "rmse"], 4: ["msle"], 5: ["r2"]}
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -821,7 +871,7 @@ def marco_binary_modules(M, device):
             "roc": M.ROC(pos_label=1, device=device)}
 
 
-def run_slice10_modules(torch, mods, device, data):
+def run_modules(torch, mods, device, data):
     """Every batch of ``data`` into each of ``mods``, then each one's ``compute``: the modules, their values,
     the update seconds and each compute's seconds."""
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -1184,9 +1234,9 @@ def run_slice10(torch, dev, batches, coco_batches, marco_batches, laps):
     reset_launches()
     coll10, alone10, im10, im10_update_s, im10_compute_s = run_slice10_imagenet(
         torch, M, dev, batches, teacher_batches, on_card=True)
-    coco_mods, coco10, coco10_update_s, coco10_compute_s = run_slice10_modules(
+    coco_mods, coco10, coco10_update_s, coco10_compute_s = run_modules(
         torch, coco_ranking_modules(M, dev), dev, coco_batches)
-    marco_mods, marco10, marco10_update_s, marco10_compute_s = run_slice10_modules(
+    marco_mods, marco10, marco10_update_s, marco10_compute_s = run_modules(
         torch, marco_binary_modules(M, dev), dev, marco_binary)
     slice10_launches = launches()
     slice10_stat_by_shape = registry.launches_by_shape("stat_scores")
@@ -1209,9 +1259,9 @@ def run_slice10(torch, dev, batches, coco_batches, marco_batches, laps):
     cpu_im = [(p.cpu(), t.cpu()) for p, t in batches]
     _, _, c_im10, c_im10_update_s, c_im10_compute_s = run_slice10_imagenet(
         torch, M, cpu, cpu_im, [q.cpu() for q in teacher_batches])
-    _, c_coco10, _, c_coco10_compute_s = run_slice10_modules(
+    _, c_coco10, _, c_coco10_compute_s = run_modules(
         torch, coco_ranking_modules(M, cpu), cpu, [(p.cpu(), t.cpu()) for p, t in coco_batches])
-    _, c_marco10, _, c_marco10_compute_s = run_slice10_modules(
+    _, c_marco10, _, c_marco10_compute_s = run_modules(
         torch, marco_binary_modules(M, cpu), cpu, [(p.cpu(), t.cpu()) for p, t in marco_binary])
     laps.mark("3. slice 10 on the CPU")
 
@@ -1341,6 +1391,485 @@ def run_slice10(torch, dev, batches, coco_batches, marco_batches, laps):
     laps.mark("3. slice 10 timings")
 
     return slice10_launches, slice10_stat_by_shape
+
+
+def slice11_data(torch, dev):
+    """Every slice-11 dataset at its published size, made on ``dev`` from one seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=dev)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def unit(x):
+        return x / torch.linalg.norm(x, dim=-1, keepdim=True)
+
+    lo, hi = NYU_DEPTH_M
+    pixels = NYU_H * NYU_W
+    depth_t = lo + (hi - lo) * rand(NYU_IMAGES, pixels)
+    depth_p = depth_t * torch.exp(NYU_LOG_NOISE * randn(NYU_IMAGES, pixels))
+    normals_t = unit(randn(NYU_IMAGES, pixels, 3))
+    normals_p = unit(normals_t + NYU_NORMAL_NOISE * randn(NYU_IMAGES, pixels, 3))
+    gold = torch.randint(0, STSB_LEVELS, (STSB_PAIRS,), generator=g, device=dev).float() * 0.2
+    agree = (gold / 5 + STSB_NOISE * randn(STSB_PAIRS)).clamp(0, 1)
+    emb_a = randn(STSB_PAIRS, EMBED_DIM)
+    emb_b = agree[:, None] * emb_a + torch.sqrt(1 - agree * agree)[:, None] * randn(STSB_PAIRS, EMBED_DIM)
+    # the model's score of each pair: its embeddings' cosine, computed once so that every run ranks the same bits
+    similarity = (emb_a * emb_b).sum(1) / (torch.linalg.norm(emb_a, dim=1) * torch.linalg.norm(emb_b, dim=1))
+    mos = 1 + 4 * rand(KONIQ_IMAGES)
+    koniq_pred = (torch.round((mos + KONIQ_NOISE * randn(KONIQ_IMAGES)) * 256) / 256).clamp(1, 5)
+    m4 = {}
+    for name, (series, horizon) in M4_HORIZONS.items():
+        level = torch.exp(math.log(10.0) + math.log(1000.0) * rand(series, 1))
+        steps = torch.arange(horizon, device=dev, dtype=torch.float32)
+        season = 0.1 * torch.sin(0.7 * steps + 2 * math.pi * rand(series, 1))
+        target = level * (1 + season + 0.03 * randn(series, horizon))
+        m4[name] = (target * torch.exp(M4_NOISE * randn(series, horizon)), target)
+    exposure = 0.05 + 0.95 * rand(FREMTPL_POLICIES)
+    rate = exposure * FREMTPL_RATE * torch.exp(0.5 * randn(FREMTPL_POLICIES))
+    claims = torch.poisson(rate, generator=g)
+    frequency = (rate * torch.exp(0.3 * randn(FREMTPL_POLICIES)), claims)
+    severity = (torch.exp(7.5 + 0.6 * randn(FREMTPL_CLAIMS)), torch.exp(7.5 + 1.2 * randn(FREMTPL_CLAIMS)))
+    return {
+        "depth": (depth_p, depth_t), "normals": (normals_p, normals_t), "stsb": (emb_a, emb_b, similarity, gold),
+        "koniq": (koniq_pred, mos), "m4": m4, "frequency": frequency, "severity": severity,
+        "dense": (randn(DENSE_QUERIES, EMBED_DIM), randn(DENSE_PASSAGES, EMBED_DIM)),
+    }
+
+
+def depth_members(M, device, **kwargs):
+    """Slice 11's NYU-Depth v2 collection; its keys are those of ``tests/test_torch_collections.py``, which
+    holds the port's compute groups equal to the JAX package's."""
+    return {
+        "mse": M.MeanSquaredError(device=device, **kwargs),
+        "rmse": M.MeanSquaredError(squared=False, device=device, **kwargs),
+        "mae": M.MeanAbsoluteError(device=device, **kwargs),
+        "msle": M.MeanSquaredLogError(device=device, **kwargs),
+        "abs_rel": M.MeanAbsolutePercentageError(device=device, **kwargs),
+        "r2": M.R2Score(device=device, **kwargs),
+        "explained_variance": M.ExplainedVariance(device=device, **kwargs),
+    }
+
+
+def depth_collection(M, device, mode):
+    """The depth collection as ``mode`` runs it: ``eager`` (the eager loop), ``fused`` (one graph an update)
+    or ``engine`` (the eager loop over members with ``jit_update=True``)."""
+    return M.MetricCollection(depth_members(M, device, **({"jit_update": True} if mode == "engine" else {})),
+                              prefix="depth_", fused_update=mode == "fused")
+
+
+def normals_modules(M, device):
+    return {"r2_variance_weighted": M.R2Score(num_outputs=3, multioutput="variance_weighted", device=device),
+            "explained_variance_raw": M.ExplainedVariance(multioutput="raw_values", device=device)}
+
+
+def stsb_scores(M, device):
+    return {"pearson": M.PearsonCorrCoef(device=device), "spearman": M.SpearmanCorrCoef(device=device),
+            "spearman_compute_on_cpu": M.SpearmanCorrCoef(compute_on_cpu=True, device=device)}
+
+
+def slice11_counts(mods):
+    """Every integer state of the slice's modules, as ``("path module.state", tensor)`` in a fixed order."""
+    out = []
+    for path, modules in mods.items():
+        for name, m in modules.items():
+            members = m.items(keep_base=True) if hasattr(m, "compute_groups") else [(name, m)]
+            for key, member in members:
+                out += [(f"{path} {key}.{s}", getattr(member, s)) for s in member._defaults
+                        if not isinstance(getattr(member, s), list) and not getattr(member, s).is_floating_point()]
+    return out
+
+
+def run_slice11_paths(torch, M, device, data, images=None, modes=("eager", "fused", "engine")):
+    """Slice 11's module paths on ``device`` (``data`` lying there), NYU-Depth v2 on its first ``images``
+    images (all by default) in each of ``modes``: the modules by path, their values, and each path's update
+    and compute seconds."""
+    mods, values, update_s, compute_s = {}, {}, {}, {}
+
+    def path(name, *parts):
+        """``parts``: ``(modules, pairs)`` each, run one after the other; their results together under ``name``."""
+        mods[name], values[name], update_s[name], compute_s[name] = {}, {}, 0.0, {}
+        for modules, pairs in parts:
+            m, v, u, c = run_modules(torch, modules, device, pairs)
+            mods[name].update(m)
+            values[name].update(v)
+            update_s[name] += u
+            compute_s[name].update(c)
+
+    depth_pairs = list(zip(*(x[:images] for x in data["depth"])))
+    for mode in modes:
+        path(f"depth_{mode}", ({"collection": depth_collection(M, device, mode)}, depth_pairs))
+    path("normals", (normals_modules(M, device), list(zip(*(x[:images] for x in data["normals"])))))
+    emb_a, emb_b, similarity, gold = data["stsb"]
+    batches = [slice(i, i + STSB_BATCH) for i in range(0, STSB_PAIRS, STSB_BATCH)]
+    path("stsb", (stsb_scores(M, device), [(similarity[b], gold[b]) for b in batches]),
+         ({"cosine_mean": M.CosineSimilarity(reduction="mean", device=device)},
+          [(emb_a[b], emb_b[b]) for b in batches]))
+    pred, mos = data["koniq"]
+    koniq_pairs = [(pred[i:i + KONIQ_BATCH], mos[i:i + KONIQ_BATCH]) for i in range(0, KONIQ_IMAGES, KONIQ_BATCH)]
+    path("koniq", ({"plcc": M.PearsonCorrCoef(device=device), "srocc": M.SpearmanCorrCoef(device=device)}, koniq_pairs))
+    # Pearson in four contiguous quarters, their states stacked in rank order as a sync's gather stacks them
+    bounds = [round(k * KONIQ_IMAGES / KONIQ_QUARTERS) for k in range(KONIQ_QUARTERS + 1)]
+    quarters = [M.PearsonCorrCoef(device=device) for _ in range(KONIQ_QUARTERS)]
+    for q, (a, b) in zip(quarters, zip(bounds, bounds[1:])):
+        for i in range(a, b, KONIQ_BATCH):
+            q.update(pred[i:min(i + KONIQ_BATCH, b)], mos[i:min(i + KONIQ_BATCH, b)])
+    merged = M.PearsonCorrCoef(device=device)
+    values["koniq"]["plcc_quarters_merged"] = merged.pure_compute(
+        {key: torch.stack([getattr(q, key) for q in quarters]) for key in merged._defaults})
+    path("m4", ({"smape": M.SymmetricMeanAbsolutePercentageError(device=device),
+                 "mape": M.MeanAbsolutePercentageError(device=device),
+                 "wmape": M.WeightedMeanAbsolutePercentageError(device=device)}, list(data["m4"].values())))
+    freq_p, freq_t = data["frequency"]
+    freq_pairs = [(freq_p[i:i + FREMTPL_BATCH], freq_t[i:i + FREMTPL_BATCH])
+                  for i in range(0, FREMTPL_POLICIES, FREMTPL_BATCH)]
+    for jit in (False, True):
+        path(f"fremtpl_{'engine' if jit else 'eager'}",
+             ({"frequency_p1": M.TweedieDevianceScore(power=1, jit_update=jit, device=device)}, freq_pairs),
+             ({"severity_p2": M.TweedieDevianceScore(power=2, jit_update=jit, device=device),
+               "severity_p1.5": M.TweedieDevianceScore(power=1.5, jit_update=jit, device=device)}, [data["severity"]]))
+    return mods, values, update_s, compute_s
+
+
+def numpy_depth(preds, target):
+    """The closed forms of the depth collection's seven values in float64, summed image by image (each
+    image's pair of tensors moved to the host in turn)."""
+    s = dict.fromkeys(("e", "ee", "t", "tt", "ae", "l", "ape"), 0.0)
+    for p, t in zip(preds, target):
+        p, t = p.cpu().numpy().astype(np.float64), t.cpu().numpy().astype(np.float64)
+        e = t - p
+        s["e"] += e.sum()
+        s["ee"] += e @ e
+        s["t"] += t.sum()
+        s["tt"] += t @ t
+        s["ae"] += np.abs(e).sum()
+        s["l"] += ((np.log1p(p) - np.log1p(t)) ** 2).sum()
+        s["ape"] += (np.abs(e) / np.abs(t)).sum()
+    n = preds.numel()
+    mse = s["ee"] / n
+    return {"mse": mse, "rmse": math.sqrt(mse), "mae": s["ae"] / n, "msle": s["l"] / n, "abs_rel": s["ape"] / n,
+            "r2": 1 - s["ee"] / (s["tt"] - s["t"] ** 2 / n),
+            "explained_variance": 1 - (mse - (s["e"] / n) ** 2) / (s["tt"] / n - (s["t"] / n) ** 2)}
+
+
+def numpy_normals(preds, target):
+    """R2 (variance weighted) and explained variance (per column) of the normals in float64."""
+    s = {k: np.zeros(3) for k in ("e", "ee", "t", "tt")}
+    for p, t in zip(preds, target):
+        # (3, pixels), each column's values contiguous
+        p, t = (np.ascontiguousarray(x.cpu().numpy().T, dtype=np.float64) for x in (p, t))
+        e = t - p
+        s["e"] += e.sum(1)
+        s["ee"] += np.einsum("ij,ij->i", e, e)
+        s["t"] += t.sum(1)
+        s["tt"] += np.einsum("ij,ij->i", t, t)
+    n = preds.shape[0] * preds.shape[1]
+    tss = s["tt"] - s["t"] ** 2 / n
+    r2 = 1 - s["ee"] / tss
+    ev = 1 - (s["ee"] / n - (s["e"] / n) ** 2) / (s["tt"] / n - (s["t"] / n) ** 2)
+    return {"r2_variance_weighted": float((tss / tss.sum() * r2).sum()), "explained_variance_raw": ev}
+
+
+def numpy_tweedie(preds, target, power):
+    """The mean Tweedie deviance in float64."""
+    p, t = preds.astype(np.float64), target.astype(np.float64)
+    if power == 1:
+        d = 2 * (np.where(t > 0, t * np.log(np.where(t > 0, t, 1) / p), 0.0) + p - t)
+    elif power == 2:
+        d = 2 * (np.log(p / t) + t / p - 1)
+    else:
+        d = 2 * (np.maximum(t, 0) ** (2 - power) / ((1 - power) * (2 - power)) - t * p ** (1 - power) / (1 - power)
+                 + p ** (2 - power) / (2 - power))
+    return float(d.mean())
+
+
+def numpy_pairwise(fn, x, y):
+    """``fn``'s float64 formula (see ``tests/test_torch_pairwise.py``)."""
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    if fn == "cosine":
+        return (x / np.linalg.norm(x, axis=1, keepdims=True)) @ (y / np.linalg.norm(y, axis=1, keepdims=True)).T
+    if fn == "euclidean":
+        return np.sqrt(np.maximum((x * x).sum(1)[:, None] + (y * y).sum(1)[None] - 2 * x @ y.T, 0))
+    if fn == "linear":
+        return x @ y.T
+    return np.concatenate([np.abs(x[i:i + 4, None, :] - y[None]).sum(-1) for i in range(0, x.shape[0], 4)])
+
+
+def pairwise_bound(fn, x, y, ref):
+    """The absolute bound of two float32 evaluations of ``fn`` (``tests/test_torch_pairwise.py``), with
+    1e-6 on top: a dot product's ``D 2**-23 |x| |y|`` (of unit rows for cosine), euclidean's square root
+    of ``(D + 2) 2**-22 (|x|^2 + |y|^2)``, and manhattan's ``D 2**-23`` of its value ``ref`` (a sum of
+    non-negative terms)."""
+    d = x.shape[1]
+    nx = np.linalg.norm(x.astype(np.float64), axis=1)[:, None]
+    ny = np.linalg.norm(y.astype(np.float64), axis=1)[None]
+    if fn in ("linear", "cosine"):
+        return d * 2.0**-23 * (nx * ny if fn == "linear" else 1.0) + 1e-6
+    if fn == "euclidean":
+        return np.sqrt((d + 2) * 2.0**-22 * (nx**2 + ny**2)) + 1e-6
+    return d * 2.0**-23 * np.abs(ref) + 1e-6
+
+
+def run_slice11_dense(torch, M, dev, queries, passages):
+    """MS MARCO dense scoring on ``dev``: the first ``DENSE_REF_ROWS`` rows of every matrix, the mean
+    reductions, and each call's seconds; the checks that need the whole matrix run here."""
+    calls = {name: getattr(M.functional, fn) for name, fn in PAIRWISE.items() if name != "manhattan"}
+    rows, means, seconds = {}, {}, {}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def timed(key, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        seconds[key] = time.perf_counter() - t0
+        return out
+
+    for name, fn in calls.items():
+        check(not torch.backends.cuda.matmul.allow_tf32, f"TF32 is on before pairwise {name}")
+        full = timed(f"{name} ({queries.shape[0]}, {passages.shape[0]})", lambda: fn(queries, passages))
+        mean = timed(f"{name} mean", lambda: fn(queries, passages, reduction="mean"))
+        check(not torch.backends.cuda.matmul.allow_tf32, f"pairwise {name} turned TF32 on")
+        check(full.shape == (queries.shape[0], passages.shape[0]) and bool(torch.isfinite(full).all()),
+              f"pairwise {name} is not a finite (Q, P) matrix")
+        check(torch.equal(mean, full.mean(-1)), f"pairwise {name}'s mean reduction is not its matrix's row mean")
+        rows[name], means[name] = full[:DENSE_REF_ROWS], mean
+        del full
+        own = timed(f"{name} self ({queries.shape[0]}, {queries.shape[0]})", lambda: fn(queries))
+        check(torch.equal(torch.diagonal(own), torch.zeros(queries.shape[0], device=dev)),
+              f"pairwise {name} of the queries alone does not zero its diagonal")
+        rows[f"{name}_self"] = own[:DENSE_REF_ROWS]
+        del own
+    mq, mp, _ = MANHATTAN_SHAPE
+    full = timed(f"manhattan {MANHATTAN_SHAPE}",
+                 lambda: M.functional.pairwise_manhattan_distance(queries[:mq], passages[:mp]))
+    check(bool(torch.isfinite(full).all()), "pairwise manhattan is not finite")
+    rows["manhattan"], means["manhattan"] = full[:DENSE_REF_ROWS], full.mean(-1)
+    return rows, means, seconds
+
+
+def run_slice11(torch, dev, laps):
+    """Slice 11 (see the module's docstring): returns the kernels' launches on its path (all 0)."""
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch.functional.regression.spearman import _rank_data
+    from metrics_tpu_torch.ops import launches, reset_launches
+    from scipy.stats import pearsonr, spearmanr
+
+    cpu = torch.device("cpu")
+    data = slice11_data(torch, dev)
+    torch.cuda.synchronize()
+    laps.mark("3. slice 11 data")
+    reset_launches()
+    mods, values, update_s, compute_s = run_slice11_paths(torch, M, dev, data)
+    rows, means, dense_s = run_slice11_dense(torch, M, dev, *data["dense"])
+    slice11_launches = launches()
+    check(all(n == 0 for n in slice11_launches.values()), f"slice 11 launched a kernel: {slice11_launches}")
+    groups = mods["depth_eager"]["collection"].compute_groups
+    check(groups == DEPTH_GROUPS, f"the depth collection formed the groups {groups}, not the JAX package's "
+          f"{DEPTH_GROUPS}")
+    for mode in ("fused", "engine"):
+        got, want = values[f"depth_{mode}"]["collection"], values["depth_eager"]["collection"]
+        check(list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want),
+              f"the depth collection's {mode} values are not the eager loop's bits")
+        members = mods[f"depth_{mode}"]["collection"]
+        for key, m in members.items(keep_base=True):
+            e = mods["depth_eager"]["collection"][key]
+            check(all(torch.equal(getattr(m, s), getattr(e, s)) for s in m._defaults),
+                  f"the depth collection's {mode} state of {key} is not the eager loop's")
+    fused_stats = mods["depth_fused"]["collection"].dispatch_stats
+    check(fused_stats["dispatches"] == NYU_IMAGES and fused_stats["retraces"] == 1 and fused_stats["demotions"] == 0,
+          f"the fused depth collection's dispatch stats {fused_stats}")
+    for key, m in mods["depth_engine"]["collection"].items(keep_base=True):
+        stats = m.dispatch_stats
+        check(stats["demotions"] == 0 and stats["retraces"] <= 1, f"depth {key}'s engine stats {stats}")
+    for key in mods["fremtpl_engine"]:
+        e, j = mods["fremtpl_eager"][key], mods["fremtpl_engine"][key]
+        check(all(torch.equal(getattr(e, s), getattr(j, s)) for s in e._defaults),
+              f"freMTPL2 {key}: the engine's states are not the eager update's")
+        check(j.dispatch_stats["demotions"] == 0, f"freMTPL2 {key}'s engine demoted: {j.dispatch_stats}")
+    moved = mods["stsb"]["spearman_compute_on_cpu"]
+    check(all(v.device.type == "cpu" for v in moved.preds + moved.target) and
+          values["stsb"]["spearman_compute_on_cpu"].device.type == "cpu",
+          "SpearmanCorrCoef(compute_on_cpu=True) holds or computes off the CPU")
+    torch.testing.assert_close(values["stsb"]["spearman_compute_on_cpu"], values["stsb"]["spearman"].cpu(), rtol=1e-6,
+                               atol=0, msg="SpearmanCorrCoef(compute_on_cpu=True) differs from the one on the card")
+    merged, single = values["koniq"]["plcc_quarters_merged"], values["koniq"]["plcc"]
+    # float32 moments merged from four quarters against one stream over all rows: rtol 1e-5
+    torch.testing.assert_close(merged, single, rtol=1e-5, atol=0,
+                               msg="KonIQ's Pearson merged from four quarters differs from the single instance")
+    laps.mark("3. slice 11 on the card")
+
+    # the CPU reruns NYU-Depth v2 on its first NYU_CPU_IMAGES images, held against the card on the same images
+    nyu_head = {k: tuple(x[:NYU_CPU_IMAGES] for x in data[k]) for k in ("depth", "normals")}
+    cpu_data = {k: ({n: tuple(x.cpu() for x in v) for n, v in d.items()} if isinstance(d, dict)
+                    else tuple(x.cpu() for x in d)) for k, d in {**data, **nyu_head}.items() if k != "dense"}
+    c_mods, c_values, c_update_s, c_compute_s = run_slice11_paths(torch, M, cpu, cpu_data, modes=("eager",))
+    h_mods, h_values, _, _ = run_slice11_paths(torch, M, dev, data, images=NYU_CPU_IMAGES, modes=("eager",))
+    queries, passages = (x.cpu() for x in data["dense"])
+    mq, mp, _ = MANHATTAN_SHAPE
+    head = queries[:DENSE_REF_ROWS]
+    c_rows = {name: getattr(M.functional, fn)(head, passages[:mp] if name == "manhattan" else passages)
+              for name, fn in PAIRWISE.items()}
+    for name in ("cosine", "euclidean", "linear"):
+        # the first rows of the queries against themselves: the diagonal zeroed as zero_diagonal does
+        c_rows[f"{name}_self"] = getattr(M.functional, PAIRWISE[name])(head, queries, zero_diagonal=True)
+    laps.mark("3. slice 11 on the CPU")
+
+    def close(got, want, what, rtol=1e-6):
+        check(bool(torch.isfinite(got).all()), f"{what} is not finite: {got}")
+        torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=0, msg=f"{what} differs from the CPU run")
+
+    for key, got in h_values["depth_eager"]["collection"].items():
+        close(got, c_values["depth_eager"]["collection"][key], f"NYU-Depth {key} (first {NYU_CPU_IMAGES} images)")
+    for key, got in h_values["normals"].items():
+        close(got, c_values["normals"][key], f"NYU-Depth normals {key} (first {NYU_CPU_IMAGES} images)")
+    for path in ("stsb", "koniq", "m4", "fremtpl_eager"):
+        for key, got in values[path].items():
+            close(got, c_values[path][key], f"{path} {key}")
+    counts = slice11_counts({k: (h_mods if k in ("depth_eager", "normals") else mods)[k] for k in c_mods})
+    for (key, got), (c_key, want) in zip(counts, slice11_counts(c_mods)):
+        check(key == c_key and got.dtype == want.dtype and torch.equal(got.cpu(), want), f"{key}: the count differs")
+    for what, x in (("STS-B similarity", data["stsb"][2]), ("STS-B gold", data["stsb"][3]),
+                    ("KonIQ prediction", data["koniq"][0]), ("KonIQ MOS", data["koniq"][1])):
+        check(torch.equal(_rank_data(x).cpu(), _rank_data(x.cpu())),
+              f"{what}: the ranks on the card differ from the CPU's")
+    dense_err = {}
+    for name, got in rows.items():
+        fn = name.replace("_self", "")
+        x = head.numpy()
+        y = (queries if name.endswith("_self") else passages[:mp] if name == "manhattan" else passages).numpy()
+        ref = numpy_pairwise(fn, x, y)
+        if name.endswith("_self"):
+            np.fill_diagonal(ref, 0.0)  # the first rows' diagonal: (i, i) for i < DENSE_REF_ROWS
+        bound = pairwise_bound(fn, x, y, ref)
+        g64 = got.cpu().numpy().astype(np.float64)
+        dense_err[name] = float(np.max(np.abs(g64 - ref) / bound))
+        check(bool(np.all(np.abs(g64 - ref) <= bound)), f"MS MARCO {name}: the first rows exceed the float32 bound "
+              "against float64 numpy")
+        check(bool(np.all(np.abs(g64 - c_rows[name].numpy()) <= 2 * bound)),
+              f"MS MARCO {name}: the first rows differ from the CPU run beyond twice the float32 bound")
+    laps.mark("3. slice 11 CPU comparison")
+
+    # independent float64 references (rtol 1e-5: float32 sums of up to 2e8 terms; Tweedie 1e-4, see below)
+    refs = {"depth": numpy_depth(*data["depth"]), "normals": numpy_normals(*data["normals"])}
+    for key, ref in refs["depth"].items():
+        np.testing.assert_allclose(float(values["depth_eager"]["collection"][f"depth_{key}"]), ref, rtol=1e-5, atol=0,
+                                   err_msg=f"NYU-Depth {key} differs from its float64 closed form")
+    np.testing.assert_allclose(float(values["normals"]["r2_variance_weighted"]),
+                               refs["normals"]["r2_variance_weighted"],
+                               rtol=1e-5, atol=0, err_msg="the normals' R2 differs from its float64 closed form")
+    np.testing.assert_allclose(values["normals"]["explained_variance_raw"].cpu().numpy(),
+                               refs["normals"]["explained_variance_raw"], rtol=1e-5, atol=0,
+                               err_msg="the normals' explained variance differs from its float64 closed form")
+    sim, gold = cpu_data["stsb"][2].numpy(), cpu_data["stsb"][3].numpy()
+    a64, b64 = (x.numpy().astype(np.float64) for x in cpu_data["stsb"][:2])
+    refs["stsb"] = {"pearson": float(pearsonr(sim, gold)[0]), "spearman": float(spearmanr(sim, gold)[0]),
+                    "cosine_mean": float(((a64 * b64).sum(1) / np.linalg.norm(a64, axis=1)
+                                          / np.linalg.norm(b64, axis=1)).mean())}
+    refs["stsb"]["spearman_compute_on_cpu"] = refs["stsb"]["spearman"]
+    kp, km = (x.numpy() for x in cpu_data["koniq"])
+    refs["koniq"] = {"plcc": float(pearsonr(kp, km)[0]), "srocc": float(spearmanr(kp, km)[0])}
+    refs["koniq"]["plcc_quarters_merged"] = refs["koniq"]["plcc"]
+    for path in ("stsb", "koniq"):
+        for key, ref in refs[path].items():
+            np.testing.assert_allclose(float(values[path][key]), ref, rtol=1e-5, atol=0,
+                                       err_msg=f"{path} {key} differs from scipy in float64")
+    m4p = np.concatenate([p.numpy().ravel() for p, _ in cpu_data["m4"].values()]).astype(np.float64)
+    m4t = np.concatenate([t.numpy().ravel() for _, t in cpu_data["m4"].values()]).astype(np.float64)
+    check(m4p.size == M4_POINTS, f"M4 holds {m4p.size} test points, not {M4_POINTS}")
+    refs["m4"] = {"smape": float((2 * np.abs(m4p - m4t) / (np.abs(m4t) + np.abs(m4p))).mean()),
+                  "mape": float((np.abs(m4p - m4t) / np.abs(m4t)).mean()),
+                  "wmape": float(np.abs(m4p - m4t).sum() / np.abs(m4t).sum())}
+    fp, ft = (x.numpy() for x in cpu_data["frequency"])
+    sp, st = (x.numpy() for x in cpu_data["severity"])
+    refs["fremtpl"] = {"frequency_p1": numpy_tweedie(fp, ft, 1), "severity_p2": numpy_tweedie(sp, st, 2),
+                       "severity_p1.5": numpy_tweedie(sp, st, 1.5)}
+    for key, ref in refs["m4"].items():
+        np.testing.assert_allclose(float(values["m4"][key]), ref, rtol=1e-5, atol=0,
+                                   err_msg=f"M4 {key} differs from its float64 closed form")
+    # each deviance term cancels in float32 where the prediction is near the target: rtol 1e-4
+    for key, ref in refs["fremtpl"].items():
+        np.testing.assert_allclose(float(values["fremtpl_eager"][key]), ref, rtol=1e-4, atol=0,
+                                   err_msg=f"freMTPL2 {key} differs from its float64 closed form")
+    zero_share = float((ft == 0).mean())
+    laps.mark("3. slice 11 references")
+
+    def plain(v):
+        return v.cpu().tolist() if v.numel() > 1 else float(v)
+
+    print("slice 11 values: " + json.dumps({
+        **{path: {k: plain(v) for k, v in values[path].items()}
+           for path in ("normals", "stsb", "koniq", "m4", "fremtpl_eager")},
+        "depth": {k: plain(v) for k, v in values["depth_eager"]["collection"].items()},
+        "marco_dense_mean_of_row_means": {k: float(v.mean()) for k, v in means.items()},
+        "fremtpl_zero_claim_share": zero_share,
+        "references": {k: {n: (x.tolist() if isinstance(x, np.ndarray) else x) for n, x in r.items()}
+                       for k, r in refs.items()}}))
+    print(f"slice 11: compute groups {json.dumps(groups)}; launches {json.dumps(slice11_launches)}; "
+          f"MS MARCO first {DENSE_REF_ROWS} rows' largest error over the float32 bound {json.dumps(dense_err)}; "
+          "every value equal to the CPU run and the references, the engine and fused paths bit-equal to eager")
+    laps.mark("3. slice 11 values")
+
+    # timings: an update (eager, engine, fused) in turns, its syncs, a compute's syncs, busy shares
+    p, t = data["depth"][0][1], data["depth"][1][1]
+    depth_colls = {mode: depth_collection(M, dev, mode) for mode in ("eager", "fused", "engine")}
+    for c in depth_colls.values():
+        c.update(p, t)  # groups formed, programs captured
+    depth_update_ms = host_ms_in_turns(torch, {mode: (lambda c=c: c.update(p, t)) for mode, c in depth_colls.items()})
+    fp_b, ft_b = data["frequency"][0][:FREMTPL_BATCH], data["frequency"][1][:FREMTPL_BATCH]
+    tw = {jit: M.TweedieDevianceScore(power=1, jit_update=jit, device=dev) for jit in (False, True)}
+    tweedie_update_ms = host_ms_in_turns(torch, {("engine" if jit else "eager"): (lambda m=m: m.update(fp_b, ft_b))
+                                                 for jit, m in tw.items()})
+    single = {
+        "normals R2Score": (normals_modules(M, dev)["r2_variance_weighted"],
+                            (data["normals"][0][1], data["normals"][1][1])),
+        "normals ExplainedVariance": (normals_modules(M, dev)["explained_variance_raw"],
+                                      (data["normals"][0][1], data["normals"][1][1])),
+        "STS-B PearsonCorrCoef": (M.PearsonCorrCoef(device=dev), tuple(x[:STSB_BATCH] for x in data["stsb"][2:])),
+        "STS-B SpearmanCorrCoef": (M.SpearmanCorrCoef(device=dev), tuple(x[:STSB_BATCH] for x in data["stsb"][2:])),
+        "STS-B CosineSimilarity": (M.CosineSimilarity(device=dev), (data["stsb"][0][:STSB_BATCH],
+                                                                    data["stsb"][1][:STSB_BATCH])),
+        "M4 SMAPE (monthly)": (M.SymmetricMeanAbsolutePercentageError(device=dev), data["m4"]["monthly"]),
+        "freMTPL2 Tweedie p=2 (severity)": (M.TweedieDevianceScore(power=2, device=dev), data["severity"]),
+    }
+    update_ms = {k: host_ms(torch, lambda m=m, a=a: m.update(*a), reps=10) for k, (m, a) in single.items()}
+    update_syncs = {f"depth {mode}": one_call_syncs(torch, lambda c=c: c.update(p, t))[0]
+                    for mode, c in depth_colls.items()}
+    update_syncs.update({f"freMTPL2 Tweedie p=1 {'engine' if jit else 'eager'}":
+                         one_call_syncs(torch, lambda m=m: m.update(fp_b, ft_b))[0] for jit, m in tw.items()})
+    update_syncs.update({k: one_call_syncs(torch, lambda m=m, a=a: m.update(*a))[0] for k, (m, a) in single.items()})
+    engine_syncs = {k: n for k, n in update_syncs.items() if k.endswith(("fused", "engine")) and n}
+    check(not engine_syncs, f"a warm engine update synchronised with the host: {engine_syncs}")
+    compute_syncs, warm_compute_ms = {}, {}
+    on_card = [(f"depth {k}", m) for k, m in mods["depth_eager"]["collection"].items(keep_base=True)]
+    on_card += [(f"{path} {k}", m) for path in ("normals", "koniq", "m4", "fremtpl_eager")
+                for k, m in mods[path].items()]
+    on_card += [(f"stsb {k}", m) for k, m in mods["stsb"].items() if k != "spearman_compute_on_cpu"]
+    for key, m in on_card:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m._compute_impl()
+        torch.cuda.synchronize()
+        warm_compute_ms[key] = (time.perf_counter() - t0) * 1e3
+        compute_syncs[key] = one_call_syncs(torch, m._compute_impl)[0]
+    busy = {f"depth {mode}": device_busy(torch, lambda c=c: c.update(p, t)) for mode, c in depth_colls.items()}
+    print("slice 11 depth collection update ms an image (median of 25, in turns): " + json.dumps(depth_update_ms))
+    print("slice 11 freMTPL2 Tweedie p=1 update ms a batch of 65,536 (median of 25, in turns): "
+          + json.dumps(tweedie_update_ms))
+    print("slice 11 update ms (median of 10): " + json.dumps(update_ms))
+    print("slice 11 host syncs an update: " + json.dumps(update_syncs))
+    print("slice 11 epoch update ms on the card: " + json.dumps({k: s * 1e3 for k, s in update_s.items()}))
+    print("slice 11 epoch update ms on the CPU: " + json.dumps({k: s * 1e3 for k, s in c_update_s.items()}))
+    print("slice 11 compute ms on the card (the epoch's compute): "
+          + json.dumps({f"{p_} {k}": s * 1e3 for p_, d in compute_s.items() for k, s in d.items()}))
+    print("slice 11 compute ms on the card, a module's own compute again: " + json.dumps(warm_compute_ms))
+    print("slice 11 host syncs a compute: " + json.dumps(compute_syncs))
+    print("slice 11 MS MARCO dense calls ms: " + json.dumps({k: s * 1e3 for k, s in dense_s.items()}))
+    print("slice 11 depth update under torch.profiler: " + json.dumps(busy))
+    laps.mark("3. slice 11 timings")
+    return slice11_launches
 
 
 def main() -> int:
@@ -2628,6 +3157,9 @@ def main() -> int:
 
     # ------------------------------------------ 3i. slice 10: curves, calibration and ranking
     slice10_launches, slice10_stat_by_shape = run_slice10(torch, dev, batches, coco_batches, marco_batches, laps)
+
+    # ------------------------------------------ 3j. slice 11: regression and pairwise
+    slice11_launches = run_slice11(torch, dev, laps)
 
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000

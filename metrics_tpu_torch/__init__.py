@@ -37,7 +37,21 @@ from metrics_tpu_torch.classification.roc import ROC  # noqa: F401
 from metrics_tpu_torch.classification.specificity import Specificity  # noqa: F401
 from metrics_tpu_torch.classification.stat_scores import StatScores  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
-from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
+from metrics_tpu_torch.metric import CompositionalMetric, Metric, StateCorruptionError  # noqa: F401
+from metrics_tpu_torch.regression import (  # noqa: F401
+    CosineSimilarity,
+    ExplainedVariance,
+    MeanAbsoluteError,
+    MeanAbsolutePercentageError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    PearsonCorrCoef,
+    R2Score,
+    SpearmanCorrCoef,
+    SymmetricMeanAbsolutePercentageError,
+    TweedieDevianceScore,
+    WeightedMeanAbsolutePercentageError,
+)
 from metrics_tpu_torch.retrieval import (  # noqa: F401
     RetrievalFallOut,
     RetrievalHitRate,
@@ -69,8 +83,10 @@ __all__ = [
     "CohenKappa",
     "CompositionalMetric",
     "ConfusionMatrix",
+    "CosineSimilarity",
     "CountMinHeavyHitters",
     "CoverageError",
+    "ExplainedVariance",
     "F1Score",
     "FBetaScore",
     "HammingDistance",
@@ -83,13 +99,19 @@ __all__ = [
     "LabelRankingLoss",
     "MatthewsCorrCoef",
     "MaxMetric",
+    "MeanAbsoluteError",
+    "MeanAbsolutePercentageError",
     "MeanMetric",
+    "MeanSquaredError",
+    "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
     "MinMetric",
+    "PearsonCorrCoef",
     "Precision",
     "PrecisionRecallCurve",
     "QuantileSketch",
+    "R2Score",
     "ROC",
     "Recall",
     "RetrievalFallOut",
@@ -101,8 +123,13 @@ __all__ = [
     "RetrievalPrecision",
     "RetrievalRPrecision",
     "RetrievalRecall",
+    "SpearmanCorrCoef",
     "Specificity",
     "StatScores",
+    "StateCorruptionError",
     "SumMetric",
+    "SymmetricMeanAbsolutePercentageError",
+    "TweedieDevianceScore",
+    "WeightedMeanAbsolutePercentageError",
     "functional",
 ]

@@ -76,7 +76,7 @@ from metrics_tpu_torch.utilities.data import (
     dim_zero_sum,
     dtype_name,
 )
-from metrics_tpu_torch.utilities.exceptions import MetricsUserError
+from metrics_tpu_torch.utilities.exceptions import MetricsUserError, StateCorruptionError  # noqa: F401 -- re-exported
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 StateType = Union[Tensor, List[Tensor]]

@@ -727,3 +727,47 @@ def test_fused_update_none_and_false_take_the_eager_loop():
         mc = MetricCollection([TorchStatsA(), TorchStatsB()], fused_update=fused)
         mc.update(torch.tensor([1.0, 3.0]))
         assert float(mc.compute()["StatsA"]) == 2.0
+
+
+def _depth_members(mod, **dev):
+    """The NYU-Depth v2 evaluation collection of ``chip_smoke.py``'s slice 11."""
+    return {
+        "mse": mod.MeanSquaredError(**dev), "rmse": mod.MeanSquaredError(squared=False, **dev),
+        "mae": mod.MeanAbsoluteError(**dev), "msle": mod.MeanSquaredLogError(**dev),
+        "abs_rel": mod.MeanAbsolutePercentageError(**dev), "r2": mod.R2Score(**dev),
+        "explained_variance": mod.ExplainedVariance(**dev),
+    }
+
+
+def test_depth_collection_compute_groups_and_values_equal_to_jax():
+    """MSE and RMSE share their states: the JAX package's six groups, its
+    values (rtol 1e-5: float32 sums in another order), and the fused update
+    bit-equal to the eager loop."""
+    rng = np.random.RandomState(31)
+    jm = JaxCollection(_depth_members(metrics_tpu), prefix="depth_")
+    tm = MetricCollection(_depth_members(metrics_tpu_torch, device="cpu"), prefix="depth_")
+    fused = MetricCollection(_depth_members(metrics_tpu_torch, device="cpu"), prefix="depth_", fused_update=True)
+    for _ in range(3):
+        target = rng.uniform(0.5, 10.0, size=300).astype(np.float32)
+        preds = (target * np.exp(0.1 * rng.randn(300))).astype(np.float32)
+        (jp, tp), (jt, tt) = _pair(preds), _pair(target)
+        jm.update(jp, jt)
+        tm.update(tp, tt)
+        fused.update(tp, tt)
+        assert tm.compute_groups == jm.compute_groups
+    assert tm.compute_groups == {0: ["abs_rel"], 1: ["explained_variance"], 2: ["mae"], 3: ["mse", "rmse"],
+                                 4: ["msle"], 5: ["r2"]}
+    assert fused.dispatch_stats["dispatches"] == 3 and fused.dispatch_stats["demotions"] == 0
+    jres, tres = jm.compute(), tm.compute()
+    assert list(jres) == list(tres)
+    for key in jres:
+        np.testing.assert_allclose(tres[key].numpy(), np.asarray(jres[key]), rtol=1e-5, atol=0)
+    _same_port_results(tres, fused.compute())
+    for name in jm.keys(keep_base=True):
+        for key in jm[name]._defaults:
+            ref, got = np.asarray(getattr(jm[name], key)), getattr(tm[name], key).numpy()
+            assert got.dtype == ref.dtype and got.shape == ref.shape, (name, key)
+            if key == "total" and name != "abs_rel":  # int32 counts; MAPE's total is float32
+                np.testing.assert_array_equal(got, ref)
+            else:
+                np.testing.assert_allclose(got, ref, rtol=1e-5, atol=0)

@@ -809,3 +809,180 @@ def test_compute_on_cpu_moves_the_list_states_off_the_card(card):
     for p, t in batches:
         ce_card.update(p, t)
     torch.testing.assert_close(ce.compute(), ce_card.compute().cpu(), rtol=1e-6, atol=0)
+
+
+# ------------------------------------------------- slice 11: regression and pairwise
+REGRESSION_ENGINE = {
+    "mse": ("MeanSquaredError", {}), "mae": ("MeanAbsoluteError", {}), "msle": ("MeanSquaredLogError", {}),
+    "mape": ("MeanAbsolutePercentageError", {}), "smape": ("SymmetricMeanAbsolutePercentageError", {}),
+    "wmape": ("WeightedMeanAbsolutePercentageError", {}), "tweedie": ("TweedieDevianceScore", {"power": 1.5}),
+    "r2": ("R2Score", {}), "explained_variance": ("ExplainedVariance", {}), "pearson": ("PearsonCorrCoef", {}),
+}
+
+
+def _regression_batches(card, n=4, rows=4096, seed=50):
+    g = torch.Generator(device=card).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        target = 0.5 + 9.5 * torch.rand(rows, generator=g, device=card)
+        out.append((target * torch.exp(0.1 * torch.randn(rows, generator=g, device=card)), target))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(REGRESSION_ENGINE))
+def test_regression_engine_replays_without_a_sync_and_equal_eager(card, case):
+    cls, kwargs = REGRESSION_ENGINE[case]
+    batches = _regression_batches(card)
+    engine = getattr(metrics_tpu_torch, cls)(jit_update=True, device=card, **kwargs)
+    eager = getattr(metrics_tpu_torch, cls)(device=card, **kwargs)
+    engine.update(*batches[0])
+    for b in batches[1:]:
+        _no_sync(lambda b=b: engine.update(*b))
+    for b in batches:
+        eager.update(*b)
+    for k in eager._defaults:
+        assert torch.equal(getattr(engine, k), getattr(eager, k)), k
+    assert torch.equal(engine.compute(), eager.compute())
+    stats = engine.dispatch_stats
+    assert stats["dispatches"] == len(batches) and stats["retraces"] == 1 and stats["demotions"] == 0
+
+
+@pytest.mark.parametrize("case", ["mse", "pearson"])
+def test_regression_fused_forward_equals_eager_forward_without_a_sync(card, case):
+    """MSE merges its batch state by its reductions, Pearson (``full_state_update``) updates twice."""
+    cls, kwargs = REGRESSION_ENGINE[case]
+    batches = _regression_batches(card, seed=51)
+    engine = getattr(metrics_tpu_torch, cls)(jit_update=True, device=card, **kwargs)
+    eager = getattr(metrics_tpu_torch, cls)(device=card, **kwargs)
+    values = [engine(*batches[0])]
+    for b in batches[1:]:
+        _no_sync(lambda b=b: values.append(engine(*b)))
+    for b, v in zip(batches, values):
+        assert torch.equal(v, eager(*b))
+    for k in eager._defaults:
+        assert torch.equal(getattr(engine, k), getattr(eager, k)), k
+    assert engine.forward_stats["launches"] == len(batches) and engine.forward_stats["demotions"] == 0
+
+
+def _depth_collection(card, fused):
+    M = metrics_tpu_torch
+    return M.MetricCollection({
+        "mse": M.MeanSquaredError(device=card), "rmse": M.MeanSquaredError(squared=False, device=card),
+        "mae": M.MeanAbsoluteError(device=card), "msle": M.MeanSquaredLogError(device=card),
+        "abs_rel": M.MeanAbsolutePercentageError(device=card), "r2": M.R2Score(device=card),
+        "explained_variance": M.ExplainedVariance(device=card)}, prefix="depth_", fused_update=fused)
+
+
+def test_depth_collection_fused_update_equals_eager_without_a_sync(card):
+    batches = _regression_batches(card, seed=52)
+    fused, eager = _depth_collection(card, True), _depth_collection(card, False)
+    fused.update(*batches[0])
+    for b in batches[1:]:
+        _no_sync(lambda b=b: fused.update(*b))
+    for b in batches:
+        eager.update(*b)
+    assert fused.dispatch_stats["dispatches"] == len(batches) and fused.dispatch_stats["demotions"] == 0
+    a, b = fused.compute(), eager.compute()
+    assert list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_spearman_ranks_on_the_card_are_the_cpus(card):
+    """Ties, NaN, +-0 and +-inf: the card's stable sort and scatter-add give
+    the CPU's bits while every tie group's rank sum is below 2**24 (here
+    groups of up to ~400 values at ranks up to 20,000). Past it the card adds
+    a group's ranks in another order: a rank of a group of ``k`` values is
+    then within ``k * 2**-24`` of the CPU's, relatively (the second case: the
+    value 0 of ``round(4 * randn)`` is ~2,100 values at ranks near 10,000)."""
+    from metrics_tpu_torch.functional.regression.spearman import _rank_data
+
+    rng = np.random.RandomState(53)
+    for scale, exact in ((40, True), (4, False)):
+        data = np.round(rng.randn(20000) * scale).astype(np.float32)
+        data[::37], data[1::211], data[2::211], data[3::101], data[4::103] = np.nan, -0.0, 0.0, np.inf, -np.inf
+        cpu = torch.from_numpy(data)
+        got, want = _rank_data(cpu.to(card)).cpu(), _rank_data(cpu)
+        not_nan = ~np.isnan(data)
+        _, inverse, sizes = np.unique(data[not_nan], return_inverse=True, return_counts=True)
+        largest = int(sizes.max())
+        sums = want[torch.from_numpy(not_nan)].double() * torch.from_numpy(sizes[inverse]).double()
+        assert (float(sums.max()) < 2**24) is exact, float(sums.max())
+        if exact:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=largest * 2.0**-24, atol=0)
+    g = torch.Generator(device=card).manual_seed(54)
+    preds, target = torch.rand(3000, generator=g, device=card), torch.randint(0, 26, (3000,), generator=g, device=card)
+    target = target.float() / 5
+    got = metrics_tpu_torch.functional.spearman_corrcoef(preds, target)
+    torch.testing.assert_close(got.cpu(), metrics_tpu_torch.functional.spearman_corrcoef(preds.cpu(), target.cpu()),
+                               rtol=1e-6, atol=0)
+
+
+def test_spearman_base_ranks_past_2_to_the_24_on_the_card(card):
+    """``float32(i) + 1`` on the card is the CPU's (and ``jnp.arange(1, n + 1)``'s) bits at n = 2**24 + 4,096,
+    and so are the ranks of that many distinct values (float64 data: no tie group to add in another order)."""
+    from metrics_tpu_torch.functional.regression.spearman import _rank_data
+
+    n = 2**24 + 4096
+    assert torch.equal((torch.arange(n, dtype=torch.float32, device=card) + 1).cpu(),
+                       torch.arange(n, dtype=torch.float32) + 1)
+    data = torch.randn(n, generator=torch.Generator().manual_seed(55), dtype=torch.float64)
+    assert torch.equal(_rank_data(data.to(card)).cpu(), _rank_data(data))
+
+
+def test_regression_modules_on_the_card_equal_the_cpu(card):
+    M = metrics_tpu_torch
+    batches = _regression_batches(card, seed=56)
+
+    def run(device):
+        mods = {"mse": M.MeanSquaredError(device=device), "mae": M.MeanAbsoluteError(device=device),
+                "msle": M.MeanSquaredLogError(device=device), "mape": M.MeanAbsolutePercentageError(device=device),
+                "smape": M.SymmetricMeanAbsolutePercentageError(device=device),
+                "wmape": M.WeightedMeanAbsolutePercentageError(device=device),
+                "tweedie1": M.TweedieDevianceScore(power=1, device=device),
+                "tweedie2": M.TweedieDevianceScore(power=2, device=device), "r2": M.R2Score(device=device),
+                "ev": M.ExplainedVariance(device=device), "pearson": M.PearsonCorrCoef(device=device),
+                "spearman": M.SpearmanCorrCoef(device=device), "cosine": M.CosineSimilarity(device=device)}
+        for p, t in batches:
+            for key, m in mods.items():
+                if key == "cosine":
+                    m.update(p.to(device).reshape(-1, 64), t.to(device).reshape(-1, 64))
+                else:
+                    m.update(p.to(device), t.to(device))
+        return {k: m.compute().cpu() for k, m in mods.items()}
+
+    cpu, gpu = run("cpu"), run(card)
+    for key in cpu:
+        torch.testing.assert_close(gpu[key], cpu[key], rtol=1e-6, atol=0, msg=key)
+
+
+def test_pairwise_on_the_card_leaves_tf32_off_and_keeps_float32(card):
+    """``allow_tf32`` reads False before and after; the linear similarity is
+    within float32's dot-product bound of float64 (TF32's 10-bit mantissa
+    would miss it by ~1e3), and the card's values equal the CPU's to the
+    same bounds."""
+    from metrics_tpu_torch.functional import pairwise_euclidean_distance, pairwise_linear_similarity
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    g = torch.Generator().manual_seed(57)
+    x, y = torch.randn(256, 768, generator=g), torch.randn(512, 768, generator=g)
+    got = pairwise_linear_similarity(x.to(card), y.to(card)).cpu()
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    ref = x.double() @ y.double().T
+    bound = 768 * 2.0**-24 * x.norm(dim=1)[:, None].double() * y.norm(dim=1)[None].double()
+    assert bool(((got.double() - ref).abs() <= bound).all())
+    assert bool(((got - pairwise_linear_similarity(x, y)).abs().double() <= 2 * bound).all())
+    d = pairwise_euclidean_distance(x.to(card)).cpu()
+    assert torch.equal(torch.diagonal(d), torch.zeros(256))
+
+
+def test_manhattan_row_blocks_on_the_card_are_bit_equal_to_one_block(card, monkeypatch):
+    from metrics_tpu_torch.functional.pairwise import metrics as pairwise
+
+    g = torch.Generator(device=card).manual_seed(58)
+    x, y = torch.randn(100, 768, generator=g, device=card), torch.randn(300, 768, generator=g, device=card)
+    whole = pairwise.pairwise_manhattan_distance(x, y)
+    monkeypatch.setattr(pairwise, "MANHATTAN_BLOCK_BYTES", 7 * 300 * 768 * 4)
+    assert pairwise.manhattan_block_rows(300, 768, 4) == 7
+    assert torch.equal(pairwise.pairwise_manhattan_distance(x, y), whole)
+    torch.testing.assert_close(whole.cpu(), pairwise.pairwise_manhattan_distance(x.cpu(), y.cpu()), rtol=1e-6, atol=0)

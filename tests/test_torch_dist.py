@@ -293,6 +293,50 @@ def scenario_reductions(rank):
     return out
 
 
+REGRESSION_SPLIT = (0, 1, 45, 135, 200)  # rows by rank: uneven, rank 0 holds one row
+REGRESSION_BATCH = 32
+
+
+def regression_like(seed=3):
+    """200 rows of a 1-D prediction and target (Pearson) and of a 3-output one (R2), split by rank."""
+    rng = np.random.RandomState(seed)
+    n = REGRESSION_SPLIT[-1]
+    preds = rng.randn(n).astype(np.float32)
+    target = (0.6 * preds + 0.8 * rng.randn(n)).astype(np.float32)
+    preds3 = rng.randn(n, 3).astype(np.float32)
+    target3 = (preds3 * np.float32([1.0, 0.5, -0.3]) + rng.randn(n, 3)).astype(np.float32)
+    return preds, target, preds3, target3
+
+
+def regression_batches(rank):
+    """Rank ``rank``'s rows in updates of ``REGRESSION_BATCH``: ``(preds, target, preds3, target3)`` each."""
+    lo, hi = REGRESSION_SPLIT[rank], REGRESSION_SPLIT[rank + 1]
+    data = regression_like()
+    return [tuple(x[i:min(i + REGRESSION_BATCH, hi)] for x in data) for i in range(lo, hi, REGRESSION_BATCH)]
+
+
+def regression_metrics(mod, **dev):
+    return {"pearson": mod.PearsonCorrCoef(**dev),
+            "r2": mod.R2Score(num_outputs=3, multioutput="variance_weighted", **dev)}
+
+
+def scenario_regression(rank):
+    out = {}
+    for fused in ("1", "0"):
+        os.environ["METRICS_TPU_FUSED_SYNC"] = fused
+        metrics = regression_metrics(M, device="cpu")
+        for p, t, p3, t3 in regression_batches(rank):
+            metrics["pearson"].update(torch.from_numpy(p), torch.from_numpy(t))
+            metrics["r2"].update(torch.from_numpy(p3), torch.from_numpy(t3))
+        for key, m in metrics.items():
+            out[f"{key}{fused}"] = _np(m.compute())
+            m.sync()
+            out[f"{key}_state{fused}"] = {k: _np(getattr(m, k)) for k in m._defaults}
+            m.unsync()
+    os.environ.pop("METRICS_TPU_FUSED_SYNC")
+    return out
+
+
 SCENARIOS = {
     "reductions": scenario_reductions,
     "classification": scenario_classification,
@@ -301,6 +345,7 @@ SCENARIOS = {
     "sketches": scenario_sketches,
     "collective_fault": scenario_collective_fault,
     "deadline": scenario_deadline,
+    "regression": scenario_regression,
 }
 
 
@@ -621,3 +666,60 @@ def test_deadline_in_an_uneven_gather_breaks_the_group_on_four_ranks(tmp_path):
         assert out["degrades"]["collective"] > 1
         assert out["degrades"] == outs[0]["degrades"]
         assert out["world"] == 10.0 and not out["world_broken"]
+
+
+def test_pearson_and_r2_on_four_uneven_ranks_equal_jax_pure_sync(tmp_path):
+    """Pearson's moments stacked to (4, 1) by the gather and merged in rank
+    order, and R2's summed states, on ranks of 1, 44, 90 and 65 rows, against
+    the JAX package's ``pure_sync`` over four devices (each device's state
+    made from its own rows first) and the port on all rows in one process.
+    The ranks' synced states are bit-equal to each other; against the JAX
+    package and the one-process run they agree to rtol 1e-5, atol 1e-6
+    (float32 sums in another order)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    import metrics_tpu as J
+    from metrics_tpu._compat import shard_map
+
+    outs = run_world("regression", tmp_path)
+    mesh = Mesh(np.array(jax.devices()[:WORLD]), ("r",))
+    jax_values, jax_states = {}, {}
+    for key in ("pearson", "r2"):
+        states = []
+        for rank in range(WORLD):
+            jm = regression_metrics(J)[key]
+            for p, t, p3, t3 in regression_batches(rank):
+                batch = (p, t) if key == "pearson" else (p3, t3)
+                jm.update(*(jnp.asarray(x) for x in batch))
+            states.append(jm.state())
+        stacked = {k: jnp.stack([s[k] for s in states]) for k in states[0]}
+        jm = regression_metrics(J)[key]
+
+        def worker(st, jm=jm):
+            synced = jm.pure_sync({k: v[0] for k, v in st.items()}, "r")
+            return synced, jm.pure_compute(synced)
+
+        synced, value = jax.jit(shard_map(worker, mesh=mesh, in_specs=(P("r"),), out_specs=P(),
+                                          check_vma=False))(stacked)
+        jax_states[key], jax_values[key] = synced, value
+    assert jax_states["pearson"]["mean_x"].shape == (WORLD, 1)
+    data = regression_like()
+    alone = regression_metrics(M, device="cpu")
+    alone["pearson"].update(torch.from_numpy(data[0]), torch.from_numpy(data[1]))
+    alone["r2"].update(torch.from_numpy(data[2]), torch.from_numpy(data[3]))
+    for r, out in enumerate(outs):
+        for fused in ("1", "0"):
+            for key in ("pearson", "r2"):
+                for k, j in jax_states[key].items():
+                    got = out[f"{key}_state{fused}"][k]
+                    assert got.shape == np.shape(j) and got.dtype == np.asarray(j).dtype, (key, k, got.shape)
+                    # every rank holds the same synced bits; the JAX states' float32 sums ran in another order
+                    np.testing.assert_array_equal(got, outs[0][f"{key}_state{fused}"][k])
+                    np.testing.assert_allclose(got, np.asarray(j), rtol=1e-5, atol=1e-6,
+                                               err_msg=f"rank {r} fused={fused} {key}.{k}")
+                np.testing.assert_allclose(out[f"{key}{fused}"], np.asarray(jax_values[key]), rtol=1e-5, atol=1e-6,
+                                           err_msg=f"rank {r} fused={fused} {key}")
+                np.testing.assert_allclose(out[f"{key}{fused}"], _np(alone[key].compute()), rtol=1e-5, atol=0,
+                                           err_msg=f"rank {r} {key} against all rows in one process")
