@@ -184,6 +184,34 @@
    float64 numpy and the CPU run within float32's bound for the formula. Each
    path's update (eager, fused and engine in turns), compute and epoch are
    timed, host syncs counted, and the depth update's busy share profiled.
+   Slice 12, the wrappers and the streaming windows: ImageNet's epoch through
+   ``ClasswiseWrapper(Accuracy(average=None))`` (its 1,000 values the
+   unwrapped vector's bits, read with no host sync), ``BootStrapper``
+   (10 poisson copies of a macro ``Accuracy``, a seeded ``_rng``; its
+   copies on the first 8 batches bit-equal to the CPU run), ``MinMaxMetric``,
+   ``MetricTracker`` over a three-member collection in three epochs whose
+   hit rate grows (the last epoch best) and a fused collection that serves its
+   ``ClasswiseWrapper`` member eagerly; NYU-Depth v2's normals with 5% of
+   pixels NaN (raw depth holes) through ``MultioutputWrapper(R2Score(), 3)``
+   (a float64 closed form over the rows kept, rtol 1e-5; the first 16 images
+   equal to the CPU run); an hour-long monitor, ``SlidingWindow(Accuracy,
+   window=60)`` at slide 1 and 5 over 1,000 ticks of 1,024 rows, engine and
+   eager bit-equal and equal to a fresh ``Accuracy`` over the ticks held (one
+   capture, 0 host syncs a warm tick, ``stat_scores`` counted through the
+   replays; the first 90 ticks equal to the CPU run), and
+   ``fused_window_tick`` on an eager window (one graph launch a warm tick);
+   the click log's last hour, ``SlidingWindow(CountMinHeavyHitters(4,
+   65536), window=60)`` (the table a fresh sketch's and numpy's over the last
+   60 batches, bit for bit) and ``FoldTreeWindow(HyperLogLog(14))`` range
+   reads (registers a fresh sketch's, at most 6 merges); and a minute ->
+   hour -> day ``ResolutionLadder(QuantileSketch(), (60, 60, 24))`` over
+   3,660 ticks of 1,024 log-normal latencies (each level and the whole
+   horizon a fresh sketch's, engine and eager bit-equal) beside
+   ``TumblingWindow`` and ``ExponentialDecay`` (float64 closed form, rtol
+   1e-5). Each path prints its tick or update ms (engine against eager, in
+   turns), host syncs, the engine graph's nodes (read through the driver
+   API from a graph kept after capture), its replay µs (CUDA events), the
+   ``compute`` ms and the busy share, with the card's name and power limit.
 4. Times each kernel, itsplain version and the one PyTorch library call
    that computes the same function (``binned_stats``, ``retrieval_sort``
    and ``countmin`` have none, so a yardstick is timed and named instead)
@@ -220,6 +248,7 @@ elsewhere. The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU mode: without a card the
 script fails.
 """
+import contextlib
 import ctypes
 import json
 import math
@@ -302,6 +331,17 @@ PAIRWISE = {"cosine": "pairwise_cosine_similarity", "euclidean": "pairwise_eucli
 # the compute groups the JAX package forms for the depth collection (tests/test_torch_collections.py holds the
 # port's groups equal to them on the CPU)
 DEPTH_GROUPS = {0: ["abs_rel"], 1: ["explained_variance"], 2: ["mae"], 3: ["mse", "rmse"], 4: ["msle"], 5: ["r2"]}
+
+# slice 12: the wrappers and the streaming windows
+BOOTSTRAPS, BOOT_QUANTILES, BOOT_CPU_BATCHES = 10, (0.025, 0.975), 8
+TRACKER_HITS = (0.55, 0.66, 0.76)  # three epochs' top-1 hit rates: the teacher's noise shrinks
+NYU_HOLE_SHARE, NYU12_CPU_IMAGES = 0.05, 16  # pixels raw depth leaves without a normal; the CPU rerun's images
+MONITOR_WINDOW, MONITOR_TICKS, MONITOR_SLIDES, MONITOR_CPU_TICKS = 60, 1000, (1, 5), 90  # a tick a minute
+FUSED_TICKS = 200
+CLICK_WINDOW, CLICK_DEPTH, CLICK_WIDTH = 60, 4, 65536  # the last 60 batches of the click log
+HLL_PRECISION, HLL_RANGES = 14, ((0, 60), (7, 38), (45, 60), (59, 60))
+LADDER_LEVELS, LADDER_TICKS, LADDER_BATCH = (60, 60, 24), 3660, 1024  # minute -> hour -> day, a tick a second
+LATENCY_LOG_MU, LATENCY_LOG_SIGMA, DECAY_HALFLIFE = math.log(20.0), 0.6, 60.0  # request latencies in ms
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -1872,6 +1912,477 @@ def run_slice11(torch, dev, laps):
     return slice11_launches
 
 
+def bits(torch, x):
+    """``x`` as integers of its width, so that ``torch.equal`` compares bit for bit (NaN included)."""
+    if not x.is_floating_point():
+        return x
+    return x.contiguous().view({2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()])
+
+
+def same_bits(torch, a, b):
+    """Two tensors, or two metrics' states, equal bit for bit (on one device)."""
+    if hasattr(a, "_defaults"):
+        return all(same_bits(torch, getattr(a, k), getattr(b, k)) for k in a._defaults)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(bits(torch, a), bits(torch, b.to(a.device)))
+
+
+@contextlib.contextmanager
+def kept_graphs(torch):
+    """Every ``torch.cuda.CUDAGraph`` made in the block keeps its ``cudaGraph_t`` after the capture
+    (``keep_graph=True``; the graph is instantiated at its first replay), for :func:`graph_nodes`."""
+    base = torch.cuda.CUDAGraph
+
+    class Kept(base):
+        def __new__(cls, keep_graph=False):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = base
+
+
+def graph_nodes(graph):
+    """The nodes of a graph kept by :func:`kept_graphs`, by type, read through the CUDA driver API."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(lib.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(lib.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
+    names = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "cuGraphNodeGetType failed")
+        key = names.get(kind.value, str(kind.value))
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def engine_graph(m):
+    """The first of the two CUDA graphs of the one program ``m``'s engine built."""
+    programs = list(m._dispatcher._cache.values())
+    check(len(programs) == 1 and len(programs[0].graphs) == 2,
+          f"{type(m).__name__}'s engine holds {len(programs)} programs, not one captured program")
+    return programs[0].graphs[0]
+
+
+def ladder_ticks(levels, ticks):
+    """The ticks each level of a ``ResolutionLadder(levels)`` holds after ``ticks`` ticks, from its rules
+    alone: a tick lands in level 0; when tick ``t > 0`` starts on a multiple of level ``l``'s stride, level
+    ``l - 1`` is folded into bucket ``(t // stride - 1) % L`` of level ``l`` and cleared, finest level first."""
+    held = [[[] for _ in range(size)] for size in levels]
+    strides = [math.prod(levels[:lvl]) for lvl in range(len(levels))]
+    for t in range(ticks):
+        for lvl in range(1, len(levels)):
+            if t > 0 and t % strides[lvl] == 0:
+                held[lvl][(t // strides[lvl] - 1) % levels[lvl]] = sorted(x for b in held[lvl - 1] for x in b)
+                held[lvl - 1] = [[] for _ in range(levels[lvl - 1])]
+        held[0][t % levels[0]].append(t)
+    return [sorted(x for b in level for x in b) for level in held]
+
+
+def bootstrapper(M, device, seed):
+    b = M.BootStrapper(M.Accuracy(num_classes=NUM_CLASSES, average="macro", device=device), num_bootstraps=BOOTSTRAPS,
+                       raw=True, quantile=BOOT_QUANTILES)
+    b._rng = np.random.RandomState(seed)
+    return b
+
+
+def run_wrappers(torch, M, device, data, boot_seed):
+    """Slice 12's ImageNet wrappers over ``data`` (batches on ``device``): the modules, their values, each
+    one's update seconds over the epoch, and ``MinMaxMetric``'s value after every batch."""
+    def acc(average):
+        return M.Accuracy(num_classes=NUM_CLASSES, average=average, device=device)
+
+    mods = {
+        "per_class": acc(None),
+        "classwise": M.ClasswiseWrapper(acc(None)),
+        "bootstrap": bootstrapper(M, device, boot_seed),
+        "minmax": M.MinMaxMetric(acc("macro")),
+        "collection_fused": M.MetricCollection({"classwise": M.ClasswiseWrapper(acc(None)), "acc": acc("macro")},
+                                               fused_update=True),
+        "collection_eager": M.MetricCollection({"classwise": M.ClasswiseWrapper(acc(None)), "acc": acc("macro")},
+                                               fused_update=False),
+    }
+    seconds = {k: 0.0 for k in mods}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    minmax_raw = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the fused collection says that it serves its wrapper member eagerly
+        for p, t in data:
+            for key, m in mods.items():
+                sync()
+                t0 = time.perf_counter()
+                m.update(p, t)
+                if key == "minmax":
+                    minmax_raw.append(m.compute()["raw"])
+                sync()
+                seconds[key] += time.perf_counter() - t0
+    values = {k: m.compute() for k, m in mods.items()}
+    return mods, values, seconds, minmax_raw
+
+
+def tracker_epochs(torch, M, device, labels):
+    """``MetricTracker`` over three epochs of label predictions whose top-1 hit rate grows (the teacher's
+    noise shrinks): its ``compute_all`` and ``best_metric(return_step=True)``."""
+    g = torch.Generator(device=device).manual_seed(SEED + 12)
+    tracker = M.MetricTracker(M.MetricCollection({
+        "acc": M.Accuracy(num_classes=NUM_CLASSES, average="macro", device=device),
+        "precision": M.Precision(num_classes=NUM_CLASSES, average="macro", device=device),
+        "f1": M.F1Score(num_classes=NUM_CLASSES, average="macro", device=device)}), maximize=True)
+    for hit in TRACKER_HITS:
+        tracker.increment()
+        other = torch.randint(0, NUM_CLASSES, labels.shape, generator=g, device=device)
+        preds = torch.where(torch.rand(labels.shape, generator=g, device=device) < hit, labels, other)
+        for i in range(0, labels.shape[0], BATCH):
+            tracker.update(preds[i:i + BATCH], labels[i:i + BATCH])
+    return tracker.compute_all(), tracker.best_metric(return_step=True)
+
+
+def nyu_normals_with_holes(torch, dev):
+    """Slice 11's NYU-Depth v2 normals (its generator), with a seeded share of pixels that raw depth leaves
+    without a normal: their target is NaN on all three components."""
+    data = slice11_data(torch, dev)
+    preds, target = data["normals"]
+    del data
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    holes = torch.rand(target.shape[:2], generator=g, device=dev) < NYU_HOLE_SHARE
+    return preds, target.masked_fill(holes[..., None], float("nan"))
+
+
+def float64_r2_columns(torch, preds, target):
+    """R2 of each column over the rows without NaN, in float64 on the card (torch's own float64 sums, none of
+    the port's code), image by image; and the rows kept."""
+    s = {k: torch.zeros(3, dtype=torch.float64, device=preds.device) for k in ("n", "t", "tt", "ee")}
+    for p, t in zip(preds, target):
+        p, t = p.double(), t.double()
+        keep = ~(torch.isnan(p) | torch.isnan(t))
+        p, t = torch.where(keep, p, 0.0), torch.where(keep, t, 0.0)
+        s["n"] += keep.sum(0)
+        s["t"] += t.sum(0)
+        s["tt"] += (t * t).sum(0)
+        s["ee"] += ((t - p) ** 2).sum(0)
+    s = {k: v.cpu().numpy() for k, v in s.items()}
+    return 1 - s["ee"] / (s["tt"] - s["t"] ** 2 / s["n"]), s["n"]
+
+
+def fed(torch, m, data):
+    """``m`` after ``update`` over ``data``, and the seconds that took to the device's completion."""
+    sync = torch.cuda.synchronize if m.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for batch in data:
+        m.update(*batch)
+    sync()
+    return m, time.perf_counter() - t0
+
+
+def range_state(w, lo, hi):
+    """The folded inner state of ``FoldTreeWindow.compute_range(lo, hi)``, caught at its inner compute."""
+    caught = {}
+    inner = w._inner
+    real = inner.pure_compute
+    inner.pure_compute = lambda state: caught.setdefault("state", state) and real(state)
+    try:
+        value = w.compute_range(lo, hi)
+    finally:
+        del inner.pure_compute
+    return caught["state"], value
+
+
+def window_profile(torch, w, args, replays):
+    """An engine window's tick: its graph's nodes (captured again under :func:`kept_graphs` on a copy),
+    the device µs of one replay of that graph (CUDA events), and the device busy share of ticks."""
+    import copy
+
+    twin = copy.deepcopy(w)
+    with kept_graphs(torch):
+        twin.update(*args)
+    graph = engine_graph(twin)
+    nodes = graph_nodes(graph)
+    replay_us = device_ms(torch, graph.replay, reps=replays) * 1e3
+    return {"graph_nodes": nodes, "replay_us": replay_us, "busy": device_busy(torch, lambda: twin.update(*args))}
+
+
+def run_slice12(torch, dev, laps, batches, click_batches):
+    """Slice 12 (see the module's docstring): returns the kernels' launches on its path."""
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch.ops import fused_window_tick, launches, registry, reset_launches
+    from metrics_tpu_torch.streaming import (ExponentialDecay, FoldTreeWindow, ResolutionLadder, SlidingWindow,
+                                             TumblingWindow)
+
+    cpu = torch.device("cpu")
+    full = [b for b in batches if b[0].shape[0] == BATCH]
+    report = {}
+    reset_launches()
+
+    # ---------------------------------------------------- ImageNet through the wrappers
+    mods, values, wrap_s, minmax_raw = run_wrappers(torch, M, dev, batches, SEED + 12)
+    check(list(values["classwise"]) == [f"accuracy_{i}" for i in range(NUM_CLASSES)],
+          "ClasswiseWrapper's keys are not accuracy_0 .. accuracy_999")
+    check(all(same_bits(torch, v, values["per_class"][i]) for i, v in enumerate(values["classwise"].values())),
+          "ClasswiseWrapper's values are not the unwrapped per-class vector's bits")
+    check(all(v.device == dev and v.shape == () for v in values["classwise"].values()),
+          "ClasswiseWrapper's values are not 0-d tensors on the card")
+    fused, eager = values["collection_fused"], values["collection_eager"]
+    check(mods["collection_fused"]._fuse_failed and list(fused) == list(eager)
+          and all(same_bits(torch, fused[k], eager[k]) for k in eager),
+          "the fused collection did not serve its ClasswiseWrapper member eagerly with the eager values")
+    boot = values["bootstrap"]
+    check(set(boot) == {"mean", "std", "quantile", "raw"} and boot["raw"].shape == (BOOTSTRAPS,)
+          and bool(torch.isfinite(boot["raw"]).all()), f"BootStrapper's result {boot}")
+    torch.testing.assert_close(boot["mean"], boot["raw"].mean(), rtol=1e-6, atol=0, msg="BootStrapper's mean")
+    lo, hi = boot["quantile"].tolist()
+    check(lo <= float(boot["mean"]) <= hi and float(boot["std"]) > 0, f"BootStrapper's interval {lo}, {hi}")
+    mm = values["minmax"]
+    trace = torch.stack(minmax_raw)
+    check(same_bits(torch, mm["max"], trace.max()) and same_bits(torch, mm["min"], trace.min()),
+          "MinMaxMetric's max and min are not those of its values after every batch")
+    torch.testing.assert_close(mm["raw"], values["per_class"].mean(), rtol=1e-6, atol=0,
+                               msg="MinMaxMetric's macro accuracy against the per-class vector's mean")
+    labels = torch.cat([t for _, t in batches])
+    tracker_all, (best, best_step) = tracker_epochs(torch, M, dev, labels)
+    check(best_step == {"acc": 2, "precision": 2, "f1": 2} and all(
+        bool((v[1:] > v[:-1]).all()) for v in tracker_all.values()),
+        f"MetricTracker: best steps {best_step}, values {tracker_all}: not the last, least noisy epoch")
+    # the resample copies bit-equal to the CPU run from the same seed, on the first batches
+    head = batches[:BOOT_CPU_BATCHES]
+    h_boot, _ = fed(torch, bootstrapper(M, dev, SEED + 13), head)
+    c_boot, c_boot_s = fed(torch, bootstrapper(M, cpu, SEED + 13), [(p.cpu(), t.cpu()) for p, t in head])
+    for a, b in zip(h_boot.metrics, c_boot.metrics):
+        check(same_bits(torch, a, b), "a BootStrapper copy on the card differs from the CPU run's")
+    torch.testing.assert_close(h_boot.compute()["raw"].cpu(), c_boot.compute()["raw"], rtol=1e-6, atol=0,
+                               msg="BootStrapper's copies' values differ from the CPU run")
+    report["imagenet_wrappers"] = {
+        "bootstrap": {k: v.tolist() for k, v in boot.items()},
+        "minmax": {k: float(v) for k, v in mm.items()},
+        "tracker_best": best, "tracker_best_step": best_step,
+        "update_ms_a_batch": {k: s * 1e3 / len(batches) for k, s in wrap_s.items()},
+        "bootstrap_cpu_update_ms_a_batch": c_boot_s * 1e3 / len(head),
+        "update_syncs": {k: one_call_syncs(torch, lambda m=m: m.update(*batches[0]))[0] for k, m in mods.items()},
+        "classwise_convert_syncs": one_call_syncs(torch, lambda: mods["classwise"]._convert(values["per_class"]))[0],
+    }
+    check(report["imagenet_wrappers"]["classwise_convert_syncs"] == 0, "ClasswiseWrapper's dict read the card")
+    laps.mark("3. slice 12 wrappers")
+
+    # ------------------------------------------- NYU-Depth v2 normals through MultioutputWrapper
+    n_p, n_t = nyu_normals_with_holes(torch, dev)
+    multi, multi_s = fed(torch, M.MultioutputWrapper(M.R2Score(device=dev), num_outputs=3), zip(n_p, n_t))
+    r2 = torch.stack(multi.compute())
+    ref_r2, kept_rows = float64_r2_columns(torch, n_p, n_t)
+    # float32 sums of 2e8 terms against float64: rtol 1e-5
+    np.testing.assert_allclose(r2.cpu().numpy(), ref_r2, rtol=1e-5, atol=0,
+                               err_msg="the normals' R2 per column differs from its float64 closed form over the rows kept")
+    head_p, head_t = n_p[:NYU12_CPU_IMAGES], n_t[:NYU12_CPU_IMAGES]
+    h_multi, _ = fed(torch, M.MultioutputWrapper(M.R2Score(device=dev), num_outputs=3), zip(head_p, head_t))
+    c_multi, c_multi_s = fed(torch, M.MultioutputWrapper(M.R2Score(device=cpu), num_outputs=3),
+                             zip(head_p.cpu(), head_t.cpu()))
+    torch.testing.assert_close(torch.stack(h_multi.compute()).cpu(), torch.stack(c_multi.compute()), rtol=1e-6, atol=0,
+                               msg=f"the normals' R2 on the first {NYU12_CPU_IMAGES} images differs from the CPU run")
+    report["nyu_normals_multioutput"] = {
+        "r2": r2.tolist(), "reference": ref_r2.tolist(), "rows_kept": kept_rows.tolist(),
+        "epoch_ms": multi_s * 1e3, "update_ms": multi_s * 1e3 / NYU_IMAGES,
+        "update_syncs": one_call_syncs(torch, lambda: multi.update(n_p[0], n_t[0])),
+        "cpu_update_ms": c_multi_s * 1e3 / NYU12_CPU_IMAGES,
+    }
+    del n_p, n_t, head_p, head_t
+    laps.mark("3. slice 12 NYU normals")
+
+    # ---------------------------------------------- an hour-long accuracy monitor
+    ticks = [full[i % len(full)] for i in range(MONITOR_TICKS)]
+
+    def monitor(slide, jit, device=dev):
+        return SlidingWindow(M.Accuracy(num_classes=NUM_CLASSES, average="macro", device=device),
+                             window=MONITOR_WINDOW, slide=slide, jit_update=jit)
+
+    monitors = {}
+    for slide in MONITOR_SLIDES:
+        before = launches()["stat_scores"]
+        engine, engine_s = fed(torch, monitor(slide, True), ticks)
+        engine_launches = launches()["stat_scores"] - before
+        eager, eager_s = fed(torch, monitor(slide, False), ticks)
+        stats = engine.dispatch_stats
+        check(stats["dispatches"] == MONITOR_TICKS and stats["retraces"] == 1 and stats["demotions"] == 0,
+              f"the slide-{slide} monitor's engine: {stats}, not {MONITOR_TICKS} ticks on one capture")
+        check(engine_launches == MONITOR_TICKS, f"stat_scores ran {engine_launches} times in {MONITOR_TICKS} ticks")
+        check(same_bits(torch, engine, eager), f"the slide-{slide} monitor's engine states are not the eager ticks'")
+        held = (engine.num_buckets - 1) * slide + int(engine.in_bucket)
+        oracle, _ = fed(torch, M.Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev), ticks[-held:])
+        value = engine.compute()
+        check(same_bits(torch, value, oracle.compute()) and same_bits(torch, eager.compute(), value),
+              f"the slide-{slide} monitor's value is not a fresh Accuracy's over its last {held} ticks")
+        folded = engine._cached_fold()
+        check(all(same_bits(torch, folded[k], getattr(oracle, k)) for k in folded),
+              f"the slide-{slide} monitor's folded counts are not the oracle's")
+        p, t = full[0]
+        timings = host_ms_in_turns(torch, {"engine": lambda: engine.update(p, t), "eager": lambda: eager.update(p, t)})
+        engine._computed = None
+        monitors[f"slide{slide}"] = {
+            "ticks": MONITOR_TICKS, "held": held, "value": float(value), "retraces": stats["retraces"],
+            "stat_scores_launches_engine": engine_launches,
+            "epoch_ms": {"engine": engine_s * 1e3, "eager": eager_s * 1e3},
+            "tick_ms": timings,
+            "host_syncs_a_tick": {"engine": one_call_syncs(torch, lambda: engine.update(p, t)),
+                                  "eager": one_call_syncs(torch, lambda: eager.update(p, t))},
+            "compute_ms": host_ms(torch, lambda: engine._compute_impl(), reps=10),
+            **window_profile(torch, engine, (p, t), replays=10),
+        }
+        check(monitors[f"slide{slide}"]["host_syncs_a_tick"]["engine"][0] == 0,
+              f"a warm engine tick of the slide-{slide} monitor synchronised with the host")
+    # CPU rerun of the first ticks: the cursor wraps the ring once
+    c_mon, _ = fed(torch, monitor(1, False, cpu), [(p.cpu(), t.cpu()) for p, t in ticks[:MONITOR_CPU_TICKS]])
+    h_mon, _ = fed(torch, monitor(1, True), ticks[:MONITOR_CPU_TICKS])
+    check(same_bits(torch, c_mon, h_mon), f"the monitor's states after {MONITOR_CPU_TICKS} ticks differ from the CPU run")
+    # fused_window_tick on an eager window: one graph launch a tick, against the eager tick
+    replays = []
+    real_replay = torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        replays.append(1)
+        return real_replay(graph)
+
+    fused, eager = monitor(1, False), monitor(1, False)
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        for i, (p, t) in enumerate(ticks[:FUSED_TICKS]):
+            fused_window_tick(fused, (p, t), {})
+            check(len(replays) == i, f"fused_window_tick made {len(replays)} graph launches in {i + 1} ticks")
+    finally:
+        torch.cuda.CUDAGraph.replay = real_replay
+    _, eager_s = fed(torch, eager, ticks[:FUSED_TICKS])
+    check(same_bits(torch, fused, eager), "fused_window_tick's states are not the eager ticks'")
+    check(fused.dispatch_stats["dispatches"] == FUSED_TICKS and fused.dispatch_stats["retraces"] == 1,
+          f"fused_window_tick's engine: {fused.dispatch_stats}")
+    p, t = full[1]
+    monitors["fused_window_tick"] = {
+        "ticks": FUSED_TICKS, "graph_launches_a_warm_tick": len(replays) / (FUSED_TICKS - 1),
+        "tick_ms": host_ms_in_turns(torch, {"fused": lambda: fused_window_tick(fused, (p, t), {}),
+                                            "eager": lambda: eager.update(p, t)}),
+        "host_syncs_a_tick": one_call_syncs(torch, lambda: fused_window_tick(fused, (p, t), {})),
+    }
+    report["accuracy_monitor"] = monitors
+    laps.mark("3. slice 12 accuracy monitor")
+
+    # -------------------------------------------- click-log heavy hitters over the last hour
+    def heavy(jit, device=dev):
+        return SlidingWindow(M.CountMinHeavyHitters(depth=CLICK_DEPTH, width=CLICK_WIDTH, device=device),
+                             window=CLICK_WINDOW, jit_update=jit)
+
+    before = launches()["countmin"]
+    hh, hh_s = fed(torch, heavy(True), [(x,) for x in click_batches])
+    hh_launches = launches()["countmin"] - before
+    hh_eager, hh_eager_s = fed(torch, heavy(False), [(x,) for x in click_batches])
+    check(hh.dispatch_stats["retraces"] == 1 and hh.dispatch_stats["demotions"] == 0 and hh_launches == len(click_batches),
+          f"the heavy-hitter window's engine: {hh.dispatch_stats}, {hh_launches} count-min launches")
+    check(same_bits(torch, hh, hh_eager), "the heavy-hitter window's engine states are not the eager ticks'")
+    last = click_batches[-CLICK_WINDOW:]
+    cm_oracle, _ = fed(torch, M.CountMinHeavyHitters(depth=CLICK_DEPTH, width=CLICK_WIDTH, device=dev), [(x,) for x in last])
+    table = hh._cached_fold()["value"]
+    check(same_bits(torch, table, cm_oracle.value), "the window's count-min table is not a fresh sketch's over its hour")
+    last_ids = torch.cat(last)
+    check(np.array_equal(table.cpu().numpy().astype(np.float64),
+                         numpy_countmin(last_ids.cpu().numpy(), CLICK_DEPTH, CLICK_WIDTH)),
+          "the window's count-min table differs from the numpy reference over its hour")
+    check(float(table.max()) <= last_ids.numel() < 2 ** 24, "a count-min cell passed 2^24")
+    ft, ft_s = fed(torch, FoldTreeWindow(M.HyperLogLog(precision=HLL_PRECISION, device=dev), window=CLICK_WINDOW),
+                   [(x,) for x in click_batches])
+    first = len(click_batches) - CLICK_WINDOW  # logical bucket j holds tick first + j
+    ranges = {}
+    for lo, hi in HLL_RANGES:
+        state, value = range_state(ft, lo, hi)
+        fresh, _ = fed(torch, M.HyperLogLog(precision=HLL_PRECISION, device=dev),
+                       [(x,) for x in click_batches[first + lo:first + hi]])
+        check(same_bits(torch, state["value"], fresh.value) and same_bits(torch, value, fresh.compute()),
+              f"HyperLogLog registers over buckets [{lo}, {hi}) are not a fresh sketch's")
+        check(ft.range_merge_count <= math.ceil(math.log2(CLICK_WINDOW)), f"{ft.range_merge_count} merges")
+        ranges[f"[{lo}, {hi})"] = {"estimate": float(value), "merges": ft.range_merge_count}
+    x = click_batches[0]
+    report["click_heavy_hitters"] = {
+        "ticks": len(click_batches), "countmin_launches_engine": hh_launches,
+        "ring_bytes": hh.ring_value.numel() * 4, "max_cell": float(table.max()),
+        "epoch_ms": {"engine": hh_s * 1e3, "eager": hh_eager_s * 1e3, "fold_tree_hll": ft_s * 1e3},
+        "tick_ms": host_ms_in_turns(torch, {"engine": lambda: hh.update(x), "eager": lambda: hh_eager.update(x)}, reps=10),
+        "host_syncs_a_tick": {"engine": one_call_syncs(torch, lambda: hh.update(x)),
+                              "eager": one_call_syncs(torch, lambda: hh_eager.update(x))},
+        "compute_ms": host_ms(torch, lambda: hh._compute_impl(), reps=10),
+        "hll_ranges": ranges,
+        **window_profile(torch, hh, (x,), replays=5),
+    }
+    check(report["click_heavy_hitters"]["host_syncs_a_tick"]["engine"][0] == 0,
+          "a warm engine tick of the heavy-hitter window synchronised with the host")
+    del hh, hh_eager
+    laps.mark("3. slice 12 click-log windows")
+
+    # ------------------------------------------------- a minute -> hour -> day latency ladder
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    lat = torch.exp(LATENCY_LOG_MU + LATENCY_LOG_SIGMA * torch.randn(LADDER_TICKS, LADDER_BATCH, generator=g, device=dev))
+    lat_ticks = [(x,) for x in lat]
+    ladder, ladder_s = fed(torch, ResolutionLadder(M.QuantileSketch(device=dev), levels=LADDER_LEVELS), lat_ticks)
+    ladder_eager, ladder_eager_s = fed(torch, ResolutionLadder(M.QuantileSketch(device=dev), levels=LADDER_LEVELS,
+                                                               jit_update=False), lat_ticks)
+    check(ladder.dispatch_stats["retraces"] == 1 and ladder.dispatch_stats["demotions"] == 0,
+          f"the ladder's engine: {ladder.dispatch_stats}")
+    check(same_bits(torch, ladder, ladder_eager), "the ladder's engine states are not the eager ticks'")
+    held = ladder_ticks(LADDER_LEVELS, LADDER_TICKS)
+    levels = {}
+    for lvl, tick_ids in enumerate(held):
+        fresh, _ = fed(torch, M.QuantileSketch(device=dev), [lat_ticks[i] for i in tick_ids])
+        got = ladder.compute_level(lvl)
+        check(same_bits(torch, got, fresh.compute()) and same_bits(torch, got, ladder_eager.compute_level(lvl)),
+              f"the ladder's level {lvl} is not a fresh sketch's over its {len(tick_ids)} ticks")
+        levels[f"level{lvl}"] = {"ticks": len(tick_ids), "p50_ms": float(got)}
+    whole, _ = fed(torch, M.QuantileSketch(device=dev), [lat_ticks[i] for i in sorted(sum(held, []))])
+    check(same_bits(torch, ladder.compute(), whole.compute()) and same_bits(torch, ladder.compute(), ladder_eager.compute()),
+          "the ladder's whole-horizon value is not a fresh sketch's")
+    tumbling, tumbling_s = fed(torch, TumblingWindow(M.MeanMetric(device=dev), window=LADDER_LEVELS[0]), lat_ticks)
+    last_full = LADDER_TICKS - LADDER_TICKS % LADDER_LEVELS[0]
+    done, _ = fed(torch, M.MeanMetric(device=dev), lat_ticks[last_full - LADDER_LEVELS[0]:last_full])
+    check(same_bits(torch, tumbling.compute(), done.compute()), "TumblingWindow's value is not its last window's mean")
+    decay, decay_s = fed(torch, ExponentialDecay(M.MeanMetric(device=dev), halflife=DECAY_HALFLIFE), lat_ticks)
+    d = float(np.float32(0.5 ** (1.0 / DECAY_HALFLIFE)))
+    sums = lat.double().sum(dim=1).cpu().numpy()
+    weights = d ** np.arange(LADDER_TICKS - 1, -1, -1, dtype=np.float64)
+    closed = float((weights * sums).sum() / (weights.sum() * LADDER_BATCH))
+    # float32 recurrences over 3,660 ticks against float64 (each tick's error decays by d): rtol 1e-5
+    np.testing.assert_allclose(float(decay.compute()), closed, rtol=1e-5, atol=0,
+                               err_msg="ExponentialDecay differs from its float64 closed form")
+    x = lat_ticks[0]
+    strides = [math.prod(LADDER_LEVELS[:lvl]) for lvl in range(1, len(LADDER_LEVELS))]
+    report["latency_ladder"] = {
+        "ticks": LADDER_TICKS, "levels": levels, "p50_ms": float(ladder.compute()),
+        "cascades": [sum(1 for t in range(1, LADDER_TICKS) if t % s == 0) for s in strides],
+        "tumbling_mean_ms": float(tumbling.compute()), "decay_mean_ms": float(decay.compute()), "decay_closed_form": closed,
+        "epoch_ms": {"engine": ladder_s * 1e3, "eager": ladder_eager_s * 1e3, "tumbling": tumbling_s * 1e3,
+                     "decay": decay_s * 1e3},
+        "tick_ms": host_ms_in_turns(torch, {"engine": lambda: ladder.update(*x), "eager": lambda: ladder_eager.update(*x)},
+                                    reps=10),
+        "host_syncs_a_tick": {"engine": one_call_syncs(torch, lambda: ladder.update(*x)),
+                              "eager": one_call_syncs(torch, lambda: ladder_eager.update(*x))},
+        "compute_ms": host_ms(torch, lambda: ladder._compute_impl(), reps=10),
+        **window_profile(torch, ladder, x, replays=5),
+    }
+    check(report["latency_ladder"]["host_syncs_a_tick"]["engine"][0] == 0,
+          "a warm engine tick of the ladder synchronised with the host")
+    laps.mark("3. slice 12 latency ladder")
+
+    slice12_launches = launches()
+    by_shape12 = {name: registry.launches_by_shape(name) for name in ("stat_scores", "countmin")}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    for path, line in report.items():
+        print(f"slice 12 {path} ({card}): " + json.dumps(line, default=float))
+    print(f"slice 12 launches {json.dumps(slice12_launches)}")
+    return slice12_launches, by_shape12
+
+
 def main() -> int:
     import torch
 
@@ -3161,6 +3672,9 @@ def main() -> int:
     # ------------------------------------------ 3j. slice 11: regression and pairwise
     slice11_launches = run_slice11(torch, dev, laps)
 
+    # ------------------------------------------ 3k. slice 12: the wrappers and the streaming windows
+    slice12_launches, slice12_by_shape = run_slice12(torch, dev, laps, batches, click_batches)
+
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000
     n = p.shape[0]
@@ -3253,17 +3767,18 @@ def main() -> int:
         ),
     }
     stat_path_by_shape = merged(stat_by_shape, coll_stat_by_shape, comp_stat_by_shape, engine_by_shape["stat_scores"],
-                                slice10_stat_by_shape)
-    click_by_shape = merged(click_by_shape, engine_by_shape["countmin"])
+                                slice10_stat_by_shape, slice12_by_shape["stat_scores"])
+    click_by_shape = merged(click_by_shape, engine_by_shape["countmin"], slice12_by_shape["countmin"])
     # slice 9's launches are the four ranks' together
     path_launches = {"stat_scores": counts["stat_scores"] + coll_launches["stat_scores"] + comp_launches["macro"]
                      + engine_path_launches["stat_scores"] + sync_launches["stat_scores"]
-                     + slice10_launches["stat_scores"],
+                     + slice10_launches["stat_scores"] + slice12_launches["stat_scores"],
                      "confusion_matrix": counts["confusion_matrix"] + seg_launches + coll_launches["confusion_matrix"]
                      + engine_path_launches["confusion_matrix"] + sync_launches["confusion_matrix"],
                      "binned_stats": sum(binned_launches.values()),
                      "retrieval_sort": marco_launches + trec_launches + sync_launches["retrieval_sort"],
-                     "countmin": click_launches + engine_path_launches["countmin"] + sync_launches["countmin"]}
+                     "countmin": click_launches + engine_path_launches["countmin"] + sync_launches["countmin"]
+                     + slice12_launches["countmin"]}
     for name, (kernel, plain, library, library_call, nbytes, ops, shape, yardstick) in timing.items():
         # plain, kernel, kernel, plain: each pair within one call, the mean of the two readings
         plain_a, kernel_a, kernel_b, plain_b = (device_ms(torch, f) for f in (plain, kernel, kernel, plain))

@@ -65,9 +65,21 @@ from metrics_tpu_torch.retrieval import (  # noqa: F401
 )
 from metrics_tpu_torch.streaming import (  # noqa: F401
     CountMinHeavyHitters,
+    ExponentialDecay,
+    FoldTreeWindow,
     HostQuantileSketch,
     HyperLogLog,
     QuantileSketch,
+    ResolutionLadder,
+    SlidingWindow,
+    TumblingWindow,
+)
+from metrics_tpu_torch.wrappers import (  # noqa: F401
+    BootStrapper,
+    ClasswiseWrapper,
+    MetricTracker,
+    MinMaxMetric,
+    MultioutputWrapper,
 )
 
 __all__ = [
@@ -78,8 +90,10 @@ __all__ = [
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "BootStrapper",
     "CalibrationError",
     "CatMetric",
+    "ClasswiseWrapper",
     "CohenKappa",
     "CompositionalMetric",
     "ConfusionMatrix",
@@ -87,8 +101,10 @@ __all__ = [
     "CountMinHeavyHitters",
     "CoverageError",
     "ExplainedVariance",
+    "ExponentialDecay",
     "F1Score",
     "FBetaScore",
+    "FoldTreeWindow",
     "HammingDistance",
     "HingeLoss",
     "HostQuantileSketch",
@@ -106,7 +122,10 @@ __all__ = [
     "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "MetricTracker",
+    "MinMaxMetric",
     "MinMetric",
+    "MultioutputWrapper",
     "PearsonCorrCoef",
     "Precision",
     "PrecisionRecallCurve",
@@ -114,6 +133,7 @@ __all__ = [
     "R2Score",
     "ROC",
     "Recall",
+    "ResolutionLadder",
     "RetrievalFallOut",
     "RetrievalHitRate",
     "RetrievalMAP",
@@ -123,12 +143,14 @@ __all__ = [
     "RetrievalPrecision",
     "RetrievalRPrecision",
     "RetrievalRecall",
+    "SlidingWindow",
     "SpearmanCorrCoef",
     "Specificity",
     "StatScores",
     "StateCorruptionError",
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
+    "TumblingWindow",
     "TweedieDevianceScore",
     "WeightedMeanAbsolutePercentageError",
     "functional",

@@ -59,7 +59,8 @@ class BaseAggregator(Metric):
 
     def _as_float32(self, x: Union[float, Tensor]) -> Tensor:
         if not isinstance(x, Tensor):
-            return torch.tensor(x, dtype=torch.float32, device=self.device)
+            # a fill on the device, not a copy from the host: a CUDA graph can capture it (MeanMetric's weight=1.0)
+            return torch.full((), x, dtype=torch.float32, device=self.device)
         return x.to(torch.float32)
 
     def _cast_and_nan_check_input(self, x: Union[float, Tensor]) -> Tensor:

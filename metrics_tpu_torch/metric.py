@@ -564,6 +564,7 @@ class Metric(ABC):
         self.update(*args, **kwargs)
         self._to_sync = self.dist_sync_on_step
         cache = self._held_state()
+        kept = self._held_tree()
         update_count = self._update_count
         self.reset()
         self.update(*args, **kwargs)
@@ -572,6 +573,7 @@ class Metric(ABC):
 
         self._update_count = update_count
         self._load_state(cache)
+        self._restore_tree(kept)
         # the batch value's sync is dropped with its state. The JAX package leaves _is_synced set here
         # (metrics_tpu/metric.py:649-667), so its next forward raises; TorchMetrics clears it, as here
         self._is_synced = False
@@ -581,6 +583,30 @@ class Metric(ABC):
         self._computed = None
         self._bump_version()
         return batch_val
+
+    def _held_tree(self) -> List[Tuple["Metric", Dict[str, StateType], int, Dict[str, Any]]]:
+        """What forward's ``reset`` would lose beside the own states: the
+        ``_device_attributes`` of this metric, and the states, update counts
+        and device attributes of every metric below it (``_children``). A
+        wrapper's accumulated value lives in its children; the JAX package's
+        forward resets them and keeps the batch alone (ROADMAP.md, Queue C)."""
+        held = [(self, {}, self._update_count, {n: getattr(self, n) for n in self._device_attributes})]
+        stack = [child for _, child in self._children()]
+        while stack:
+            m = stack.pop()
+            held.append((m, m._held_state(), m._update_count, {n: getattr(m, n) for n in m._device_attributes}))
+            stack.extend(child for _, child in m._children())
+        return held
+
+    def _restore_tree(self, held: List[Tuple["Metric", Dict[str, StateType], int, Dict[str, Any]]]) -> None:
+        for m, state, count, attrs in held:
+            m._load_state(state)
+            for name, value in attrs.items():
+                object.__setattr__(m, name, value)
+            if m is not self:
+                m._update_count = count
+                m._computed = None
+                m._bump_version()
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """One update on a fresh state, merged into the global one by the reductions."""

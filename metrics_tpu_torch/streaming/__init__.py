@@ -1,13 +1,27 @@
-"""Sketch aggregators: fixed-shape streaming state (port of ``metrics_tpu/streaming``).
-
-The windowed wrappers of ``metrics_tpu/streaming/window.py`` are not ported
-yet (ROADMAP.md, Queue A item 9).
-"""
+"""Streaming metrics: windowed wrappers and fixed-shape sketch aggregators
+(port of ``metrics_tpu/streaming``)."""
 from metrics_tpu_torch.streaming.sketch import (  # noqa: F401
     CountMinHeavyHitters,
     HostQuantileSketch,
     HyperLogLog,
     QuantileSketch,
 )
+from metrics_tpu_torch.streaming.window import (  # noqa: F401
+    ExponentialDecay,
+    FoldTreeWindow,
+    ResolutionLadder,
+    SlidingWindow,
+    TumblingWindow,
+)
 
-__all__ = ["CountMinHeavyHitters", "HostQuantileSketch", "HyperLogLog", "QuantileSketch"]
+__all__ = [
+    "CountMinHeavyHitters",
+    "ExponentialDecay",
+    "FoldTreeWindow",
+    "HostQuantileSketch",
+    "HyperLogLog",
+    "QuantileSketch",
+    "ResolutionLadder",
+    "SlidingWindow",
+    "TumblingWindow",
+]

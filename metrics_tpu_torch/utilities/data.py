@@ -3,7 +3,8 @@
 The ``dim_zero_*`` functions are the named reductions a metric state can
 declare; ``forward`` merges a batch state into the global one with them.
 """
-from typing import Any, Dict, List, Union
+from collections.abc import Mapping, Sequence
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 from torch import Tensor
@@ -78,6 +79,31 @@ def _flatten_dict(x: Dict) -> Dict:
         else:
             new_dict[key] = value
     return new_dict
+
+
+def apply_to_collection(
+    data: Any,
+    dtype: Union[type, tuple],
+    function: Callable,
+    *args: Any,
+    wrong_dtype: Optional[Union[type, tuple]] = None,
+    **kwargs: Any,
+) -> Any:
+    """``function`` applied to every ``dtype`` leaf of nested mappings,
+    namedtuples and sequences, the containers rebuilt as they were
+    (``metrics_tpu/utilities/data.py:115``)."""
+    elem_type = type(data)
+    if isinstance(data, dtype) and (wrong_dtype is None or not isinstance(data, wrong_dtype)):
+        return function(data, *args, **kwargs)
+    if isinstance(data, Mapping):
+        return elem_type(
+            {k: apply_to_collection(v, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for k, v in data.items()}
+        )
+    if isinstance(data, tuple) and hasattr(data, "_fields"):  # namedtuple
+        return elem_type(*(apply_to_collection(d, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for d in data))
+    if isinstance(data, Sequence) and not isinstance(data, str):
+        return elem_type([apply_to_collection(d, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for d in data])
+    return data
 
 
 def to_onehot(label_tensor: Tensor, num_classes: int) -> Tensor:

@@ -986,3 +986,198 @@ def test_manhattan_row_blocks_on_the_card_are_bit_equal_to_one_block(card, monke
     assert pairwise.manhattan_block_rows(300, 768, 4) == 7
     assert torch.equal(pairwise.pairwise_manhattan_distance(x, y), whole)
     torch.testing.assert_close(whole.cpu(), pairwise.pairwise_manhattan_distance(x.cpu(), y.cpu()), rtol=1e-6, atol=0)
+
+
+# ------------------------------------------------------- windows and wrappers
+def _window(kind, card, engine):
+    M = metrics_tpu_torch
+    if kind == "accuracy":
+        return M.SlidingWindow(M.Accuracy(num_classes=100, average="macro", device=card), window=6, slide=2,
+                               jit_update=engine)
+    if kind == "countmin":
+        return M.SlidingWindow(M.CountMinHeavyHitters(width=4096, device=card), window=5, jit_update=engine)
+    if kind == "foldtree":
+        return M.FoldTreeWindow(M.HyperLogLog(precision=10, device=card), window=4, jit_update=engine)
+    if kind == "ladder":
+        return M.ResolutionLadder(M.QuantileSketch(device=card), levels=(3, 2, 2), jit_update=engine)
+    if kind == "tumbling":
+        return M.TumblingWindow(M.MeanMetric(device=card), window=3, jit_update=engine)
+    return M.ExponentialDecay(M.Accuracy(num_classes=100, average="macro", device=card), halflife=4.0,
+                              jit_update=engine)
+
+
+def _window_batches(kind, card, n=14):
+    rng = np.random.RandomState(60)
+    if kind in ("accuracy", "decay"):
+        return [_scores(rng, 512, 100, card) for _ in range(n)]
+    if kind in ("countmin", "foldtree"):
+        return [(torch.from_numpy(rng.zipf(1.2, 4096).clip(max=10**6).astype(np.float32)).to(card),) for _ in range(n)]
+    return [(torch.from_numpy(rng.lognormal(0.0, 1.0, 1024).astype(np.float32)).to(card),) for _ in range(n)]
+
+
+@pytest.mark.parametrize("kind", ["accuracy", "countmin", "foldtree", "ladder", "tumbling", "decay"])
+def test_window_engine_ticks_replay_without_a_sync_and_equal_eager(card, kind):
+    """Every tick of the engine (one graph replay, the refold and cascades as
+    selects) bit-equal to the eager tick (the refold only on an advance), and
+    a warm tick without a host sync."""
+    engine, eager = _window(kind, card, True), _window(kind, card, False)
+    for i, b in enumerate(_window_batches(kind, card)):
+        if i < 1:
+            engine.update(*b)  # the capture
+        else:
+            _no_sync(lambda b=b: engine.update(*b))
+        eager.update(*b)
+        for k in engine._defaults:
+            assert torch.equal(getattr(engine, k), getattr(eager, k)), (kind, i, k)
+    def same(a, b):  # bit for bit, NaN equal (an empty level's quantile)
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+    same(engine.compute(), eager.compute())
+    stats = engine.dispatch_stats
+    assert stats["retraces"] == 1 and stats["demotions"] == 0 and not stats["permanent"]
+    if kind == "foldtree":
+        same(engine.compute_range(1, 4), eager.compute_range(1, 4))
+    if kind == "ladder":
+        for level in range(3):
+            same(engine.compute_level(level), eager.compute_level(level))
+
+
+def test_window_ticks_count_the_kernels_of_their_replays(card):
+    w = _window("accuracy", card, True)
+    reset_launches()
+    for b in _window_batches("accuracy", card, n=9):
+        w.update(*b)
+    torch.cuda.synchronize()
+    # the capture recorded the inner update's one stat_scores launch; each replay counts it again
+    assert launches()["stat_scores"] == 9 and w.dispatch_stats["dispatches"] == 9
+
+
+def test_fused_window_tick_is_one_graph_launch_a_tick(card, monkeypatch):
+    from metrics_tpu_torch.ops import fused_window_tick
+
+    replays = []
+    original = torch.cuda.CUDAGraph.replay
+
+    def counted(self):
+        replays.append(self)
+        return original(self)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted)
+    fused, eager = _window("accuracy", card, False), _window("accuracy", card, False)
+    batches = _window_batches("accuracy", card, n=10)
+    reset_launches()
+    for i, b in enumerate(batches):
+        if i == 0:
+            fused_window_tick(fused, b, {})  # the capture (its eager run serves the tick)
+            assert not replays
+        else:
+            _no_sync(lambda b=b: fused_window_tick(fused, b, {}))
+            assert len(replays) == i  # one graph launch this tick
+        eager.update(*b)
+        for k in fused._defaults:
+            assert torch.equal(getattr(fused, k), getattr(eager, k)), (i, k)
+    torch.cuda.synchronize()
+    assert fused.dispatch_stats["dispatches"] == 10 and fused.dispatch_stats["retraces"] == 1
+    # the eager window launched stat_scores itself 10 times, the fused tick's graph once a replay
+    assert launches()["stat_scores"] == 10 + 9 + 1
+
+
+def _wrapper_runs(device):
+    M = metrics_tpu_torch
+    rng = np.random.RandomState(61)
+    batches = [(torch.from_numpy(rng.rand(256, 50).astype(np.float32)).to(device),
+                torch.from_numpy(rng.randint(0, 50, 256).astype(np.int32)).to(device)) for _ in range(4)]
+    reg = [(torch.from_numpy(rng.randn(256, 3).astype(np.float32)).to(device),
+            torch.from_numpy(rng.randn(256, 3).astype(np.float32)).to(device)) for _ in range(4)]
+    reg[1][0][::7, 1] = float("nan")
+    boot = M.BootStrapper(M.Accuracy(num_classes=50, average="macro", device=device), num_bootstraps=5,
+                          quantile=torch.tensor([0.1, 0.9]).to(device), raw=True)
+    boot._rng = np.random.RandomState(3)
+    classwise = M.ClasswiseWrapper(M.Accuracy(num_classes=50, average=None, device=device))
+    minmax = M.MinMaxMetric(M.Accuracy(num_classes=50, average="macro", device=device))
+    multi = M.MultioutputWrapper(M.R2Score(device=device), 3)
+    tracker = M.MetricTracker(M.Accuracy(num_classes=50, average="macro", jit_update=True, device=device))
+    out = {"minmax": []}
+    for i, (p, t) in enumerate(batches):
+        boot.update(p, t)
+        classwise.update(p, t)
+        minmax.update(p, t)
+        out["minmax"].append(minmax.compute())
+        tracker.increment()
+        tracker.update(p, t)
+        multi.update(*reg[i])
+    out.update(boot=boot.compute(), classwise=classwise.compute(), multi=multi.compute(),
+               tracker=tracker.compute_all(), best=tracker.best_metric(return_step=True))
+    out["copies"] = [{k: getattr(m, k) for k in m._defaults} for m in boot.metrics]
+    return out
+
+
+def test_wrappers_on_the_card_equal_the_cpu(card):
+    got, want = _wrapper_runs(card), _wrapper_runs(torch.device("cpu"))
+
+    def close(a, b, what):
+        if isinstance(b, dict):
+            assert list(a) == list(b), what
+            for k in b:
+                close(a[k], b[k], f"{what}.{k}")
+        elif isinstance(b, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                close(x, y, f"{what}[{i}]")
+        elif isinstance(b, torch.Tensor):
+            assert a.device.type == "cuda", what
+            if b.is_floating_point():
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=0, equal_nan=True, msg=what)
+            else:
+                assert torch.equal(a.cpu(), b), what  # the resampled copies' counts: bit for bit
+        else:
+            assert (a == b) if not isinstance(b, float) else np.isclose(a, b, rtol=1e-6), what
+
+    close(got, want, "wrappers")
+
+
+def test_tracker_steps_on_the_card_keep_their_own_graphs(card):
+    """A step copied from a base whose engine captured graphs holds none of
+    them: its updates replay graphs of its own, and the base's and earlier
+    steps' states stay as they were."""
+    M = metrics_tpu_torch
+    rng = np.random.RandomState(62)
+    base = M.MetricCollection([M.Accuracy(num_classes=100, average="macro", device=card),
+                               M.Precision(num_classes=100, average="macro", device=card)], fused_update=True)
+    p, t = _scores(rng, 512, 100, card)
+    base.update(p, t)
+    base.update(p, t)
+    tracker = M.MetricTracker(base)
+    before = {k: v.clone() for k, v in base.compute().items()}
+    values = []
+    for _ in range(3):
+        tracker.increment()
+        q, u = _scores(rng, 512, 100, card)
+        for _ in range(3):
+            tracker.update(q, u)
+        values.append({k: v.clone() for k, v in tracker.compute().items()})
+        assert tracker[-1]._dispatcher is not base._dispatcher
+    for i, v in enumerate(values):
+        for k in v:
+            assert torch.equal(tracker[i].compute()[k], v[k]), (i, k)
+    for k, v in base.compute().items():
+        assert torch.equal(v, before[k]), k
+
+
+@pytest.mark.parametrize("name", ["MeanMetric", "SumMetric", "MaxMetric", "MinMetric"])
+def test_aggregator_engines_capture_a_number_argument(card, name):
+    """``MeanMetric``'s default ``weight=1.0`` (and any number given to an
+    aggregator) becomes a device fill inside the program, not a copy from the
+    host, which a CUDA graph cannot capture: the engine never demotes."""
+    rng = np.random.RandomState(63)
+    engine = getattr(metrics_tpu_torch, name)(jit_update=True, device=card)
+    eager = getattr(metrics_tpu_torch, name)(device=card)
+    for i in range(5):
+        x = torch.from_numpy(rng.randn(64).astype(np.float32)).to(card)
+        if i < 1:
+            engine.update(x)
+        else:
+            _no_sync(lambda x=x: engine.update(x))
+        eager.update(x)
+    assert engine.dispatch_stats["demotions"] == 0 and engine.dispatch_stats["retraces"] == 1
+    for k in engine._defaults:
+        assert torch.equal(getattr(engine, k), getattr(eager, k)), k

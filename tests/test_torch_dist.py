@@ -337,6 +337,36 @@ def scenario_regression(rank):
     return out
 
 
+WINDOW_TICKS, WINDOW_ROWS = 7, (4, 10, 16, 22)  # every rank ticks in step, each on its own batch size
+WINDOW_KW = {"window": 8, "slide": 2}  # four buckets: one a rank under shard_state
+
+
+def window_batches(rank):
+    """Rank ``rank``'s ticks: ``WINDOW_ROWS[rank]`` rows each, from its own part of the scores."""
+    preds, target = imagenet_like()
+    lo, b = rank * ROWS, WINDOW_ROWS[rank]
+    return [(preds[lo + i * b: lo + (i + 1) * b], target[lo + i * b: lo + (i + 1) * b]) for i in range(WINDOW_TICKS)]
+
+
+def scenario_window(rank):
+    out = {}
+    for jit in (False, True):
+        w = M.SlidingWindow(M.Accuracy(num_classes=CLASSES, average="macro", device="cpu"), shard_state="world",
+                            jit_update=jit, **WINDOW_KW)
+        for p, t in window_batches(rank):
+            w.update(torch.from_numpy(p), torch.from_numpy(t))
+        local = {k: _np(v) for k, v in w.state().items()}
+        synced = w.pure_sync(w.state())
+        out[f"synced{int(jit)}"] = {k: _np(v) for k, v in synced.items()}
+        out[f"assembled{int(jit)}"] = {k: _np(v) for k, v in w.assemble_sharded(synced).items()}
+        out[f"value_sharded{int(jit)}"] = _np(w.pure_compute_sharded(synced))
+        # the stateful compute syncs whole (the ring unsharded), reads the poisoned cache and rebuilds it
+        out[f"compute{int(jit)}"] = _np(w.compute())
+        out[f"local_kept{int(jit)}"] = all(np.array_equal(_np(getattr(w, k)), v) for k, v in local.items())
+        out[f"stats{int(jit)}"] = w.sync_stats
+    return out
+
+
 SCENARIOS = {
     "reductions": scenario_reductions,
     "classification": scenario_classification,
@@ -346,6 +376,7 @@ SCENARIOS = {
     "collective_fault": scenario_collective_fault,
     "deadline": scenario_deadline,
     "regression": scenario_regression,
+    "window": scenario_window,
 }
 
 
@@ -723,3 +754,62 @@ def test_pearson_and_r2_on_four_uneven_ranks_equal_jax_pure_sync(tmp_path):
                                            err_msg=f"rank {r} fused={fused} {key}")
                 np.testing.assert_allclose(out[f"{key}{fused}"], _np(alone[key].compute()), rtol=1e-5, atol=0,
                                            err_msg=f"rank {r} {key} against all rows in one process")
+
+
+def test_sliding_window_on_four_uneven_ranks_equals_jax_pure_sync(tmp_path):
+    """A ``SlidingWindow(Accuracy)`` on ranks of 4, 10, 16 and 22 rows a tick,
+    its ring sharded over the world (``shard_state="world"``, one bucket a
+    rank), synced by ``pure_sync``: each rank's ring shard and every other
+    leaf equal the JAX package's ``pure_sync`` over four devices bit for bit,
+    ``pfx_token`` poisoned to -1 on both; the read of the assembled state
+    rebuilds the prefix and equals the JAX package's ``pure_compute_sharded``
+    and the stateful ``compute`` (synced whole), engine and eager alike, and
+    the local states come back after ``compute``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    import metrics_tpu as J
+    from metrics_tpu._compat import shard_map
+    from metrics_tpu.streaming import SlidingWindow
+
+    outs = run_world("window", tmp_path)
+    mesh = Mesh(np.array(jax.devices()[:WORLD]), ("r",))
+    states = []
+    for rank in range(WORLD):
+        jw = SlidingWindow(J.Accuracy(num_classes=CLASSES, average="macro"), shard_state="r", jit_update=False,
+                           **WINDOW_KW)
+        for p, t in window_batches(rank):
+            jw.update(jnp.asarray(p), jnp.asarray(t.astype(np.int32)))
+        states.append(jw.state())
+    stacked = {k: jnp.stack([st[k] for st in states]) for k in states[0]}
+    ring = [k for k in stacked if k.startswith("ring_")]
+
+    def worker(st):
+        return jw.pure_sync({k: v[0] for k, v in st.items()}, "r")
+
+    synced = jax.jit(shard_map(worker, mesh=mesh, in_specs=(P("r"),),
+                               out_specs={k: (P("r") if k in ring else P()) for k in stacked}, check_vma=False))(stacked)
+    # the JAX package's named-axis sync gives its scalar states shape (1,) (``AxisEnv``'s atleast_1d), on which
+    # its traced read cannot branch: its value is read eagerly from the scalars restored, as the port keeps them
+    synced = {k: np.asarray(v).reshape(np.shape(jw._defaults[k])) if k not in ring else np.asarray(v)
+              for k, v in synced.items()}
+    value = jw.pure_compute({k: jnp.asarray(v) for k, v in synced.items()})
+    assert int(synced["pfx_token"]) == -1
+    for r, out in enumerate(outs):
+        for jit in ("0", "1"):
+            got = out[f"synced{jit}"]
+            for k, ref in synced.items():
+                if k in ring:
+                    # this rank's bucket of the reduce-scattered ring
+                    assert got[k].shape == (1,) + ref.shape[1:], (k, got[k].shape)
+                    np.testing.assert_array_equal(got[k], ref[r:r + 1], err_msg=f"rank {r} {k}")
+                    np.testing.assert_array_equal(out[f"assembled{jit}"][k], ref, err_msg=f"rank {r} {k} assembled")
+                else:
+                    assert got[k].dtype == ref.dtype, k
+                    np.testing.assert_array_equal(got[k], ref, err_msg=f"rank {r} {k}")
+            np.testing.assert_allclose(out[f"value_sharded{jit}"], np.asarray(value), rtol=RTOL, atol=0)
+            np.testing.assert_array_equal(out[f"compute{jit}"], outs[0]["value_sharded0"])
+            np.testing.assert_array_equal(out[f"value_sharded{jit}"], outs[0]["value_sharded0"])
+            assert out[f"local_kept{jit}"]
+            assert out[f"stats{jit}"]["sharded_buckets"] >= 1
