@@ -212,7 +212,37 @@
    turns), host syncs, the engine graph's nodes (read through the driver
    API from a graph kept after capture), its replay µs (CUDA events), the
    ``compute`` ms and the busy share, with the card's name and power limit.
-4. Times each kernel, itsplain version and the one PyTorch library call
+   Slice 13, observability: slice 7's collection over ImageNet's epoch in
+   three modes (eager, ``fused_update=True``, and each member on
+   ``jit_update=True``), each inside one ``telemetry.instrument()`` session
+   and ``profiling.track_dispatches()``, then a compute and a reset. Each
+   owner's ``update`` spans (of the mode's kind) must equal its
+   ``dispatch_stats``, its ``compile`` spans its builds with the causes its
+   dispatcher named, the ``compute`` spans and ``reset`` instants the
+   members', the ``kernel`` events of ``stat_scores`` and
+   ``confusion_matrix`` their launches less the graph replays (one a build's
+   warm-up, none a replay), ``telemetry.snapshot()`` the session's counts and
+   the tracker the dispatches; the three epochs' values bit-equal. Then
+   ``Accuracy(1000)``'s warm engine and eager updates and the fused
+   collection's, each with telemetry off, idle and instrumented, in turns
+   (the idle/off and instrumented/off ratios), the host syncs of a warm
+   engine update inside a session (0), an injected launch fault (one
+   ``degrade`` span, cause ``injected:launch``, the value bit-equal to
+   eager), 60 eager ticks of slice 12's monitor (a ``window`` event a tick,
+   ``read`` events a compute; the host syncs of a monitor tick, a monitor
+   read and a tumbling window's tick the same with telemetry idle as off, a
+   session adding only the read's live count and the tumbling tick's
+   advance) and the click log through a count-min sketch (``sketch`` events
+   with its geometry), and both exports of the eager epoch's session read
+   back. Each overhead arm's switch is set, and its session entered,
+   outside the clock. After the last kernel check that reads a profiler
+   capture, one ``torch.profiler`` capture shows the
+   ``metrics_tpu.Accuracy.update[aot]`` range.
+   Slice 9's ranks compute inside a session: on each, the ``collective``
+   spans and their bytes equal ``sync_stats``. Before the ``kernels`` line
+   each kernel's cost-model entry (``model_bytes``, ``model_flops``) must
+   give the row's bound.
+4. Times each kernel, its plain version and the one PyTorch library call
    that computes the same function (``binned_stats``, ``retrieval_sort``
    and ``countmin`` have none, so a yardstick is timed and named instead)
    at the slices' shapes with CUDA events (median of 25 repetitions),
@@ -338,6 +368,8 @@ TRACKER_HITS = (0.55, 0.66, 0.76)  # three epochs' top-1 hit rates: the teacher'
 NYU_HOLE_SHARE, NYU12_CPU_IMAGES = 0.05, 16  # pixels raw depth leaves without a normal; the CPU rerun's images
 MONITOR_WINDOW, MONITOR_TICKS, MONITOR_SLIDES, MONITOR_CPU_TICKS = 60, 1000, (1, 5), 90  # a tick a minute
 FUSED_TICKS = 200
+# slice 13: the monitor's eager ticks and reads, and the click-log batches through one count-min sketch
+SLICE13_TICKS, SLICE13_READ_EVERY, SLICE13_SKETCH_BATCHES = 60, 10, 8
 CLICK_WINDOW, CLICK_DEPTH, CLICK_WIDTH = 60, 4, 65536  # the last 60 batches of the click log
 HLL_PRECISION, HLL_RANGES = 14, ((0, 60), (7, 38), (45, 60), (59, 60))
 LADDER_LEVELS, LADDER_TICKS, LADDER_BATCH = (60, 60, 24), 3660, 1024  # minute -> hour -> day, a tick a second
@@ -425,25 +457,33 @@ def host_ms(torch, fn, reps=REPS):
     return statistics.median(times)
 
 
-def host_ms_in_turns(torch, fns, reps=REPS, warmup=3):
+def host_ms_in_turns(torch, fns, reps=REPS, warmup=3, around=None):
     """Median wall time of one call of each of ``fns`` (a dict) up to the
     device's completion, the calls timed in turns within each repetition
     (forward order, then reverse: a, b, b, a) and each call's two readings
     averaged, so that a drift of the host's speed over the repetitions falls
-    on every call alike."""
-    for fn in fns.values():
+    on every call alike. ``around`` (a dict on some of the same keys) gives a
+    call a context, entered before its clock starts and left after it stops."""
+    around = around or {}
+
+    def arm(key):
+        return around[key]() if key in around else contextlib.nullcontext()
+
+    for key, fn in fns.items():
         for _ in range(warmup):
-            fn()
+            with arm(key):
+                fn()
     torch.cuda.synchronize()
     order = list(fns.items()) + list(reversed(fns.items()))
     times = {key: [] for key in fns}
     for _ in range(reps):
         lap = {key: 0.0 for key in fns}
         for key, fn in order:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            lap[key] += (time.perf_counter() - t0) * 1e3 / 2
+            with arm(key):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                lap[key] += (time.perf_counter() - t0) * 1e3 / 2
         for key, ms in lap.items():
             times[key].append(ms)
     return {key: statistics.median(ms) for key, ms in times.items()}
@@ -802,6 +842,22 @@ def replayed_kernels(torch, fn, calls=3, tries=8):
                 "registry_in_window": added[k], "window_updates": 1 + 2 * calls} for k in DEVICE_KERNELS}, captured
 
 
+def program_kernels(torch, m, args):
+    """Per wrapper kernel, for one replay of ``m``'s engine program: the launches its capture wrote down
+    (``program.launched``, what ``note_replay`` adds a replay) and the kernel nodes of that name in its graph,
+    read through the CUDA driver API from a copy of ``m`` captured again under :func:`kept_graphs`. Unlike a
+    profiler capture this never comes back short."""
+    import copy
+
+    twin = copy.deepcopy(m)
+    with kept_graphs(torch):
+        twin.update(*args)
+    program = engine_program(twin)
+    names = [n for kind, n in graph_node_list(program.graphs[0]) if kind == "kernel"]
+    return {k: {"written": sum(launch[0] == k for launch in program.launched),
+                "graph": sum(any(d in n for d in DEVICE_KERNELS[k]) for n in names)} for k in DEVICE_KERNELS}
+
+
 def curve_members(M, device):
     """Slice 10's ImageNet curve-and-calibration collection; its keys are those of
     ``tests/test_torch_curves.py``, which holds the port's compute groups equal to the JAX package's."""
@@ -996,12 +1052,13 @@ def numpy_ranking(scores, target):
             "label_ranking_loss": loss.mean()}
 
 
-def evaluation_members(M, device):
-    """Slice 7's eleven-member ImageNet evaluation collection (``M`` the port's package)."""
-    macro = dict(num_classes=NUM_CLASSES, average="macro", device=device)
-    matmul = dict(update_method="matmul", device=device)
+def evaluation_members(M, device, **extra):
+    """Slice 7's eleven-member ImageNet evaluation collection (``M`` the port's package); ``extra``
+    (``jit_update=True`` in slice 13) goes to every member."""
+    macro = dict(num_classes=NUM_CLASSES, average="macro", device=device, **extra)
+    matmul = dict(update_method="matmul", device=device, **extra)
     return [M.Accuracy(**macro), M.Precision(**macro), M.Recall(**macro), M.F1Score(**macro),
-            M.FBetaScore(beta=FBETA, **macro), M.Specificity(**macro), M.HammingDistance(device=device),
+            M.FBetaScore(beta=FBETA, **macro), M.Specificity(**macro), M.HammingDistance(device=device, **extra),
             M.ConfusionMatrix(NUM_CLASSES, **matmul), M.CohenKappa(NUM_CLASSES, weights="quadratic", **matmul),
             M.MatthewsCorrCoef(NUM_CLASSES, **matmul), M.JaccardIndex(NUM_CLASSES, **matmul)]
 
@@ -1010,7 +1067,7 @@ def sync_rank(torch, dist, rank, dev):
     """Slice 9 on one rank of the group: its quarter of each path, synced by
     ``compute``. Returns what the parent checks, as numpy arrays and numbers."""
     import metrics_tpu_torch as M
-    from metrics_tpu_torch import resilience
+    from metrics_tpu_torch import resilience, telemetry
     from metrics_tpu_torch.ops import launches, reset_launches
     from metrics_tpu_torch.parallel import NoOpEnv
 
@@ -1057,6 +1114,20 @@ def sync_rank(torch, dist, rank, dev):
         issued.clear()
         return out
 
+    def traced(compute, owners):
+        """``compute()`` inside a telemetry session (slice 13): its value, and the session's collective spans and
+        their bytes beside the collectives and bytes on the wire that ``owners``' sync_stats counted."""
+        before = [dict(o.sync_stats) for o in owners]
+        with telemetry.instrument() as session:
+            value = compute()
+        spans = session.spans(name="collective")
+        counted = [{k: o.sync_stats.get(k, 0) - b.get(k, 0) for k in ("collectives", "bytes_on_wire")}
+                   for o, b in zip(owners, before)]
+        return value, {"spans": len(spans), "nbytes": sum(e.attrs["nbytes"] for e in spans),
+                       "collectives": sum(c["collectives"] for c in counted),
+                       "bytes_on_wire": sum(c["bytes_on_wire"] for c in counted),
+                       "sync_spans": session.count(name="sync")}
+
     out = {"degrades_start": resilience.degrades()}
     # ---------------- ImageNet-1k val: this rank's 12,500 images in batches of 1,024 (12 full, one of 212)
     scores, labels = imagenet_data(torch, dev)
@@ -1074,9 +1145,10 @@ def sync_rank(torch, dist, rank, dev):
         torch.cuda.synchronize()
         launched = dict(launches())
         call_counts()
-        values = mc.compute()
+        values, tel = traced(mc.compute, [mc] + members_of(mc))
         imagenet[mode] = {
             "values": npy(values), "launches": launched, "issued": call_counts(), "sync_stats": mc.sync_stats,
+            "telemetry": tel,
             "member_collectives": sum(m.sync_stats["collectives"] for m in members_of(mc)),
             "demotions": mc.dispatch_stats["demotions"], "groups": mc.compute_groups,
             "local_tp": mc["Accuracy"].tp.cpu().numpy(),
@@ -1184,10 +1256,12 @@ def sync_rank(torch, dist, rank, dev):
         before = dict(sk.sync_stats)
         call_counts()
         fresh(members_of(sk))  # a memoised member keeps its value and is left out of the collection's sync
-        with sk.sync_context():
+        with telemetry.instrument() as session, sk.sync_context():
             click[f"table{quant_on}"] = sk["CountMinHeavyHitters"].value.cpu().numpy()
             click[f"registers{quant_on}"] = sk["HyperLogLog"].value.cpu().numpy()
             click[f"values{quant_on}"] = npy(sk.compute())
+        spans = session.spans(name="collective")
+        click[f"telemetry{quant_on}"] = {"spans": len(spans), "nbytes": sum(e.attrs["nbytes"] for e in spans)}
         click[f"issued{quant_on}"] = call_counts()
         click[f"wire{quant_on}"] = {k: v - before.get(k, 0) for k, v in sk.sync_stats.items()}
         os.environ.pop("METRICS_TPU_QUANT_SYNC")
@@ -1946,32 +2020,93 @@ def kept_graphs(torch):
         torch.cuda.CUDAGraph = base
 
 
-def graph_nodes(graph):
-    """The nodes of a graph kept by :func:`kept_graphs`, by type, read through the CUDA driver API."""
+def graph_node_list(graph):
+    """The nodes of a graph kept by :func:`kept_graphs` (or made with ``keep_graph=True``), as ``(type, name)``
+    pairs read through the CUDA driver API: a kernel node's name is its function's (mangled) name, any other
+    node's is None."""
     lib = ctypes.CDLL("libcuda.so.1")
     lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
     lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    lib.cuGraphKernelNodeGetParams_v2.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.cuFuncGetName.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p]
+    lib.cuKernelGetName.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p]
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
     check(lib.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
     nodes = (ctypes.c_void_p * count.value)()
     check(lib.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
-    names = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
-    out = {}
+    types = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+    out = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         check(lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "cuGraphNodeGetType failed")
-        key = names.get(kind.value, str(kind.value))
-        out[key] = out.get(key, 0) + 1
+        name = None
+        if kind.value == 0:
+            # CUDA_KERNEL_NODE_PARAMS_v2: the CUfunction at byte 0, the CUkernel (set where func is not) at 56
+            params = (ctypes.c_byte * 128)()
+            check(lib.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) == 0,
+                  "cuGraphKernelNodeGetParams failed")
+            func, kern = (ctypes.c_void_p.from_buffer(params, at).value for at in (0, 56))
+            got = ctypes.c_char_p()
+            err = lib.cuFuncGetName(ctypes.byref(got), ctypes.c_void_p(func)) if func else \
+                lib.cuKernelGetName(ctypes.byref(got), ctypes.c_void_p(kern))
+            check(err == 0 and got.value, f"the name of a kernel node could not be read: error {err}")
+            name = got.value.decode()
+        out.append((types.get(kind.value, str(kind.value)), name))
     return out
+
+
+def graph_nodes(graph):
+    """The nodes of a graph kept by :func:`kept_graphs`, by type, read through the CUDA driver API."""
+    out = {}
+    for kind, _ in graph_node_list(graph):
+        out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def graph_launches(torch, fn, calls=3):
+    """What ``calls`` calls of ``fn`` hand the card, read from one CUDA graph they are captured into (after an
+    eager call): the graph's nodes as :func:`graph_node_list` gives them, and the wrapper launches the capture
+    wrote down (``registry.recording``). Unlike a profiler capture this never comes back short: it lists what
+    the stream was given, whatever the card's clock or the profiler's buffers."""
+    from metrics_tpu_torch.ops import registry
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with registry.recording() as written, torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    nodes = graph_node_list(graph)
+    del graph
+    return nodes, [launch[0] for launch in written]
+
+
+def host_ops(torch, fn, calls=3):
+    """The names of the PyTorch operators ``calls`` eager calls of ``fn`` ran, from a host-only
+    ``torch.profiler`` capture (after a warm-up call). The host's operator records do not go through the
+    card's activity buffers, so they are whole."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(calls):
+            fn()
+    return [e.name for e in prof.events()]
+
+
+def engine_program(m):
+    """The one captured program ``m``'s engine built."""
+    programs = list(m._dispatcher._cache.values())
+    check(len(programs) == 1 and len(programs[0].graphs) == 2,
+          f"{type(m).__name__}'s engine holds {len(programs)} programs, not one captured program")
+    return programs[0]
 
 
 def engine_graph(m):
     """The first of the two CUDA graphs of the one program ``m``'s engine built."""
-    programs = list(m._dispatcher._cache.values())
-    check(len(programs) == 1 and len(programs[0].graphs) == 2,
-          f"{type(m).__name__}'s engine holds {len(programs)} programs, not one captured program")
-    return programs[0].graphs[0]
+    return engine_program(m).graphs[0]
 
 
 def ladder_ticks(levels, ticks):
@@ -2383,6 +2518,262 @@ def run_slice12(torch, dev, laps, batches, click_batches):
     return slice12_launches, by_shape12
 
 
+def slice13_epoch(torch, M, telemetry, profiling, registry, dev, batches, mode):
+    """Slice 7's collection over ImageNet's epoch in one of slice 13's modes (``eager``, ``fused``, or
+    ``engines``: each member on ``jit_update=True``) inside one telemetry session and a dispatch tracker, then a
+    compute and a reset. Returns the session, the collection, the tracker, the launches and the values."""
+    engines = mode == "engines"
+    members = evaluation_members(M, dev, **({"jit_update": True} if engines else {}))
+    mc = M.MetricCollection(members, prefix="val_", fused_update=mode == "fused")
+    registry.reset_launches()
+    telemetry.reset_counters()
+    with telemetry.instrument() as session, profiling.track_dispatches() as tracker:
+        for p, t in batches:
+            mc.update(p, t)
+        values = mc.compute()
+        mc.reset()
+    torch.cuda.synchronize()
+    return session, mc, tracker, registry.launches(), registry.replayed_launches(), values
+
+
+def check_slice13_epoch(mode, session, mc, tracker, launched, replayed, telemetry):
+    """Slice 13's checks on one epoch (see the module's docstring); returns what it counted."""
+    owners = [("MetricCollection", mc)] + [(type(m).__name__, m) for m in mc.values(copy_state=False)]
+    kind = {"eager": "eager", "fused": "fused-aot", "engines": "aot"}[mode]
+    for owner, m in owners:
+        updates = session.spans(name="update", owner=owner)
+        want = m.dispatch_stats["dispatches"]
+        check(len(updates) == want and all(e.kind == kind for e in updates),
+              f"slice 13 {mode}: {len(updates)} update spans of {owner} ({sorted({e.kind for e in updates})}) against "
+              f"its {want} dispatches")
+        builds = m.dispatch_stats["retraces"] + m.forward_stats["retraces"]
+        compiles = [e for e in session.spans(name="compile") if e.owner == owner]
+        check(len(compiles) == builds, f"slice 13 {mode}: {len(compiles)} compile spans of {owner}, {builds} builds")
+        engine = m._dispatcher
+        causes = {}
+        for (family, cause), n in (engine.causes.items() if engine is not None else ()):
+            if family != "scan":
+                causes[cause] = causes.get(cause, 0) + n
+        got = {}
+        for e in compiles:
+            got[e.attrs["cause"]] = got.get(e.attrs["cause"], 0) + 1
+        check(got == causes, f"slice 13 {mode}: {owner}'s compile causes {got}, the dispatcher named {causes}")
+    members = owners[1:]
+    check(session.count(name="compute") == len(members) and session.count(name="reset") == len(members),
+          f"slice 13 {mode}: {session.count(name='compute')} compute spans, {session.count(name='reset')} resets, "
+          f"for {len(members)} members computed and reset once")
+    # kernel events: one for each launch that no replay ran (the eager calls and each build's warm-up run)
+    kernel_events = {}
+    for name, owner in (("stat_scores", "ops.stat_scores"), ("confusion_matrix", "ops.confusion_matrix")):
+        events = session.count(name="kernel", owner=owner)
+        kernel_events[name] = events
+        check(events == launched[name] - replayed[name],
+              f"slice 13 {mode}: {events} {name} kernel events for {launched[name]} launches, {replayed[name]} replayed")
+        dispatchers = [m._dispatcher for _, m in owners if m._dispatcher is not None]
+        in_programs = sum(sum(1 for k in prog.launched if k[0] == name) for d in dispatchers for prog in d._cache.values())
+        if mode == "eager":
+            check(replayed[name] == 0 and in_programs == 0, f"slice 13 eager: a {name} launch ran in a graph")
+        else:
+            check(events == in_programs and replayed[name] > 0,
+                  f"slice 13 {mode}: {events} {name} kernel events, {in_programs} in the programs' captures (one a build)")
+    counters = telemetry.snapshot()
+    counted = {}
+    for e in session.events:
+        key = f"{e.name}:{e.kind}" if e.kind else e.name
+        counted[key] = counted.get(key, 0) + 1
+    for cause, n in session.retrace_causes().items():
+        counted[f"compile:cause:{cause}"] = n
+    check({k: v for k, v in counters.items() if k != "collective:bytes"} == counted,
+          f"slice 13 {mode}: telemetry.snapshot() {counters} is not the session's counts {counted}")
+    dispatches = sum(m.dispatch_stats["dispatches"] for _, m in owners)
+    check(tracker.dispatches == dispatches, f"slice 13 {mode}: track_dispatches() {tracker.dispatches}, dispatch_stats {dispatches}")
+    return {"events": len(session.events), "updates": session.count(name="update"),
+            "compiles": session.count(name="compile"), "causes": session.retrace_causes(),
+            "kernel_events": kernel_events, "launches": {k: launched[k] for k in kernel_events},
+            "replayed": {k: replayed[k] for k in kernel_events}, "tracker_dispatches": tracker.dispatches}
+
+
+def run_slice13(torch, dev, laps, batches, click_batches):
+    """Slice 13 (see the module's docstring): returns the kernels' launches on its path and by shape."""
+    import tempfile
+
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch import faults, profiling, telemetry
+    from metrics_tpu_torch.ops import registry
+    from metrics_tpu_torch.streaming import SlidingWindow, TumblingWindow
+
+    report = {}
+    totals = {"stat_scores": 0, "confusion_matrix": 0, "countmin": 0}
+    by_shape13 = {name: {} for name in totals}
+
+    def note_launches():
+        for name in totals:
+            totals[name] += registry.launches()[name]
+            by_shape13[name] = merged(by_shape13[name], registry.launches_by_shape(name))
+
+    # ------------------------------------------- the instrumented ImageNet epoch, in three modes
+    epochs, values = {}, {}
+    for mode in ("eager", "fused", "engines"):
+        session, mc, tracker, launched, replayed, vals = slice13_epoch(
+            torch, M, telemetry, profiling, registry, dev, batches, mode)
+        note_launches()
+        epochs[mode] = check_slice13_epoch(mode, session, mc, tracker, launched, replayed, telemetry)
+        values[mode] = vals
+        if mode == "eager":
+            epoch_session = session
+    for mode in ("fused", "engines"):
+        check(all(same_bits(torch, values[mode][k], values["eager"][k]) for k in values["eager"]),
+              f"slice 13: the {mode} epoch's values are not the eager epoch's bits")
+    report["epochs"] = epochs
+    registry.reset_launches()  # each epoch's launches are noted above
+    laps.mark("3. slice 13 instrumented epochs")
+
+    # --------------------------------------------------------------------- overhead, in turns
+    p, t = batches[0]
+    # each arm's switch is set, and its session entered, outside the clock: a call is timed alone
+    arms = {"off": telemetry_off, "instrumented": telemetry.instrument}
+    engine_acc = M.Accuracy(num_classes=NUM_CLASSES, average="macro", jit_update=True, device=dev)
+    eager_acc = M.Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev)
+    fused = M.MetricCollection(evaluation_members(M, dev), prefix="val_", fused_update=True)
+    overhead = {}
+    for path, m in (("accuracy_engine", engine_acc), ("accuracy_eager", eager_acc), ("collection_fused", fused)):
+        fns = {how: (lambda m=m: m.update(p, t)) for how in ("off", "idle", "instrumented")}
+        ms = host_ms_in_turns(torch, fns, around=arms)
+        overhead[path] = {"ms": ms, "idle_over_off": ms["idle"] / ms["off"],
+                          "instrumented_over_off": ms["instrumented"] / ms["off"]}
+    with telemetry.instrument():
+        syncs = one_call_syncs(torch, lambda: engine_acc.update(p, t))
+    check(syncs[0] == 0, f"slice 13: a warm engine update inside a session synchronised with the host: {syncs}")
+    overhead["engine_update_syncs_in_a_session"] = syncs[0]
+    report["overhead"] = overhead
+    note_launches()
+    registry.reset_launches()
+    laps.mark("3. slice 13 overhead")
+
+    # ------------------------------------------------------------------------- a degrade
+    with telemetry.instrument() as session, faults.inject("launch", count=1) as spec:
+        engine_acc.update(p, t)
+    ref = M.Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev)
+    for _ in range(engine_acc._update_count):
+        ref.update(p, t)
+    degrades = session.spans(name="degrade")
+    check(spec.fired == 1 and len(degrades) == 1 and degrades[0].attrs["cause"] == "injected:launch"
+          and degrades[0].kind == "dispatch", f"slice 13: the injected launch fault gave {degrades}")
+    check(same_bits(torch, engine_acc.compute(), ref.compute()) and same_bits(torch, engine_acc, ref),
+          "slice 13: the degraded engine's value is not the eager metric's bits")
+    report["degrade"] = {"attrs": {k: v for k, v in degrades[0].attrs.items() if k != "error"},
+                         "spans": sorted(f"{e.name}:{e.kind}" for e in session.events)}
+    note_launches()
+    registry.reset_launches()
+    laps.mark("3. slice 13 degrade")
+
+    # ---------------------------------------------------- windows and sketches, eager ticks
+    full = [b for b in batches if b[0].shape[0] == BATCH]
+    ticks = [full[i % len(full)] for i in range(SLICE13_TICKS)]
+    monitor = SlidingWindow(M.Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev), window=MONITOR_WINDOW,
+                            slide=1, jit_update=False)
+    with telemetry.instrument() as session:
+        for i, (p_, t_) in enumerate(ticks):
+            monitor.update(p_, t_)
+            if i % SLICE13_READ_EVERY == SLICE13_READ_EVERY - 1:
+                monitor.compute()
+    reads = SLICE13_TICKS // SLICE13_READ_EVERY
+    kinds = {}
+    for e in session.spans(name="window"):
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    check(kinds.get("advance", 0) + kinds.get("update", 0) == SLICE13_TICKS and kinds.get("compute") == reads
+          and session.count(name="read") == reads,
+          f"slice 13: {SLICE13_TICKS} eager monitor ticks and {reads} reads gave the window events {kinds} and "
+          f"{session.count(name='read')} reads")
+    p_, t_ = full[0]
+    # host syncs of an eager call with telemetry off, idle (on, no session) and inside a session: an idle
+    # stream adds none; a session adds the tumbling tick's read of whether it advanced and the read's live count
+    tumbling = TumblingWindow(M.Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev), window=MONITOR_WINDOW,
+                              jit_update=False)
+    calls = {"monitor_tick": lambda: monitor.update(p_, t_), "monitor_read": monitor._compute_impl,  # not memoised
+             "tumbling_tick": lambda: tumbling.update(p_, t_)}
+    window_syncs = {}
+    for call, fn in calls.items():
+        with telemetry_off():
+            off = one_call_syncs(torch, fn)[0]
+        idle = one_call_syncs(torch, fn)[0]
+        with telemetry.instrument():
+            instrumented = one_call_syncs(torch, fn)[0]
+        window_syncs[call] = {"off": off, "idle": idle, "instrumented": instrumented}
+        added = {"monitor_tick": 0, "monitor_read": 1, "tumbling_tick": 1}[call]
+        check(idle == off and instrumented == off + added,
+              f"slice 13: an eager {call} syncs {window_syncs[call]} times with telemetry off, idle and in a session")
+    sketch = M.CountMinHeavyHitters(depth=CLICK_DEPTH, width=CLICK_WIDTH, device=dev)
+    with telemetry.instrument() as sk_session:
+        for x in click_batches[:SLICE13_SKETCH_BATCHES]:
+            sketch.update(x)
+        sketch.compute()
+    updates = sk_session.spans(name="sketch", kind="update")
+    check(len(updates) == SLICE13_SKETCH_BATCHES and all(
+        (e.attrs["depth"], e.attrs["width"]) == (CLICK_DEPTH, CLICK_WIDTH) for e in updates)
+          and sk_session.count(name="sketch", kind="compute") == 1
+          and sk_session.count(name="kernel", owner="ops.countmin_scatter") == SLICE13_SKETCH_BATCHES,
+          f"slice 13: the click-log count-min gave {[(e.kind, e.attrs) for e in sk_session.spans(name='sketch')][:3]}")
+    report["windows"] = {"window_events": kinds, "reads": session.count(name="read"),
+                         "host_syncs": window_syncs,
+                         "sketch_events": sk_session.count(name="sketch")}
+    note_launches()
+    laps.mark("3. slice 13 windows and sketches")
+
+    # ----------------------------------------------------------------------------- exports
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl, chrome = os.path.join(tmp, "epoch.jsonl"), os.path.join(tmp, "epoch.trace.json")
+        epoch_session.export_jsonl(jsonl)
+        epoch_session.export_chrome_trace(chrome)
+        with open(jsonl) as f:
+            lines = [json.loads(line) for line in f]
+        with open(chrome) as f:
+            trace = json.load(f)["traceEvents"]
+        phases = {}
+        for r in trace:
+            phases[r["ph"]] = phases.get(r["ph"], 0) + 1
+        check(len(lines) == len(epoch_session.events) and phases.get("X", 0) + phases.get("i", 0) == len(lines),
+              f"slice 13: the exports hold {len(lines)} lines and {phases} records for {len(epoch_session.events)} events")
+        report["exports"] = {"jsonl_bytes": os.path.getsize(jsonl), "chrome_bytes": os.path.getsize(chrome),
+                             "events": len(lines), "ph": phases}
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    for path, line in report.items():
+        print(f"slice 13 {path} ({card}): " + json.dumps(line, default=float))
+    print(f"slice 13 launches {json.dumps(totals)}")
+    laps.mark("3. slice 13 exports")
+    return totals, by_shape13
+
+
+@contextlib.contextmanager
+def telemetry_off():
+    """The port's telemetry switched off (``METRICS_TPU_TELEMETRY=0``) for the block."""
+    os.environ["METRICS_TPU_TELEMETRY"] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop("METRICS_TPU_TELEMETRY")
+
+
+def slice13_profiler_ranges(torch, dev, batches):
+    """Slice 13's ``torch.profiler`` capture of three warm engine updates of ``Accuracy(1000)``: the
+    ``metrics_tpu.*`` ranges it shows. It runs after every kernel check that reads a profiler capture."""
+    import metrics_tpu_torch as M
+
+    p, t = batches[0]
+    acc = M.Accuracy(num_classes=NUM_CLASSES, average="macro", jit_update=True, device=dev)
+    acc.update(p, t)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            acc.update(p, t)
+        torch.cuda.synchronize()
+    ranges = sorted({e.key for e in prof.key_averages() if e.key.startswith("metrics_tpu.")})
+    check("metrics_tpu.Accuracy.update[aot]" in ranges, f"slice 13: the profiler shows the ranges {ranges}")
+    print(f"slice 13 profiler_ranges: {json.dumps(ranges)}")
+
+
 def main() -> int:
     import torch
 
@@ -2417,7 +2808,7 @@ def main() -> int:
         stat_scores_counts,
     )
     import metrics_tpu_torch
-    from metrics_tpu_torch import CountMinHeavyHitters, HyperLogLog
+    from metrics_tpu_torch import CountMinHeavyHitters, HyperLogLog, telemetry
     from metrics_tpu_torch import functional as tF
     from metrics_tpu_torch.ops import countmin_update, registry, sorted_by_preds
     from metrics_tpu_torch.ops.binned_stats import (
@@ -3455,12 +3846,18 @@ def main() -> int:
                                          "engine_no_snapshot": without_snapshot(lambda: eng.update(*args))})
         syncs = syncs_per_call(torch, lambda: eng.update(*args))
         check(not syncs, f"a warm engine update of {key} synchronised with the host: {syncs}")
-        # the launches note_replay counts are the kernels the replays ran on the card, by name
+        # the launches note_replay counts are the kernels the replays ran on the card, by name: held on the
+        # program's graph, and on torch.profiler's device activities where a capture is whole (one that comes
+        # back short late in a run proves nothing)
+        in_graph = program_kernels(torch, eng, args)
         replayed, replay_captures = replayed_kernels(torch, lambda: eng.update(*args))
         for name, n in replayed.items():
-            check(n["registry_in_window"] == n["per_update"] * n["window_updates"] and n["profiler"] == n["registry"],
+            check(in_graph[name]["graph"] == in_graph[name]["written"] == n["per_update"]
+                  and n["registry_in_window"] == n["per_update"] * n["window_updates"]
+                  and n["profiler"] <= n["registry"],
                   f"three warm engine updates of {key}: the registry counted {n['registry']} {name} launches, "
-                  f"the profiler recorded {n['profiler']} ({replayed})")
+                  f"the profiler recorded {n['profiler']} ({replayed}); one replay's graph holds "
+                  f"{in_graph[name]['graph']} and its capture wrote down {in_graph[name]['written']}")
         row = engine.setdefault(f"{key}_update", {})
         row.update({
             "eager_update_ms": turns["eager"], "engine_update_ms": turns["engine"],
@@ -3468,6 +3865,7 @@ def main() -> int:
             "eager_over_engine": turns["eager"] / turns["engine"],
             "engine_syncs_per_update": len(syncs),
             "replayed_kernels_3_updates": replayed, "replay_profiler_captures": replay_captures,
+            "program_kernels": in_graph,
             "eager_syncs_per_update": len(syncs_per_call(torch, lambda: eag.update(*args))),
             "engine_under_profiler": device_busy(torch, lambda: eng.update(*args)),
             "eager_under_profiler": device_busy(torch, lambda: eag.update(*args)),
@@ -3583,6 +3981,10 @@ def main() -> int:
             check(stats["collectives"] == stats["buckets"] == sum(issued.values()) == 1
                   and im[mode]["member_collectives"] == 0,
                   f"rank {r} {mode}: the collection's sync was not one bucket pass ({stats}, issued {issued})")
+            tel = im[mode]["telemetry"]  # slice 13: the compute inside a session
+            check(tel["spans"] == tel["collectives"] == 1 and tel["nbytes"] == tel["bytes_on_wire"] > 0
+                  and tel["sync_spans"] == 1,
+                  f"rank {r} {mode}: the session's collective spans {tel} are not the sync's collectives and bytes")
         check(im["eager"]["groups"] == COLLECTION_GROUPS, f"rank {r} formed the groups {im['eager']['groups']}")
         check(im["fused"]["demotions"] == 0, f"rank {r}: the fused collection demoted")
         pl = im["per_leaf"]
@@ -3629,6 +4031,10 @@ def main() -> int:
               f"rank {r}: an int8 count-min cell lies outside [true, true + bound]: excess {excess.min()}..{excess.max()}")
         check(cl["wire1"]["buckets"] == 2 and sum(cl["issued1"].values()) == 2 == cl["wire1"]["collectives"],
               f"rank {r}: the sketches' sync {cl['wire1']}, issued {cl['issued1']}")
+        for q in ("1", "0"):
+            tel, wire = cl[f"telemetry{q}"], cl[f"wire{q}"]
+            check(tel["spans"] == wire["collectives"] and tel["nbytes"] == wire["bytes_on_wire"],
+                  f"rank {r}: the click log's collective spans {tel} against its sync_stats {wire} (quantised: {q})")
         for name, n in (("stat_scores", im["eager"]["launches"]["stat_scores"] + im["fused"]["launches"]["stat_scores"]
                          + a0["launches"] + a1["launches"]),
                         ("confusion_matrix", im["eager"]["launches"]["confusion_matrix"]
@@ -3662,6 +4068,9 @@ def main() -> int:
         "confusion_matrix": o["imagenet"]["eager"]["launches"]["confusion_matrix"]
         + o["imagenet"]["fused"]["launches"]["confusion_matrix"] + o["imagenet"]["sharded"]["launches"],
         "retrieval_sort": o["marco"]["launches"], "countmin": o["click"]["launches"]} for o in sync_outs]))
+    print("slice 13, the four ranks' collective spans against their sync_stats: " + json.dumps([{
+        "imagenet": {mode: o["imagenet"][mode]["telemetry"] for mode in ("eager", "fused")},
+        "click": {q: o["click"][f"telemetry{q}"] for q in ("1", "0")}} for o in sync_outs]))
     print(f"slice 9: {SYNC_RANKS} ranks, every value equal to the single-process slices (bit-equal, MS MARCO rtol 1e-6, "
           "count-min within the up codec's bound), no degrade")
     laps.mark("3. slice 9: sync on four ranks")
@@ -3674,6 +4083,9 @@ def main() -> int:
 
     # ------------------------------------------ 3k. slice 12: the wrappers and the streaming windows
     slice12_launches, slice12_by_shape = run_slice12(torch, dev, laps, batches, click_batches)
+
+    # ------------------------------------------ 3l. slice 13: observability
+    slice13_launches, slice13_by_shape = run_slice13(torch, dev, laps, batches, click_batches)
 
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000
@@ -3767,19 +4179,35 @@ def main() -> int:
         ),
     }
     stat_path_by_shape = merged(stat_by_shape, coll_stat_by_shape, comp_stat_by_shape, engine_by_shape["stat_scores"],
-                                slice10_stat_by_shape, slice12_by_shape["stat_scores"])
-    click_by_shape = merged(click_by_shape, engine_by_shape["countmin"], slice12_by_shape["countmin"])
+                                slice10_stat_by_shape, slice12_by_shape["stat_scores"], slice13_by_shape["stat_scores"])
+    click_by_shape = merged(click_by_shape, engine_by_shape["countmin"], slice12_by_shape["countmin"],
+                            slice13_by_shape["countmin"])
     # slice 9's launches are the four ranks' together
     path_launches = {"stat_scores": counts["stat_scores"] + coll_launches["stat_scores"] + comp_launches["macro"]
                      + engine_path_launches["stat_scores"] + sync_launches["stat_scores"]
-                     + slice10_launches["stat_scores"] + slice12_launches["stat_scores"],
+                     + slice10_launches["stat_scores"] + slice12_launches["stat_scores"]
+                     + slice13_launches["stat_scores"],
                      "confusion_matrix": counts["confusion_matrix"] + seg_launches + coll_launches["confusion_matrix"]
-                     + engine_path_launches["confusion_matrix"] + sync_launches["confusion_matrix"],
+                     + engine_path_launches["confusion_matrix"] + sync_launches["confusion_matrix"]
+                     + slice13_launches["confusion_matrix"],
                      "binned_stats": sum(binned_launches.values()),
                      "retrieval_sort": marco_launches + trec_launches + sync_launches["retrieval_sort"],
                      "countmin": click_launches + engine_path_launches["countmin"] + sync_launches["countmin"]
-                     + slice12_launches["countmin"]}
+                     + slice12_launches["countmin"] + slice13_launches["countmin"]}
+    model_rows = {}
     for name, (kernel, plain, library, library_call, nbytes, ops, shape, yardstick) in timing.items():
+        # the cost model's entry of this launch (slice 13): one call inside a session, its kernel event's terms;
+        # its bound must be the row's
+        with telemetry.instrument() as session:
+            kernel()
+        (event,) = session.spans(name="kernel")
+        model_bytes, model_flops = event.attrs["model_bytes"], event.attrs["model_flops"]
+        model_bound = bound(model_bytes, model_flops)
+        check(math.isclose(model_bound[0], bound(nbytes, ops)[0], rel_tol=1e-12) and model_bound[1] == bound(nbytes, ops)[1],
+              f"{name}: the cost model's entry ({model_bytes} bytes, {model_flops} flops) bounds {model_bound}, "
+              f"the row {bound(nbytes, ops)}")
+        model_rows[name] = {"model_bytes": model_bytes, "model_flops": model_flops, "bytes": nbytes, "ops": ops,
+                            "bound_ms": model_bound[0], "bound_by": model_bound[1], "owner": event.owner}
         # plain, kernel, kernel, plain: each pair within one call, the mean of the two readings
         plain_a, kernel_a, kernel_b, plain_b = (device_ms(torch, f) for f in (plain, kernel, kernel, plain))
         library_ms = device_ms(torch, library) if library else None
@@ -3791,6 +4219,7 @@ def main() -> int:
             "ms": (kernel_a + kernel_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             "library_call": library_call, "ops": ops, "bytes": nbytes, "shape": shape,
+            "model_bytes": model_rows[name]["model_bytes"], "model_flops": model_rows[name]["model_flops"],
         }
         if yardstick:
             row["yardstick_ms"], row["yardstick_call"] = device_ms(torch, yardstick[0]), yardstick[1]
@@ -3799,6 +4228,8 @@ def main() -> int:
               f"library {library_ms} ms, yardstick {row.get('yardstick_ms')} ms, bound {bound_ms:.6f} ms "
               f"({bound_by}: {nbytes} bytes, {ops} operations)")
     print(f"binned_stats launches per path: {json.dumps(binned_launches)}")
+    print(f"the cost model's kernel entries beside each row's bound ({torch.cuda.get_device_name(dev)}): "
+          + json.dumps(model_rows))
     laps.mark("4. kernel timings at the slice's shapes")
 
     def launched_branch(name, fn):
@@ -3910,16 +4341,17 @@ def main() -> int:
     # confusion_matrix at both path shapes: the plan's launch in turns with the earlier design (a zeroed output
     # plus integer atomics, the same run), beside the other branch, the plain version, torch.bincount over C^2
     # bins and the bound; launches by branch and shape as the wrapper counted them on the main paths. Three
-    # calls at each shape must be three device kernels and no memset or fill (torch.profiler, checked against
-    # the wrapper's launch count).
+    # calls at each shape must be three device kernels and no memset or fill: held on a CUDA graph of the
+    # calls and the host's operators, and on torch.profiler's device activities where a capture is whole.
     seg_t32, seg_p32 = (x[0].reshape(-1).to(torch.int32) for x in (seg_target, seg_pred))
     confmat_shapes = {
         "ImageNet batch": (t32, p32, NUM_CLASSES,
-                           merged(confmat_slice_by_shape, coll_confmat_by_shape, engine_by_shape["confusion_matrix"])),
+                           merged(confmat_slice_by_shape, coll_confmat_by_shape, engine_by_shape["confusion_matrix"],
+                                  slice13_by_shape["confusion_matrix"])),
         "Cityscapes image": (seg_t32, seg_p32, SEG_CLASSES, seg_by_shape),
     }
     confmat_path_by_shape = merged(confmat_slice_by_shape, seg_by_shape, coll_confmat_by_shape,
-                                   engine_by_shape["confusion_matrix"])
+                                   engine_by_shape["confusion_matrix"], slice13_by_shape["confusion_matrix"])
     confmat_rows = []
     for launch, (ct, cp, c, path_by_shape) in confmat_shapes.items():
         cn = ct.shape[0]
@@ -3941,9 +4373,27 @@ def main() -> int:
         capture_check = {way: [len(a) for a, _, _ in caps] for way, caps in captured.items()}
         capture_check["kernel_less_launch_us"] = [lag for _, _, lag in captured["warm_up_and_padding"]]
         print(f"profiler captures at the {launch} shape: " + json.dumps(capture_check))
+        # what three calls hand the card, from a CUDA graph they are captured into: one kernel node each, of one
+        # kernel, and else only the tickets a capture zeroes by design for a split launch on several blocks
+        # (ops/confusion.py::_ticket; an eager launch reuses its stream's ticket); and no tensor filled on the
+        # host's side of an eager call
+        nodes, written = graph_launches(torch, lambda: confusion_matrix_counts(ct, cp, c))
+        graph_kernels = [n for kind, n in nodes if kind == "kernel" and any(
+            d in n for d in DEVICE_KERNELS["confusion_matrix"])]
+        rest = [(kind, n) for kind, n in nodes if kind != "kernel" or n not in graph_kernels]
+        tickets = 3 if confusion_branch(cn, c, dev).startswith("split, ") else 0
+        check(len(graph_kernels) == 3 and len(set(graph_kernels)) == 1 and written == ["confusion_matrix"] * 3
+              and len(rest) == tickets and all(kind == "memset" or "fill" in (n or "").lower() for kind, n in rest),
+              f"three confusion_matrix calls at the {launch} shape, captured, gave the card {nodes} (launches written "
+              f"down: {written}), not one kernel each and else only {tickets} ticket fills")
+        eager_ops = host_ops(torch, lambda: confusion_matrix_counts(ct, cp, c))
+        filled = sorted({o for o in eager_ops if any(w in o.lower() for w in ("fill", "zero", "memset"))})
+        check(not filled, f"three eager confusion_matrix calls at the {launch} shape filled a tensor: {filled}")
+        # the profiler's device activities of three eager calls: a capture can come back short late in a run
+        # (device_kernels), so a short one proves nothing, and a whole one must show the same
         activities, captures = device_kernels(torch, lambda: confusion_matrix_counts(ct, cp, c), "confusion_matrix")
-        check(len(activities) == 3 and len(set(activities)) == 1
-              and not any(w in a.lower() for a in activities for w in ("memset", "fill")),
+        check(len(activities) < 3 or (len(activities) == 3 and len(set(activities)) == 1
+              and not any(w in a.lower() for a in activities for w in ("memset", "fill"))),
               f"three confusion_matrix calls at the {launch} shape made {activities}, not one kernel each and no "
               "memset or fill")
         new_a, old_a, old_b, new_b = (device_ms(torch, f) for f in (
@@ -3960,6 +4410,7 @@ def main() -> int:
             "plain_ms": device_ms(torch, lambda: _confmat_plain(ct, cp, c)),
             "library_ms": device_ms(torch, lambda: torch.bincount(c_flat, minlength=c * c)),
             "library_call": "torch.bincount, C^2 bins", "bound_ms": c_bound, "bound_by": c_by,
+            "graph_nodes_3_calls": nodes, "host_ops_3_calls": sorted(set(eager_ops)),
             "device_activities_3_calls": activities, "profiler_captures": captures,
             "profiler_capture_ways": capture_check,
             "launches_by_shape": by_shape(path_by_shape),
@@ -4123,6 +4574,8 @@ def main() -> int:
     print("bench.py headline shape: " + json.dumps(headline))
 
     laps.mark("4. updates, computes and warm epochs")
+    slice13_profiler_ranges(torch, dev, batches)
+    laps.mark("4. slice 13 profiler ranges")
     print(f"command time by part (s), {sum(laps.s.values()):.1f} in all after nvidia-smi: " + json.dumps(laps.s))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,8 +32,13 @@ leader's synced state with no collective. ``sync``, ``unsync``,
 ``sync_context``, ``pure_sync``, ``sync_precision`` and ``sync_stats`` as in
 the JAX package.
 
-What is not ported: ``telemetry_snapshot`` (ROADMAP.md, Queue A item 10),
-which raises ``NotImplementedError`` naming its item.
+Telemetry (``metrics_tpu/collections.py:222, 686-707, 758``): a collection
+that can never fuse emits one ``degrade`` span with the cause
+``unfusable``, a sync a ``sync`` span, and :meth:`telemetry_snapshot`
+merges the fused path's stats with each member's. The JAX package's legacy
+fused forward (a ``jax.jit`` step, ``forward:jit``) has no counterpart: with
+the forward engine switched off the collection runs its eager loop, whose
+members emit their own spans.
 """
 import functools
 from collections import OrderedDict
@@ -45,18 +50,16 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch import resilience, sync_engine
+from metrics_tpu_torch import resilience, sync_engine, telemetry
 from metrics_tpu_torch.dispatch import FastDispatcher, engine_owned, fast_dispatch_enabled
 from metrics_tpu_torch.forward_engine import fused_forward_enabled, make_collection_forward_factories, padded_mask
-from metrics_tpu_torch.metric import Metric, _raise_if_list_state, _scan_fold, _split_static_kwargs, not_ported
+from metrics_tpu_torch.metric import Metric, _raise_if_list_state, _scan_fold, _split_static_kwargs, aot_cache_stats
 from metrics_tpu_torch.parallel.dist_env import DistEnv, default_env, group_env
 from metrics_tpu_torch.utilities.exceptions import MetricsUserError
 from metrics_tpu_torch.utilities.checks import tracing
 from metrics_tpu_torch.utilities.checksums import attach_checksums, verify_checksums
 from metrics_tpu_torch.utilities.data import _flatten_dict, _squeeze_if_scalar
 from metrics_tpu_torch.utilities.prints import rank_zero_debug, rank_zero_warn
-
-_TELEMETRY = "ROADMAP.md, Queue A item 10 (observability)"
 
 
 def _comparable(values: Sequence[Tensor]) -> Tensor:
@@ -283,6 +286,7 @@ class MetricCollection:
         else:
             # this collection or its inputs can never fuse
             self._fuse_failed = True
+            telemetry.emit("degrade", "MetricCollection", what, cause="unfusable", permanent=True)
             msg = f"MetricCollection could not fuse `{what}` ({reason}); falling back to eager dispatch."
         # an explicit fused_update=True hears of it; the default falls back quietly
         (rank_zero_warn if self._fused_update is True else rank_zero_debug)(msg)
@@ -806,7 +810,12 @@ class MetricCollection:
             env = next((m._sync_env for m in self._modules.values() if m._sync_env is not None), None) or default_env()
         if not should_sync or not env.is_distributed() or not sync_engine.fused_sync_enabled():
             return
+        with telemetry.span("sync", "MetricCollection", "collection"):
+            self._sync_leaders(env)
 
+    def _sync_leaders(self, env: DistEnv) -> None:
+        """:meth:`sync`'s pass: one bucket pass over the group leaders, each
+        leader's other states, then the followers."""
         self._compute_groups_create_state_ref()
         use_groups = bool(self._enable_compute_groups and self._groups_checked)
         leaders = [self._modules[cg[0]] for cg in self._groups.values()] if use_groups else list(self._modules.values())
@@ -930,7 +939,22 @@ class MetricCollection:
         return out
 
     def telemetry_snapshot(self) -> Dict[str, Any]:
-        raise not_ported("MetricCollection.telemetry_snapshot", _TELEMETRY)
+        """The fused path's stats, each member's :meth:`Metric.telemetry_snapshot`
+        under ``members``, the state bytes and the ``aot_cache`` block, with the
+        JAX package's keys (``metrics_tpu/collections.py:686``)."""
+        return {
+            "owner": "MetricCollection",
+            "dispatch": self.dispatch_stats,
+            "sync": dict(self._sync_stats),
+            "forward": self.forward_stats,
+            "resilience": {
+                "fused": self._fuse_resilience.stats(),
+                "fuse_failed": self._fuse_failed,
+            },
+            "aot_cache": aot_cache_stats(),
+            "memory": self.memory_snapshot(),
+            "members": {name: m.telemetry_snapshot() for name, m in self.items(keep_base=True)},
+        }
 
     # --------------------------------------------------------------- adding
     def add_metrics(

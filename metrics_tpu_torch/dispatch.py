@@ -48,10 +48,25 @@ A graph records the kernel launches its capture made
 (:func:`metrics_tpu_torch.ops.registry.recording`) and counts them again on
 each replay, so the registry's counts stay the kernels run on the card.
 
+Telemetry (``metrics_tpu/dispatch.py:265-285, 337-350, 392, 409-415,
+460-590``): each update and forward emits one ``update`` or ``forward``
+span (kind ``aot`` for a metric, ``fused-aot`` for a collection), timed on
+the host from the call's staging to its launch, inside a ``torch.profiler``
+range named ``metrics_tpu.<label>.update[<kind>]``
+(:func:`~metrics_tpu_torch.telemetry.profiler_range`); while a session is
+subscribed the span carries the program's cost attributes
+(:func:`metrics_tpu_torch.analysis.cost_model.launch_attrs`). Each build
+emits one ``compile`` span with its cause, the program's cost entry
+(:func:`~metrics_tpu_torch.analysis.cost_model.record`: its captured
+kernels' terms and its I/O bytes) and, for the causes the static audit
+models, ``predicted``; each eviction one ``evict`` instant. A build runs
+inside :func:`~metrics_tpu_torch.ops.registry.lowering`, so its kernels are
+attributed to the owner. ``scan`` programs emit nothing, as the JAX
+package's ``scan_update`` does not.
+
 The JAX engine's persistent on-disk tier (``METRICS_TPU_AOT_CACHE``) is not
 ported (ROADMAP.md, Queue A item 13): the port does not read that variable,
-and every process captures its graphs anew. Its cost and hazard attributes
-and telemetry spans come with observability (item 10).
+and every process captures its graphs anew.
 """
 import gc
 import os
@@ -64,7 +79,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch import faults
+from metrics_tpu_torch import faults, telemetry
+from metrics_tpu_torch.analysis import cost_model, hazards
 from metrics_tpu_torch.ops import registry
 from metrics_tpu_torch.utilities.checks import tracing
 from metrics_tpu_torch.utilities.data import bucket_pow2, pad_axis0
@@ -136,6 +152,10 @@ def _unflatten(layout: Any, leaves: List[Any]) -> Any:
     return build(layout)
 
 
+def _nbytes(tensors: Any) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, Tensor))
+
+
 def _aval(x: Tensor, rows: Optional[int] = None) -> Tuple:
     shape = tuple(x.shape) if rows is None or x.ndim == 0 else (rows,) + tuple(x.shape[1:])
     return shape, x.dtype, x.device
@@ -145,7 +165,7 @@ class _Program:
     """One cache entry: the program, and on the card its graph and buffers."""
 
     __slots__ = ("masked", "body", "graphs", "inputs", "n_valid", "filled_n_valid", "counts", "sets", "values",
-                 "launched")
+                 "launched", "arg_bytes", "out_bytes", "peak_temp_bytes", "cost")
 
     def __init__(self, masked: bool, body: Callable) -> None:
         self.masked = masked
@@ -154,11 +174,15 @@ class _Program:
         self.graphs: Tuple[torch.cuda.CUDAGraph, ...] = ()
         self.sets: Tuple[Tuple[Tensor, ...], ...] = ()
         self.values: List[Any] = []
-        self.launched: List[Tuple[str, str, Tuple[int, ...]]] = []  # the kernel launches of one replay
+        self.launched: List[registry.Launch] = []  # the kernel launches of one replay
         self.inputs: List[Tensor] = []
         self.n_valid: Optional[Tensor] = None
         self.filled_n_valid: Optional[int] = None
         self.counts: Optional[Tensor] = None
+        # the cost model's terms (analysis/cost_model.py::record): static inputs and one state set read, one written,
+        # and the bytes the graphs' pool keeps; and the entry made of them
+        self.arg_bytes = self.out_bytes = self.peak_temp_bytes = 0
+        self.cost: Optional[cost_model.CostEntry] = None
 
 
 class FastDispatcher:
@@ -198,6 +222,8 @@ class FastDispatcher:
         make_scan: Optional[Callable[[Dict], Callable]] = None,
     ) -> None:
         self.label = label
+        # the launch kind in telemetry, the JAX engine's names (fused_window_tick sets "window-tick")
+        self.kind = "fused-aot" if label.startswith("MetricCollection") else "aot"
         self.device = torch.device(device)
         self._read_leaves = read_leaves
         self._write_leaves = write_leaves
@@ -229,7 +255,8 @@ class FastDispatcher:
     def update(self, static: Dict, static_key: Tuple, args: Tuple, dyn_kwargs: Dict) -> None:
         """One update through a cached program (built on a miss); the new
         state leaves are installed on the owner."""
-        out, _ = self._call("update", static, static_key, self._read_leaves(), args, dyn_kwargs)
+        (out, _), launch = self._call("update", static, static_key, self._read_leaves(), args, dyn_kwargs)
+        self._emit_launch("update", launch, static_key)
         self.stats["dispatches"] += 1
         self._write_leaves(faults.maybe_corrupt_leaves(out))
 
@@ -240,22 +267,35 @@ class FastDispatcher:
         builds nothing. Returns the batch value, copied out of the graph."""
         if self._factories[("forward", False)] is None:
             raise FastDispatchUnsupported("owner wired no forward program factory")
-        t0 = time.perf_counter()
-        out, value = self._call("forward", static, static_key, self._read_leaves(), args, dyn_kwargs, counts)
+        (out, value), launch = self._call("forward", static, static_key, self._read_leaves(), args, dyn_kwargs,
+                                          counts)
         self.forward_stats["launches"] += 1
-        self.forward_stats["engine_us"] += (time.perf_counter() - t0) * 1e6
+        self.forward_stats["engine_us"] += self._emit_launch("forward", launch, static_key)
         self._write_leaves(faults.maybe_corrupt_leaves(out))
         return value
 
     def scan(self, static: Dict, static_key: Tuple, leaves: Tuple, args: Tuple, dyn_kwargs: Dict) -> Tuple:
         """Fold a stack of batches into ``leaves`` through one cached program
         a (stack, batch) shape; returns new leaves that nothing else holds."""
-        out, _ = self._call("scan", static, static_key, leaves, args, dyn_kwargs)
+        (out, _), _ = self._call("scan", static, static_key, leaves, args, dyn_kwargs)
         return tuple(x.clone() for x in out) if self.device.type == "cuda" else out
+
+    def _emit_launch(self, family: str, launch: Tuple, static_key: Tuple) -> float:
+        """The launch span of one update or forward (``metrics_tpu/dispatch.py:265-285, 337-350``); returns
+        its host µs. The cost attributes are built only while a session listens."""
+        t0, masked, rows, program = launch
+        dur = (time.perf_counter() - t0) * 1e6
+        cost = cost_model.launch_attrs(program.cost, dur) if telemetry.subscribed() else {}
+        telemetry.emit(family, self.label, self.kind, t0=t0, dur_us=dur, stream="dispatch" if family == "update"
+                       else "forward", masked=masked, bucket=rows, static_key=static_key or None, **cost)
+        return dur
 
     # ------------------------------------------------------------------ core
     def _call(self, family: str, static: Dict, static_key: Tuple, leaves: Tuple, args: Tuple, dyn_kwargs: Dict,
-              counts: Any = None) -> Tuple[Tuple, Any]:
+              counts: Any = None) -> Tuple[Tuple[Tuple, Any], Tuple]:
+        """One call through the cache: ``((new leaves, batch value), launch)``,
+        ``launch`` being ``(t0, masked, bucket, program)`` for its span."""
+        t0 = time.perf_counter()
         flat, layout = _flatten((args, dyn_kwargs))
         flat = [self._canonicalize(x) for x in flat]
         batch = self._uniform_batch(flat)
@@ -281,30 +321,41 @@ class FastDispatcher:
         served = None
         if program is None:
             faults.check("compile", self.label)
+            t_build = time.perf_counter()
             cause = self._retrace_cause(family, static_key, [_aval(x, rows) for x in flat])
             fn = self._factories[(family, masked)](dict(static))
-            program, served = self._build(fn, family, masked, layout, count_layout, leaves, flat, batch, rows,
-                                          count_values)
+            with registry.lowering(self.label):
+                program, served = self._build(fn, family, masked, layout, count_layout, leaves, flat, batch, rows,
+                                              count_values)
             self.causes[(family, cause)] = self.causes.get((family, cause), 0) + 1
+            if family != "scan":  # the JAX package's scan_update is a plain jit: no span, no entry
+                program.cost = cost_model.record(self.label, family, key, program)
+                predicted = hazards.predicted(self.label, cause)
+                telemetry.emit("compile", self.label, self.kind, t0=t_build,
+                               stream="dispatch" if family == "update" else "forward", cause=cause, masked=masked,
+                               static_key=static_key or None, **cost_model.compile_attrs(program.cost),
+                               **({} if predicted is None else {"predicted": predicted}))
             if family == "update":
                 self.stats["retraces"] += 1
             elif family == "forward":
                 self.forward_stats["retraces"] += 1
             self._cache_put(key, program)
+            t0 = time.perf_counter()  # the launch span starts after the build, as the JAX engine's after its compile
         else:
             self._cache.move_to_end(key)
         faults.check("launch", self.label)
-        if served is not None:
-            out = served
-        elif not program.graphs:
-            out = self._run_direct(program, leaves, flat, batch, rows, count_values)
-        else:
-            src = self._stage(program, leaves, flat, batch, count_values)
-            program.graphs[src].replay()
-            registry.note_replay(program.launched)
-            out = program.sets[1 - src], copy_tensors(program.values[src])
+        with telemetry.profiler_range(f"metrics_tpu.{self.label}.{family}[{self.kind}]"):
+            if served is not None:
+                out = served
+            elif not program.graphs:
+                out = self._run_direct(program, leaves, flat, batch, rows, count_values)
+            else:
+                src = self._stage(program, leaves, flat, batch, count_values)
+                program.graphs[src].replay()
+                registry.note_replay(program.launched)
+                out = program.sets[1 - src], copy_tensors(program.values[src])
         self._last_out = (out[0], leaf_avals)
-        return out
+        return out, (t0, masked, rows, program)
 
     def _leaf_avals(self, leaves: Tuple) -> Tuple:
         """The leaves' shapes and dtypes, read off the last call's output where
@@ -347,7 +398,10 @@ class FastDispatcher:
         the warm-up run), else ``None``."""
         body = self._body(fn, family, masked, layout, count_layout)
         program = _Program(masked, body)
+        program.out_bytes = _nbytes(leaves)
         if self.device.type != "cuda":
+            padded = sum(x.element_size() * int(np.prod(_aval(x, rows)[0])) for x in flat) if masked else _nbytes(flat)
+            program.arg_bytes = padded + program.out_bytes
             return program, None
         dev = self.device
         program.inputs = [
@@ -358,6 +412,7 @@ class FastDispatcher:
         program.n_valid = torch.zeros((), dtype=torch.int32, device=dev) if masked else None
         program.counts = torch.zeros(len(count_values), dtype=torch.float32, device=dev) if count_values else None
         counts = list(program.counts) if count_values else []
+        program.arg_bytes = _nbytes(program.inputs) + _nbytes((program.n_valid, program.counts)) + program.out_bytes
         self._stage(program, leaves, flat, batch, count_values)  # into set A
 
         def run(src: int) -> Any:
@@ -382,6 +437,7 @@ class FastDispatcher:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graphs = []
+        allocated = torch.cuda.memory_stats(dev).get("allocated_bytes.all.current", 0)
         # no garbage collection while capturing: a graph freed then (an unreferenced metric's) could not be
         # destroyed during the capture, which it would invalidate
         collecting = gc.isenabled()
@@ -396,6 +452,7 @@ class FastDispatcher:
             if collecting:
                 gc.enable()
         program.graphs, program.launched = tuple(graphs), launched
+        program.peak_temp_bytes = max(0, torch.cuda.memory_stats(dev).get("allocated_bytes.all.current", 0) - allocated)
         return program, (program.sets[1], served_value)
 
     def _stage(self, program: _Program, leaves: Tuple, flat: List[Tensor], batch: Optional[int],
@@ -464,6 +521,7 @@ class FastDispatcher:
             for buf in (b for bufs in evicted.sets for b in bufs):
                 _OWNED.pop(id(buf), None)
             self.stats["evictions"] = self.stats.get("evictions", 0) + 1
+            telemetry.emit("evict", self.label, self.kind, stream="dispatch")
 
     def _retrace_cause(self, family: str, static_key: Tuple, avals: List[Tuple]) -> str:
         """Why this miss builds a program: the first part of the key (static

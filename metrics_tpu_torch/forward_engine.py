@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from metrics_tpu_torch import telemetry
 from metrics_tpu_torch.utilities.data import _squeeze_if_scalar
 
 
@@ -124,8 +125,10 @@ def metric_forward(metric: Any, args: Tuple, kwargs: Dict) -> Any:
     args, static, dynamic, key = metric._split_update_args(args, kwargs)
     if metric._dispatcher is None:
         metric._dispatcher = metric._make_dispatcher()
-    # the merge count is a device scalar: step N+1 replays step N's graph
-    batch_val = metric._dispatcher.forward(float(metric._update_count + 1), static, key, args, dynamic)
+    # the merge count is a device scalar: step N+1 replays step N's graph; the range names the step in a
+    # torch.profiler trace, beside the dispatcher's forward span (metrics_tpu/forward_engine.py:196)
+    with telemetry.profiler_range(f"metrics_tpu.{type(metric).__name__}.forward_step"):
+        batch_val = metric._dispatcher.forward(float(metric._update_count + 1), static, key, args, dynamic)
     metric._update_count += 1
     metric._computed = None
     metric._bump_version()

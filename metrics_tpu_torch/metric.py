@@ -42,7 +42,15 @@ go on from.
 moves every list state to the CPU after each update, so that ``compute``
 runs there; the list states still sync through the metric's env.
 
-What is not ported: telemetry (ROADMAP.md, Queue A item 10).
+Telemetry (``metrics_tpu/metric.py:819-847, 981-1000, 1043, 1370, 1426,
+1447``, :mod:`metrics_tpu_torch.telemetry`): an update served outside the
+engine emits an ``update`` span (kind ``eager``, or ``jit`` for a
+``jit_update`` call the engine declined, where the JAX package runs
+``jax.jit``), the engines their own spans, a non-memoised ``compute`` a
+``compute`` span inside a ``torch.profiler`` range, a sync a ``sync`` span,
+each collective of the per-leaf sync a ``collective`` event, and ``reset``
+a ``reset`` instant. :meth:`Metric.telemetry_snapshot` merges the
+per-owner stats.
 
 A metric's states live on its device, ``cuda`` unless the caller passes
 ``device="cpu"``. Tensors given to ``update`` must lie on that device.
@@ -61,7 +69,7 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
-from metrics_tpu_torch import forward_engine, resilience, sync_engine
+from metrics_tpu_torch import forward_engine, resilience, sync_engine, telemetry
 from metrics_tpu_torch.dispatch import FastDispatcher, copy_tensors, engine_owned, fast_dispatch_enabled
 from metrics_tpu_torch.parallel.dist_env import DistEnv, ProcessEnv, default_env, group_env
 from metrics_tpu_torch.utilities.checks import tracing
@@ -89,8 +97,11 @@ _REDUCTIONS = {
     "cat": dim_zero_cat,
 }
 
-def not_ported(argument: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"`{argument}` is not ported to metrics_tpu_torch yet; see {item}.")
+def aot_cache_stats() -> Dict[str, Any]:
+    """The ``aot_cache`` block of a telemetry snapshot, under the JAX package's
+    keys. The port has no persistent program tier (ROADMAP.md, Queue A item
+    13), so its counters stay 0 and it is never enabled."""
+    return {"hits": 0, "misses": 0, "stores": 0, "corrupt": 0, "store_errors": 0, "enabled": False, "dir": None}
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -701,15 +712,20 @@ class Metric(ABC):
             self._computed = None
             self._update_count += 1
             self._bump_version()
+            t0 = telemetry.clock()
             if not self._jit_update_requested or any(isinstance(v, list) for v in self._defaults.values()):
                 update(*args, **kwargs)
+                kind, attrs = "eager", {}
             elif self._engine_update(args, kwargs):
-                return  # the engine counted its dispatch
+                return  # the engine counted its dispatch and emitted its span
             else:
                 # the eager path, as the JAX package's jax.jit fallback: the checks that read values skipped
+                t0 = telemetry.clock()
                 with tracing():
                     update(*args, **kwargs)
+                kind, attrs = "jit", {"static_key": self._split_update_args(args, kwargs)[3] or None}
             self._dispatch_stats["dispatches"] += 1
+            telemetry.emit("update", type(self).__name__, kind, t0=t0, stream="dispatch", **attrs)
             if self.compute_on_cpu:
                 self._move_list_states_to_cpu()
 
@@ -824,8 +840,11 @@ class Metric(ABC):
                     UserWarning,
                 )
             if self._computed is None:
+                name = type(self).__name__
                 with self.sync_context(
                     dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+                ), telemetry.profiler_range(f"metrics_tpu.{name}.compute"), telemetry.span(
+                    "compute", name, "metric"
                 ):
                     self._computed = self._engine_free(_squeeze_if_scalar(compute(*args, **kwargs)))
             return self._computed
@@ -859,25 +878,29 @@ class Metric(ABC):
         # a collective runs when the env is distributed or the user gave a gather of their own
         will_communicate = env.is_distributed() or dist_sync_fn is not None
 
-        def _record(x: Tensor) -> None:
+        def _record(kind: str, x: Tensor, logical: Optional[int] = None) -> None:
+            # each collective with its bytes on the wire, and the state's own where it crossed narrowed
             if will_communicate:
+                nbytes = x.numel() * x.element_size()
                 self._sync_stats["collectives"] += 1
-                self._sync_stats["bytes_on_wire"] += x.numel() * x.element_size()
+                self._sync_stats["bytes_on_wire"] += nbytes
+                telemetry.emit("collective", type(self).__name__, kind, nbytes=nbytes,
+                               logical_nbytes=nbytes if logical is None else int(logical), dtype=dtype_name(x.dtype))
 
         if dist_sync_fn is not None:
-            def base_gather(x: Tensor) -> List[Tensor]:
-                _record(x)
+            def base_gather(x: Tensor, logical: Optional[int] = None) -> List[Tensor]:
+                _record("gather", x, logical)
                 return dist_sync_fn(x, env)
 
             uniform_gather = base_gather  # a custom gather sees every state as it is
         else:
-            def base_gather(x: Tensor) -> List[Tensor]:
-                _record(x)
+            def base_gather(x: Tensor, logical: Optional[int] = None) -> List[Tensor]:
+                _record("gather", x, logical)
                 return env.all_gather(x)
 
-            def uniform_gather(x: Tensor) -> List[Tensor]:
+            def uniform_gather(x: Tensor, logical: Optional[int] = None) -> List[Tensor]:
                 # fixed-shape states have one shape on every rank: no size exchange
-                _record(x)
+                _record("gather", x, logical)
                 return env.all_gather_uniform(x)
 
         def _would_compress(x: Tensor) -> bool:
@@ -892,7 +915,7 @@ class Metric(ABC):
             # float states cross in sync_dtype and come back in their own dtype, reduced at full precision
             def gather(x: Tensor) -> List[Tensor]:
                 if _would_compress(x):
-                    return [g.to(x.dtype) for g in inner(x.to(self.sync_dtype))]
+                    return [g.to(x.dtype) for g in inner(x.to(self.sync_dtype), x.numel() * x.element_size())]
                 return inner(x)
 
             return gather
@@ -964,7 +987,7 @@ class Metric(ABC):
                 if op is not None:
                     reduced = env.all_reduce(value, op)
                     if reduced is not None:
-                        _record(value)
+                        _record("reduce", value)
                         object.__setattr__(self, attr, reduced)
                         continue
             # raw samples (list and cat states, _sample_state_names) are never narrowed: they would stay so
@@ -1057,7 +1080,8 @@ class Metric(ABC):
         if dist_sync_fn is None:
             dist_sync_fn = self.dist_sync_fn
         self._cache = self._copy_state()
-        self._sync_dist(dist_sync_fn, env=env)
+        with telemetry.span("sync", type(self).__name__, "metric"):
+            self._sync_dist(dist_sync_fn, env=env)
         self._is_synced = True
         self._bump_version()
 
@@ -1106,6 +1130,7 @@ class Metric(ABC):
 
     def reset(self) -> None:
         """Restore all states to their defaults."""
+        telemetry.emit("reset", type(self).__name__, "metric")
         self._update_count = 0
         self._forward_cache = None
         self._computed = None
@@ -1252,6 +1277,23 @@ class Metric(ABC):
             "total_bytes": sum(leaf["nbytes"] for leaf in leaves),
             "leaf_count": len(leaves),
             "leaves": leaves[: max(0, int(top_n))],
+        }
+
+    def telemetry_snapshot(self) -> Dict[str, Any]:
+        """The per-owner stats merged into one report, with the JAX package's
+        keys (``metrics_tpu/metric.py:981``): ``owner``, ``dispatch``,
+        ``sync``, ``forward``, ``resilience``, ``aot_cache``, ``memory``."""
+        return {
+            "owner": type(self).__name__,
+            "dispatch": self.dispatch_stats,
+            "sync": dict(self._sync_stats),
+            "forward": self.forward_stats,
+            "resilience": {
+                "dispatch": self._dispatch_resilience.stats(),
+                "forward": self._forward_resilience.stats(),
+            },
+            "aot_cache": aot_cache_stats(),
+            "memory": self.memory_snapshot(),
         }
 
     # ----------------------------------------------------------- checkpoints

@@ -22,6 +22,7 @@ counts returned as float32, exact below 2^24 rows, so they agree bit for bit.
 """
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -165,7 +166,12 @@ def _binned_stat_scores_kernel(preds: Tensor, target: Tensor, thresholds: Tensor
         )
     if err != 0:
         raise RuntimeError(f"binned_stats kernel launch failed: {lib.binned_stats_error_string(err).decode()}")
-    registry.note_launch(_NAME, branch_name(branch, cluster, wide), (n, c, t))
+    # the Hopper kernel's terms (chip_smoke.py's bound): scores (4 B) and bool targets (1 B) read, three (C, T)
+    # float32 outputs written; a binary search of ceil(log2(T + 1)) compares and one histogram add a score, one
+    # suffix-sum add a cell. The JAX formula's 4nCT flops are the TPU's broadcast compare (ops/binned_stats.py:137).
+    registry.note_launch(_NAME, branch_name(branch, cluster, wide), (n, c, t), cost_key=(n, c, t),
+                         flops=float(n * c * (math.ceil(math.log2(t + 1)) + 1) + c * t),
+                         bytes_accessed=5.0 * n * c + 12.0 * c * t)
     return out[0], out[1], out[2]
 
 

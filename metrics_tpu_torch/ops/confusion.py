@@ -155,7 +155,10 @@ def _confmat_kernel(target_cls: Tensor, pred_cls: Tensor, num_classes: int, bran
         )
     if err != 0:
         raise RuntimeError(f"confusion_matrix kernel launch failed: {lib.confusion_error_string(err).decode()}")
-    registry.note_launch(_NAME, branch_name(name, a, b), (n, num_classes))
+    # the Hopper kernel's terms (chip_smoke.py's bound): the two (B,) label columns read, the (C, C) int32 table
+    # written, one add a row; the JAX formula's 2nC^2 flops are the TPU's one-hot contraction (ops/confusion.py:119)
+    registry.note_launch(_NAME, branch_name(name, a, b), (n, num_classes), cost_key=(n, num_classes),
+                         flops=float(n), bytes_accessed=8.0 * n + 4.0 * num_classes * num_classes)
     return out
 
 

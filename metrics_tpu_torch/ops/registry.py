@@ -14,20 +14,53 @@ A launch made while a CUDA graph is captured runs nothing then: inside
 :func:`recording` it is written down instead of counted, and the engine adds
 the written launches again on every replay of that graph
 (:func:`note_replay`), so the counts stay the kernels run on the card.
+
+Cost entries (``metrics_tpu/ops/registry.py:208-270``): a wrapper passes its
+launch's analytic terms (``cost_key``, ``flops``, ``bytes_accessed``: the
+bytes its kernel must move and the operations it needs), and each launch
+outside a capture records a ``kernel``-family entry of
+:mod:`metrics_tpu_torch.analysis.cost_model` and emits one ``kernel``
+telemetry event, owned by ``ops.<name>`` under the JAX package's kernel
+names. So an eager call fires one event, a program build one for each
+launch of its warm-up run, and a graph replay none (its ``update`` span
+stands for it). A capture writes the terms down with the launch, and they
+make up the program's own entry (:func:`cost_model.record`).
+:func:`lowering` names the engine whose build is under way, and
+:func:`engaged` which kernels each owner's programs or calls ran. With
+telemetry off (``METRICS_TPU_TELEMETRY=0``) a launch is counted and nothing
+else: no cost entry, no event, no engagement.
 """
 import ctypes
+import threading
 from contextlib import contextmanager
-from typing import Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Set, Tuple
 
 import torch
 
+from metrics_tpu_torch import telemetry
+from metrics_tpu_torch.analysis import cost_model
+
 KERNELS = ("stat_scores", "confusion_matrix", "binned_stats", "retrieval_sort", "countmin")
 
+# a kernel's owner in telemetry and cost entries: the JAX package's registered name where it differs
+# (metrics_tpu/ops/sketch_ops.py:123)
+EVENT_NAMES = {"countmin": "countmin_scatter"}
+
+# a launch written down in a capture: (name, branch, shape, flops, bytes)
+Launch = Tuple[str, str, Tuple[int, ...], float, float]
+
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+_replayed: Dict[str, int] = {name: 0 for name in KERNELS}
 _by_shape: Dict[str, Dict[Tuple[str, Tuple[int, ...]], int]] = {name: {} for name in KERNELS}
 _limits: Dict[torch.device, Tuple[int, int]] = {}
 # the launch lists of the captures under way, innermost last
-_recordings: List[List[Tuple[str, str, Tuple[int, ...]]]] = []
+_recordings: List[List[Launch]] = []
+
+_lock = threading.Lock()
+# owners whose programs or calls ran a kernel, and the cost keys met so far (an event's first=)
+_engaged_by_owner: Dict[str, Set[str]] = {}
+_costed: Set[Tuple[str, str]] = set()
+_lowering_owner = threading.local()
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -43,11 +76,18 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise RuntimeError(f"no kernel or plain version for tensors on {device}")
 
 
-def note_launch(name: str, branch: str, shape: Tuple[int, ...]) -> None:
+def note_launch(name: str, branch: str, shape: Tuple[int, ...], cost_key: Any = None, flops: float = 0.0,
+                bytes_accessed: float = 0.0) -> None:
+    """Account one launch of kernel ``name``: written down inside a capture,
+    else counted, with its cost entry and ``kernel`` event."""
+    event_name = EVENT_NAMES.get(name, name)
+    if telemetry.telemetry_enabled():
+        _note_engaged(event_name)
     if _recordings:
-        _recordings[-1].append((name, branch, tuple(shape)))
+        _recordings[-1].append((name, branch, tuple(shape), float(flops), float(bytes_accessed)))
         return
     _count(name, branch, tuple(shape))
+    record_cost(event_name, cost_key, flops, bytes_accessed)
 
 
 def _count(name: str, branch: str, shape: Tuple[int, ...]) -> None:
@@ -56,9 +96,9 @@ def _count(name: str, branch: str, shape: Tuple[int, ...]) -> None:
 
 
 @contextmanager
-def recording() -> Iterator[List[Tuple[str, str, Tuple[int, ...]]]]:
+def recording() -> Iterator[List[Launch]]:
     """Write down, and do not count, the launches of the block (a capture)."""
-    launched: List[Tuple[str, str, Tuple[int, ...]]] = []
+    launched: List[Launch] = []
     _recordings.append(launched)
     try:
         yield launched
@@ -66,15 +106,22 @@ def recording() -> Iterator[List[Tuple[str, str, Tuple[int, ...]]]]:
         _recordings.remove(launched)
 
 
-def note_replay(launched: List[Tuple[str, str, Tuple[int, ...]]]) -> None:
-    """Count the launches a replayed graph ran."""
-    for name, branch, shape in launched:
+def note_replay(launched: List[Launch]) -> None:
+    """Count the launches a replayed graph ran (no cost entry, no event)."""
+    for name, branch, shape, _, _ in launched:
         _count(name, branch, shape)
+        _replayed[name] += 1
 
 
 def launches() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launches`."""
     return dict(_launches)
+
+
+def replayed_launches() -> Dict[str, int]:
+    """The part of :func:`launches` that graph replays ran: the rest each
+    fired one ``kernel`` event."""
+    return dict(_replayed)
 
 
 def launches_by_shape(name: str) -> Dict[Tuple[str, Tuple[int, ...]], int]:
@@ -86,7 +133,59 @@ def launches_by_shape(name: str) -> Dict[Tuple[str, Tuple[int, ...]], int]:
 def reset_launches() -> None:
     for name in _launches:
         _launches[name] = 0
+        _replayed[name] = 0
         _by_shape[name].clear()
+
+
+def record_cost(name: str, cost_key: Any, flops: float, bytes_accessed: float) -> None:
+    """One analytic ``kernel`` entry and one ``kernel`` event for a launch of
+    ``ops.<name>`` (nothing without a ``cost_key`` or with telemetry off).
+    Shapes and numbers only: no tensor is read."""
+    if cost_key is None or not telemetry.telemetry_enabled():
+        return
+    entry = cost_model.record_static(f"ops.{name}", "kernel", cost_key, flops=flops, bytes_accessed=bytes_accessed)
+    key = (name, repr(cost_key))
+    first = key not in _costed
+    if first:
+        with _lock:
+            _costed.add(key)
+    # the cost attributes only while a session listens: the counters read none of them
+    attrs = cost_model.launch_attrs(entry, None) if telemetry.subscribed() else {}
+    telemetry.emit("kernel", f"ops.{name}", "kernel", first=first, **attrs)
+
+
+def _note_engaged(name: str) -> None:
+    owner = getattr(_lowering_owner, "value", None)
+    with _lock:
+        _engaged_by_owner.setdefault(owner or f"ops.{name}", set()).add(name)
+
+
+@contextmanager
+def lowering(owner: str) -> Iterator[None]:
+    """Opened by an engine around a program's build, so that the kernels the
+    program runs are attributed to ``owner`` (:func:`engaged`)."""
+    prev = getattr(_lowering_owner, "value", None)
+    _lowering_owner.value = owner
+    try:
+        yield
+    finally:
+        _lowering_owner.value = prev
+
+
+def engaged(owner: Optional[str] = None) -> Dict[str, Set[str]]:
+    """Which kernels ran, keyed by owner (an engine's label, or
+    ``ops.<name>`` for a call outside any build), or one owner's set."""
+    with _lock:
+        if owner is not None:
+            return {owner: set(_engaged_by_owner.get(owner, set()))}
+        return {k: set(v) for k, v in _engaged_by_owner.items()}
+
+
+def reset_stats() -> None:
+    """Clear the engagement and first-launch bookkeeping."""
+    with _lock:
+        _engaged_by_owner.clear()
+        _costed.clear()
 
 
 def device_limits(device: torch.device, lib: ctypes.CDLL, name: str) -> Tuple[int, int]:

@@ -18,6 +18,7 @@ label's bits unchanged, so they agree with the plain version bit for bit.
 """
 import ctypes
 import functools
+import math
 
 import torch
 from torch import Tensor
@@ -90,7 +91,11 @@ def _sorted_by_preds_kernel(preds: Tensor, target: Tensor, all_pairs: bool = Fal
         )
     if err != 0:
         raise RuntimeError(f"retrieval_sort kernel launch failed: {lib.retrieval_sort_error_string(err).decode()}")
-    registry.note_launch(_NAME, branch, (q, l))
+    # the Hopper kernel's terms (chip_smoke.py's bound): scores and labels read, labels written (4 B each), the
+    # compares of a comparison sort a row. The JAX key names one query's row of n = L (ops/retrieval.py:113);
+    # a launch here sorts Q such rows, so its key leads with Q.
+    registry.note_launch(_NAME, branch, (q, l), cost_key=(q, l, str(target.dtype).replace("torch.", "")),
+                         flops=float(q * l * math.ceil(math.log2(max(l, 2)))), bytes_accessed=12.0 * q * l)
     return out
 
 

@@ -109,7 +109,11 @@ def _countmin_kernel(value: Tensor, bits: Tensor, w: Tensor, seeds: Tensor) -> T
         )
     if err != 0:
         raise RuntimeError(f"countmin kernel launch failed: {lib.countmin_error_string(err).decode()}")
-    registry.note_launch(_NAME, branch, (n, depth, width))
+    # the Hopper kernel's terms (chip_smoke.py's bound): keys and weights read (4 B each), the seeds read, the
+    # (depth, width) table read and written; the hash (9 operations), the modulo and the add a key and row. The
+    # JAX formula's 3n·depth·width flops are the TPU's one-hot sweep (ops/sketch_ops.py:128).
+    registry.note_launch(_NAME, branch, (n, depth, width), cost_key=(n, depth, width),
+                         flops=11.0 * n * depth, bytes_accessed=8.0 * n + 4.0 * depth + 8.0 * depth * width)
     return out
 
 

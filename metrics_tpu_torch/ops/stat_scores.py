@@ -125,7 +125,11 @@ def _stat_counts_kernel(target_cls: Tensor, pred_cls: Tensor, correct: Tensor, w
         )
     if err != 0:
         raise RuntimeError(f"stat_scores kernel launch failed: {lib.stat_scores_error_string(err).decode()}")
-    registry.note_launch(_NAME, name, (n, num_classes))
+    # the model terms are the Hopper kernel's (chip_smoke.py's bound): the four (B,) columns read once and the
+    # (3, C) counts written; at most three adds a row (two, and one more a correct row: the count that reads the
+    # data is chip_smoke's). The JAX formula's 9nC flops are the TPU's one-hot compares (ops/stat_scores.py:126).
+    registry.note_launch(_NAME, name, (n, num_classes), cost_key=(n, num_classes, str(w.dtype).replace("torch.", "")),
+                         flops=3.0 * n, bytes_accessed=13.0 * n + 12.0 * num_classes)
     return out[0], out[1], out[2]
 
 

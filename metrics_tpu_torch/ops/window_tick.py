@@ -19,8 +19,15 @@ The program is the window's own ``pure_update``, run as traced (the refold
 and cached read as selects), so its values are those of the eager tick bit
 for bit. On the CPU the engine runs that program directly. There is no
 fallback: a graph that fails to capture or replay raises.
+
+Telemetry (``metrics_tpu/ops/window_tick.py:47-83``): each tick is one
+``update`` span of kind ``window-tick`` (the engine's launch span), and one
+``kernel`` event of ``ops.window_tick`` with the JAX package's model terms:
+every state leaf read and written once.
 """
 from typing import Any, Dict, Tuple
+
+from metrics_tpu_torch.ops import registry
 
 
 def _tick_engine(window: Any) -> Any:
@@ -28,8 +35,16 @@ def _tick_engine(window: Any) -> Any:
     window starts without one): the engine ``jit_update=True`` would give
     it, with its own program cache."""
     if window._fused_tick is None:
-        object.__setattr__(window, "_fused_tick", window._make_dispatcher())
+        engine = window._make_dispatcher()
+        engine.kind = "window-tick"
+        object.__setattr__(window, "_fused_tick", engine)
     return window._fused_tick
+
+
+def _model_terms(state: Dict[str, Any]) -> Tuple[float, float]:
+    """Analytic cost terms: one tick touches every state leaf once."""
+    nbytes = float(sum(v.numel() * v.element_size() for v in state.values()))
+    return 2.0 * len(state), 2.0 * nbytes  # leaves read + written
 
 
 def fused_window_tick(window: Any, args: Tuple, kwargs: Dict) -> bool:
@@ -42,8 +57,11 @@ def fused_window_tick(window: Any, args: Tuple, kwargs: Dict) -> bool:
     counts the tick (``dispatches``) and any program it built (``retraces``).
     """
     call_args, static, dynamic, key = window._split_update_args(tuple(args), dict(kwargs))
+    state = {k: getattr(window, k) for k in window._defaults}
     _tick_engine(window).update(static, key, call_args, dynamic)
     window._computed = None
     window._update_count += 1
     window._bump_version()
+    flops, nbytes = _model_terms(state)
+    registry.record_cost("window_tick", tuple((k, tuple(v.shape)) for k, v in state.items()), flops, nbytes)
     return True

@@ -28,10 +28,11 @@ Port of ``metrics_tpu/resilience.py:75-306``:
   collective failed in is issued nothing more (:func:`group_broken`).
 
 Every degrade, of an engine, of the sync engine or of a collective, is
-counted by :func:`record_degrade` (:func:`degrades`). The checkpoint
-checksums are in :mod:`metrics_tpu_torch.utilities.checksums`; the
-``degrade`` telemetry span comes with observability (ROADMAP.md, Queue A
-item 10).
+counted by :func:`record_degrade` (:func:`degrades`) and emitted as one
+cause-tagged ``degrade`` telemetry span with the policy's cooldown
+(``metrics_tpu/resilience.py:238, 438, 444``); a collective that succeeds
+on a retry emits one with the cause ``recovered``. The checkpoint checksums
+are in :mod:`metrics_tpu_torch.utilities.checksums`.
 
 Environment knobs:
 
@@ -53,7 +54,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from metrics_tpu_torch import faults
+from metrics_tpu_torch import faults, telemetry
 from metrics_tpu_torch.utilities.exceptions import StateCorruptionError
 from metrics_tpu_torch.utilities.prints import rank_zero_debug, rank_zero_warn
 
@@ -179,18 +180,23 @@ def classify(err: BaseException) -> str:
 _degrades: Dict[str, int] = {}
 
 
-def record_degrade(owner: str, engine: str, err: BaseException, policy: Optional[ResiliencePolicy] = None) -> str:
-    """Account one failure of ``owner``'s ``engine``, count it under
-    ``engine`` (:func:`degrades`) and log it at debug level; returns the
-    cause tag. With a ``policy`` the engine is benched (for good where the
-    input is unsupported). The JAX package's ``degrade`` telemetry span
-    waits for ROADMAP.md, Queue A item 10."""
+def record_degrade(owner: str, engine: str, err: BaseException, policy: Optional[ResiliencePolicy] = None,
+                   **attrs: Any) -> str:
+    """Account one failure of ``owner``'s ``engine``: count it under
+    ``engine`` (:func:`degrades`), emit its ``degrade`` span (kind
+    ``engine``, the cause, the error, ``attrs``) and log it at debug level;
+    returns the cause tag. With a ``policy`` the engine is benched (for good
+    where the input is unsupported) and the span carries its ``cooldown``,
+    ``permanent`` and ``failures``."""
     cause = classify(err)
     _degrades[engine] = _degrades.get(engine, 0) + 1
     if policy is None:
+        telemetry.emit("degrade", owner, kind=engine, cause=cause, error=str(err)[:200], **attrs)
         rank_zero_debug(f"{engine} of {owner} degraded ({type(err).__name__}: {err})")
         return cause
     policy.note_failure(cause, permanent=cause == "unsupported")
+    telemetry.emit("degrade", owner, kind=engine, cause=cause, error=str(err)[:200], cooldown=policy.cooldown,
+                   permanent=policy.permanent, failures=policy.failures, **attrs)
     rank_zero_debug(
         f"{engine} engine of {owner} degraded ({type(err).__name__}: {err}); the eager path serves the call"
         + (" from now on." if policy.permanent else f" (cooldown {policy.cooldown} calls).")
@@ -320,25 +326,29 @@ def run_collective(
     and the state stays valid for a later sync."""
     key = _group_key(group)
     if id(key) in _BROKEN_GROUPS:
-        record_degrade(owner, "collective", CollectiveIssued(f"collective '{desc}' not issued: its group is broken"))
+        record_degrade(owner, "collective", CollectiveIssued(f"collective '{desc}' not issued: its group is broken"),
+                       retries=0, op=desc, local_only=True)
         return fallback()
     retries = _collective_retries() if resilience_enabled() else 0
     last_err: Optional[BaseException] = None
-    for _ in range(1 + retries):
+    for attempt_idx in range(1 + retries):
 
         def guarded() -> Any:
             faults.check("collective", desc)
             return attempt()
 
         try:
-            return _call_with_timeout(guarded, desc)
+            result = _call_with_timeout(guarded, desc)
+            if attempt_idx:
+                telemetry.emit("degrade", owner, kind="collective", cause="recovered", retries=attempt_idx, op=desc)
+            return result
         except CollectiveIssued as err:
             last_err = err
             _BROKEN_GROUPS[id(key)] = key
             break
         except Exception as err:  # noqa: BLE001 -- retried, then degraded; never a hang or a crash of the sync
             last_err = err
-    cause = record_degrade(owner, "collective", last_err)
+    cause = record_degrade(owner, "collective", last_err, retries=retries, op=desc, local_only=True)
     rank_zero_warn(
         f"collective '{desc}' failed ({cause}: {last_err}); degrading to local-only state for this sync:"
         " cross-process results reflect this process only until a later sync succeeds"

@@ -18,18 +18,25 @@ The three device sketches take masked updates (``metrics_tpu/streaming/sketch.py
 buckets. Each device sketch registers its codec for the quantised sync wire
 (``_quant_state_specs``, used where ``sync_precision="int8"``): q8 for the
 quantile histogram, lossless bit planes for the HyperLogLog registers, and q8
-rounded up for the count-min table, so that it never underestimates. Not
-ported yet: the telemetry events (ROADMAP.md, Queue A item 10).
+rounded up for the count-min table, so that it never underestimates.
+
+On the eager path (never under
+:func:`~metrics_tpu_torch.utilities.checks._is_traced`) each device sketch's
+``update`` and ``compute`` emit one ``sketch`` telemetry event with its
+geometry (``metrics_tpu/streaming/sketch.py:62-64, 129, 158, 331, 350, 415,
+438``).
 """
+import math
 from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch import quant
+from metrics_tpu_torch import quant, telemetry
 from metrics_tpu_torch.aggregation import BaseAggregator
 from metrics_tpu_torch.ops.sketch_ops import as_u32_bits, countmin_update, hash_u32
+from metrics_tpu_torch.utilities.checks import _is_traced
 
 __all__ = [
     "QuantileSketch",
@@ -37,6 +44,13 @@ __all__ = [
     "HyperLogLog",
     "CountMinHeavyHitters",
 ]
+
+
+def _emit_sketch(owner: str, kind: str, **attrs: Any) -> None:
+    """A ``sketch`` event on the eager path only: inside an engine's program
+    the Python body runs at the build, not at each replay."""
+    if not _is_traced():
+        telemetry.emit("sketch", owner, kind, **attrs)
 
 _SEED_STEP = 0x9E3779B9
 
@@ -118,6 +132,7 @@ class QuantileSketch(BaseAggregator):
         value, mask = torch.atleast_1d(value), torch.atleast_1d(mask)
         idx = self._index(torch.where(mask, value, 1.0))
         self.value = self.value.index_add(0, idx.reshape(-1), mask.to(torch.float32).reshape(-1))
+        _emit_sketch(type(self).__name__, "update", bins=self.bins)
 
     def _masked_update_supported(self) -> bool:
         return True
@@ -146,6 +161,7 @@ class QuantileSketch(BaseAggregator):
 
     def compute(self) -> Tensor:
         """Median estimate; use :meth:`quantile` for other ranks."""
+        _emit_sketch(type(self).__name__, "compute", bins=self.bins)
         return self.quantile(0.5)
 
 
@@ -175,6 +191,7 @@ class HostQuantileSketch:
         self.gamma = (1.0 + alpha) / (1.0 - alpha)
         self.min_key = -(bins // 2)
         self.counts = np.zeros((2 * bins + 1,), np.float64)
+        self._log_gamma = np.log(np.float32(self.gamma))  # float32, as the device sketch divides by it
 
     @property
     def count(self) -> float:
@@ -188,8 +205,9 @@ class HostQuantileSketch:
     def _index(self, x: float) -> int:
         absx = abs(x)
         if absx > 0:
-            key = float(np.ceil(np.log(np.float32(absx)) / np.log(np.float32(self.gamma))))
-            kidx = int(np.clip(key, self.min_key, self.min_key + self.bins - 1)) - self.min_key
+            # the float32 quotient of the device sketch; its ceiling and clamp are exact in Python's ints
+            key = math.ceil(float(np.log(np.float32(absx)) / self._log_gamma))
+            kidx = min(max(key, self.min_key), self.min_key + self.bins - 1) - self.min_key
         else:
             kidx = 0
         if x > 0:
@@ -291,6 +309,7 @@ class HyperLogLog(BaseAggregator):
         value, mask = torch.atleast_1d(value), torch.atleast_1d(mask)
         idx, rank = self._ranks(value, mask)
         self.value = self.value.scatter_reduce(0, idx.reshape(-1), rank.reshape(-1), reduce="amax")
+        _emit_sketch(type(self).__name__, "update", registers=self.registers)
 
     def _masked_update_supported(self) -> bool:
         return True
@@ -309,6 +328,7 @@ class HyperLogLog(BaseAggregator):
         raw = alpha_m * m * m / torch.sum(torch.pow(2.0, -regs))
         zeros = (self.value == 0).sum().to(torch.float32)
         linear = m * torch.log(m / zeros.clamp(min=1.0))
+        _emit_sketch(type(self).__name__, "compute", registers=m)
         return torch.where((raw <= 2.5 * m) & (zeros > 0), linear, raw)
 
 
@@ -370,6 +390,7 @@ class CountMinHeavyHitters(BaseAggregator):
         else:  # a Python number: filled on the device, no copy from the host
             weight = torch.full_like(value, float(weight))
         self._add(value, weight, mask)
+        _emit_sketch(type(self).__name__, "update", depth=self.depth, width=self.width)
 
     def _masked_update_supported(self) -> bool:
         return True
@@ -395,4 +416,5 @@ class CountMinHeavyHitters(BaseAggregator):
 
     def compute(self) -> Tensor:
         """Total weight absorbed (every row sums to it; row 0 is read)."""
+        _emit_sketch(type(self).__name__, "compute", depth=self.depth, width=self.width)
         return self.value[0].sum()

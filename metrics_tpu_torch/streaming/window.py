@@ -35,8 +35,21 @@ states that are all integer sums, maxima or minima (whose result does not
 depend on the order) are one masked reduction per state; any float state
 keeps the left fold, bucket by bucket, oldest first.
 
-Not ported yet: the telemetry events (ROADMAP.md, Queue A item 10), and the
-opt-in fused tick inside ``SlidingWindow.update``
+Telemetry (``metrics_tpu/streaming/window.py:119-125, 390, 430-440, 612,
+753, 799, 829-843, 894, 912, 970-980``): on the eager path only (never under
+:func:`~metrics_tpu_torch.utilities.checks._is_traced`) a tick emits one
+``window`` event (``advance`` or ``update``; a ladder's cascades
+``cascade``), a read a ``window`` ``compute`` event and, for a sliding
+window, a ``read`` event (``window-cached``, ``window-rebuild`` or
+``window-range`` with the ``merges`` paid). An event reads the device only
+where the eager tick already does (``bool(adv)``, the ladder's ``int(t)``),
+with two exceptions that run only while a session listens
+(:func:`~metrics_tpu_torch.telemetry.subscribed`), so that an idle stream
+adds no host sync: a sliding window's ``compute`` event counts its ``live``
+buckets, and a tumbling window's tick reads whether it advanced (with no
+session, that tick emits no event and bumps no counter).
+
+Not ported: the opt-in fused tick inside ``SlidingWindow.update``
 (``metrics_tpu/streaming/window.py:374-384``, behind
 ``METRICS_TPU_FORCE_PALLAS``): the port has no opt-in switch, and
 :func:`metrics_tpu_torch.ops.fused_window_tick` is called on its own.
@@ -46,6 +59,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch import telemetry
 from metrics_tpu_torch.metric import Metric, resolve_device
 from metrics_tpu_torch.utilities.checks import _is_traced
 from metrics_tpu_torch.utilities.data import dim_zero_max, dim_zero_mean, dim_zero_min, dim_zero_sum, dtype_name
@@ -322,9 +336,11 @@ class SlidingWindow(_StreamingWindow):
     def _positions(self) -> Tensor:
         return torch.arange(self.num_buckets, dtype=torch.int32, device=self.device)
 
-    def _advance(self, gate: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+    def _advance(self, gate: Optional[Tensor]) -> Tuple[Tensor, Tensor, Optional[bool]]:
         """Move the cursor when the current bucket is full (and the step is
-        live) and clear the bucket it lands on: selects on device scalars."""
+        live) and clear the bucket it lands on: selects on device scalars.
+        Returns ``(adv, cursor, moved)``, ``moved`` the eager path's host read
+        of ``adv`` (``None`` when traced)."""
         adv = self.in_bucket >= self.slide
         if gate is not None:
             adv = adv & gate
@@ -336,8 +352,8 @@ class SlidingWindow(_StreamingWindow):
             setattr(self, f"ring_{k}", torch.where(_rows(cleared, ring), self._inner_defaults[k], ring))
         self.cursor = cursor
         self.in_bucket = self.in_bucket.masked_fill(adv, 0)
-        self._maintain_prefix(adv)
-        return adv, cursor
+        moved = self._maintain_prefix(adv)
+        return adv, cursor, moved
 
     # ---------------------------------------------------------- read cache
     def _fold_positions(self, order: Tensor) -> Tuple[State, Tensor]:
@@ -357,22 +373,25 @@ class SlidingWindow(_StreamingWindow):
         self.pfx_seen = seen
         self.pfx_token = self.advances
 
-    def _maintain_prefix(self, adv: Tensor) -> None:
+    def _maintain_prefix(self, adv: Tensor) -> Optional[bool]:
         """Keep the prefix cache coherent across an advance. Eagerly the
-        refold runs only when the cursor moved (one host read); traced, it
-        runs every tick and a select keeps it where the cursor stayed."""
+        refold runs only when the cursor moved (one host read, returned);
+        traced, it runs every tick and a select keeps it where the cursor
+        stayed."""
         advances = self.advances + adv.to(torch.int32)
         self.advances = advances
         if not _is_traced():
-            if bool(adv):
+            moved = bool(adv)
+            if moved:
                 self._install_prefix(*self._prefix_fold())
-            return
+            return moved
         acc, seen = self._prefix_fold()
         for k in self._inner_names:
             setattr(self, f"pfx_{k}", torch.where(adv, acc[k], getattr(self, f"pfx_{k}")))
         self.pfx_seen = torch.where(adv, seen, self.pfx_seen)
         # a poisoned (-1) token stays poisoned until a refold repairs it
         self.pfx_token = torch.where(adv, advances, self.pfx_token)
+        return None
 
     def _bucket_at(self, cursor: Tensor) -> State:
         idx = cursor.reshape(1)
@@ -389,14 +408,17 @@ class SlidingWindow(_StreamingWindow):
         self.in_bucket = self.in_bucket + _live(gate)
 
     def update(self, *args: Any, **kwargs: Any) -> None:
-        _, cursor = self._advance(None)
+        _, cursor, moved = self._advance(None)
         new_bucket = self._inner.pure_update(self._bucket_at(cursor), *args, **kwargs)
         self._apply_bucket(cursor, new_bucket, None)
+        if moved is not None:
+            telemetry.emit("window", type(self).__name__, "advance" if moved else "update",
+                           buckets=self.num_buckets, slide=self.slide)
 
     def _masked_update(self, sample_mask: Tensor, *args: Any, **kwargs: Any) -> None:
         # a fully padded lane must neither advance the cursor nor count an update
         gate = sample_mask.any()
-        _, cursor = self._advance(gate)
+        _, cursor, _ = self._advance(gate)
         new_bucket = self._inner._masked_pure_update(self._bucket_at(cursor), sample_mask, *args, **kwargs)
         self._apply_bucket(cursor, new_bucket, gate)
 
@@ -415,9 +437,16 @@ class SlidingWindow(_StreamingWindow):
         valid = (self.pfx_token >= 0) & (self.pfx_token == self.advances)
         if not _is_traced():
             # eager: an invalid cache (a merge poisoned the token) heals in place with one refold
-            if not bool(valid):
+            rebuilt = not bool(valid)
+            if rebuilt:
                 self._install_prefix(*self._prefix_fold())
             state = self._cached_fold()
+            n = self.num_buckets
+            # the live count is a host read (the JAX package always makes it): only for a listening session
+            live = {"live": int(self.counts.sum())} if telemetry.subscribed() else {}
+            telemetry.emit("window", type(self).__name__, "compute", buckets=n, **live)
+            telemetry.emit("read", type(self).__name__, "window-rebuild" if rebuilt else "window-cached",
+                           buckets=n, merges=n if rebuilt else 1)
         else:
             n = self.num_buckets
             full, _ = self._fold_positions((self.cursor + 1 + self._positions()) % n)
@@ -529,6 +558,7 @@ class FoldTreeWindow(SlidingWindow):
         lo = int(lo)
         if not 0 <= lo < hi <= n:
             raise MetricsUserError(f"compute_range wants 0 <= lo < hi <= {n}, got ({lo}, {hi})")
+        t0 = telemetry.clock()
         self._ensure_tree()
         assert self._tree is not None
         acc: Tuple[State, int] = (self._fresh(), 0)
@@ -542,6 +572,7 @@ class FoldTreeWindow(SlidingWindow):
                 merges += 1
             p += 1 << k
         self.range_merge_count = merges
+        telemetry.emit("read", type(self).__name__, "window-range", t0=t0, buckets=n, span=hi - lo, merges=merges)
         return self._inner.pure_compute(acc[0])
 
 
@@ -635,20 +666,22 @@ class ResolutionLadder(_StreamingWindow):
         cleared = {k: self._inner_defaults[k][None].expand_as(child[k]).clone() for k in self._inner_names}
         return cleared, torch.zeros_like(ccounts), parent, pcounts
 
-    def _maybe_cascade(self, t: Tensor, gate: Optional[Tensor]) -> None:
+    def _maybe_cascade(self, t: Tensor, gate: Optional[Tensor]) -> Optional[int]:
         """Run every due cascade. A fully masked tick advances nothing, so it
         must not cascade either: a rerun at the same ``t`` would fold the
-        just-cleared child over the parent."""
+        just-cleared child over the parent. Returns the eager path's host read
+        of ``t`` (``None`` when traced)."""
         if not _is_traced():
             now = int(t)  # the eager path's host read
             if (gate is not None and not bool(gate)) or now <= 0:
-                return
+                return now
             for lvl in range(1, self.n_levels):
                 if now % self._strides[lvl] == 0:
                     child, ccounts, parent, pcounts = self._cascade_leaves(lvl, t)
                     self._install_level(lvl - 1, child, ccounts)
                     self._install_level(lvl, parent, pcounts)
-            return
+                    telemetry.emit("window", type(self).__name__, "cascade", level=lvl, buckets=self.levels[lvl - 1])
+            return now
         for lvl in range(1, self.n_levels):
             fire = (t > 0) & (t % self._strides[lvl] == 0)
             if gate is not None:
@@ -660,11 +693,12 @@ class ResolutionLadder(_StreamingWindow):
                                 torch.where(fire, ccounts, old_ccounts))
             self._install_level(lvl, {k: torch.where(fire, parent[k], old_parent[k]) for k in self._inner_names},
                                 torch.where(fire, pcounts, old_pcounts))
+        return None
 
     # ---------------------------------------------------------------- tick
     def _tick(self, gate: Optional[Tensor], new_bucket_fn: Any) -> None:
         t = self.ticks
-        self._maybe_cascade(t, gate)
+        now = self._maybe_cascade(t, gate)
         p = t % self.levels[0]
         buckets, counts = self._level_leaves(0)
         new_bucket = new_bucket_fn({k: buckets[k].index_select(0, p.reshape(1))[0] for k in self._inner_names})
@@ -674,6 +708,8 @@ class ResolutionLadder(_StreamingWindow):
         self._install_level(0, {k: torch.where(_rows(at, buckets[k]), new_bucket[k], buckets[k])
                                 for k in self._inner_names}, counts + at.to(torch.int32))
         self.ticks = t + _live(gate)
+        if now is not None:
+            telemetry.emit("window", type(self).__name__, "update", levels=self.n_levels, tick=now)
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         self._tick(None, lambda bucket: self._inner.pure_update(bucket, *args, **kwargs))
@@ -690,6 +726,8 @@ class ResolutionLadder(_StreamingWindow):
         if not 0 <= level < self.n_levels:
             raise MetricsUserError(f"level must be in [0, {self.n_levels}), got {level}")
         acc, _ = self._fold_level_chrono(level, (self._fresh(), self._zero_seen()), self.ticks)
+        if not _is_traced():
+            telemetry.emit("window", type(self).__name__, "compute", level=level, buckets=self.levels[level])
         return self._inner.pure_compute(acc)
 
     def compute(self) -> Any:
@@ -698,6 +736,8 @@ class ResolutionLadder(_StreamingWindow):
         carry = (self._fresh(), self._zero_seen())
         for lvl in reversed(range(self.n_levels)):
             carry = self._fold_level_chrono(lvl, carry, self.ticks)
+        if not _is_traced():
+            telemetry.emit("window", type(self).__name__, "compute", levels=self.n_levels, buckets=sum(self.levels))
         return self._inner.pure_compute(carry[0])
 
 
@@ -745,6 +785,8 @@ class TumblingWindow(_StreamingWindow):
             setattr(self, f"cur_{k}", torch.where(full, self._inner_defaults[k], cur))
         self.done_count = torch.where(full, cnt, self.done_count)
         self.cur_count = cnt.masked_fill(full, 0)
+        if not _is_traced() and telemetry.subscribed():  # the one host read, only for a listening session
+            telemetry.emit("window", type(self).__name__, "advance" if bool(full) else "update", window=self.window)
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         cur = {k: getattr(self, f"cur_{k}") for k in self._inner_names}
@@ -760,6 +802,8 @@ class TumblingWindow(_StreamingWindow):
             k: torch.where(use_done, getattr(self, f"done_{k}"), getattr(self, f"cur_{k}"))
             for k in self._inner_names
         }
+        if not _is_traced():
+            telemetry.emit("window", type(self).__name__, "compute", window=self.window)
         return self._inner.pure_compute(state)
 
 
@@ -815,10 +859,14 @@ class ExponentialDecay(_StreamingWindow):
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         self._apply(self._inner.pure_update(self._decayed(None), *args, **kwargs), None)
+        if not _is_traced():
+            telemetry.emit("window", type(self).__name__, "update", halflife=self.halflife)
 
     def _masked_update(self, sample_mask: Tensor, *args: Any, **kwargs: Any) -> None:
         gate = sample_mask.any()
         self._apply(self._inner._masked_pure_update(self._decayed(gate), sample_mask, *args, **kwargs), gate)
 
     def compute(self) -> Any:
+        if not _is_traced():
+            telemetry.emit("window", type(self).__name__, "compute", halflife=self.halflife)
         return self._inner.pure_compute({k: getattr(self, f"ew_{k}") for k in self._inner_names})

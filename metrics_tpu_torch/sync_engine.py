@@ -40,18 +40,26 @@ replicated.
 counted in its owner's ``sync_stats``: ``collectives``, ``buckets``,
 ``sharded_buckets``, ``bytes_on_wire`` and ``bytes_logical``.
 
-Not ported here: the buckets' cost attributes (``_bucket_cost*``, with the
-cost model, ROADMAP.md Queue A item 10) and the fleet reads
-(``metrics_tpu/sync_engine.py:613-811``, with serving, item 11).
+Each bucket emits one ``collective`` span (kind ``fused``) with its
+``nbytes`` on the wire and ``logical_nbytes`` (``metrics_tpu/sync_engine.py:
+442-480, 570-585``); while a session listens it carries the cost attributes
+of a ``sync`` entry of :mod:`metrics_tpu_torch.analysis.cost_model` whose
+bytes are the bucket's wire bytes (the JAX package lowers a probe program
+for its entry; a collective's model cost here is its bytes, no flops).
+
+Not ported here: the fleet reads (``metrics_tpu/sync_engine.py:613-811``,
+with serving, ROADMAP.md Queue A item 11).
 """
 import os
+import time
 from typing import Any, Dict, Hashable, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import Tensor
 
-from metrics_tpu_torch import faults, quant, resilience
+from metrics_tpu_torch import faults, quant, resilience, telemetry
+from metrics_tpu_torch.analysis import cost_model
 from metrics_tpu_torch.utilities.data import dim_zero_max, dim_zero_mean, dim_zero_min, dim_zero_sum, dtype_name
 
 # reductions that are one named collective op (the contract metric.py's per-leaf path shares)
@@ -255,12 +263,26 @@ def _execute_sharded(env: Any, leaves: List[LeafSpec], n: int, op: str, wire: to
     return int(buf2d.numel()) * wire.itemsize
 
 
-def _count(stats: Optional[Dict[str, int]], nbytes: int, logical: int, sharded: bool = False) -> None:
+def _account(stats: Optional[Dict[str, int]], owner: str, t0: float, leaves: List[LeafSpec], wire_name: str, op: str,
+             nbytes: int, logical: int, codec: Optional[quant.QuantCodec], sharded: Optional[int] = None) -> None:
+    """One bucket's ``collective`` span (the cost attributes only while a
+    session listens) and its counts in ``stats``; ``sharded`` is the world a
+    sharded bucket split over."""
+    attrs: Dict[str, Any] = {}
+    if sharded is not None:
+        attrs = {"sharded": True, "shard_world": sharded, "shard_nbytes": logical // sharded}
+    if telemetry.subscribed():
+        key = (owner, wire_name, op, tuple((s.shape, dtype_name(s.dtype)) for s in leaves))
+        entry = cost_model.record_static(owner, "sync", key, flops=0.0, bytes_accessed=nbytes)
+        attrs.update(cost_model.launch_attrs(entry, (time.perf_counter() - t0) * 1e6))
+    # quantized: whether the payload crossed on the int8 wire (False after a too-small or demoted bucket)
+    telemetry.emit("collective", owner, "fused", t0=t0, nbytes=nbytes, logical_nbytes=logical, op=op,
+                   wire_dtype=wire_name, quantized=codec is not None, nleaves=len(leaves), **attrs)
     if stats is None:
         return
     stats["collectives"] = stats.get("collectives", 0) + 1
     stats["buckets"] = stats.get("buckets", 0) + 1
-    if sharded:
+    if sharded is not None:
         stats["sharded_buckets"] = stats.get("sharded_buckets", 0) + 1
     stats["bytes_on_wire"] = stats.get("bytes_on_wire", 0) + nbytes
     stats["bytes_logical"] = stats.get("bytes_logical", 0) + logical
@@ -283,6 +305,7 @@ def execute_buckets(
     buckets = bucket_plan(specs)
     out: Dict[Hashable, Tensor] = {}
     for wire_name, op in sorted(buckets):
+        t0 = time.perf_counter()
         leaves = buckets[(wire_name, op)]
         codec = leaves[0].codec
         wire = leaves[0].wire_dtype
@@ -297,7 +320,7 @@ def execute_buckets(
                     raise
                 resilience.record_degrade(owner, "shard-sync", err)
             else:
-                _count(stats, nbytes, logical_nbytes, sharded=True)
+                _account(stats, owner, t0, leaves, wire_name, op, nbytes, logical_nbytes, codec, sharded=n_shard)
                 continue
 
         buf = torch.cat([s.value.reshape(-1).to(wire) for s in leaves])
@@ -347,5 +370,5 @@ def execute_buckets(
                     # bool leaves rode the wire as int32
                     out[s.key] = reduced[o:o + k].to(s.dtype).reshape(s.shape)
             nbytes = int(buf.numel()) * wire.itemsize
-        _count(stats, nbytes, logical_nbytes)
+        _account(stats, owner, t0, leaves, wire_name, op, nbytes, logical_nbytes, codec)
     return out

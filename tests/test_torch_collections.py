@@ -698,18 +698,17 @@ def test_kwargs_are_routed_to_the_members_that_take_them():
         (lambda: _entered(MetricCollection([TorchSum()]).sync_context()), True),
         (lambda: _synced_alone(MetricCollection([TorchSum()])), 1.0),
         (lambda: MetricCollection([TorchSum()]).sync_stats, {"collectives": 0, "buckets": 0, "bytes_on_wire": 0}),
-        (lambda: MetricCollection([TorchSum()]).telemetry_snapshot(), "item 10"),
+        # ported with observability (ROADMAP.md, Queue A item 10): the JAX package's keys
+        (lambda: sorted(MetricCollection([TorchSum()]).telemetry_snapshot()),
+         ["aot_cache", "dispatch", "forward", "members", "memory", "owner", "resilience", "sync"]),
     ],
     ids=["sync_precision", "sync", "unsync", "sync_context", "pure_sync", "sync_stats", "telemetry_snapshot"],
 )
 def test_unported_parts_raise_naming_the_roadmap_item(call, item):
-    """A part not ported yet raises naming its ROADMAP.md item; the sync's
-    parts are ported and give a one-process collection its own state."""
-    if item == "item 10":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue A {item}"):
-            call()
-    else:
-        assert call() == item
+    """Parts once left for a later ROADMAP.md item, now ported: the sync's
+    give a one-process collection its own state, and ``telemetry_snapshot``
+    reports under the JAX package's keys."""
+    assert call() == item
 
 
 def _entered(context):

@@ -1181,3 +1181,125 @@ def test_aggregator_engines_capture_a_number_argument(card, name):
     assert engine.dispatch_stats["demotions"] == 0 and engine.dispatch_stats["retraces"] == 1
     for k in engine._defaults:
         assert torch.equal(getattr(engine, k), getattr(eager, k)), k
+
+
+# ------------------------------------------------------------------ observability
+def test_a_warm_instrumented_engine_update_makes_no_host_sync(card):
+    from metrics_tpu_torch import telemetry
+
+    rng = np.random.RandomState(70)
+    m = metrics_tpu_torch.Accuracy(num_classes=1000, average="macro", jit_update=True, device=card)
+    m.update(*_scores(rng, 1024, 1000, card))
+    with telemetry.instrument() as session:
+        for _ in range(3):
+            b = _scores(rng, 1024, 1000, card)
+            _no_sync(lambda b=b: m.update(*b))
+    updates = session.spans(name="update")
+    assert len(updates) == 3 and all(e.kind == "aot" and e.attrs["roofline_basis"] == "absolute" for e in updates)
+    assert all(isinstance(v, (bool, int, float, str, type(None))) for e in updates for v in e.attrs.values())
+
+
+def test_a_kernel_event_fires_for_each_eager_launch_and_none_for_a_replay(card):
+    from metrics_tpu_torch import telemetry
+
+    rng = np.random.RandomState(71)
+    eager = metrics_tpu_torch.Accuracy(num_classes=100, average="macro", device=card)
+    engine = metrics_tpu_torch.Accuracy(num_classes=100, average="macro", jit_update=True, device=card)
+    batches = [_scores(rng, 512, 100, card) for _ in range(4)]
+    reset_launches()
+    registry.reset_stats()  # an earlier test may have launched at this shape: first= counts from here
+    with telemetry.instrument() as session:
+        for b in batches:
+            eager.update(*b)
+            engine.update(*b)
+    torch.cuda.synchronize()
+    events = session.spans(name="kernel", owner="ops.stat_scores")
+    # four eager launches, and the engine's one build (its warm-up run); its three replays fire none
+    assert launches()["stat_scores"] == 8 and registry.replayed_launches()["stat_scores"] == 3
+    assert len(events) == 5 and session.count(name="compile") == 1
+    assert [e.attrs["first"] for e in events] == [True] + [False] * 4
+    assert all(e.attrs["model_bytes"] == 13.0 * 512 + 12.0 * 100 for e in events)
+
+
+def test_device_peaks_resolve_the_cards_row(card):
+    from metrics_tpu_torch.analysis import billing, cost_model
+
+    name = torch.cuda.get_device_name(card)
+    want = "H100" if "H100" in name else "cuda"
+    assert cost_model.device_peaks(refresh=True) == cost_model.DEVICE_PEAKS[want]
+    assert billing.device_rate(refresh=True) == (want, billing.DEVICE_RATES[want])
+
+
+def test_each_kernels_entry_is_its_bound_terms(card):
+    """A launch's cost entry holds the terms of ``chip_smoke.py``'s bound (PERF.md's bound column): the bytes
+    the kernel must move and its operations (stat_scores: at most three adds a row)."""
+    import math
+
+    from metrics_tpu_torch import telemetry
+    from metrics_tpu_torch.ops.sketch_ops import _countmin_kernel
+
+    rng = np.random.RandomState(72)
+    n, c, t, q, l, depth, width = 1024, 1000, 100, 64, 1000, 4, 1024
+    preds, target = _scores(rng, n, c, card)
+    pred_cls = preds.argmax(dim=1).to(torch.int32)
+    y = torch.from_numpy(rng.randint(0, 2, (n, c)).astype(bool)).to(card)
+    thr = torch.linspace(0, 1, t, device=card)
+    sp = torch.from_numpy(rng.rand(q, l).astype(np.float32)).to(card)
+    st = torch.from_numpy(rng.randint(0, 2, (q, l)).astype(np.int32)).to(card)
+    keys = torch.from_numpy(rng.randint(0, 2**31, n).astype(np.int32)).to(card)
+    calls = {
+        "ops.stat_scores": (lambda: stat_scores_counts(target, pred_cls, pred_cls == target,
+                                                       torch.ones(n, dtype=torch.int32, device=card), c),
+                            13.0 * n + 12.0 * c, 3.0 * n),
+        "ops.confusion_matrix": (lambda: confusion_matrix_counts(target, pred_cls, c), 8.0 * n + 4.0 * c * c, n),
+        "ops.binned_stats": (lambda: binned_stat_scores(preds, y, thr), 5.0 * n * c + 12.0 * c * t,
+                             n * c * (math.ceil(math.log2(t + 1)) + 1) + c * t),
+        "ops.retrieval_sort": (lambda: sorted_by_preds(sp, st), 12.0 * q * l, q * l * math.ceil(math.log2(l))),
+        "ops.countmin_scatter": (lambda: _countmin_kernel(torch.zeros(depth, width, device=card), keys,
+                                                         torch.ones(n, device=card),
+                                                         torch.arange(depth, dtype=torch.int32, device=card)),
+                                 8.0 * n + 4.0 * depth + 8.0 * depth * width, 11.0 * n * depth),
+    }
+    for owner, (call, nbytes, ops) in calls.items():
+        with telemetry.instrument() as session:
+            call()
+        (event,) = session.spans(name="kernel")
+        assert event.owner == owner
+        assert (event.attrs["model_bytes"], event.attrs["model_flops"]) == (nbytes, float(ops)), owner
+
+
+def _sync_count(fn):
+    """The host<->device synchronisations of one call of ``fn``, from PyTorch's sync debug mode."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_an_idle_stream_adds_no_host_sync_to_an_eager_window(card, monkeypatch):
+    """With telemetry on and no session, an eager tumbling tick and a sliding read make the host syncs they make
+    with telemetry off; a session adds one each (whether the tick advanced, the read's live count)."""
+    from metrics_tpu_torch import telemetry
+
+    rng = np.random.RandomState(73)
+    tumbling, sliding = _window("tumbling", card, False), _window("accuracy", card, False)
+    values = [(torch.from_numpy(rng.lognormal(0.0, 1.0, 1024).astype(np.float32)).to(card),) for _ in range(3)]
+    for b in _window_batches("accuracy", card, n=3):
+        sliding.update(*b)
+    calls = {"tumbling": (lambda: tumbling.update(*values[0])), "sliding": sliding._compute_impl}
+    for name, call in calls.items():
+        call()  # warm
+        monkeypatch.setenv("METRICS_TPU_TELEMETRY", "0")
+        off = _sync_count(call)
+        monkeypatch.delenv("METRICS_TPU_TELEMETRY")
+        idle = _sync_count(call)
+        with telemetry.instrument():
+            instrumented = _sync_count(call)
+        assert idle == off and instrumented == off + 1, (name, off, idle, instrumented)
