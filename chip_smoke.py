@@ -238,6 +238,39 @@
    outside the clock. After the last kernel check that reads a profiler
    capture, one ``torch.profiler`` capture shows the
    ``metrics_tpu.Accuracy.update[aot]`` range.
+   Slice 14, the serving stack (``metrics_tpu_torch.serve``): A. an ImageNet-1k
+   evaluation service of 1,024 tenants (a fleet's checkpoints or experiments,
+   each evaluated continuously) over ``Accuracy(num_classes=1000,
+   average="macro")``, 8 flushes of one 64-row submit a tenant (the slices'
+   76%-top-1 generator): each flush one stacked launch (a CUDA graph replay
+   after the first) and one launch of ``stat_scores``' session axis at (1024,
+   64, 1000), no request on the eager path and no degrade; the counts equal a
+   host ``np.bincount`` reference, every tenant's value a dedicated ``Accuracy``
+   fed the same batches on the card, bit for bit, and the first 64 tenants'
+   ``state_digest`` the same stream served on the CPU; then a ragged wave (1-256
+   rows a tenant in 1-3 requests, coalesced: one launch a batch bucket) and a
+   forward wave of 256 ``ValueTicket``s (one launch; each value a fresh
+   ``Accuracy``'s). Printed: flush ms (first, warm, the capture), session-updates
+   a second, submit-to-retire p50 and p99 from ``slo_snapshot()``, the mean
+   ``queue_us``/``journal_us``/``launch_us``/``retire_us`` of two instrumented
+   flushes, ``compute_all`` ms, the host syncs and busy share of a warm flush.
+   B. per-advertiser heavy hitters: 256 tenants of ``CountMinHeavyHitters(4,
+   1024)``, submits of 4,096 Zipf ids, 2 flushes: ``countmin`` 256 times a
+   flush (the second a replay), the tables bit-equal to dedicated sketches and,
+   on 16 tenants, to ``numpy_countmin``. C. ``SlidingWindow(Accuracy(1000,
+   macro), window=60)`` over 64 tenants, 4 ticks: coalescing off, one launch a
+   tick, ``compute_window`` equal to dedicated windows. D. durability: a
+   journaled service at ImageNet width (64 tenants, 16 rows an op, fsync on, a
+   checkpoint every 2 flushes, 1 MiB segments) over a 100-op stream with a
+   close and a reset, in subprocesses on the card (``--slice14-worker``): the
+   never-killed twin and one run SIGKILLed at each of the five crash points,
+   then each recovered in a fresh process, whose digest must equal the twin's;
+   printed: journal append µs (a request's ``journal_us``, the copy of its
+   inputs from the card included, and the frame's write and fsync alone),
+   checkpoint ms, recovery ms to the first result.
+   E. admission: bursts of twice ``max_queue`` (64) under ``reject`` and
+   ``shed-oldest``: each refused request one cause-tagged ``degrade`` span, one
+   ``request`` span per admitted submit, and ``slo_snapshot()`` agreeing.
    Slice 9's ranks compute inside a session: on each, the ``collective``
    spans and their bytes equal ``sync_stats``. Before the ``kernels`` line
    each kernel's cost-model entry (``model_bytes``, ``model_flops``) must
@@ -254,7 +287,8 @@
    grouped update's host syncs and its device busy share).
    ``stat_scores`` is timed on both branches (one block, many blocks) at
    (1024, 1000), bench.py's (1024, 128) and at 2,048 to 16,384 rows around
-   the one-block limit; ``binned_stats`` on both (histogram, compare) at
+   the one-block limit, and its session axis at slice 14's flush (1024, 64,
+   1000) against a weighted ``torch.bincount`` over the S * 3C cells; ``binned_stats`` on both (histogram, compare) at
    ImageNet's and COCO's batch and at COCO's width in batches of 4,096 and
    in one update of all 40,504 rows, and on the plan's cluster size against
    the other choice (clusters of 8, or one block a tile);
@@ -374,6 +408,19 @@ CLICK_WINDOW, CLICK_DEPTH, CLICK_WIDTH = 60, 4, 65536  # the last 60 batches of 
 HLL_PRECISION, HLL_RANGES = 14, ((0, 60), (7, 38), (45, 60), (59, 60))
 LADDER_LEVELS, LADDER_TICKS, LADDER_BATCH = (60, 60, 24), 3660, 1024  # minute -> hour -> day, a tick a second
 LATENCY_LOG_MU, LATENCY_LOG_SIGMA, DECAY_HALFLIFE = math.log(20.0), 0.6, 60.0  # request latencies in ms
+
+# slice 14: the serving stack. A: an ImageNet-1k evaluation service of 1,024 tenants (a fleet's checkpoints or
+# experiments), 8 flushes of one 64-row submit a tenant, the first 64 tenants rerun on the CPU, then a ragged
+# wave and a forward wave; B: per-advertiser count-min sketches; C: a windowed service; D: the crash matrix of a
+# journaled service at ImageNet width; E: admission bursts of twice the queue bound
+SLICE14_TENANTS, SLICE14_ROWS, SLICE14_FLUSHES, SLICE14_PREFIX, SLICE14_FORWARD = 1024, 64, 8, 64, 256
+SLICE14_CM_TENANTS, SLICE14_CM_IDS, SLICE14_CM_NUMPY = 256, 4096, 16
+SLICE14_WINDOW_TENANTS, SLICE14_WINDOW_TICKS = 64, 4
+SLICE14_DURABLE_TENANTS, SLICE14_DURABLE_OPS, SLICE14_DURABLE_ROWS = 64, 100, 16
+SLICE14_CRASH_NTH = {"post-journal": 30, "mid-journal-append": 30, "mid-flush": 5, "mid-checkpoint": 2,
+                     "mid-truncate": 2}
+SLICE14_WORKER_TIMEOUT_S = 300
+SLICE14_MAX_QUEUE = 64
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -2774,6 +2821,456 @@ def slice13_profiler_ranges(torch, dev, batches):
     print(f"slice 13 profiler_ranges: {json.dumps(ranges)}")
 
 
+def top1_scores(torch, g, n, c, hit=0.76):
+    """``(n, c)`` softmax scores of seeded logits with the label on top for
+    ``hit`` of the rows (the slices' ImageNet generator), and the labels."""
+    dev = g.device
+    labels = torch.randint(0, c, (n,), generator=g, device=dev)
+    logits = torch.randn(n, c, generator=g, device=dev)
+    top = torch.rand(n, generator=g, device=dev) < hit
+    rows = torch.arange(n, device=dev)
+    logits[rows, labels] = torch.where(top, logits.amax(dim=1) + 1.0, logits[rows, labels])
+    return torch.softmax(logits, dim=1), labels
+
+
+def zipf_ids(torch, g, n, ids=CLICK_IDS, s=CLICK_ZIPF):
+    """``n`` item ids drawn Zipf(s) over ``ids`` ids, as float32 (the click log's generator)."""
+    dev = g.device
+    cdf = torch.cumsum(torch.arange(1, ids + 1, dtype=torch.float64, device=dev) ** -s, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    return torch.searchsorted(cdf, u).clamp(max=ids - 1).to(torch.float32)
+
+
+def slice14_counts_reference(torch, preds, target, tenants, rows):
+    """Per tenant ``(tp, fp, tn, fn)`` of a macro reduce from one ``np.bincount``
+    over ``tenant * 3C + [target, pred + C, target + 2C]``, the predicted class
+    by ``argmax`` (no NaN in these scores): independent of the port."""
+    c = preds.shape[1]
+    pred = preds.argmax(dim=1).cpu().numpy().astype(np.int64)
+    t = target.cpu().numpy().astype(np.int64)
+    tenant = np.repeat(np.arange(tenants), rows)
+    flat = np.concatenate([tenant * 3 * c + t, tenant * 3 * c + c + pred, tenant * 3 * c + 2 * c + t])
+    w = np.concatenate([np.ones(2 * t.size, np.int64), (pred == t).astype(np.int64)])
+    counts = np.bincount(flat, weights=w, minlength=tenants * 3 * c).astype(np.int64).reshape(tenants, 3, c)
+    tp = counts[:, 2]
+    fp, fn = counts[:, 1] - tp, counts[:, 0] - tp
+    return tp, fp, rows - tp - fp - fn, fn
+
+
+def slice14_worker(phase, root, device):
+    """``python3 chip_smoke.py --slice14-worker {run|recover} ROOT DEVICE``:
+    slice 14's journaled ImageNet-width service on ``DEVICE`` (the parent's
+    card; 64 tenants, fsync on, a checkpoint every 2 flushes, 1 MiB segments) over a fixed stream of
+    ``SLICE14_DURABLE_OPS`` ops; ``recover`` first restores (checkpoint plus
+    the fenced journal tail) and resumes after the journal's high-water mark.
+    Prints one JSON line: the state digest, the journal's high-water mark, and
+    the timings the parent reports."""
+    import torch
+
+    from metrics_tpu_torch import Accuracy, telemetry
+    from metrics_tpu_torch.serve import MetricsService
+
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    svc = MetricsService(Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev),
+                         journal_dir=os.path.join(root, "wal"), checkpoint_dir=os.path.join(root, "ckpt"),
+                         checkpoint_every=2)
+    start_seq, first_result_ms = 0, None
+    if phase == "recover":
+        svc.recover()
+        start_seq = svc.journal.last_seq
+        svc.compute(sorted(svc._rows)[0])
+        sync()
+        first_result_ms = (time.perf_counter() - t_start) * 1e3
+    closed = set()
+    with telemetry.instrument() as session:
+        for i in range(SLICE14_DURABLE_OPS):
+            name = f"t{i % SLICE14_DURABLE_TENANTS}"
+            op = "close" if i == 40 else "reset" if i == 70 else "update"
+            if i + 1 <= start_seq:  # durable before the kill: applied by the replay
+                if op == "close":
+                    closed.add("t5")
+                elif name in closed and op == "update":
+                    closed.discard(name)
+                continue
+            if op == "close":
+                svc.close_session("t5")
+                closed.add("t5")
+            elif op == "reset":
+                svc.reset_session("t9")
+            else:
+                if name in closed:
+                    svc.open_session(name)
+                    closed.discard(name)
+                g = torch.Generator(device=dev).manual_seed(1000 + i)
+                svc.submit(name, *top1_scores(torch, g, SLICE14_DURABLE_ROWS, NUM_CLASSES))
+            if i % 8 == 7:
+                svc.flush()
+        svc.drain()
+    sync()
+    # a request's journal_us: the whole append, the inputs' copy from the card to the host included; the journal
+    # span's: the frame's write and fsync
+    journal_us = [e.attrs["journal_us"] for e in session.spans(name="request") if not e.attrs.get("replayed")]
+    frame_us = [e.dur_us for e in session.spans(name="journal", kind="append")]
+    ckpt_ms = [e.dur_us / 1e3 for e in session.spans(name="checkpoint")]
+    print(json.dumps({
+        "digest": svc.state_digest(), "last_seq": svc.journal.last_seq, "sessions": svc.session_count,
+        "journal_us_median": statistics.median(journal_us) if journal_us else None,
+        "frame_write_us_median": statistics.median(frame_us) if frame_us else None,
+        "journal_appends": len(frame_us), "fsync_us_p50": svc.journal.stats()["fsync_us_p50"],
+        "checkpoint_ms_median": statistics.median(ckpt_ms) if ckpt_ms else None, "checkpoints": len(ckpt_ms),
+        "recovery_to_first_result_ms": first_result_ms, "replayed_records": svc.stats["replayed_records"],
+    }))
+    return 0
+
+
+def run_slice14(torch, dev, laps):
+    """Slice 14 (see the module's docstring): returns the kernels' launches on its
+    path and by shape, and the session axis's kernel inputs at the service's
+    ImageNet flush."""
+    import tempfile
+
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch import resilience, telemetry
+    from metrics_tpu_torch.ops import registry
+    from metrics_tpu_torch.dispatch import copy_tensors
+    from metrics_tpu_torch.serve import MetricsService, QueueFullError
+    from metrics_tpu_torch.functional.classification.stat_scores import _predicted_classes
+    from metrics_tpu_torch.utilities.checks import tracing
+
+    totals = {"stat_scores": 0, "countmin": 0}
+    by_shape14 = {name: {} for name in totals}
+
+    def note_launches():
+        for name in totals:
+            totals[name] += registry.launches()[name]
+            by_shape14[name] = merged(by_shape14[name], registry.launches_by_shape(name))
+        registry.reset_launches()
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    degrades0 = sum(resilience.degrades().values())
+    report = {"card": card}
+    tenants, rows, c = SLICE14_TENANTS, SLICE14_ROWS, NUM_CLASSES
+    names = [f"t{i}" for i in range(tenants)]
+
+    # ----------------------------------------------------------- A. the ImageNet-1k evaluation service
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    flushes = [top1_scores(torch, g, tenants * rows, c) for _ in range(SLICE14_FLUSHES)]
+    svc = MetricsService(M.Accuracy(num_classes=c, average="macro", device=dev))
+    cpu = MetricsService(M.Accuracy(num_classes=c, average="macro", device="cpu"))  # the 64-tenant prefix
+    registry.reset_launches()
+    flush_ms, submit_ms, per_flush = [], [], []
+    stage = {}
+    with contextlib.ExitStack() as stack:
+        session = None
+        for f, (preds, target) in enumerate(flushes):
+            if f == SLICE14_FLUSHES - 2:  # the last two flushes inside a session: the request spans' stage shares
+                session = stack.enter_context(telemetry.instrument())
+            launches0, stats0 = registry.launches()["stat_scores"], svc.stats["launches"]
+            t0 = time.perf_counter()
+            for i, name in enumerate(names):
+                svc.submit(name, preds[i * rows:(i + 1) * rows], target[i * rows:(i + 1) * rows])
+            t1 = time.perf_counter()
+            svc.drain()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            submit_ms.append((t1 - t0) * 1e3)
+            flush_ms.append((t2 - t1) * 1e3)
+            per_flush.append((svc.stats["launches"] - stats0, registry.launches()["stat_scores"] - launches0))
+        spans = session.spans(name="request")
+        check(len(session.spans(name="update", kind="stacked-aot")) == 2 and not session.spans(name="degrade"),
+              "slice 14: an instrumented ImageNet flush was not one stacked launch, or it degraded")
+    for name in ("queue_us", "journal_us", "launch_us", "retire_us"):
+        stage[name] = statistics.mean(e.attrs[name] for e in spans)
+    total_stage = sum(stage.values())
+    check(per_flush == [(1, 1)] * SLICE14_FLUSHES,
+          f"slice 14: (stacked launches, stat_scores launches) a flush were {per_flush}, not (1, 1) each")
+    check(registry.launches_by_shape("stat_scores") == {("sessions", (tenants, rows, c)): SLICE14_FLUSHES},
+          f"slice 14: stat_scores ran {registry.launches_by_shape('stat_scores')}, not the session axis once a flush")
+    check(registry.replayed_launches()["stat_scores"] == SLICE14_FLUSHES - 1,
+          "slice 14: the flushes after the first were not graph replays")
+    check(svc.stats["fallback_requests"] == 0, "slice 14: a request fell back to the eager path")
+    t0 = time.perf_counter()
+    values = svc.compute_all()  # the first read: its graph's capture included
+    torch.cuda.synchronize()
+    compute_all_ms = (time.perf_counter() - t0) * 1e3
+    note_launches()  # the service's flushes and read; the references below are not the path's
+    # the counts against a bincount on the host, and each tenant against a dedicated metric fed the same batches
+    ref_counts = [slice14_counts_reference(torch, p, t, tenants, rows) for p, t in flushes]
+    want = [sum(r[k] for r in ref_counts) for k in range(4)]
+    for k, leaf in enumerate(("tp", "fp", "tn", "fn")):
+        check(np.array_equal(svc._stacked[leaf][[svc._rows[n] for n in names]].cpu().numpy(), want[k]),
+              f"slice 14: the service's {leaf} counts differ from the bincount reference")
+    dedicated = [M.Accuracy(num_classes=c, average="macro", device=dev) for _ in names]
+    for preds, target in flushes:
+        for i, m in enumerate(dedicated):
+            m.update(preds[i * rows:(i + 1) * rows], target[i * rows:(i + 1) * rows])
+    for f, (preds, target) in enumerate(flushes):
+        pc, tc = preds[: SLICE14_PREFIX * rows].cpu(), target[: SLICE14_PREFIX * rows].cpu()
+        for i in range(SLICE14_PREFIX):
+            cpu.submit(names[i], pc[i * rows:(i + 1) * rows], tc[i * rows:(i + 1) * rows])
+        cpu.flush()
+    check(svc.state_digest(names[:SLICE14_PREFIX]) == cpu.state_digest(),
+          "slice 14: the first 64 tenants' state digest differs from the CPU run of the same stream")
+    check(all(torch.equal(values[n], m.compute()) for n, m in zip(names, dedicated)),
+          "slice 14: a tenant's value differs from a dedicated Accuracy fed the same batches")
+    # the session axis's inputs at this flush, for part 4's timings
+    p_last, t_last = flushes[-1]
+    pred_cls = _predicted_classes(p_last).reshape(tenants, rows).contiguous()
+    target_cls = t_last.to(torch.int32).reshape(tenants, rows).contiguous()
+    session_inputs = (target_cls, pred_cls, (pred_cls == target_cls).contiguous(),
+                      torch.ones(tenants, rows, dtype=torch.int32, device=dev))
+    warm = flush_ms[1:-2]
+    slo = svc.slo_snapshot()["totals"]["e2e_us"]
+
+    def warm_flush():
+        preds, target = flushes[1]
+        for i, n in enumerate(names):
+            svc.submit(n, preds[i * rows:(i + 1) * rows], target[i * rows:(i + 1) * rows])
+        svc.drain()
+
+    # a warm flush of the same signature, after the checks: its host syncs, and the device's busy share
+    syncs = syncs_per_call(torch, warm_flush)
+    busy = device_busy(torch, warm_flush, steps=2)
+    # a warm read of every tenant (each made dirty by a warm flush), beside its graph's replay alone and the
+    # same program's body run eagerly
+    read = {"compute_all_ms": [], "replay_ms": [], "eager_body_ms": []}
+    program = svc._compute_stack[tenants]
+    idx = program.idx.cpu().numpy()
+    for _ in range(3):
+        warm_flush()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.compute_all()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        svc._compute_rows(idx)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with tracing():
+            copy_tensors(program.body(svc._phys, program.idx))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, dt in zip(read, (t1 - t0, t2 - t1, t3 - t2)):
+            read[k].append(dt * 1e3)
+    registry.reset_launches()  # the measurements' launches are not the path's
+    del flushes
+    report["A_imagenet_service"] = {
+        "tenants": tenants, "rows_a_submit": rows, "flushes": SLICE14_FLUSHES,
+        "first_flush_ms": flush_ms[0], "warm_flush_ms_median": statistics.median(warm),
+        "warm_flush_ms": warm, "capture_ms": flush_ms[0] - statistics.median(warm),
+        "instrumented_flush_ms": flush_ms[-2:], "submit_ms_a_flush_median": statistics.median(submit_ms),
+        "session_updates_per_s": tenants / (statistics.median(warm) / 1e3),
+        "e2e_us_p50": slo["p50"], "e2e_us_p99": slo["p99"],
+        "stage_us_mean": stage, "stage_share": {k: v / total_stage for k, v in stage.items()},
+        "first_compute_all_ms": compute_all_ms, "warm_read_ms": read,
+        "host_syncs_a_flush": len(syncs), "host_sync_sites": syncs,
+        "busy": busy,
+    }
+    laps.mark("3. slice 14 A: the ImageNet-1k service, 1,024 tenants")
+
+    # the ragged wave (1-256 rows a tenant in 1-3 requests, coalesced) and the forward wave
+    rng = np.random.RandomState(SEED + 14)
+    svc2 = MetricsService(M.Accuracy(num_classes=c, average="macro", device=dev))
+    refs2 = [M.Accuracy(num_classes=c, average="macro", device=dev) for _ in names]
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    totals_rows = rng.randint(1, 257, tenants)
+    buckets, merges = set(), 0
+    for i, n in enumerate(names):
+        k = min(int(rng.randint(1, 4)), int(totals_rows[i]))
+        cuts = np.sort(rng.choice(np.arange(1, totals_rows[i]), k - 1, replace=False)) if k > 1 else []
+        sizes = np.diff(np.concatenate([[0], cuts, [totals_rows[i]]])).astype(int)
+        merges += k - 1
+        buckets.add(max(8, 1 << (int(totals_rows[i]) - 1).bit_length()))
+        for s in sizes:
+            p, t = top1_scores(torch, g, int(s), c)
+            svc2.submit(n, p, t)
+            refs2[i].update(p, t)
+    registry.reset_launches()
+    svc2.drain()
+    check(svc2.stats["launches"] == len(buckets) and svc2.stats["coalesced_requests"] == merges
+          and svc2.stats["fallback_requests"] == 0,
+          f"slice 14: the ragged wave made {svc2.stats['launches']} launches and {svc2.stats['coalesced_requests']} "
+          f"merges, not {len(buckets)} and {merges}")
+    ragged_values = svc2.compute_all()
+    fwd = names[:SLICE14_FORWARD]
+    batches = [top1_scores(torch, g, rows, c) for _ in fwd]
+    tickets = [svc2.submit(n, p, t, return_value=True) for n, (p, t) in zip(fwd, batches)]
+    svc2.drain()
+    note_launches()
+    check(all(torch.equal(ragged_values[n], m.compute()) for n, m in zip(names, refs2)),
+          "slice 14: a tenant of the ragged wave differs from its dedicated Accuracy")
+    for ticket, (p, t) in zip(tickets, batches):
+        fresh = M.Accuracy(num_classes=c, average="macro", device=dev)
+        fresh.update(p, t)
+        check(torch.equal(ticket.result(timeout=60), fresh.compute()),
+              "slice 14: a forward ticket's value differs from a fresh Accuracy on its batch")
+    check(svc2.stats["launches"] == len(buckets) + 1, "slice 14: the forward wave was not one stacked launch")
+    registry.reset_launches()
+    report["A_ragged_and_forward"] = {"ragged_launches": len(buckets), "coalesced_requests": merges,
+                                      "forward_tickets": len(fwd)}
+    del svc2, refs2
+    laps.mark("3. slice 14 A: ragged and forward waves")
+
+    # ----------------------------------------------------------- B. per-advertiser heavy hitters on the click log
+    cm_tenants, cm_ids, cm_flushes = SLICE14_CM_TENANTS, SLICE14_CM_IDS, 2
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    click = [zipf_ids(torch, g, cm_tenants * cm_ids) for _ in range(cm_flushes)]
+    svc3 = MetricsService(M.CountMinHeavyHitters(depth=CLICK_DEPTH, width=1024, device=dev))
+    sketches = [M.CountMinHeavyHitters(depth=CLICK_DEPTH, width=1024, device=dev) for _ in range(cm_tenants)]
+    registry.reset_launches()
+    cm_per_flush, cm_ms = [], []
+    with telemetry.instrument() as session:
+        for ids in click:
+            before = registry.launches()["countmin"]
+            for i in range(cm_tenants):
+                svc3.submit(f"adv{i}", ids[i * cm_ids:(i + 1) * cm_ids])
+            t0 = time.perf_counter()
+            svc3.drain()
+            torch.cuda.synchronize()
+            cm_ms.append((time.perf_counter() - t0) * 1e3)
+            cm_per_flush.append(registry.launches()["countmin"] - before)
+    check(cm_per_flush == [cm_tenants] * cm_flushes and registry.replayed_launches()["countmin"] == cm_tenants,
+          f"slice 14: countmin ran {cm_per_flush} times a flush ({registry.replayed_launches()['countmin']} "
+          f"replayed), not {cm_tenants} each, the second a replay")
+    check(svc3.stats["launches"] == cm_flushes and svc3.stats["fallback_requests"] == 0
+          and not session.spans(name="degrade"), "slice 14: the heavy-hitter flushes degraded or fell back")
+    note_launches()
+    for ids in click:
+        for i, sk in enumerate(sketches):
+            sk.update(ids[i * cm_ids:(i + 1) * cm_ids])
+    registry.reset_launches()
+    host_ids = [x.cpu().numpy() for x in click]
+    for i, sk in enumerate(sketches):
+        table = svc3._stacked["value"][svc3._rows[f"adv{i}"]]
+        check(torch.equal(table, sk.value), f"slice 14: advertiser {i}'s table differs from a dedicated sketch")
+        if i < SLICE14_CM_NUMPY:
+            ref = numpy_countmin(np.concatenate([x[i * cm_ids:(i + 1) * cm_ids] for x in host_ids]), CLICK_DEPTH, 1024)
+            check(np.array_equal(table.double().cpu().numpy(), ref),
+                  f"slice 14: advertiser {i}'s table differs from numpy's")
+    report["B_heavy_hitters"] = {"tenants": cm_tenants, "ids_a_submit": cm_ids, "flush_ms": cm_ms,
+                                 "countmin_a_flush": cm_per_flush}
+    del svc3, sketches, click
+    laps.mark("3. slice 14 B: per-advertiser heavy hitters")
+
+    # ----------------------------------------------------------- C. a windowed service
+    w_tenants, w_ticks = SLICE14_WINDOW_TENANTS, SLICE14_WINDOW_TICKS
+    svc4 = MetricsService(M.SlidingWindow(M.Accuracy(num_classes=c, average="macro", device=dev),
+                                          window=MONITOR_WINDOW))
+    check(svc4.coalesce is False, "slice 14: a windowed service coalesces")
+    windows = [M.SlidingWindow(M.Accuracy(num_classes=c, average="macro", device=dev), window=MONITOR_WINDOW)
+               for _ in range(w_tenants)]
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    w_ms, ticks = [], [top1_scores(torch, g, w_tenants * rows, c) for _ in range(w_ticks)]
+    registry.reset_launches()
+    for p, t in ticks:
+        for i in range(w_tenants):
+            svc4.submit(f"w{i}", p[i * rows:(i + 1) * rows], t[i * rows:(i + 1) * rows])
+        t0 = time.perf_counter()
+        svc4.drain()
+        torch.cuda.synchronize()
+        w_ms.append((time.perf_counter() - t0) * 1e3)
+    wvals = svc4.compute_window()
+    note_launches()
+    for p, t in ticks:
+        for i in range(w_tenants):
+            windows[i].update(p[i * rows:(i + 1) * rows], t[i * rows:(i + 1) * rows])
+    check(all(torch.equal(wvals[f"w{i}"], w.compute()) for i, w in enumerate(windows)),
+          "slice 14: a windowed tenant's value differs from a dedicated SlidingWindow")
+    check(svc4.stats["launches"] == w_ticks and svc4.stats["fallback_requests"] == 0,
+          "slice 14: the windowed service did not make one stacked launch a tick")
+    registry.reset_launches()
+    report["C_window"] = {"tenants": w_tenants, "ticks": w_ticks, "window": MONITOR_WINDOW, "flush_ms": w_ms}
+    del svc4, windows, ticks
+    laps.mark("3. slice 14 C: a windowed service")
+
+    # ----------------------------------------------------------- D. durability on the card
+    with tempfile.TemporaryDirectory(prefix="slice14-") as root:
+        env = dict(os.environ, METRICS_TPU_WAL_SEGMENT_BYTES=str(1 << 20))
+        env.pop("METRICS_TPU_CRASH", None)
+        here = os.path.abspath(__file__)
+
+        def start(phase, work, crash=None):
+            e = dict(env, METRICS_TPU_CRASH=crash) if crash else env
+            return subprocess.Popen([sys.executable, here, "--slice14-worker", phase, work, str(dev)], env=e,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def finish(proc):
+            try:
+                out, err = proc.communicate(timeout=SLICE14_WORKER_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            return proc.returncode, out, err
+
+        def result(rc, out, err, what):
+            check(rc == 0, f"slice 14: the {what} worker failed (rc {rc}): {err[-2000:]}")
+            return json.loads(out.strip().splitlines()[-1])
+
+        procs = {"twin": start("run", os.path.join(root, "twin"))}
+        for point, nth in SLICE14_CRASH_NTH.items():
+            procs[point] = start("run", os.path.join(root, point), crash=f"{point}:{nth}")
+        done = {k: finish(p) for k, p in procs.items()}
+        twin = result(*done.pop("twin"), "twin")
+        for point, (rc, out, err) in done.items():
+            check(rc in (-9, 137) and not out.strip(), f"slice 14: crash point {point} did not kill its worker "
+                  f"(rc {rc}): {err[-2000:]}")
+        recs = {p: start("recover", os.path.join(root, p)) for p in SLICE14_CRASH_NTH}
+        recovered = {p: result(*finish(proc), f"{p} recovery") for p, proc in recs.items()}
+    for point, got in recovered.items():
+        check(got["digest"] == twin["digest"] and got["last_seq"] == twin["last_seq"],
+              f"slice 14: the recovery after {point} differs from the never-killed twin")
+    report["D_durability"] = {
+        "tenants": SLICE14_DURABLE_TENANTS, "ops": SLICE14_DURABLE_OPS, "rows": SLICE14_DURABLE_ROWS,
+        "twin": twin, "recovered": recovered,
+        "journal_us_median": twin["journal_us_median"], "frame_write_us_median": twin["frame_write_us_median"],
+        "checkpoint_ms_median": twin["checkpoint_ms_median"],
+        "recovery_to_first_result_ms": {p: r["recovery_to_first_result_ms"] for p, r in recovered.items()},
+    }
+    laps.mark("3. slice 14 D: the crash matrix on the card")
+
+    # ----------------------------------------------------------- E. admission
+    adm = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    burst = [top1_scores(torch, g, rows, c) for _ in range(2 * SLICE14_MAX_QUEUE)]
+    for policy in ("reject", "shed-oldest"):
+        svc5 = MetricsService(M.Accuracy(num_classes=c, average="macro", device=dev), max_queue=SLICE14_MAX_QUEUE,
+                              admission=policy)
+        refused = 0
+        with telemetry.instrument() as session:
+            for i, (p, t) in enumerate(burst):
+                try:
+                    svc5.submit(f"t{i % 32}", p, t)
+                except QueueFullError:
+                    refused += 1
+            svc5.drain()
+        cause = "queue-full-reject" if policy == "reject" else "queue-full-shed"
+        degrades = session.spans(name="degrade", kind="admission")
+        requests = session.spans(name="request")
+        slo = svc5.slo_snapshot()["totals"]
+        refused = refused if policy == "reject" else svc5.stats["shed_requests"]
+        admitted = len(burst) - (refused if policy == "reject" else 0)
+        check(refused == SLICE14_MAX_QUEUE and len(degrades) == refused
+              and all(e.attrs["cause"] == cause for e in degrades),
+              f"slice 14: {policy}: {refused} refused with {len(degrades)} degrade spans")
+        check(len(requests) == admitted == svc5.stats["submits"]
+              and slo["served"] == SLICE14_MAX_QUEUE and slo["rejected" if policy == "reject" else "shed"] == refused,
+              f"slice 14: {policy}: {len(requests)} request spans, {svc5.stats['submits']} admitted, slo {slo}")
+        adm[policy] = {"refused": refused, "request_spans": len(requests), "served": slo["served"]}
+        note_launches()
+    report["E_admission"] = adm
+    laps.mark("3. slice 14 E: admission")
+    check(sum(resilience.degrades().values()) == degrades0, "slice 14: an engine or the service degraded")
+    report["path_launches"] = {name: {"total": totals[name], "by_branch_and_shape": {str(k): v for k, v in
+                                                                                  by_shape14[name].items()}}
+                               for name in totals}
+    print(f"slice 14 ({card}): " + json.dumps(report, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)))
+    return totals, by_shape14, session_inputs
+
+
 def main() -> int:
     import torch
 
@@ -2835,7 +3332,10 @@ def main() -> int:
         _ONE_BLOCK_ROWS,
         _stat_counts_kernel,
         _stat_counts_plain,
+        _stat_counts_sessions_plain,
         stat_scores_branch,
+        stat_scores_counts_sessions,
+        stat_scores_sessions_branch,
     )
     from metrics_tpu_torch.utilities.data import bucket_pow2, dim_zero_cat, to_onehot
 
@@ -4087,6 +4587,9 @@ def main() -> int:
     # ------------------------------------------ 3l. slice 13: observability
     slice13_launches, slice13_by_shape = run_slice13(torch, dev, laps, batches, click_batches)
 
+    # ------------------------------------------ 3m. slice 14: the serving stack
+    slice14_launches, slice14_by_shape, session_inputs = run_slice14(torch, dev, laps)
+
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000
     n = p.shape[0]
@@ -4179,21 +4682,22 @@ def main() -> int:
         ),
     }
     stat_path_by_shape = merged(stat_by_shape, coll_stat_by_shape, comp_stat_by_shape, engine_by_shape["stat_scores"],
-                                slice10_stat_by_shape, slice12_by_shape["stat_scores"], slice13_by_shape["stat_scores"])
+                                slice10_stat_by_shape, slice12_by_shape["stat_scores"], slice13_by_shape["stat_scores"],
+                                slice14_by_shape["stat_scores"])
     click_by_shape = merged(click_by_shape, engine_by_shape["countmin"], slice12_by_shape["countmin"],
-                            slice13_by_shape["countmin"])
+                            slice13_by_shape["countmin"], slice14_by_shape["countmin"])
     # slice 9's launches are the four ranks' together
     path_launches = {"stat_scores": counts["stat_scores"] + coll_launches["stat_scores"] + comp_launches["macro"]
                      + engine_path_launches["stat_scores"] + sync_launches["stat_scores"]
                      + slice10_launches["stat_scores"] + slice12_launches["stat_scores"]
-                     + slice13_launches["stat_scores"],
+                     + slice13_launches["stat_scores"] + slice14_launches["stat_scores"],
                      "confusion_matrix": counts["confusion_matrix"] + seg_launches + coll_launches["confusion_matrix"]
                      + engine_path_launches["confusion_matrix"] + sync_launches["confusion_matrix"]
                      + slice13_launches["confusion_matrix"],
                      "binned_stats": sum(binned_launches.values()),
                      "retrieval_sort": marco_launches + trec_launches + sync_launches["retrieval_sort"],
                      "countmin": click_launches + engine_path_launches["countmin"] + sync_launches["countmin"]
-                     + slice12_launches["countmin"] + slice13_launches["countmin"]}
+                     + slice12_launches["countmin"] + slice13_launches["countmin"] + slice14_launches["countmin"]}
     model_rows = {}
     for name, (kernel, plain, library, library_call, nbytes, ops, shape, yardstick) in timing.items():
         # the cost model's entry of this launch (slice 13): one call inside a session, its kernel event's terms;
@@ -4324,6 +4828,33 @@ def main() -> int:
             "library_ms": device_ms(torch, lambda: torch.bincount(s_idx3, weights=s_wts3, minlength=3 * c)),
             "bound_ms": s_bound, "bound_by": s_by,
         })
+    # the session axis at slice 14's ImageNet flush (1,024 sessions of 64 rows): the kernel in turns with its plain
+    # version, beside one weighted torch.bincount over the S * 3C cells (the same function, not used by the port)
+    sess_s, sess_b = session_inputs[0].shape
+    sess_ref = _stat_counts_sessions_plain(*session_inputs, NUM_CLASSES)
+    check(torch.equal(stat_scores_counts_sessions(*session_inputs, NUM_CLASSES), sess_ref),
+          "stat_scores' session axis differs from its plain version at slice 14's flush")
+    sess_kernel_a, sess_plain_a, sess_plain_b, sess_kernel_b = (device_ms(torch, f) for f in (
+        lambda: stat_scores_counts_sessions(*session_inputs, NUM_CLASSES),
+        lambda: _stat_counts_sessions_plain(*session_inputs, NUM_CLASSES),
+        lambda: _stat_counts_sessions_plain(*session_inputs, NUM_CLASSES),
+        lambda: stat_scores_counts_sessions(*session_inputs, NUM_CLASSES)))
+    st_t, st_p, st_c, st_w = session_inputs
+    sess_cells = (torch.arange(sess_s, device=dev)[:, None] * 3 * NUM_CLASSES
+                  + torch.cat([st_t, st_p + NUM_CLASSES, st_t + 2 * NUM_CLASSES], dim=1)).reshape(-1).long()
+    sess_wts = torch.cat([st_w, st_w, st_c.to(torch.int32)], dim=1).reshape(-1).float()
+    sess_bound, sess_by = bound(sess_s * sess_b * (4 + 4 + 1 + 4) + sess_s * 3 * NUM_CLASSES * 4,
+                                2 * sess_s * sess_b + int(st_c.sum()))
+    stat_rows.append({
+        "launch": "service flush (session axis)", "shape": {"S": sess_s, "B": sess_b, "C": NUM_CLASSES},
+        "launches": at_shape(stat_path_by_shape, (sess_s, sess_b, NUM_CLASSES)),
+        "branch": launched_branch("stat_scores", lambda: stat_scores_counts_sessions(*session_inputs, NUM_CLASSES)),
+        "plan": stat_scores_sessions_branch(sess_s, sess_b, NUM_CLASSES, dev),
+        "ms": (sess_kernel_a + sess_kernel_b) / 2, "plain_ms": (sess_plain_a + sess_plain_b) / 2,
+        "library_ms": device_ms(torch, lambda: torch.bincount(sess_cells, weights=sess_wts,
+                                                              minlength=sess_s * 3 * NUM_CLASSES)),
+        "library_call": "torch.bincount weighted, S * 3C bins", "bound_ms": sess_bound, "bound_by": sess_by,
+    })
     # the one-block limit: both branches in turns at batches around it, C = 1000
     one_block_sweep = []
     for sn in (2048, 4096, 6144, 8192, 12288, 16384):
@@ -4584,4 +5115,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--slice14-worker"]:  # one process of slice 14's crash matrix (run_slice14)
+        sys.exit(slice14_worker(*sys.argv[2:5]))
     sys.exit(main())

@@ -16,8 +16,9 @@ bytes of each program and kernel launch; this module turns them into money:
   sum to the launch's cost exactly.
 
 Rates are nominal list prices, a stable denominator for comparisons, not a
-quote. Only the serving stack's spans carry dollars (ROADMAP.md, Queue A
-item 11); until then nothing on the main path calls this module.
+quote. Only the serving stack's spans carry dollars
+(:mod:`metrics_tpu_torch.serve`: each stacked launch's cost, apportioned over
+its requests).
 ``METRICS_TPU_BILLING=0`` turns every dollar attribute off.
 """
 import os

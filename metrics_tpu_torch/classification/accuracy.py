@@ -132,6 +132,15 @@ class Accuracy(StatScores):
         self.tn = self.tn + tn
         self.fn = self.fn + fn
 
+    def _stacked_mode(self, preds: Tensor, target: Tensor) -> DataType:
+        # the mode bookkeeping of _masked_update: the first batch fixes it, a later one must agree
+        mode = _mode(preds, target, self.threshold, self.top_k, self.num_classes, self.multiclass, self.ignore_index)
+        if not self.mode:
+            self.mode = mode
+        elif self.mode != mode:
+            raise ValueError(f"You can not use {mode} inputs with {self.mode} inputs.")
+        return mode
+
     def compute(self) -> Tensor:
         """Accuracy from the accumulated state."""
         if not self.mode:
@@ -140,3 +149,6 @@ class Accuracy(StatScores):
             return _subset_accuracy_compute(self.correct, self.total)
         tp, fp, tn, fn = self._get_final_stats()
         return _accuracy_compute(tp, fp, tn, fn, self.average, self.mdmc_reduce, self.mode)
+
+
+Accuracy._stacked_update_of = Accuracy._masked_update

@@ -3,14 +3,20 @@
 State: tp/fp/tn/fn, int32 tensors with a sum reduce for the micro/macro
 reduces; lists for ``reduce='samples'`` and ``mdmc_reduce='samplewise'``.
 """
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores_compute, _stat_scores_update
+from metrics_tpu_torch.functional.classification.stat_scores import (
+    _fast_multiclass_eligible,
+    _fast_multiclass_stat_scores,
+    _stat_scores_compute,
+    _stat_scores_update,
+)
 from metrics_tpu_torch.metric import Metric
-from metrics_tpu_torch.utilities.enums import AverageMethod, MDMCAverageMethod
+from metrics_tpu_torch.utilities.checks import _check_classification_inputs
+from metrics_tpu_torch.utilities.enums import AverageMethod, DataType, MDMCAverageMethod
 
 
 class StatScores(Metric):
@@ -119,6 +125,41 @@ class StatScores(Metric):
         self.tn = self.tn + tn
         self.fn = self.fn + fn
 
+    # the multi-tenant service's stacked update (metrics_tpu_torch/serve.py): one launch for S sessions
+    def _stacked_masked_update(
+        self, rows: Dict[str, Tensor], sample_mask: Tensor, preds: Tensor, target: Tensor
+    ) -> Optional[Dict[str, Tensor]]:
+        """S sessions' :meth:`_masked_update` at once: ``rows`` holds each
+        state leaf with a leading session axis, ``sample_mask`` is ``(S, B)``,
+        ``preds`` ``(S, B, C)`` float scores and ``target`` ``(S, B)`` labels.
+        Returns the new rows, each session's equal to its own masked update;
+        ``None`` where the inputs or the configuration take another path than
+        :func:`_fast_multiclass_stat_scores` (the caller then updates the
+        sessions one by one). Decided from shapes, dtypes and the
+        configuration alone: no value is read from the device."""
+        if type(self)._masked_update is not type(self)._stacked_update_of:
+            return None  # a subclass whose masked update this hook does not mirror
+        if not self._masked_update_supported() or preds.ndim != 3 or target.ndim != 2:
+            return None
+        lane_preds, lane_target = preds[0], target[0]
+        if self.ignore_index is not None and not 0 <= self.ignore_index < preds.shape[-1]:
+            return None
+        if not _fast_multiclass_eligible(lane_preds, lane_target, self.reduce, self.top_k, self.multiclass,
+                                         self.num_classes):
+            return None
+        if self._stacked_mode(lane_preds, lane_target) != DataType.MULTICLASS:
+            return None
+        counts = _fast_multiclass_stat_scores(preds, target, self.reduce, self.ignore_index, sample_mask)
+        return {k: rows[k] + v for k, v in zip(("tp", "fp", "tn", "fn"), counts)}
+
+    def _stacked_mode(self, preds: Tensor, target: Tensor) -> DataType:
+        """The input case of one session's batch, as :meth:`_masked_update`'s
+        formatting finds it (its checks run: shapes only, under an engine)."""
+        return _check_classification_inputs(
+            preds, target, threshold=self.threshold, num_classes=self.num_classes, multiclass=self.multiclass,
+            top_k=self.top_k, ignore_index=self.ignore_index,
+        )
+
     def _get_final_stats(self) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
         """Concatenate list states where needed."""
         tp = torch.cat(self.tp) if isinstance(self.tp, list) else self.tp
@@ -130,3 +171,7 @@ class StatScores(Metric):
     def compute(self) -> Tensor:
         """``[..., 5]`` tensor of tp/fp/tn/fn/support."""
         return _stat_scores_compute(*self._get_final_stats())
+
+
+# the masked update that _stacked_masked_update mirrors, for this class and the subclasses that keep it
+StatScores._stacked_update_of = StatScores._masked_update

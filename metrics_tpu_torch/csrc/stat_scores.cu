@@ -35,6 +35,20 @@
 // * `stat_counts_global`, 3*C ints beyond the 227 KB a block may have: the
 //   rows go straight to global atomics in a zeroed output.
 //
+// The session axis (`stat_counts_sessions_*`, launched by
+// `stat_scores_sessions_launch`) is what `jax.vmap` of the same function
+// computes for the multi-tenant service (metrics_tpu/serve.py:1493 maps the
+// template's update over the sessions of one flush): S independent batches
+// of B rows, out (S, 3, C). Bound on the H100 at the service's ImageNet
+// flush (S = 1024 sessions, B = 64 rows, C = 1000): 851,968 bytes read and
+// 12,288,000 written, 3.92 us at 3.35 TB/s, set by the writes, so a block
+// writes its session's 3*C cells with plain stores and no zeroed output:
+//
+// * `stat_counts_sessions_block`, 3*C ints within shared memory: one block
+//   a session, its histogram in shared memory as in `stat_counts_block`.
+// * `stat_counts_sessions_global`, beyond: the rows of all sessions go
+//   straight to global atomics at their session's offset in a zeroed output.
+//
 // Out-of-range classes follow the JAX package's production scatter
 // (`_stat_counts_lax`, JAX's `.at[idx].add` on the flat 3*C vector): the
 // contribution of block k (0 target, 1 prediction, 2 true positives) goes to
@@ -125,6 +139,35 @@ __global__ void stat_counts_global(const int32_t* __restrict__ target, const int
   }
 }
 
+// One block a session: session blockIdx.x's B rows into its 3*C cells.
+__global__ void stat_counts_sessions_block(const int32_t* __restrict__ target, const int32_t* __restrict__ pred,
+                                           const bool* __restrict__ correct, const int32_t* __restrict__ w, int n,
+                                           int num_classes, int32_t* __restrict__ out) {
+  extern __shared__ int32_t hist[];
+  const int cells = 3 * num_classes;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * n;
+  for (int k = threadIdx.x; k < cells; k += blockDim.x) hist[k] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    add_row(hist, target[row0 + i], pred[row0 + i], correct[row0 + i], w[row0 + i], num_classes);
+  }
+  __syncthreads();
+  int32_t* dst = out + static_cast<size_t>(blockIdx.x) * cells;
+  for (int k = threadIdx.x; k < cells; k += blockDim.x) dst[k] = hist[k];  // every cell: no zeroed output
+}
+
+// Every row of every session into its session's cells of a zeroed output.
+__global__ void stat_counts_sessions_global(const int32_t* __restrict__ target, const int32_t* __restrict__ pred,
+                                            const bool* __restrict__ correct, const int32_t* __restrict__ w,
+                                            int sessions, int n, int num_classes, int32_t* __restrict__ out) {
+  const size_t rows = static_cast<size_t>(sessions) * n;
+  const size_t cells = 3 * static_cast<size_t>(num_classes);
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < rows;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    add_row(out + (i / n) * cells, target[i], pred[i], correct[i], w[i], num_classes);
+  }
+}
+
 }  // namespace
 
 extern "C" int stat_scores_device(int* sms, int* shared_optin) { return device_limits(sms, shared_optin); }
@@ -161,4 +204,35 @@ extern "C" int stat_scores_launch(const void* target, const void* pred, const vo
 
 extern "C" const char* stat_scores_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Launches the session axis on `stream`: `branch` 0 (one block a session:
+// `blocks` must be `sessions`, writes every cell of `out`) or 1 (global
+// atomics into a zeroed `out`), for `sessions` x `n` rows of `num_classes`
+// classes, out (sessions, 3, num_classes). Returns a CUDA error code.
+extern "C" int stat_scores_sessions_launch(const void* target, const void* pred, const void* correct, const void* w,
+                                           int sessions, int n, int num_classes, int branch, int blocks,
+                                           int threads, void* out, void* stream) {
+  if (sessions <= 0) return 0;
+  const auto* t = static_cast<const int32_t*>(target);
+  const auto* p = static_cast<const int32_t*>(pred);
+  const auto* c = static_cast<const bool*>(correct);
+  const auto* wt = static_cast<const int32_t*>(w);
+  auto* o = static_cast<int32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (branch == 0) {
+    const size_t smem = 3 * static_cast<size_t>(num_classes) * sizeof(int32_t);
+    if (smem > kDefaultSmem) {
+      const cudaError_t err = cudaFuncSetAttribute(stat_counts_sessions_block,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    stat_counts_sessions_block<<<blocks, threads, smem, s>>>(t, p, c, wt, n, num_classes, o);
+  } else if (branch == 1) {
+    if (n <= 0) return 0;
+    stat_counts_sessions_global<<<blocks, threads, 0, s>>>(t, p, c, wt, sessions, n, num_classes, o);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

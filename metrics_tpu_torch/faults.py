@@ -1,5 +1,5 @@
-"""Fault injection at the engines' seams: port of the engine- and
-sync-facing part of ``metrics_tpu/faults.py`` (its lines 18-60 and 159-338).
+"""Fault injection at the engines' and the serving stack's seams: port of
+``metrics_tpu/faults.py`` but for the fabric's fault classes.
 
 A test activates a named fault, and the engines (:mod:`metrics_tpu_torch.dispatch`
 and the forward and collection paths built on it, the sync engine and the
@@ -17,7 +17,10 @@ fault name                where it fires
                           before it reaches the backend (so the retry and
                           the local-only degrade are both reachable)
 ``quant-corruption``      a quantised sync bucket's codec raises (the
-                          bucket crosses at full precision instead)
+                          bucket crosses at full precision instead), and
+                          a replication seed frame is bit-garbled before
+                          decode (its crc turns that into
+                          ``StateCorruptionError``)
 ``nan-input``             the program's float inputs are replaced by NaN
                           (caught by the state verification that runs
                           while a fault is active)
@@ -26,18 +29,31 @@ fault name                where it fires
                           verification)
 ``oom``                   a call whose input bytes exceed the fault's
                           ``cap`` (default 0) raises
+``clock-skew``            the wall clock steps back under the journal's
+                          appender (param ``skew_s``, default 3600): the
+                          ``ts`` headers go non-monotonic; nothing raises,
+                          and every reader orders by ``seq``
 ========================= ==============================================
 
 A fault is active inside :func:`inject` or, process-wide, through
-``METRICS_TPU_INJECT_FAULT=<name>[:<probability>]``. The JAX package's crash
-points (the write-ahead log, the serving fabric) and ``corrupt_payload`` come
-with the serving stack (ROADMAP.md, Queue A item 11).
+``METRICS_TPU_INJECT_FAULT=<name>[:<probability>]``.
+
+Crash points (:data:`CRASH_POINTS`) kill the process with SIGKILL at one
+instruction of the serving stack, as a preemption or the OOM killer would:
+armed by :func:`crash` or ``METRICS_TPU_CRASH=<point>[:<nth>]``, the
+``nth`` probe of the point fires. The JAX package's sixth point,
+``mid-history-gc``, and the fabric's fault classes (``shard-slow``,
+``shard-death``, ``network-partition``, ``history-corruption``) come with
+the checkpoint ladder and the fabric (ROADMAP.md, Queue A item 11, part
+two).
 """
 import os
 import random
+import signal
 import threading
+import zlib
 from contextlib import contextmanager
-from typing import Any, Generator, List, Optional, Tuple
+from typing import Any, Dict, Generator, List, Optional, Tuple
 
 import torch
 
@@ -147,6 +163,13 @@ def check(name: str, where: str = "") -> None:
         raise InjectedFault(name, where)
 
 
+def fault_params(name: str) -> Dict[str, Any]:
+    """The params of the innermost active spec for ``name`` (empty when
+    inactive), read without using up a fire."""
+    spec = _lookup(name)
+    return dict(spec.params) if spec is not None else {}
+
+
 def fired_count(name: str) -> int:
     """How often ``name`` fired across the active specs (for tests)."""
     total = sum(s.fired for s in _specs if s.name == name)
@@ -193,3 +216,115 @@ def maybe_corrupt_leaves(leaves: Tuple) -> Tuple:
     out = list(leaves)
     out[idx] = torch.full((3, 7), -1.0, dtype=torch.float32, device=leaves[idx].device)
     return tuple(out)
+
+
+def corrupt_payload(payload: Dict[str, Any], key: Optional[str] = None) -> Dict[str, Any]:
+    """Flip the first four bytes of one array entry of a checkpoint payload
+    (``key``, else the first array entry that is not a checksum): its shape
+    and dtype survive, its checksum does not."""
+    import numpy as np
+
+    keys = [k for k, v in payload.items() if hasattr(v, "dtype") and not str(k).startswith("__checksum__")]
+    if not keys:
+        return payload
+    target = key if key in payload else keys[0]
+    value = payload[target]
+    arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+    raw = bytearray(arr.tobytes())
+    for i in range(min(4, len(raw))):
+        raw[i] ^= 0xFF
+    payload[target] = np.frombuffer(bytes(raw), dtype=arr.dtype).reshape(arr.shape)
+    return payload
+
+
+def crc(data: bytes, seed: int = 0) -> int:
+    """crc32 of ``data`` as an unsigned int (journal frames, checksums)."""
+    return zlib.crc32(data, seed) & 0xFFFFFFFF
+
+
+# ------------------------------------------------------------- crash points
+# A fired probe SIGKILLs the process: no exception, no `finally`, no `atexit`.
+CRASH_POINTS = (
+    "post-journal",        # serve.submit: the record journaled, the request not yet queued
+    "mid-journal-append",  # wal.append: half a frame written (a torn tail)
+    "mid-flush",           # serve.flush: some waves launched, the rest pending
+    "mid-checkpoint",      # serve.checkpoint: the payload written, not renamed
+    "mid-truncate",        # wal.truncate: some retired segments unlinked
+)
+# the JAX package's points that come with a later part of the serving stack
+_DEFERRED_CRASH_POINTS = {"mid-history-gc": "the checkpoint ladder (ROADMAP.md, Queue A item 11, part two)"}
+
+_CRASH_ENV = "METRICS_TPU_CRASH"
+
+# the armed point: [name, probes left before it fires]
+_crash_spec: Optional[List[Any]] = None
+_crash_env_cache: Tuple[Optional[str], Optional[List[Any]]] = (None, None)
+
+
+def crash(after: str, nth: int = 1) -> None:
+    """Arm crash point ``after`` process-wide: its ``nth`` probe SIGKILLs
+    the process (``METRICS_TPU_CRASH=<point>[:<nth>]`` does the same).
+    ``nth=0`` disarms."""
+    global _crash_spec
+    if after in _DEFERRED_CRASH_POINTS:
+        raise NotImplementedError(f"crash point {after!r} is not ported yet: it comes with "
+                                  f"{_DEFERRED_CRASH_POINTS[after]}")
+    if after not in CRASH_POINTS:
+        raise ValueError(f"unknown crash point {after!r}; choose from {CRASH_POINTS}")
+    with _lock:
+        _crash_spec = None if nth <= 0 else [after, int(nth)]
+
+
+def _crash_lookup() -> Optional[List[Any]]:
+    if _crash_spec is not None:
+        return _crash_spec
+    raw = os.environ.get(_CRASH_ENV)
+    if not raw:
+        return None
+    global _crash_env_cache
+    cached_raw, cached = _crash_env_cache
+    if raw == cached_raw:
+        return cached
+    name, _, nth = raw.partition(":")
+    name = name.strip()
+    spec: Optional[List[Any]] = None
+    if name in CRASH_POINTS:
+        try:
+            spec = [name, int(nth) if nth else 1]
+        except ValueError:
+            spec = [name, 1]
+    with _lock:
+        _crash_env_cache = (raw, spec)
+    return spec
+
+
+def crash_armed(name: str) -> bool:
+    """Whether crash point ``name`` is armed."""
+    if _crash_spec is None and _CRASH_ENV not in os.environ:
+        return False
+    spec = _crash_lookup()
+    return spec is not None and spec[0] == name and spec[1] > 0
+
+
+def crash_will_fire(name: str) -> bool:
+    """Whether the next probe of ``name`` kills the process, without using
+    the probe up (``wal.append`` writes half a frame first)."""
+    if _crash_spec is None and _CRASH_ENV not in os.environ:
+        return False
+    spec = _crash_lookup()
+    return spec is not None and spec[0] == name and spec[1] == 1
+
+
+def crash_point(name: str, where: str = "") -> None:
+    """Probe crash point ``name``: use up one probe, and at zero SIGKILL
+    this process (never returns)."""
+    if _crash_spec is None and _CRASH_ENV not in os.environ:
+        return
+    spec = _crash_lookup()
+    if spec is None or spec[0] != name or spec[1] <= 0:
+        return
+    with _lock:
+        spec[1] -= 1
+        fire = spec[1] == 0
+    if fire:
+        os.kill(os.getpid(), signal.SIGKILL)

@@ -3,7 +3,8 @@
 * ``(B, C)`` float scores against ``(B,)`` integer labels with a micro or
   macro reduce take :func:`_fast_multiclass_stat_scores`, which never builds
   the ``(B, C)`` one-hots. The macro reduce gets its per-class counts from
-  the ``stat_scores`` kernel.
+  the ``stat_scores`` kernel. The same function counts the serving stack's
+  S sessions at once (``(S, B, C)`` scores, the kernel's session axis).
 * A negative ``ignore_index`` is folded into a row mask for the micro/macro
   reduces; the per-sample reduces drop the rows.
 * ``sample_mask`` makes masked rows count zero in every sum.
@@ -15,7 +16,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.ops import stat_scores_counts
+from metrics_tpu_torch.ops import stat_scores_counts, stat_scores_counts_sessions
 from metrics_tpu_torch.utilities.checks import (
     _check_classification_inputs,
     _input_format_classification,
@@ -134,7 +135,7 @@ def _predicted_classes(preds: Tensor) -> Tensor:
     min-index so that ties and NaN rank as in the JAX package (``torch.argmax``
     ranks NaN otherwise). A row holding NaN gets ``C``: no class matches it,
     and the ``stat_scores`` scatter counts it as the JAX package's does."""
-    num_classes = preds.shape[1]
+    num_classes = preds.shape[-1]
     class_idx = torch.arange(num_classes, dtype=torch.int32, device=preds.device)
     row_max = preds.amax(dim=-1, keepdim=True)
     return torch.where(preds == row_max, class_idx, num_classes).amin(dim=-1)
@@ -147,21 +148,27 @@ def _fast_multiclass_stat_scores(
     ignore_index: Optional[int],
     sample_mask: Optional[Tensor],
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """tp/fp/tn/fn for ``(B, C)`` float scores against ``(B,)`` int labels.
+    """tp/fp/tn/fn for ``(B, C)`` float scores against ``(B,)`` int labels,
+    or for S sessions at once: ``(S, B, C)`` scores, ``(S, B)`` labels and
+    mask, each count then ``(S,)`` (micro) or ``(S, C)`` (macro), row ``s``
+    equal to this function on session ``s`` alone.
 
-    The predicted class comes from :func:`_predicted_classes`; the counts
-    follow from ``fp[c] = #pred(c) - tp[c]``, ``fn[c] = #target(c) -
-    tp[c]``, ``tn[c] = rows - tp - fp - fn``. ``ignore_index`` here is the
+    The predicted class comes from :func:`_predicted_classes` (a row's argmax
+    is its own, so the S * B rows are taken together); the counts follow
+    from ``fp[c] = #pred(c) - tp[c]``, ``fn[c] = #target(c) - tp[c]``,
+    ``tn[c] = rows - tp - fp - fn``, the macro ones from one launch of the
+    ``stat_scores`` kernel (its session axis for S sessions), ``n_valid`` and
+    ``tn`` from each session's own mask. ``ignore_index`` here is the
     non-negative column variant; a negative one arrives in ``sample_mask``.
     """
-    num_rows, num_classes = preds.shape
+    num_rows, num_classes = preds.shape[-2:]
     pred_cls = _predicted_classes(preds)
-    target_cls = target.to(torch.int32)
+    target_cls = target.to(torch.int32).contiguous()
     correct = pred_cls == target_cls
 
     if sample_mask is not None:
         valid = sample_mask.bool()
-        n_valid = valid.sum()
+        n_valid = valid.sum(dim=-1)
         correct = correct & valid
     else:
         valid = None
@@ -175,26 +182,29 @@ def _fast_multiclass_stat_scores(
             if valid is not None:
                 t_ok = t_ok & valid
                 p_ok = p_ok & valid
-            tp = (correct & t_ok).sum()
-            fp = p_ok.sum() - tp
-            fn = t_ok.sum() - tp
+            tp = (correct & t_ok).sum(dim=-1)
+            fp = p_ok.sum(dim=-1) - tp
+            fn = t_ok.sum(dim=-1) - tp
             tn = n_valid * (num_classes - 1) - tp - fp - fn
         else:
-            tp = correct.sum()
+            tp = correct.sum(dim=-1)
             fp = n_valid - tp
             fn = n_valid - tp
             tn = n_valid * num_classes - tp - fp - fn
         return tp.to(_COUNT_DTYPE), fp.to(_COUNT_DTYPE), tn.to(_COUNT_DTYPE), fn.to(_COUNT_DTYPE)
 
     # macro: the three per-class counts come from the stat_scores kernel
-    w = valid.to(_COUNT_DTYPE) if valid is not None else torch.ones(num_rows, dtype=_COUNT_DTYPE, device=preds.device)
-    targ_count, pred_count, tp = stat_scores_counts(target_cls, pred_cls, correct, w, num_classes)
+    w = valid.to(_COUNT_DTYPE) if valid is not None else torch.ones_like(target_cls)
+    if pred_cls.ndim == 1:
+        targ_count, pred_count, tp = stat_scores_counts(target_cls, pred_cls, correct, w, num_classes)
+    else:
+        targ_count, pred_count, tp = stat_scores_counts_sessions(target_cls, pred_cls, correct, w, num_classes).unbind(-2)
     fp = pred_count - tp
     fn = targ_count - tp
-    tn = (n_valid - tp - fp - fn).to(_COUNT_DTYPE)
+    tn = ((n_valid if valid is None else n_valid[..., None]) - tp - fp - fn).to(_COUNT_DTYPE)
     if ignore_index is not None:
         for t in (tp, fp, tn, fn):
-            t[ignore_index] = -1
+            t[..., ignore_index] = -1
     return tp, fp, tn, fn
 
 

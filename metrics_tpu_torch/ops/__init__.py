@@ -2,7 +2,7 @@
 
 | kernel | replaces (TPU) | source |
 | --- | --- | --- |
-| ``stat_scores`` | ``metrics_tpu/ops/stat_scores.py::_stat_counts_kernel`` | ``csrc/stat_scores.cu`` |
+| ``stat_scores`` | ``metrics_tpu/ops/stat_scores.py::_stat_counts_kernel`` (and its ``vmap``: the session axis) | ``csrc/stat_scores.cu`` |
 | ``confusion_matrix`` | ``metrics_tpu/ops/confusion.py::_confmat_kernel`` | ``csrc/confusion.cu`` |
 | ``binned_stats`` | ``metrics_tpu/ops/binned_stats.py::_binned_kernel`` | ``csrc/binned_stats.cu`` |
 | ``retrieval_sort`` | ``metrics_tpu/ops/retrieval.py::_rank_sort_kernel`` | ``csrc/retrieval_sort.cu`` |
@@ -20,5 +20,5 @@ from metrics_tpu_torch.ops.confusion import confusion_matrix_counts  # noqa: F40
 from metrics_tpu_torch.ops.registry import KERNELS, launches, reset_launches  # noqa: F401
 from metrics_tpu_torch.ops.retrieval import sorted_by_preds  # noqa: F401
 from metrics_tpu_torch.ops.sketch_ops import countmin_update, hash_u32  # noqa: F401
-from metrics_tpu_torch.ops.stat_scores import stat_scores_counts  # noqa: F401
+from metrics_tpu_torch.ops.stat_scores import stat_scores_counts, stat_scores_counts_sessions  # noqa: F401
 from metrics_tpu_torch.ops.window_tick import fused_window_tick  # noqa: F401

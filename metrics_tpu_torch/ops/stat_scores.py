@@ -8,6 +8,15 @@ integer atomics, see the note there); on a CPU tensor from
 bit for bit. :func:`stat_scores_plan` picks the kernel's branch: one block
 for a batch of up to 6,144 rows (one launch, no zeroed output), many blocks
 above, global atomics where the ``3C`` histogram does not fit shared memory.
+
+The session axis, :func:`stat_scores_counts_sessions`, is what ``jax.vmap``
+of the same counts computes for the multi-tenant service
+(:mod:`metrics_tpu_torch.serve`): ``(S, B)`` rows of S sessions in one
+launch to ``(S, 3, C)`` counts, each session held to its own ``3C`` cells by
+the same wrap-or-drop rule. Its plan (:func:`stat_scores_sessions_plan`)
+takes one block a session while ``3C`` fits shared memory, and global
+atomics at each session's offset beyond; the launches count under the
+branches ``"sessions"`` and ``"sessions-global"``.
 """
 import ctypes
 import functools
@@ -33,6 +42,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("stat_scores")
     lib.stat_scores_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     lib.stat_scores_launch.restype = ctypes.c_int
+    lib.stat_scores_sessions_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    lib.stat_scores_sessions_launch.restype = ctypes.c_int
     lib.stat_scores_error_string.argtypes = [ctypes.c_int]
     lib.stat_scores_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,3 +162,100 @@ def stat_scores_counts(
     if not registry.use_kernel(target_cls, pred_cls, correct, w):
         return _stat_counts_plain(target_cls, pred_cls, correct, w, num_classes)
     return _stat_counts_kernel(target_cls, pred_cls, correct, w, num_classes)
+
+
+# ------------------------------------------------------------------ the session axis
+_SESSION_THREADS = 256  # a block of the session branch: B = 64 rows at the service's flush, 3C cells to write
+
+
+def _stat_counts_sessions_plain(target_cls: Tensor, pred_cls: Tensor, correct: Tensor, w: Tensor,
+                                num_classes: int) -> Tensor:
+    """:func:`_stat_counts_plain` on each of S sessions, as one ``index_add_``
+    into ``S * 3C`` cells: ``(S, B)`` inputs to ``(S, 3, C)`` counts. The
+    wrap-or-drop rule holds within each session's own ``3C`` cells, so no
+    row ever adds to another session."""
+    sessions = target_cls.shape[0]
+    dtype = w.dtype
+    cells = 3 * num_classes
+    idx = torch.cat([target_cls.long(), pred_cls.long() + num_classes, target_cls.long() + 2 * num_classes], dim=1)
+    wts = torch.cat([w, w, correct.to(dtype)], dim=1)
+    idx = torch.where(idx < 0, idx + cells, idx)
+    ok = (idx >= 0) & (idx < cells)
+    idx = torch.where(ok, idx, 0) + torch.arange(sessions, device=w.device)[:, None] * cells
+    wts = torch.where(ok, wts, 0).to(dtype)
+    counts = torch.zeros(sessions * cells, dtype=dtype, device=w.device).index_add_(0, idx.reshape(-1), wts.reshape(-1))
+    return counts.reshape(sessions, 3, num_classes)
+
+
+def _check_sessions(target_cls: Tensor, pred_cls: Tensor, correct: Tensor, w: Tensor, num_classes: int) -> None:
+    shape = tuple(target_cls.shape)
+    if len(shape) != 2:
+        raise ValueError(f"stat_scores_counts_sessions: `target_cls` must have shape (S, B), got {shape}")
+    for name, t, dtype in (
+        ("target_cls", target_cls, torch.int32),
+        ("pred_cls", pred_cls, torch.int32),
+        ("correct", correct, torch.bool),
+        ("w", w, torch.int32),
+    ):
+        if t.dtype != dtype:
+            raise TypeError(f"stat_scores_counts_sessions: `{name}` must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"stat_scores_counts_sessions: `{name}` must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"stat_scores_counts_sessions: `{name}` must be contiguous")
+    if num_classes < 1:
+        raise ValueError(f"stat_scores_counts_sessions: `num_classes` must be positive, got {num_classes}")
+
+
+def stat_scores_sessions_plan(sessions: int, n: int, num_classes: int, shared_optin: int) -> Tuple[str, int, int]:
+    """``(branch, blocks, threads)`` of the session axis for ``sessions`` x
+    ``n`` rows of ``num_classes`` classes: ``"sessions"``, one block of 256
+    threads a session, when the ``3C`` int32 histogram fits ``shared_optin``
+    bytes; else ``"sessions-global"``, blocks of 256 threads over all rows
+    (at most 264) adding into a zeroed output."""
+    if 12 * num_classes > shared_optin:
+        return "sessions-global", _grid(sessions * n), _THREADS
+    return "sessions", sessions, _SESSION_THREADS
+
+
+def stat_scores_sessions_branch(sessions: int, n: int, num_classes: int, device: torch.device) -> str:
+    """The branch the session axis takes for ``sessions`` x ``n`` rows on CUDA ``device``."""
+    return stat_scores_sessions_plan(sessions, n, num_classes, registry.device_limits(device, _lib(), _NAME)[1])[0]
+
+
+def _stat_counts_sessions_kernel(target_cls: Tensor, pred_cls: Tensor, correct: Tensor, w: Tensor,
+                                 num_classes: int) -> Tensor:
+    """Launch the session axis of ``csrc/stat_scores.cu`` on checked CUDA inputs."""
+    sessions, n = target_cls.shape
+    lib = _lib()
+    name, blocks, threads = stat_scores_sessions_plan(sessions, n, num_classes,
+                                                      registry.device_limits(w.device, lib, _NAME)[1])
+    alloc = torch.empty if name == "sessions" else torch.zeros  # the block branch writes every cell
+    out = alloc((sessions, 3, num_classes), dtype=torch.int32, device=w.device)
+    if sessions == 0:
+        return out
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = lib.stat_scores_sessions_launch(
+            target_cls.data_ptr(), pred_cls.data_ptr(), correct.data_ptr(), w.data_ptr(),
+            sessions, n, num_classes, 0 if name == "sessions" else 1, blocks, threads, out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"stat_scores session kernel launch failed: {lib.stat_scores_error_string(err).decode()}")
+    # the bound's terms: the four (S, B) columns read once, the (S, 3, C) counts written once
+    registry.note_launch(_NAME, name, (sessions, n, num_classes),
+                         cost_key=("sessions", sessions, n, num_classes, str(w.dtype).replace("torch.", "")),
+                         flops=3.0 * sessions * n, bytes_accessed=13.0 * sessions * n + 12.0 * sessions * num_classes)
+    return out
+
+
+def stat_scores_counts_sessions(target_cls: Tensor, pred_cls: Tensor, correct: Tensor, w: Tensor,
+                                num_classes: int) -> Tensor:
+    """Per-session, per-class ``[target_count, pred_count, tp]`` for S
+    batches at once: ``(S, B)`` int32 classes, bool hits (already masked by
+    validity) and int32 0/1 weights to int32 ``(S, 3, C)``. Row ``s`` equals
+    :func:`stat_scores_counts` of session ``s``'s rows, stacked."""
+    _check_sessions(target_cls, pred_cls, correct, w, num_classes)
+    if not registry.use_kernel(target_cls, pred_cls, correct, w):
+        return _stat_counts_sessions_plain(target_cls, pred_cls, correct, w, num_classes)
+    return _stat_counts_sessions_kernel(target_cls, pred_cls, correct, w, num_classes)

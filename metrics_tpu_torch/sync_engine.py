@@ -48,7 +48,7 @@ bytes are the bucket's wire bytes (the JAX package lowers a probe program
 for its entry; a collective's model cost here is its bytes, no flops).
 
 Not ported here: the fleet reads (``metrics_tpu/sync_engine.py:613-811``,
-with serving, ROADMAP.md Queue A item 11).
+with the serving fabric, ROADMAP.md Queue A item 11, part two).
 """
 import os
 import time

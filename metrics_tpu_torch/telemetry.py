@@ -43,14 +43,36 @@ sketch     one sketch-aggregator operation on the eager path
            (:mod:`metrics_tpu_torch.streaming.sketch`): kinds ``update`` /
            ``compute``, with the sketch's geometry
 read       one window read: ``window-cached`` / ``window-rebuild`` (with
-           the ``merges`` paid) and ``window-range``
+           the ``merges`` paid) and ``window-range``; and one serving read
+           (:mod:`metrics_tpu_torch.serve`): ``memo-hit``, ``memo-miss``,
+           ``batch`` (a ``compute_all`` of its ``dirty`` rows)
+request    one admitted ``submit()``'s flight record
+           (:mod:`metrics_tpu_torch.serve`), from submit to retirement, on
+           the submitting thread's lane: kinds ``served`` / ``fallback`` /
+           ``shed`` / ``expired`` / ``failed``, with its ``rid``,
+           ``session``, ``queue_us`` / ``journal_us`` / ``launch_us`` /
+           ``retire_us``, ``replayed=True`` for a journal replay, and with
+           billing on its ``cost_microusd`` share of its launch; the Chrome
+           export draws each one as a flow arrow (``ph`` ``s``/``t``/``f``)
+journal    one write-ahead-journal operation (:mod:`metrics_tpu_torch.wal`):
+           ``append`` (a durable record, with its frame ``nbytes``, also
+           summed in the ``journal:bytes`` counter), ``replay`` (one
+           recovery pass, with its record count), ``truncate``
+checkpoint one serving checkpoint written (crc32 checksums attached)
+gauge      one health (queue depth, inflight, sessions, free rows) and one
+           memory (state bytes, top leaves) reading a flush, while a
+           session listens
+retire     one inflight generation retired on the serving path (the JAX
+           package's name; neither service emits it at present)
 ========== ============================================================
 
-The serving families of the JAX package (``request``, ``journal``,
-``checkpoint``, ``gauge``, ``retire``, the ``stacked-aot`` launches) come
-with the serving stack (ROADMAP.md, Queue A item 11), and ``aot-cache``
-with the persistent program tier (item 13); the counters below already
-handle them as the JAX package does.
+The serving service's launches are ``update`` spans of kind ``stacked-aot``
+(one a flush and signature: a CUDA graph replay on the card) with the
+program's cost-model attributes and, with billing on, its modelled
+occupancy and micro-dollars (:mod:`metrics_tpu_torch.analysis.billing`);
+each build is a ``compile`` span of the same kind. ``aot-cache`` events come
+with the persistent program tier (ROADMAP.md, Queue A item 13); the counters
+below already handle it as the JAX package does.
 
 Events carry the owner (a metric's class name, ``MetricCollection`` or
 ``ops.<kernel>``), a kind, a start and a duration in µs of host wall time

@@ -1303,3 +1303,169 @@ def test_an_idle_stream_adds_no_host_sync_to_an_eager_window(card, monkeypatch):
         with telemetry.instrument():
             instrumented = _sync_count(call)
         assert idle == off and instrumented == off + 1, (name, off, idle, instrumented)
+
+
+# ------------------------------------------------- the service (serve.py) and the stat_scores session axis
+@pytest.mark.parametrize("sessions,n,c", [(1, 1, 2), (7, 64, 1000), (1024, 64, 1000), (64, 32, 20000), (3, 0, 10)])
+def test_stat_scores_session_axis_equals_plain(card, sessions, n, c):
+    from metrics_tpu_torch.ops import stat_scores_counts_sessions
+    from metrics_tpu_torch.ops.stat_scores import _stat_counts_sessions_plain, stat_scores_sessions_branch
+
+    rng = np.random.RandomState(sessions + n + c)
+    target = torch.from_numpy(rng.randint(-3 * c - 2, 3 * c + 2, (sessions, n)).astype(np.int32)).to(card)
+    pred = torch.from_numpy(rng.randint(-3 * c - 2, 3 * c + 2, (sessions, n)).astype(np.int32)).to(card)
+    w = torch.from_numpy(rng.randint(0, 2, (sessions, n)).astype(np.int32)).to(card)
+    correct = (pred == target) & (w > 0)
+    reset_launches()
+    got = stat_scores_counts_sessions(target, pred, correct, w, c)
+    torch.cuda.synchronize()
+    branch = stat_scores_sessions_branch(sessions, n, c, card)
+    assert branch == ("sessions-global" if c == 20000 else "sessions")
+    assert launches()["stat_scores"] == 1
+    assert registry.launches_by_shape("stat_scores") == {(branch, (sessions, n, c)): 1}
+    assert got.dtype == torch.int32 and torch.equal(got, _stat_counts_sessions_plain(target, pred, correct, w, c))
+
+
+def _service_batches(card, tenants, flushes, rows=32, c=100, seed=80):
+    g = torch.Generator(device=card).manual_seed(seed)
+    out = []
+    for _ in range(flushes):
+        target = torch.randint(0, c, (tenants, rows), generator=g, device=card)
+        preds = torch.rand(tenants, rows, c, generator=g, device=card)
+        preds[torch.arange(tenants, device=card)[:, None], torch.arange(rows, device=card)[None, :], target] += 0.5
+        out.append([(preds[i], target[i]) for i in range(tenants)])
+    return out
+
+
+def test_service_stacked_replays_equal_dedicated_eager_metrics(card):
+    from metrics_tpu_torch import Accuracy
+    from metrics_tpu_torch.serve import MetricsService
+
+    svc = MetricsService(Accuracy(num_classes=100, average="macro", device=card))
+    refs = [Accuracy(num_classes=100, average="macro", device=card) for _ in range(20)]
+    batches = _service_batches(card, 20, 3)
+    reset_launches()
+    for flush in batches:
+        for i, (p, t) in enumerate(flush):
+            svc.submit(f"t{i}", p, t)
+        svc.flush()
+    svc.drain()
+    torch.cuda.synchronize()
+    counted, replayed = launches()["stat_scores"], registry.replayed_launches()["stat_scores"]
+    # one session-axis launch a flush: the first flush's warm-up run, then two graph replays
+    assert svc.stats["launches"] == counted == 3 and replayed == 2 and svc.stats["fallback_requests"] == 0
+    assert registry.launches_by_shape("stat_scores") == {("sessions", (32, 32, 100)): 3}
+    for flush in batches:
+        for ref, (p, t) in zip(refs, flush):
+            ref.update(p, t)
+    values = svc.compute_all()
+    for i, ref in enumerate(refs):
+        assert torch.equal(values[f"t{i}"], ref.compute())
+        assert torch.equal(svc.compute(f"t{i}"), ref.compute())
+    tickets = [svc.submit(f"t{i}", p, t, return_value=True) for i, (p, t) in enumerate(batches[0])]
+    svc.drain()
+    for ticket, (p, t) in zip(tickets, batches[0]):
+        fresh = Accuracy(num_classes=100, average="macro", device=card)
+        fresh.update(p, t)
+        assert torch.equal(ticket.result(timeout=30), fresh.compute())
+
+
+def test_service_pad_lanes_write_only_the_scratch_row_on_the_card(card):
+    from metrics_tpu_torch import Accuracy
+    from metrics_tpu_torch.serve import MetricsService
+
+    svc = MetricsService(Accuracy(num_classes=100, average="macro", device=card))
+    for i in range(64):
+        svc.open_session(f"s{i}")
+    before = {k: v.clone() for k, v in svc._stacked.items()}
+    fed = ["s63", "s62", "s0"]
+    for flush in _service_batches(card, 3, 2):
+        for name, (p, t) in zip(fed, flush):
+            svc.submit(name, p, t)
+        svc.flush()
+    svc.drain()
+    torch.cuda.synchronize()  # an index past the buffer would have asserted on the device
+    touched = {svc._rows[n] for n in fed}
+    for k, leaf in svc._stacked.items():
+        same = (leaf == before[k]).reshape(64, -1).all(dim=1).cpu().tolist()
+        assert [not s for s in same] == [r in touched for r in range(64)], k
+    assert svc.stats["launches"] == 2 and svc.stats["fallback_requests"] == 0
+
+
+def test_first_capture_while_threads_submit(card):
+    """The flush worker captures the first graph while eight threads submit:
+    the capture (thread-local mode) stands, and every session ends as the
+    same stream served on the CPU."""
+    import threading
+
+    from metrics_tpu_torch import Accuracy
+    from metrics_tpu_torch.serve import MetricsService
+
+    svc = MetricsService(Accuracy(num_classes=100, average="macro", device=card), flush_interval_s=0.002)
+    cpu = MetricsService(Accuracy(num_classes=100, average="macro", device="cpu"))
+    batches = _service_batches(card, 8, 20, seed=81)
+    errors = []
+
+    def submitter(i):
+        try:
+            for flush in batches:
+                svc.submit(f"t{i}", *flush[i])
+        except Exception as err:  # noqa: BLE001 - surfaced below
+            errors.append(err)
+
+    with metrics_tpu_torch.telemetry.instrument() as session:
+        threads = [threading.Thread(target=submitter, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        svc.shutdown()
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert not session.spans(name="degrade"), [e.attrs for e in session.spans(name="degrade")]
+    assert svc.stats["fallback_requests"] == 0 and svc.stats["submits"] == 160
+    assert any(p.graph is not None for p in svc._exec_cache.values())
+    for flush in batches:
+        for i in range(8):
+            cpu.submit(f"t{i}", *(x.cpu() for x in flush[i]))
+    cpu.drain()
+    assert svc.state_digest() == cpu.state_digest()
+
+
+def test_a_failed_capture_benches_the_stacked_path(card, monkeypatch):
+    """A capture that fails after the warm-up run has served its flush: the
+    program goes, one ``degrade`` of kind ``serve`` benches the stacked path,
+    the cooldown's flushes take the per-request eager fallback, and the next
+    stacked flush captures anew; every session ends as dedicated metrics."""
+    from metrics_tpu_torch import Accuracy
+    from metrics_tpu_torch.serve import MetricsService
+
+    svc = MetricsService(Accuracy(num_classes=100, average="macro", device=card))
+    refs = [Accuracy(num_classes=100, average="macro", device=card) for _ in range(4)]
+    capture, calls = svc._capture, []
+
+    def refused_once(program, run):
+        calls.append(program)
+        if len(calls) == 1:
+            raise RuntimeError("capture refused")
+        return capture(program, run)
+
+    monkeypatch.setattr(svc, "_capture", refused_once)
+    batches = _service_batches(card, 4, 8, seed=82)
+    with metrics_tpu_torch.telemetry.instrument() as session:
+        for flush in batches:
+            for i, (p, t) in enumerate(flush):
+                svc.submit(f"t{i}", p, t)
+            svc.flush()
+        svc.drain()
+    degrades = session.spans(name="degrade")
+    assert [e.kind for e in degrades] == ["serve"] and len(calls) == 2
+    cooldown = degrades[0].attrs["cooldown"]
+    assert 0 < cooldown < len(batches) - 1
+    assert svc.stats["launches"] == len(batches) - cooldown and svc.stats["fallback_requests"] == 4 * cooldown
+    assert calls[0] not in svc._exec_cache.values() and calls[1].graph is not None
+    for flush in batches:
+        for ref, (p, t) in zip(refs, flush):
+            ref.update(p, t)
+    values = svc.compute_all()
+    for i, ref in enumerate(refs):
+        assert torch.equal(values[f"t{i}"], ref.compute())
