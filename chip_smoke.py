@@ -255,8 +255,8 @@
    ``queue_us``/``journal_us``/``launch_us``/``retire_us`` of two instrumented
    flushes, ``compute_all`` ms, the host syncs and busy share of a warm flush.
    B. per-advertiser heavy hitters: 256 tenants of ``CountMinHeavyHitters(4,
-   1024)``, submits of 4,096 Zipf ids, 2 flushes: ``countmin`` 256 times a
-   flush (the second a replay), the tables bit-equal to dedicated sketches and,
+   1024)``, submits of 4,096 Zipf ids, 2 flushes: one launch of ``countmin``'s
+   session axis a flush (the second a replay), the tables bit-equal to dedicated sketches and,
    on 16 tenants, to ``numpy_countmin``. C. ``SlidingWindow(Accuracy(1000,
    macro), window=60)`` over 64 tenants, 4 ticks: coalescing off, one launch a
    tick, ``compute_window`` equal to dedicated windows. D. durability: a
@@ -271,6 +271,36 @@
    E. admission: bursts of twice ``max_queue`` (64) under ``reject`` and
    ``shed-oldest``: each refused request one cause-tagged ``degrade`` span, one
    ``request`` span per admitted submit, and ``slo_snapshot()`` agreeing.
+   Slice 15, the serving fabric (``metrics_tpu_torch.fabric``): A. a
+   ``ShardedMetricsService`` of 4 shards of 1,024 ImageNet tenants each
+   (``Accuracy(num_classes=1000, average="macro")``), 8 flushes of one 64-row
+   submit a tenant: one ``stat_scores`` session-axis launch a shard flush, the
+   counts a host bincount's, each shard's digest a single ``MetricsService``'s
+   fed the same stream, ``compute_all`` the single service's values (its first
+   read builds and captures one fleet program), a warm fleet read exactly one
+   graph replay with no ``fleet-read`` degrade, timed against the same read
+   fanned out per shard, its busy share profiled; ``rollup`` the template's
+   compute of numpy's summed counts. B. 4 shards of 256 advertisers'
+   ``CountMinHeavyHitters(4, 1024)``, 4,096 Zipf ids a submit, 3 flushes:
+   exactly one launch of ``countmin``'s session axis a shard flush (replays
+   after the first), tables equal to numpy's count-min, the session axis held
+   against its plain version on a flush's inputs; each shard flush timed. C.
+   failover and membership on journaled fleets of 4 x 64 ImageNet tenants: a
+   ``shard-death`` failover (fence, then replay; the time to the first
+   recovered result; the zombie's write refused), a standby promotion that
+   replays only the unshipped tail, ``add_shard`` and ``rebalance`` (about a
+   fifth of the sessions move), a ``network-partition`` (the old side's
+   writes refused) and a ``shard-slow`` shard quarantined by the suspicion
+   sweep; every digest an uncrashed twin's. D. time travel: a 1,024-tenant
+   service with ``HistoryPolicy(keep_last=4, keep_per_interval_s=1)`` and 12
+   checkpoints: ``service_at`` at 6 instants equal to a twin at the same
+   journal prefix, ``compute_range`` equal to a service fed the window's
+   records, a ``history-corruption`` rung read past and quarantined by
+   ``scrub``. E. the crash matrix of a 4-shard fleet, one process a shard on
+   the card (``--slice15-worker``; a keep-last-1 ladder, a standby shipped
+   every op): shard 0 SIGKILLed at each of the six crash points, then
+   recovered in a fresh process, the fleet's union equal to the uncrashed
+   twin fleet's.
    Slice 9's ranks compute inside a session: on each, the ``collective``
    spans and their bytes equal ``sync_stats``. Before the ``kernels`` line
    each kernel's cost-model entry (``model_bytes``, ``model_flops``) must
@@ -421,6 +451,20 @@ SLICE14_CRASH_NTH = {"post-journal": 30, "mid-journal-append": 30, "mid-flush": 
                      "mid-truncate": 2}
 SLICE14_WORKER_TIMEOUT_S = 300
 SLICE14_MAX_QUEUE = 64
+# slice 15: the fabric. A: 4 shards of 1,024 ImageNet tenants, 8 flushes of a 64-row submit a tenant; B: 4 shards of
+# 256 advertisers' count-min sketches, 4,096 ids a submit; C: failover and membership on 4 x 64 journaled tenants; D:
+# a 1,024-tenant service with a ladder, 12 checkpoints (every tenant in the first round, 128 a round after); E: the
+# crash matrix of a 4-shard fleet, one process a shard
+SLICE15_SHARDS, SLICE15_TENANTS, SLICE15_ROWS, SLICE15_FLUSHES = 4, 1024, 64, 8
+SLICE15_VALUE_SAMPLE = 256  # tenants whose fleet-read value is held against the single service's compute
+SLICE15_CM_TENANTS, SLICE15_CM_IDS, SLICE15_CM_FLUSHES, SLICE15_CM_NUMPY = 256, 4096, 3, 16
+# the slow shard's sleep: its p99 must pass 4x its peers' on a host twice as slow as the ones measured (PERF.md §5)
+SLICE15_C_TENANTS, SLICE15_C_ROWS, SLICE15_SLOW_MS, SLICE15_SLOW_WARM, SLICE15_SLOW_OPS = 64, 16, 200, 150, 20
+SLICE15_TT_TENANTS, SLICE15_TT_ROUNDS, SLICE15_TT_ROUND_TENANTS, SLICE15_TT_ROWS = 1024, 12, 128, 8
+SLICE15_TT_INTERVAL_S, SLICE15_TT_INSTANTS = 1.0, 6
+SLICE15_CHAOS_OPS, SLICE15_CHAOS_SESSIONS, SLICE15_CHAOS_ROWS = 64, 16, 16
+SLICE15_CRASH_NTH = {"post-journal": 6, "mid-journal-append": 6, "mid-flush": 2, "mid-checkpoint": 1,
+                     "mid-truncate": 2, "mid-history-gc": 1}
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -3133,9 +3177,10 @@ def run_slice14(torch, dev, laps):
             torch.cuda.synchronize()
             cm_ms.append((time.perf_counter() - t0) * 1e3)
             cm_per_flush.append(registry.launches()["countmin"] - before)
-    check(cm_per_flush == [cm_tenants] * cm_flushes and registry.replayed_launches()["countmin"] == cm_tenants,
+    check(cm_per_flush == [1] * cm_flushes and registry.replayed_launches()["countmin"] == 1
+          and registry.launches_by_shape("countmin") == {("sessions", (cm_tenants, cm_ids, CLICK_DEPTH, 1024)): 2},
           f"slice 14: countmin ran {cm_per_flush} times a flush ({registry.replayed_launches()['countmin']} "
-          f"replayed), not {cm_tenants} each, the second a replay")
+          f"replayed), not its session axis once each, the second a replay")
     check(svc3.stats["launches"] == cm_flushes and svc3.stats["fallback_requests"] == 0
           and not session.spans(name="degrade"), "slice 14: the heavy-hitter flushes degraded or fell back")
     note_launches()
@@ -3271,6 +3316,624 @@ def run_slice14(torch, dev, laps):
     return totals, by_shape14, session_inputs
 
 
+def fleet_names(shard_for, shards, per_shard, prefix="t"):
+    """``per_shard`` session names for each of ``shards`` shards, in the order
+    they were drawn (``prefix`` and a counter): a fleet whose shards hold the
+    same number of tenants, so its session bucket is the per-shard count."""
+    names, counts, i = [], [0] * shards, 0
+    while min(counts) < per_shard:
+        name, i = f"{prefix}{i}", i + 1
+        k = shard_for(name)
+        if counts[k] < per_shard:
+            counts[k] += 1
+            names.append(name)
+    return names
+
+
+def slice15_ops():
+    """Slice 15 E's global op stream: updates round-robin over the sessions, one close and one reset."""
+    ops = []
+    for i in range(SLICE15_CHAOS_OPS):
+        if i == 20:
+            ops.append(("close", "s1"))
+        elif i == 33:
+            ops.append(("reset", "s3"))
+        else:
+            ops.append(("update", f"s{i % SLICE15_CHAOS_SESSIONS}", i))
+    return ops
+
+
+def slice15_worker(phase, root, shard, nshards, device):
+    """``python3 chip_smoke.py --slice15-worker {run|recover} ROOT SHARD NSHARDS DEVICE``:
+    one shard of slice 15 E's fleet on ``DEVICE``, a journaled ImageNet-width
+    service (fsync on, a checkpoint every 2 flushes, a keep-last-1 ladder) that
+    runs the ops of the global stream whose session the ring gives its shard,
+    shipping its journal to an in-process standby after every op; ``recover``
+    fences the directory one epoch higher, recovers and finishes the slice.
+    Prints one JSON line: the partition's digest and values, the journal's
+    high-water mark and the epoch."""
+    import torch
+
+    from metrics_tpu_torch import Accuracy, wal
+    from metrics_tpu_torch.fabric import HashRing
+    from metrics_tpu_torch.serve import HistoryPolicy, MetricsService
+
+    dev, shard, nshards = torch.device(device), int(shard), int(nshards)
+    ring = HashRing(list(range(nshards)))
+    base = os.path.join(root, f"shard-{shard:02d}")
+    journal_dir = os.path.join(base, "wal")
+    make = lambda: Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev)  # noqa: E731
+    svc = MetricsService(make(), journal_dir=journal_dir, checkpoint_dir=os.path.join(base, "ckpt"),
+                         checkpoint_every=2, history=HistoryPolicy(keep_last=1), shard_id=shard, rid_offset=shard,
+                         rid_stride=nshards, epoch=wal.read_epoch(journal_dir) + 1)
+    t_start = time.perf_counter()
+    start_seq, first_result_ms = 0, None
+    if phase == "recover":
+        svc.recover()
+        start_seq = svc.journal.last_seq
+        if svc.session_count:
+            svc.compute(sorted(svc._rows)[0])
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        first_result_ms = (time.perf_counter() - t_start) * 1e3
+    standby = wal.StandbyReplica(MetricsService(make(), shard_id=shard, rid_offset=shard, rid_stride=nshards),
+                                 source_shard=shard) if phase == "run" else None
+
+    def ship():
+        if standby is not None:
+            standby.apply(svc.journal.stream_since(standby.cursor), svc.replication_floor())
+
+    closed, local = set(), 0
+    for op in slice15_ops():
+        name = op[1]
+        if ring.owner(name) != shard:
+            continue
+        local += 1
+        if local <= start_seq:  # durable before the kill: applied by the replay
+            if op[0] == "close":
+                closed.add(name)
+            elif op[0] == "update":
+                closed.discard(name)
+            continue
+        if op[0] == "update":
+            if name in closed:
+                svc.open_session(name)
+                closed.discard(name)
+            g = torch.Generator(device=dev).manual_seed(1500 + op[2])
+            svc.submit(name, *top1_scores(torch, g, SLICE15_CHAOS_ROWS, NUM_CLASSES))
+        elif op[0] == "close":
+            svc.close_session(name)
+            closed.add(name)
+        else:
+            svc.reset_session(name)
+        ship()
+        if local % 4 == 0:
+            svc.flush()
+            ship()
+    svc.drain()
+    ship()
+    if standby is not None and standby.digest() != svc.state_digest():
+        raise SystemExit(f"the standby of shard {shard} diverged from its primary")
+    values = {n: v.cpu().numpy().tobytes().hex() for n, v in sorted(svc.compute_all().items())}
+    print(json.dumps({"digest": svc.state_digest(), "values": values, "last_seq": svc.journal.last_seq,
+                      "epoch": svc.epoch, "shard": shard, "recovery_to_first_result_ms": first_result_ms,
+                      "replayed_records": svc.stats["replayed_records"]}))
+    return 0
+
+
+def run_slice15(torch, dev, laps):
+    """Slice 15 (see the module's docstring): returns the kernels' launches on its
+    path and by shape, and the session axis of ``countmin``'s inputs at the
+    heavy-hitter fleet's flush."""
+    import tempfile
+
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch import faults, resilience, telemetry
+    from metrics_tpu_torch.fabric import ShardedMetricsService, StaleEpochError
+    from metrics_tpu_torch.ops import registry
+    from metrics_tpu_torch.ops.sketch_ops import _countmin_sessions_plain, countmin_update_sessions
+    from metrics_tpu_torch.serve import HistoryPolicy, MetricsService
+    from metrics_tpu_torch.streaming.sketch import _key_bits
+
+    totals = {"stat_scores": 0, "countmin": 0}
+    by_shape15 = {name: {} for name in totals}
+
+    def note_launches():
+        for name in totals:
+            totals[name] += registry.launches()[name]
+            by_shape15[name] = merged(by_shape15[name], registry.launches_by_shape(name))
+        registry.reset_launches()
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    report = {"card": card}
+    c, rows, shards = NUM_CLASSES, SLICE15_ROWS, SLICE15_SHARDS
+    make = lambda d=dev: M.Accuracy(num_classes=c, average="macro", device=d)  # noqa: E731
+    replay = torch.cuda.CUDAGraph.replay
+
+    @contextlib.contextmanager
+    def replays_counted():
+        seen = []
+        torch.cuda.CUDAGraph.replay = lambda self: (seen.append(self), replay(self))[1]
+        try:
+            yield seen
+        finally:
+            torch.cuda.CUDAGraph.replay = replay
+
+    def digests_equal(fab, ref, what):
+        note_launches()  # the path's launches so far; the reference's reads below are not the path's
+        for s in fab._shards:
+            if not s.retired:
+                check(s.service.state_digest() == ref.state_digest(sorted(s.service._rows)),
+                      f"slice 15: {what}: shard {s.shard_id}'s digest differs from the uncrashed twin's")
+        registry.reset_launches()
+
+    # ----------------------------------------------------------- A. the fleet
+    registry.reset_launches()
+    degrades0 = dict(resilience.degrades())
+    fab = ShardedMetricsService(make(), num_shards=shards)
+    single = MetricsService(make())
+    names = fleet_names(fab.shard_for, shards, SLICE15_TENANTS)
+    tenants = len(names)
+    by_shard = [[n for n in names if fab.shard_for(n) == k] for k in range(shards)]
+    g = torch.Generator(device=dev).manual_seed(SEED + 150)
+    want = None
+    flush_ms, per_flush = [], []
+    for f in range(SLICE15_FLUSHES):
+        preds, target = top1_scores(torch, g, tenants * rows, c)
+        launches0 = registry.launches()["stat_scores"]
+        t0 = time.perf_counter()
+        for i, name in enumerate(names):
+            fab.submit(name, preds[i * rows:(i + 1) * rows], target[i * rows:(i + 1) * rows])
+        t1 = time.perf_counter()
+        fab.drain()
+        torch.cuda.synchronize()
+        flush_ms.append({"submit_ms": (t1 - t0) * 1e3, "drain_ms": (time.perf_counter() - t1) * 1e3})
+        per_flush.append(registry.launches()["stat_scores"] - launches0)
+        note_launches()  # the fleet's flushes; the single service below is the reference
+        for i, name in enumerate(names):
+            single.submit(name, preds[i * rows:(i + 1) * rows], target[i * rows:(i + 1) * rows])
+        single.drain()
+        counts = slice14_counts_reference(torch, preds, target, tenants, rows)
+        want = counts if want is None else tuple(a + b for a, b in zip(want, counts))
+        registry.reset_launches()
+        if f == 0:
+            first_batch = (preds[:rows].clone(), target[:rows].clone())
+        del preds, target
+    check(per_flush == [shards] * SLICE15_FLUSHES, f"slice 15 A: stat_scores ran {per_flush} times a fleet flush, "
+          f"not once a shard")
+    check(all(s.service.stats["launches"] == SLICE15_FLUSHES and s.service.stats["fallback_requests"] == 0
+              for s in fab._shards), "slice 15 A: a shard's flush was not one stacked launch")
+    position = {n: i for i, n in enumerate(names)}
+    for s in fab._shards:
+        svc = s.service
+        own = sorted(svc._rows)
+        idx = [position[n] for n in own]
+        for k, leaf in enumerate(("tp", "fp", "tn", "fn")):
+            check(np.array_equal(svc._stacked[leaf][[svc._rows[n] for n in own]].cpu().numpy(), want[k][idx]),
+                  f"slice 15 A: shard {s.shard_id}'s {leaf} counts differ from the bincount reference")
+    digests_equal(fab, single, "A")
+    with telemetry.instrument() as session:
+        t0 = time.perf_counter()
+        values = fab.compute_all()  # the first read: its capture included
+        torch.cuda.synchronize()
+        first_read_ms = (time.perf_counter() - t0) * 1e3
+    note_launches()
+    check(len(session.spans(name="compile", kind="fleet-read")) == 1 and len(fab._fleet_programs) == 1,
+          "slice 15 A: the first fleet read did not build one program")
+    compile_span = session.spans(name="compile", kind="fleet-read")[0].attrs
+    sample = names[::max(1, tenants // SLICE15_VALUE_SAMPLE)]
+    check(all(torch.equal(values[n], single.compute(n)) for n in sample),
+          "slice 15 A: a fleet read value differs from the single service fed the same stream")
+    (program,) = fab._fleet_programs.values()
+
+    def dirty():  # every tenant dirty for the next read, without touching the device
+        for s in fab._shards:
+            s.service._memo.clear()
+
+    read = {"fleet_read_ms": [], "fan_out_ms": []}
+    dirty()
+    for s in fab._shards:  # the per-shard reads' own captures, one shard after another
+        s.service.compute_all()
+    laps.mark("3. slice 15 A: the fleet's flushes, its first read, the per-shard reads' captures")
+    for _ in range(3):
+        dirty()
+        torch.cuda.synchronize()
+        with replays_counted() as seen:
+            t0 = time.perf_counter()
+            warm = fab.compute_all()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        check(seen == [program.graph], f"slice 15 A: a warm fleet read made {len(seen)} graph replays, not the "
+              "fleet program's one")
+        dirty()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fanned = {}
+        for part in fab._fan_out(lambda s: s.service.compute_all(), fab._shards):
+            fanned.update(part)
+        torch.cuda.synchronize()
+        read["fleet_read_ms"].append((t1 - t0) * 1e3)
+        read["fan_out_ms"].append((time.perf_counter() - t2) * 1e3)
+    check(all(torch.equal(warm[n], values[n]) and torch.equal(fanned[n], values[n]) for n in names),
+          "slice 15 A: a warm fleet read or the per-shard fan-out differs from the first read")
+    check(resilience.degrades().get("fleet-read", 0) == degrades0.get("fleet-read", 0),
+          "slice 15 A: a fleet read degraded")
+    busy = device_busy(torch, lambda: (dirty(), fab.compute_all()), steps=1)
+    t0 = time.perf_counter()
+    rolled = fab.rollup()
+    torch.cuda.synchronize()
+    rollup_ms = (time.perf_counter() - t0) * 1e3
+    tmpl = fab._shards[0].service.template
+    dtype = fab._shards[0].service._stacked["tp"].dtype
+    summed = {leaf: torch.from_numpy(want[k].sum(axis=0)).to(dtype).to(dev)
+              for k, leaf in enumerate(("tp", "fp", "tn", "fn"))}
+    check(torch.equal(rolled, tmpl.pure_compute(summed)),
+          "slice 15 A: the fleet roll-up differs from the template's compute of numpy's summed counts")
+    registry.reset_launches()
+    report["A_fleet"] = {
+        "shards": shards, "tenants_a_shard": SLICE15_TENANTS, "rows_a_submit": rows, "flushes": SLICE15_FLUSHES,
+        "flush_ms": flush_ms, "first_read_ms_with_capture": first_read_ms,
+        "warm_fleet_read_ms": read["fleet_read_ms"], "warm_fleet_read_ms_median": statistics.median(read["fleet_read_ms"]),
+        "fan_out_read_ms": read["fan_out_ms"], "fan_out_read_ms_median": statistics.median(read["fan_out_ms"]),
+        "fleet_read_degrades": 0, "fleet_program_cost": {k: compile_span.get(k) for k in ("cost_flops", "cost_bytes")},
+        "rollup_ms": rollup_ms, "busy": busy,
+    }
+    fab.shutdown()
+    del fab, single, values, warm, fanned
+    laps.mark("3. slice 15 A: the four-shard ImageNet fleet")
+
+    # ----------------------------------------------------------- B. the heavy-hitter fleet
+    cm = ShardedMetricsService(M.CountMinHeavyHitters(depth=CLICK_DEPTH, width=1024, device=dev), num_shards=shards)
+    advertisers = fleet_names(cm.shard_for, shards, SLICE15_CM_TENANTS, prefix="adv")
+    g = torch.Generator(device=dev).manual_seed(SEED + 151)
+    clicks = [zipf_ids(torch, g, len(advertisers) * SLICE15_CM_IDS) for _ in range(SLICE15_CM_FLUSHES)]
+    ids_of = {n: i for i, n in enumerate(advertisers)}
+    registry.reset_launches()
+    shard_flush_ms, cm_per_flush = [], []
+    cm_inputs = None
+    for f, ids in enumerate(clicks):
+        for i, n in enumerate(advertisers):
+            cm.submit(n, ids[i * SLICE15_CM_IDS:(i + 1) * SLICE15_CM_IDS])
+        for s in cm._shards:
+            if f == SLICE15_CM_FLUSHES - 1 and s.shard_id == 0:  # the session axis's inputs at this flush
+                svc = s.service
+                own = sorted(svc._rows)
+                keys = torch.stack([ids[ids_of[n] * SLICE15_CM_IDS:(ids_of[n] + 1) * SLICE15_CM_IDS] for n in own])
+                before = svc._stacked["value"][[svc._rows[n] for n in own]].clone()
+                cm_inputs = (before, _key_bits(keys).contiguous(), torch.ones_like(keys), svc.template._seeds())
+            before_n = registry.launches()["countmin"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.service.drain()
+            torch.cuda.synchronize()
+            shard_flush_ms.append({"flush": f, "shard": s.shard_id, "ms": (time.perf_counter() - t0) * 1e3})
+            cm_per_flush.append(registry.launches()["countmin"] - before_n)
+    cm_replayed = registry.replayed_launches()["countmin"]
+    cm_shape = registry.launches_by_shape("countmin")
+    note_launches()
+    check(cm_per_flush == [1] * (shards * SLICE15_CM_FLUSHES),
+          f"slice 15 B: countmin ran {cm_per_flush} times a shard flush, not once")
+    check(cm_shape == {("sessions", (SLICE15_CM_TENANTS, SLICE15_CM_IDS, CLICK_DEPTH, 1024)): shards * SLICE15_CM_FLUSHES}
+          and cm_replayed == shards * (SLICE15_CM_FLUSHES - 1),
+          f"slice 15 B: countmin ran {cm_shape} ({cm_replayed} replayed), not the session axis once a shard flush")
+    host = [x.cpu().numpy() for x in clicks]
+    for n in advertisers[::max(1, len(advertisers) // SLICE15_CM_NUMPY)]:
+        svc = cm._shards[cm.shard_for(n)].service
+        i = ids_of[n]
+        ref = numpy_countmin(np.concatenate([x[i * SLICE15_CM_IDS:(i + 1) * SLICE15_CM_IDS] for x in host]),
+                             CLICK_DEPTH, 1024)
+        check(np.array_equal(svc._stacked["value"][svc._rows[n]].double().cpu().numpy(), ref),
+              f"slice 15 B: {n}'s table differs from numpy's count-min")
+    sess_got = countmin_update_sessions(*cm_inputs)
+    sess_ref = _countmin_sessions_plain(*cm_inputs)
+    registry.reset_launches()
+    check(torch.equal(sess_got, sess_ref), "slice 15 B: countmin's session axis differs from its plain version")
+    check(torch.equal(sess_got, cm._shards[0].service._stacked["value"][
+        [cm._shards[0].service._rows[n] for n in sorted(cm._shards[0].service._rows)]]),
+          "slice 15 B: shard 0's tables differ from the session axis on its last flush's inputs")
+    warm_shard = [r["ms"] for r in shard_flush_ms if r["flush"] > 0]
+    report["B_heavy_hitters"] = {
+        "shards": shards, "tenants_a_shard": SLICE15_CM_TENANTS, "ids_a_submit": SLICE15_CM_IDS,
+        "countmin_a_shard_flush": cm_per_flush, "shard_flush_ms": shard_flush_ms,
+        "warm_shard_flush_ms_median": statistics.median(warm_shard),
+        "slice14_warm_flush_ms_256_launches": 28.1, "max_abs_err": float((sess_got - sess_ref).abs().max()),
+    }
+    cm.shutdown()
+    del cm, clicks, host
+    laps.mark("3. slice 15 B: the heavy-hitter fleet")
+
+    # ----------------------------------------------------------- C. failover and membership
+    c_report = {}
+    with tempfile.TemporaryDirectory(prefix="slice15-") as root:
+        fc = ShardedMetricsService(make(), num_shards=shards, data_dir=os.path.join(root, "c"))
+        fs = ShardedMetricsService(make(), num_shards=shards, data_dir=os.path.join(root, "s"), standby=True)
+        twin = MetricsService(make())
+        c_names = fleet_names(fc.shard_for, shards, SLICE15_C_TENANTS, prefix="c")
+        g = torch.Generator(device=dev).manual_seed(SEED + 152)
+        c_rows = SLICE15_C_ROWS
+
+        def c_flush(fleets, times=1):
+            """``times`` flushes of every tenant on ``fleets`` (the path's launches), then the same on the twin
+            (the reference's, not counted)."""
+            for _ in range(times):
+                p, t = top1_scores(torch, g, len(c_names) * c_rows, c)
+                batches = [(n, p[i * c_rows:(i + 1) * c_rows], t[i * c_rows:(i + 1) * c_rows])
+                           for i, n in enumerate(c_names)]
+                for x in fleets:
+                    for batch in batches:
+                        x.submit(*batch)
+                    x.drain()
+                torch.cuda.synchronize()
+                note_launches()
+                for batch in batches:
+                    twin.submit(*batch)
+                twin.drain()
+                torch.cuda.synchronize()
+                registry.reset_launches()
+
+        c_flush((fc, fs), 3)
+        fc.checkpoint()
+        fs.replicate()
+        fs.replicate()
+        c_flush((fc, fs), 2)
+        # shard death: the next route to shard 1 finds it dead, fences its journal, replays it on a peer
+        victim = 1
+        zombie = fc._shards[victim].service
+        probe_name = next(n for n in c_names if fc.shard_for(n) == victim)
+        with faults.inject("shard-death", count=1, shard=victim):
+            t0 = time.perf_counter()
+            first = fc.compute(probe_name)
+            torch.cuda.synchronize()
+            death_ms = (time.perf_counter() - t0) * 1e3
+        note_launches()  # the fence, the replay on a peer and the read
+        event = fc.failover_events[-1]
+        twin_first = twin.compute(probe_name)
+        registry.reset_launches()
+        check(event["cause"] == "killed" and event["shard"] == victim and torch.equal(first, twin_first),
+              f"slice 15 C: the shard-death failover went wrong: {event}")
+        p0, t0_ = first_batch
+        try:
+            zombie.submit(probe_name, p0[:c_rows], t0_[:c_rows])
+            zombie.flush()
+            check(False, "slice 15 C: the zombie's write was not refused")
+        except StaleEpochError:
+            pass
+        digests_equal(fc, twin, "after shard death")
+        c_report["shard_death"] = {"failover_ms": event["ms"], "first_recovered_result_ms": death_ms,
+                                   "replayed_records": fc._shards[victim].service.stats["replayed_records"]}
+        # the standby fleet: promote the standby of shard 2, replaying only the unshipped tail
+        total = fs._shards[2].service.journal.last_seq
+        shipped = fs._standbys[2].applied_seq
+        fs.kill_shard(2)
+        fs.fail_over(2)
+        sevent = fs.failover_events[-1]
+        check(sevent["standby"] and 0 < sevent["replayed"] <= total - shipped,
+              f"slice 15 C: the standby promotion replayed {sevent.get('replayed')} records, the unshipped tail is "
+              f"{total - shipped}")
+        digests_equal(fs, twin, "after the standby promotion")
+        c_report["standby"] = {"failover_ms": sevent["ms"], "replayed": sevent["replayed"],
+                               "journal_records": total, "shipped": shipped}
+        # add a shard and rebalance: about a fifth of the sessions move, their digests the twin's
+        fc.add_shard()
+        t0 = time.perf_counter()
+        moved = fc.rebalance()["moved"]
+        torch.cuda.synchronize()
+        rebalance_ms = (time.perf_counter() - t0) * 1e3
+        check(0 < len(moved) <= 2 * len(c_names) // (shards + 1) and all(fc.shard_for(n) == shards for n in moved),
+              f"slice 15 C: the rebalance moved {len(moved)} of {len(c_names)} sessions")
+        digests_equal(fc, twin, "after the rebalance")
+        moved_values = fc.compute_all()
+        note_launches()
+        twin_values = twin.compute_all()
+        registry.reset_launches()
+        check(all(torch.equal(moved_values[n], twin_values[n]) for n in c_names),
+              "slice 15 C: a value after the rebalance differs from the twin's")
+        c_report["rebalance"] = {"moved": len(moved), "sessions": len(c_names), "ms": rebalance_ms}
+        # a network partition: the fabric fences and fails the shard over; the old side's writes bounce
+        part = 0
+        zombie = fc._shards[part].service
+        part_name = next(n for n in c_names if fc.shard_for(n) == part)
+        with faults.inject("network-partition", count=1, shard=part):
+            fc.compute(part_name)
+        pevent = fc.failover_events[-1]
+        check(pevent["cause"] == "partition" and pevent["shard"] == part, f"slice 15 C: partition event {pevent}")
+        try:
+            zombie.submit(part_name, p0[:c_rows], t0_[:c_rows])
+            zombie.flush()
+            check(False, "slice 15 C: the partitioned side's write was not refused")
+        except StaleEpochError:
+            pass
+        c_flush((fc,), 1)
+        digests_equal(fc, twin, "after the partition")
+        c_report["partition"] = {"failover_ms": pevent["ms"]}
+        fc.shutdown()
+        fs.shutdown()
+        # a slow shard: closed-loop requests, the slow one sleeping before each flush; the sweep quarantines it
+        slow_fleet = ShardedMetricsService(make(), num_shards=shards, data_dir=os.path.join(root, "slow"),
+                                           standby=True)
+        slow_names = fleet_names(slow_fleet.shard_for, shards, 8, prefix="q")
+        p, t = first_batch
+
+        def closed_loop(n_ops):
+            for i in range(n_ops):
+                n = slow_names[i % len(slow_names)]
+                svc = slow_fleet._route(n).service
+                svc.submit(n, p[:c_rows], t[:c_rows])
+                svc.flush()
+                svc.drain()
+            torch.cuda.synchronize()
+
+        # enough fast requests a shard that its p99 (about its 2nd longest) passes over a stray pause; the slow
+        # phase's requests are more than 1% of the slow shard's
+        closed_loop(SLICE15_SLOW_WARM * shards)
+        slow_fleet.replicate()
+        with faults.inject("shard-slow", count=10_000, shard=3, ms=SLICE15_SLOW_MS):
+            closed_loop(SLICE15_SLOW_OPS * shards)
+            suspects = slow_fleet.suspicion_sweep(min_requests=32)
+        p99s = {s.shard_id: s.service.slo_snapshot()["totals"]["e2e_us"]["p99"] for s in slow_fleet._shards}
+        check(suspects == [3] and slow_fleet.failover_events[-1]["cause"] == "suspect-slow",
+              f"slice 15 C: the suspicion sweep quarantined {suspects} (p99 µs by shard {p99s})")
+        c_report["slow_shard"] = {"quarantined": suspects, "p99_us_by_shard": p99s,
+                                  "failover_ms": slow_fleet.failover_events[-1]["ms"]}
+        slow_fleet.shutdown()
+    note_launches()
+    report["C_failover_and_membership"] = c_report
+    laps.mark("3. slice 15 C: failover and membership")
+
+    # ----------------------------------------------------------- D. time travel
+    with tempfile.TemporaryDirectory(prefix="slice15-tt-") as root:
+        tt = MetricsService(make(), journal_dir=os.path.join(root, "wal"), checkpoint_dir=os.path.join(root, "ckpt"),
+                            history=HistoryPolicy(keep_last=4, keep_per_interval_s=SLICE15_TT_INTERVAL_S))
+        tt_names = [f"e{i}" for i in range(SLICE15_TT_TENANTS)]
+        g = torch.Generator(device=dev).manual_seed(SEED + 153)
+        ops = []  # (name, preds, target) in journal order: op i is seq i + 1
+        rounds_ms = []
+        for r in range(SLICE15_TT_ROUNDS):
+            who = tt_names if r == 0 else [tt_names[(r * SLICE15_TT_ROUND_TENANTS + j) % len(tt_names)]
+                                           for j in range(SLICE15_TT_ROUND_TENANTS)]
+            p, t = top1_scores(torch, g, len(who) * SLICE15_TT_ROWS, c)
+            t0 = time.perf_counter()
+            for i, n in enumerate(who):
+                batch = (p[i * SLICE15_TT_ROWS:(i + 1) * SLICE15_TT_ROWS], t[i * SLICE15_TT_ROWS:(i + 1) * SLICE15_TT_ROWS])
+                tt.submit(n, *batch)
+                ops.append((n,) + batch)
+            tt.drain()
+            tt.checkpoint()
+            rounds_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        rungs = tt._ladder_rungs()
+        check(tt.stats["checkpoints"] == SLICE15_TT_ROUNDS and len(rungs) >= 4,
+              f"slice 15 D: {tt.stats['checkpoints']} checkpoints left {len(rungs)} rungs")
+        check(all(tt.journal.first_seq() <= fence + 1 for fence, _ in rungs), "slice 15 D: a rung lost its replay tail")
+        records = tt.journal.read_tail(0)
+        rung_ts = [float(tt._rung_meta(path)["ts"]) for _, path in rungs]
+        # instants inside the retained horizon: the rungs', and records' past the oldest rung's fence
+        later = [r for r in records if r.seq > rungs[0][0]]
+        instants = sorted(rung_ts[:3] + [later[len(later) // 3].ts, later[2 * len(later) // 3].ts,
+                                         later[-1].ts])[:SLICE15_TT_INSTANTS]
+        twin = MetricsService(make())
+        fed = 0
+        at_ms = []
+        for when in instants:
+            t0 = time.perf_counter()
+            scratch, fence = tt.service_at(when)
+            probe = min(scratch._rows, default=None)
+            value = None if probe is None else scratch.compute(probe)
+            torch.cuda.synchronize()
+            at_ms.append((time.perf_counter() - t0) * 1e3)
+            note_launches()  # the rebuild from a rung and its replay, and the read; the twin is the reference
+            for n, p_, t_ in ops[fed:fence]:
+                twin.submit(n, p_, t_)
+            fed = max(fed, fence)
+            twin.drain()
+            check(scratch.state_digest() == twin.state_digest(),
+                  f"slice 15 D: compute_at at fence {fence} differs from the twin at the same journal prefix")
+            check(value is None or torch.equal(value, twin.compute(probe)),
+                  f"slice 15 D: a value at fence {fence} differs from the twin's")
+            registry.reset_launches()
+            scratch.shutdown()
+        t1, t2 = later[len(later) // 4].ts, later[len(later) // 2].ts
+        picked = [r.seq for r in records if r.ts is not None and t1 < r.ts <= t2]
+        ranged = tt.compute_range(t1, t2)
+        torch.cuda.synchronize()
+        note_launches()
+        window = MetricsService(make())  # the reference: a service fed the window's records
+        for seq in picked:
+            window.submit(*ops[seq - 1])
+        window.drain()
+        window_values = window.compute_all()
+        check(sorted(ranged) == sorted(window_values) and all(torch.equal(ranged[n], window_values[n])
+                                                              for n in window_values),
+              "slice 15 D: compute_range differs from a service fed the window's records")
+        for n, p_, t_ in ops[fed:]:
+            twin.submit(n, p_, t_)
+        twin.drain()
+        torch.cuda.synchronize()
+        registry.reset_launches()
+        # a rung born corrupt: reads fall back to an older rung, scrub quarantines it
+        with faults.inject("history-corruption", count=1):
+            tt.checkpoint()
+        bad = tt._ladder_rungs()[-1][1]
+        with telemetry.instrument() as session:
+            scratch, fence = tt.service_at(time.time())
+        note_launches()
+        check(session.spans(name="degrade", kind="history") and scratch.state_digest() == twin.state_digest(),
+              "slice 15 D: a read past the corrupt rung did not fall back to a verified one")
+        registry.reset_launches()
+        scratch.shutdown()
+        report_scrub = tt.scrub()
+        check(report_scrub["quarantined"] == [bad] and os.path.exists(bad + ".quarantine"),
+              f"slice 15 D: scrub reported {report_scrub}")
+        report["D_time_travel"] = {
+            "tenants": SLICE15_TT_TENANTS, "checkpoints": tt.stats["checkpoints"], "rungs": len(rungs),
+            "journal_records_retained": len(records), "round_ms": rounds_ms, "compute_at_ms": at_ms,
+            "compute_range_records": len(picked), "scrub": {k: report_scrub[k] for k in ("checked", "newest_verified")},
+        }
+        tt.shutdown()
+        twin.shutdown()
+    note_launches()
+    laps.mark("3. slice 15 D: time travel")
+
+    # ----------------------------------------------------------- E. the subprocess crash matrix on the card
+    with tempfile.TemporaryDirectory(prefix="slice15-chaos-") as root:
+        env = dict(os.environ, METRICS_TPU_WAL_SEGMENT_BYTES="4096")
+        env.pop("METRICS_TPU_CRASH", None)
+        here = os.path.abspath(__file__)
+        nshards = SLICE15_SHARDS
+
+        def start(phase, work, shard, crash=None):
+            e = dict(env, METRICS_TPU_CRASH=crash) if crash else env
+            return subprocess.Popen([sys.executable, here, "--slice15-worker", phase, work, str(shard), str(nshards),
+                                     str(dev)], env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def finish(proc):
+            try:
+                out, err = proc.communicate(timeout=SLICE14_WORKER_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            return proc.returncode, out, err
+
+        def result(rc, out, err, what):
+            check(rc == 0, f"slice 15 E: the {what} worker failed (rc {rc}): {err[-2000:]}")
+            return json.loads(out.strip().splitlines()[-1])
+
+        procs = {("twin", k): start("run", os.path.join(root, "twin"), k) for k in range(nshards)}
+        for point, nth in SLICE15_CRASH_NTH.items():
+            procs[(point, 0)] = start("run", os.path.join(root, point), 0, crash=f"{point}:{nth}")
+        done = {key: finish(p) for key, p in procs.items()}
+        twin_fleet = {k: result(*done.pop(("twin", k)), f"twin shard {k}") for k in range(nshards)}
+        for (point, _), (rc, out, err) in done.items():
+            check(rc in (-9, 137) and not out.strip(),
+                  f"slice 15 E: crash point {point} did not kill shard 0 (rc {rc}): {err[-2000:]}")
+        recs = {p: start("recover", os.path.join(root, p), 0) for p in SLICE15_CRASH_NTH}
+        recovered = {p: result(*finish(proc), f"{p} recovery") for p, proc in recs.items()}
+    union = {}
+    for k in range(1, nshards):
+        union.update(twin_fleet[k]["values"])
+    twin_union = dict(union, **twin_fleet[0]["values"])
+    for point, got in recovered.items():
+        check(got["digest"] == twin_fleet[0]["digest"] and got["last_seq"] == twin_fleet[0]["last_seq"]
+              and dict(union, **got["values"]) == twin_union and got["epoch"] == 2,
+              f"slice 15 E: the fleet after {point} differs from the uncrashed twin fleet")
+    report["E_crash_matrix"] = {
+        "shards": nshards, "points": list(SLICE15_CRASH_NTH), "twin_last_seq": {k: v["last_seq"] for k, v in
+                                                                                  twin_fleet.items()},
+        "recovery_to_first_result_ms": {p: r["recovery_to_first_result_ms"] for p, r in recovered.items()},
+        "replayed_records": {p: r["replayed_records"] for p, r in recovered.items()},
+    }
+    laps.mark("3. slice 15 E: the crash matrix on the card")
+    new_degrades = {k: v - degrades0.get(k, 0) for k, v in resilience.degrades().items() if v != degrades0.get(k, 0)}
+    # the drills' own degrades: a history read past the corrupt rung and its scrub (D)
+    check(set(new_degrades) <= {"history"}, f"slice 15: an engine, the service or a fleet read degraded: {new_degrades}")
+    report["path_launches"] = {name: {"total": totals[name], "by_branch_and_shape": {str(k): v for k, v in
+                                                                                  by_shape15[name].items()}}
+                               for name in totals}
+    print(f"slice 15 ({card}): " + json.dumps(report, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)))
+    return totals, by_shape15, cm_inputs
+
+
 def main() -> int:
     import torch
 
@@ -3325,7 +3988,16 @@ def main() -> int:
     )
     from metrics_tpu_torch.ops.confusion import _lib as confusion_lib
     from metrics_tpu_torch.ops.retrieval import _WIDEN, L_MAX, _sorted_by_preds_kernel, _sorted_by_preds_plain, sort_branch
-    from metrics_tpu_torch.ops.sketch_ops import _countmin_kernel, _countmin_plain, countmin_uses_shared
+    from metrics_tpu_torch.ops.sketch_ops import (
+        _countmin_kernel,
+        _countmin_plain,
+        _countmin_sessions_plain,
+        as_u32_bits,
+        countmin_sessions_branch,
+        countmin_update_sessions,
+        countmin_uses_shared,
+        hash_u32,
+    )
     from metrics_tpu_torch.retrieval.base import _pad_by_query
     from metrics_tpu_torch.streaming.sketch import _key_bits
     from metrics_tpu_torch.ops.stat_scores import (
@@ -3629,6 +4301,21 @@ def main() -> int:
             check(all(torch.equal(countmin_update(value, bits, w, seeds), first) for _ in range(3)),
                   f"countmin's shared branch gave other bits on the same input at ({depth}, {width})")
             cases += 1
+    # the session axis: both branches, partial warps, one hot key, a session with no keys, integral weights exact
+    for sessions, n, depth, width in ((1, 1, 1, 1), (7, 37, 4, 1000), (64, 513, 8, 1023), (256, 4096, 4, 1024),
+                                      (4, CLICK_BATCH, 4, 65536), (3, 0, 4, 64)):
+        values = torch.randint(0, 50, (sessions, depth, width), generator=g, device=dev).float()
+        bits = torch.randint(-(2**31), 2**31 - 1, (sessions, n), generator=g, device=dev, dtype=torch.int32)
+        if n:
+            bits[:, ::3] = bits[:, :1].clone()
+        w = torch.randint(0, 3, (sessions, n), generator=g, device=dev).float()
+        seeds = torch.randint(-(2**31), 2**31 - 1, (depth,), generator=g, device=dev, dtype=torch.int32)
+        got = countmin_update_sessions(values, bits, w, seeds)
+        ref = _countmin_sessions_plain(values, bits, w, seeds)
+        check(torch.equal(got, ref), f"countmin's session axis differs from its plain version at ({sessions}, {n}, "
+              f"{depth}, {width})")
+        max_err["countmin"] = max(max_err["countmin"], float((got - ref).abs().max()))
+        cases += 1
     torch.cuda.synchronize()
     laps.mark("2. countmin grid")
     print(f"kernel vs plain: {cases} cases equal (fractional count-min weights: largest relative difference "
@@ -4590,6 +5277,9 @@ def main() -> int:
     # ------------------------------------------ 3m. slice 14: the serving stack
     slice14_launches, slice14_by_shape, session_inputs = run_slice14(torch, dev, laps)
 
+    # ------------------------------------------ 3n. slice 15: the serving fabric
+    slice15_launches, slice15_by_shape, cm_session_inputs = run_slice15(torch, dev, laps)
+
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000
     n = p.shape[0]
@@ -4683,21 +5373,23 @@ def main() -> int:
     }
     stat_path_by_shape = merged(stat_by_shape, coll_stat_by_shape, comp_stat_by_shape, engine_by_shape["stat_scores"],
                                 slice10_stat_by_shape, slice12_by_shape["stat_scores"], slice13_by_shape["stat_scores"],
-                                slice14_by_shape["stat_scores"])
+                                slice14_by_shape["stat_scores"], slice15_by_shape["stat_scores"])
     click_by_shape = merged(click_by_shape, engine_by_shape["countmin"], slice12_by_shape["countmin"],
-                            slice13_by_shape["countmin"], slice14_by_shape["countmin"])
+                            slice13_by_shape["countmin"], slice14_by_shape["countmin"], slice15_by_shape["countmin"])
     # slice 9's launches are the four ranks' together
     path_launches = {"stat_scores": counts["stat_scores"] + coll_launches["stat_scores"] + comp_launches["macro"]
                      + engine_path_launches["stat_scores"] + sync_launches["stat_scores"]
                      + slice10_launches["stat_scores"] + slice12_launches["stat_scores"]
-                     + slice13_launches["stat_scores"] + slice14_launches["stat_scores"],
+                     + slice13_launches["stat_scores"] + slice14_launches["stat_scores"]
+                     + slice15_launches["stat_scores"],
                      "confusion_matrix": counts["confusion_matrix"] + seg_launches + coll_launches["confusion_matrix"]
                      + engine_path_launches["confusion_matrix"] + sync_launches["confusion_matrix"]
                      + slice13_launches["confusion_matrix"],
                      "binned_stats": sum(binned_launches.values()),
                      "retrieval_sort": marco_launches + trec_launches + sync_launches["retrieval_sort"],
                      "countmin": click_launches + engine_path_launches["countmin"] + sync_launches["countmin"]
-                     + slice12_launches["countmin"] + slice13_launches["countmin"] + slice14_launches["countmin"]}
+                     + slice12_launches["countmin"] + slice13_launches["countmin"] + slice14_launches["countmin"]
+                     + slice15_launches["countmin"]}
     model_rows = {}
     for name, (kernel, plain, library, library_call, nbytes, ops, shape, yardstick) in timing.items():
         # the cost model's entry of this launch (slice 13): one call inside a session, its kernel event's terms;
@@ -4796,6 +5488,39 @@ def main() -> int:
             "yardstick_ms": device_ms(torch, lambda: flat_table.index_add_(0, flat_cells, cm_w_rep)),
             "bound_ms": c_bound, "bound_by": c_by,
         })
+    # the session axis at slice 15 B's shard flush (256 tables of 4 x 1024, 4,096 keys each): the kernel in turns with
+    # its plain version, beside index_add_ on the precomputed S * depth * n cells (the plain version's last call)
+    sv, sb, sw, ss = cm_session_inputs
+    s_s, s_n = sb.shape
+    s_depth, s_width = sv.shape[1:]
+    check(torch.equal(countmin_update_sessions(sv, sb, sw, ss), _countmin_sessions_plain(sv, sb, sw, ss)),
+          "countmin's session axis differs from its plain version at slice 15's flush")
+    with telemetry.instrument() as session:
+        countmin_update_sessions(sv, sb, sw, ss)
+    (event,) = session.spans(name="kernel")
+    s_cells = (hash_u32(as_u32_bits(sb)[:, None, :] ^ as_u32_bits(ss)[None, :, None]) % s_width
+               + torch.arange(s_depth, device=dev)[None, :, None] * s_width
+               + torch.arange(s_s, device=dev)[:, None, None] * (s_depth * s_width)).reshape(-1)
+    s_wts = sw[:, None, :].expand(-1, s_depth, -1).reshape(-1).contiguous()
+    s_table = torch.zeros(s_s * s_depth * s_width, device=dev)
+    sk_a, sp_a, sp_b, sk_b = (device_ms(torch, f) for f in (
+        lambda: countmin_update_sessions(sv, sb, sw, ss), lambda: _countmin_sessions_plain(sv, sb, sw, ss),
+        lambda: _countmin_sessions_plain(sv, sb, sw, ss), lambda: countmin_update_sessions(sv, sb, sw, ss)))
+    s_nbytes, s_ops = s_s * s_n * 8 + s_depth * 4 + 2 * s_s * s_depth * s_width * 4, s_s * s_n * s_depth * 11
+    s_bound, s_by = bound(s_nbytes, s_ops)
+    check(math.isclose(bound(event.attrs["model_bytes"], event.attrs["model_flops"])[0], s_bound, rel_tol=1e-12),
+          "countmin's session axis: the cost model's entry does not give the row's bound")
+    cm_rows.append({
+        "launch": "fleet shard flush (session axis)", "shape": {"S": s_s, "n": s_n, "depth": s_depth, "width": s_width},
+        "launches": at_shape(click_by_shape, (s_s, s_n, s_depth, s_width)),
+        "branch": launched_branch("countmin", lambda: countmin_update_sessions(sv, sb, sw, ss)),
+        "plan": countmin_sessions_branch(s_s, s_n, s_depth, s_width, dev),
+        "ms": (sk_a + sk_b) / 2, "plain_ms": (sp_a + sp_b) / 2,
+        "yardstick_ms": device_ms(torch, lambda: s_table.index_add_(0, s_cells, s_wts)),
+        "yardstick_call": "index_add_ on precomputed S * depth * n cells", "bound_ms": s_bound, "bound_by": s_by,
+        "bytes": s_nbytes, "ops": s_ops, "model_bytes": event.attrs["model_bytes"],
+        "model_flops": event.attrs["model_flops"],
+    })
     laps.mark("4. retrieval_sort and countmin at each shape")
 
     # stat_scores and binned_stats at each shape of their paths, each branch beside the plain version and
@@ -5117,4 +5842,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--slice14-worker"]:  # one process of slice 14's crash matrix (run_slice14)
         sys.exit(slice14_worker(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--slice15-worker"]:  # one shard process of slice 15's crash matrix (run_slice15)
+        sys.exit(slice15_worker(*sys.argv[2:7]))
     sys.exit(main())

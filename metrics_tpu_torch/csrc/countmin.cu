@@ -38,6 +38,22 @@
 //   sum into `out` (a copy of `value`) with one global float atomic. The order
 //   of the atomics varies, so fractional weights agree to float32 rounding;
 //   integral weights are exact.
+//
+// The session axis (`countmin_sessions_launch`) is what `jax.vmap` makes of the
+// TPU kernel in the JAX service's flush (metrics_tpu/serve.py:1493): S tables
+// (S, depth, width), each updated with its own keys (S, n) and weights (S, n)
+// under the one set of seeds, in one launch.
+//
+// * Sessions, when one table fits the opt-in shared-memory limit:
+//   `countmin_sessions_block` runs one block a session. As in the shared
+//   branch, each warp owns a private table in shared memory and adds its
+//   match_any groups with plain adds; the block then sums the warps' tables in
+//   warp order and writes out = value + the sum for its session with plain
+//   stores. No atomics and no workspace: deterministic, and exact for integral
+//   weights.
+// * Sessions-global, for wider tables: `out` is a copy of `value` and
+//   `countmin_sessions_global` adds each group's sum with one global float
+//   atomic, keys of all sessions spread over the grid.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -163,6 +179,82 @@ __global__ void __launch_bounds__(kThreads) countmin_global(const uint32_t* __re
   }
 }
 
+
+// One block a session: the warps' private tables, summed in warp order into out = value + sum.
+__global__ void __launch_bounds__(kThreads) countmin_sessions_block(const uint32_t* __restrict__ bits,
+                                                                    const float* __restrict__ w,
+                                                                    const uint32_t* __restrict__ seeds, int n,
+                                                                    int depth, int width,
+                                                                    const float* __restrict__ value,
+                                                                    float* __restrict__ out) {
+  extern __shared__ float4 s_tables4[];  // one table of `quads` float4s a warp, then 32 staged weights a warp
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cells = depth * width;
+  const int quads = (cells + 3) / 4;
+  float* mine = reinterpret_cast<float*>(s_tables4 + warp * quads);
+  float* s_w = reinterpret_cast<float*>(s_tables4 + warps * quads) + warp * 32;
+  for (int c = threadIdx.x; c < warps * quads; c += blockDim.x) s_tables4[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+  const size_t session = blockIdx.x;
+  const uint32_t* my_bits = bits + session * n;
+  const float* my_w = w + session * n;
+  const uint32_t uw = static_cast<uint32_t>(width);
+  for (int first = 0; first < n; first += blockDim.x) {
+    const int i = first + threadIdx.x;
+    const bool valid = i < n;
+    const uint32_t b = valid ? my_bits[i] : 0u;
+    s_w[lane] = valid ? my_w[i] : 0.0f;
+    __syncwarp();
+    for (int d = 0; d < depth; ++d) {
+      const uint32_t cell = valid ? hash_u32(b ^ __ldg(seeds + d)) % uw : kNoCell;
+      const unsigned group = __match_any_sync(kAll, cell);
+      if (valid && lane == __ffs(group) - 1) mine[d * width + cell] += group_sum(group, s_w);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  const float* v = value + session * cells;
+  float* o = out + session * cells;
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    const float* flat = reinterpret_cast<const float*>(s_tables4);
+    float sum = flat[c];
+    for (int k = 1; k < warps; ++k) sum += flat[static_cast<size_t>(k) * quads * 4 + c];
+    o[c] = v[c] + sum;
+  }
+}
+
+// The keys of every session over the grid; `table` holds a copy of the values.
+__global__ void __launch_bounds__(kThreads) countmin_sessions_global(const uint32_t* __restrict__ bits,
+                                                                     const float* __restrict__ w,
+                                                                     const uint32_t* __restrict__ seeds,
+                                                                     long long total, int n, int depth, int width,
+                                                                     float* __restrict__ table) {
+  __shared__ float s_w_all[kThreads];
+  float* s_w = s_w_all + (threadIdx.x / 32) * 32;
+  const int lane = threadIdx.x % 32;
+  const uint32_t uw = static_cast<uint32_t>(width);
+  const size_t cells = static_cast<size_t>(depth) * width;
+  const size_t stride = static_cast<size_t>(gridDim.x) * kThreads;
+  for (size_t first = static_cast<size_t>(blockIdx.x) * kThreads; first < static_cast<size_t>(total);
+       first += stride) {
+    const size_t i = first + threadIdx.x;
+    const bool valid = i < static_cast<size_t>(total);
+    const uint32_t b = valid ? bits[i] : 0u;
+    const size_t base = valid ? (i / n) * cells : 0;
+    s_w[lane] = valid ? w[i] : 0.0f;
+    __syncwarp();
+    for (int d = 0; d < depth; ++d) {
+      // the flat cell of (session, row, column); the whole table stays below 2^31 cells (the caller's check)
+      const uint32_t cell = valid ? static_cast<uint32_t>(base + static_cast<size_t>(d) * width +
+                                                          hash_u32(b ^ __ldg(seeds + d)) % uw)
+                                  : kNoCell;
+      const unsigned group = __match_any_sync(kAll, cell);
+      if (valid && lane == __ffs(group) - 1) atomicAdd(&table[cell], group_sum(group, s_w));
+    }
+    __syncwarp();
+  }
+}
+
 }  // namespace
 
 // The card's limits, from which the caller sizes the launch (device.cuh).
@@ -201,6 +293,38 @@ extern "C" int countmin_launch(const void* bits, const void* w, const void* seed
     cudaError_t err = cudaMemcpyAsync(o, v, 4LL * cells, cudaMemcpyDeviceToDevice, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     countmin_global<<<blocks, kThreads, 0, s>>>(b, wt, sd, n, depth, width, o);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The session axis: `bits` and `w` (sessions, n), `value` and `out` (sessions,
+// depth, width), all contiguous. With `warps` > 0 the sessions branch runs one
+// block of 32 * `warps` threads a session; with 0 the sessions-global branch
+// runs `blocks` blocks of 256 over all sessions' keys. Returns
+// cudaGetLastError() (0 on success).
+extern "C" int countmin_sessions_launch(const void* bits, const void* w, const void* seeds, int sessions, int n,
+                                        int depth, int width, const void* value, void* out, int warps, int blocks,
+                                        void* stream) {
+  if (sessions <= 0 || depth <= 0 || width <= 0) return 0;
+  const auto* b = static_cast<const uint32_t*>(bits);
+  const auto* wt = static_cast<const float*>(w);
+  const auto* sd = static_cast<const uint32_t*>(seeds);
+  const auto* v = static_cast<const float*>(value);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const long long cells = static_cast<long long>(sessions) * depth * width;
+  if (n <= 0) return static_cast<int>(cudaMemcpyAsync(o, v, 4LL * cells, cudaMemcpyDeviceToDevice, s));
+  if (warps > 0) {
+    const size_t bytes = static_cast<size_t>(warps) * (16 * ((static_cast<size_t>(depth) * width + 3) / 4) + 4 * 32);
+    cudaError_t err = cudaFuncSetAttribute(countmin_sessions_block, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    countmin_sessions_block<<<sessions, 32 * warps, bytes, s>>>(b, wt, sd, n, depth, width, v, o);
+  } else {
+    cudaError_t err = cudaMemcpyAsync(o, v, 4LL * cells, cudaMemcpyDeviceToDevice, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    countmin_sessions_global<<<blocks, kThreads, 0, s>>>(b, wt, sd, static_cast<long long>(sessions) * n, n, depth,
+                                                         width, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-"""Fault injection at the engines' and the serving stack's seams: port of
-``metrics_tpu/faults.py`` but for the fabric's fault classes.
+"""Fault injection at the engines', the serving stack's and the fabric's
+seams: port of ``metrics_tpu/faults.py``.
 
 A test activates a named fault, and the engines (:mod:`metrics_tpu_torch.dispatch`
 and the forward and collection paths built on it, the sync engine and the
@@ -33,6 +33,25 @@ fault name                where it fires
                           appender (param ``skew_s``, default 3600): the
                           ``ts`` headers go non-monotonic; nothing raises,
                           and every reader orders by ``seq``
+``shard-death``           a fabric shard stops answering its liveness probe
+                          (:mod:`metrics_tpu_torch.fabric`; param ``shard``,
+                          default any): the next route, probe or fleet read
+                          touching it marks it dead, and the fabric fences
+                          its journal and replays it on a peer
+``shard-slow``            gray failure: every flush of the targeted shard
+                          that found work sleeps ``ms`` (default 25) first
+                          (params ``shard``, ``ms``); nothing raises, and
+                          the suspicion sweep must quarantine it
+``network-partition``     the targeted shard (param ``shard``) is
+                          unreachable from the router while its host runs
+                          on: the fabric fences and fails it over, after
+                          which the old side's journaled writes raise
+                          ``StaleEpochError``
+``history-corruption``    a checkpoint-ladder rung is born bit-flipped on
+                          disk (a copy, so the head stays intact):
+                          ``scrub()`` quarantines it, and recovery and
+                          ``compute_at`` fall back to the newest verified
+                          rung
 ========================= ==============================================
 
 A fault is active inside :func:`inject` or, process-wide, through
@@ -41,11 +60,10 @@ A fault is active inside :func:`inject` or, process-wide, through
 Crash points (:data:`CRASH_POINTS`) kill the process with SIGKILL at one
 instruction of the serving stack, as a preemption or the OOM killer would:
 armed by :func:`crash` or ``METRICS_TPU_CRASH=<point>[:<nth>]``, the
-``nth`` probe of the point fires. The JAX package's sixth point,
-``mid-history-gc``, and the fabric's fault classes (``shard-slow``,
-``shard-death``, ``network-partition``, ``history-corruption``) come with
-the checkpoint ladder and the fabric (ROADMAP.md, Queue A item 11, part
-two).
+``nth`` probe of the point fires.
+
+The JAX package's ``cache-corruption`` class fires in its persistent program
+cache, which the port does not have (ROADMAP.md, Queue A item 13).
 """
 import os
 import random
@@ -56,6 +74,22 @@ from contextlib import contextmanager
 from typing import Any, Dict, Generator, List, Optional, Tuple
 
 import torch
+
+# the fault classes the port probes: the JAX package's (metrics_tpu/faults.py:140-154) less cache-corruption
+FAULT_NAMES = (
+    "compile",
+    "launch",
+    "collective",
+    "nan-input",
+    "state-corruption",
+    "oom",
+    "shard-death",
+    "shard-slow",
+    "network-partition",
+    "quant-corruption",
+    "history-corruption",
+    "clock-skew",
+)
 
 _ENV_VAR = "METRICS_TPU_INJECT_FAULT"
 
@@ -250,9 +284,8 @@ CRASH_POINTS = (
     "mid-flush",           # serve.flush: some waves launched, the rest pending
     "mid-checkpoint",      # serve.checkpoint: the payload written, not renamed
     "mid-truncate",        # wal.truncate: some retired segments unlinked
+    "mid-history-gc",      # serve.checkpoint: some expired ladder rungs unlinked
 )
-# the JAX package's points that come with a later part of the serving stack
-_DEFERRED_CRASH_POINTS = {"mid-history-gc": "the checkpoint ladder (ROADMAP.md, Queue A item 11, part two)"}
 
 _CRASH_ENV = "METRICS_TPU_CRASH"
 
@@ -266,9 +299,6 @@ def crash(after: str, nth: int = 1) -> None:
     the process (``METRICS_TPU_CRASH=<point>[:<nth>]`` does the same).
     ``nth=0`` disarms."""
     global _crash_spec
-    if after in _DEFERRED_CRASH_POINTS:
-        raise NotImplementedError(f"crash point {after!r} is not ported yet: it comes with "
-                                  f"{_DEFERRED_CRASH_POINTS[after]}")
     if after not in CRASH_POINTS:
         raise ValueError(f"unknown crash point {after!r}; choose from {CRASH_POINTS}")
     with _lock:

@@ -12,6 +12,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -19,6 +20,8 @@ _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
 SOURCES = ("stat_scores", "confusion", "binned_stats", "retrieval_sort", "countmin")
+# one build at a time in a process: threads (a fleet's shards) may reach a kernel's first launch together
+_BUILD_LOCK = threading.Lock()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 
@@ -71,4 +74,5 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built first if needed (the op
     modules keep the loaded handle)."""
-    return ctypes.CDLL(str(build([name])[name]))
+    with _BUILD_LOCK:
+        return ctypes.CDLL(str(build([name])[name]))

@@ -53,8 +53,9 @@ _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _replayed: Dict[str, int] = {name: 0 for name in KERNELS}
 _by_shape: Dict[str, Dict[Tuple[str, Tuple[int, ...]], int]] = {name: {} for name in KERNELS}
 _limits: Dict[torch.device, Tuple[int, int]] = {}
-# the launch lists of the captures under way, innermost last
-_recordings: List[List[Launch]] = []
+# the launch lists of the captures under way on each thread, innermost last: a shard's capture on one thread
+# must not write down another thread's eager launches
+_recording_stack = threading.local()
 
 _lock = threading.Lock()
 # owners whose programs or calls ran a kernel, and the cost keys met so far (an event's first=)
@@ -83,34 +84,45 @@ def note_launch(name: str, branch: str, shape: Tuple[int, ...], cost_key: Any = 
     event_name = EVENT_NAMES.get(name, name)
     if telemetry.telemetry_enabled():
         _note_engaged(event_name)
-    if _recordings:
-        _recordings[-1].append((name, branch, tuple(shape), float(flops), float(bytes_accessed)))
+    recordings = _recordings()
+    if recordings:
+        recordings[-1].append((name, branch, tuple(shape), float(flops), float(bytes_accessed)))
         return
     _count(name, branch, tuple(shape))
     record_cost(event_name, cost_key, flops, bytes_accessed)
 
 
+def _recordings() -> List[List[Launch]]:
+    stack = getattr(_recording_stack, "lists", None)
+    if stack is None:
+        stack = _recording_stack.lists = []
+    return stack
+
+
 def _count(name: str, branch: str, shape: Tuple[int, ...]) -> None:
-    _launches[name] += 1
-    _by_shape[name][(branch, shape)] = _by_shape[name].get((branch, shape), 0) + 1
+    with _lock:
+        _launches[name] += 1
+        _by_shape[name][(branch, shape)] = _by_shape[name].get((branch, shape), 0) + 1
 
 
 @contextmanager
 def recording() -> Iterator[List[Launch]]:
-    """Write down, and do not count, the launches of the block (a capture)."""
+    """Write down, and do not count, the launches this thread makes in the
+    block (a capture)."""
     launched: List[Launch] = []
-    _recordings.append(launched)
+    _recordings().append(launched)
     try:
         yield launched
     finally:
-        _recordings.remove(launched)
+        _recordings().remove(launched)
 
 
 def note_replay(launched: List[Launch]) -> None:
     """Count the launches a replayed graph ran (no cost entry, no event)."""
     for name, branch, shape, _, _ in launched:
         _count(name, branch, shape)
-        _replayed[name] += 1
+        with _lock:
+            _replayed[name] += 1
 
 
 def launches() -> Dict[str, int]:

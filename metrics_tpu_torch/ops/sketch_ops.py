@@ -11,6 +11,14 @@ table that fits a block's shared memory is added per warp in shared memory
 on one block an SM and reduced in a fixed order (deterministic, no atomics),
 a wider one with global atomics.
 
+The session axis, :func:`countmin_update_sessions`, is what ``jax.vmap``
+makes of the update in the JAX service's flush (``metrics_tpu/serve.py:1493``):
+``(S, depth, width)`` tables, each with its own ``(S, n)`` keys and weights
+under one set of seeds, in one launch (branch ``"sessions"``: a block a
+session, its warps' tables in shared memory summed in a fixed order; or
+``"sessions-global"``: global atomics, for tables past the shared limit). Its
+plain version is one ``index_add_`` over the ``S * depth * width`` cells.
+
 PyTorch has no full uint32 arithmetic on the CPU, so the port carries a
 uint32 bit pattern in an int32 tensor (``torch.uint32`` inputs are viewed
 the same way) and :func:`hash_u32` computes in int64, masking to 32 bits
@@ -40,6 +48,10 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     lib.countmin_launch.restype = ctypes.c_int
+    lib.countmin_sessions_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    )
+    lib.countmin_sessions_launch.restype = ctypes.c_int
     lib.countmin_error_string.argtypes = [ctypes.c_int]
     lib.countmin_error_string.restype = ctypes.c_char_p
     return lib
@@ -166,6 +178,128 @@ def countmin_update(value: Tensor, bits: Tensor, w: Tensor, seeds: Tensor) -> Te
             raise TypeError(f"countmin_update: `{name}` must be int32 or uint32, got {x.dtype}")
     return _countmin_kernel(
         value.to(torch.float32).contiguous(),
+        bits.view(torch.int32).contiguous(),
+        w.to(torch.float32).contiguous(),
+        seeds.view(torch.int32).contiguous(),
+    )
+
+
+def _countmin_sessions_plain(values: Tensor, bits: Tensor, w: Tensor, seeds: Tensor) -> Tensor:
+    """:func:`_countmin_plain` on each of S tables, as one ``index_add_`` over
+    the ``S * depth * width`` cells."""
+    sessions, depth, width = values.shape
+    h = hash_u32(as_u32_bits(bits)[:, None, :] ^ as_u32_bits(seeds)[None, :, None])  # (S, depth, n)
+    flat = ((h % width) + torch.arange(depth, device=values.device)[None, :, None] * width
+            + torch.arange(sessions, device=values.device)[:, None, None] * (depth * width))
+    weights = w.to(torch.float32)[:, None, :].expand(-1, depth, -1)
+    out = values.to(torch.float32).clone().reshape(-1)
+    out.index_add_(0, flat.reshape(-1), weights.reshape(-1))
+    return out.reshape(sessions, depth, width)
+
+
+def countmin_sessions_plan(sessions: int, n: int, depth: int, width: int, sms: int,
+                           shared_optin: int) -> Tuple[str, int, int]:
+    """``(branch, blocks, warps)`` of the session axis for ``sessions`` tables
+    of ``(depth, width)`` with ``n`` keys each: ``"sessions"`` when a table
+    (its stride rounded up to whole float4s) and a warp's 32 staged weights
+    fit ``shared_optin`` bytes, one block a session; else
+    ``"sessions-global"``, blocks of 256 threads over every session's keys, at
+    most 8 an SM.
+
+    A block's warps (up to 8, no more than its keys fill) are those that take
+    the fewest rounds of keys times waves of blocks, the most warps on a tie.
+    An SM holds as many blocks as its 2,048 threads and its shared memory
+    allow: ``shared_optin`` and the 1 KB the runtime keeps a block, which is
+    the SM's whole on sm_80 and sm_90. At 256 tables of 4 x 1024 with 4,096
+    keys each that is 7 warps, two blocks an SM, one wave: 63.5 µs on an H100
+    against 100.1 µs for 8 warps, one block an SM in two waves
+    (``tools/torch_countmin_sweep.py``)."""
+    table = 4 * (-(-depth * width // 4) * 4 + 32)
+    most = min(_MAX_WARPS, shared_optin // table, max(1, -(-n // 32)))
+    if most < 1:
+        return "sessions-global", max(1, min(8 * sms, -(-(sessions * n) // _GLOBAL_THREADS))), 0
+
+    def rounds(warps: int) -> int:
+        per_sm = min((shared_optin + 1024) // (warps * table + 1024), 2048 // (32 * warps))
+        return -(-sessions // (sms * per_sm)) * -(-n // (32 * warps))
+
+    return "sessions", sessions, min(range(most, 0, -1), key=rounds)
+
+
+def countmin_sessions_branch(sessions: int, n: int, depth: int, width: int, device: torch.device) -> str:
+    """The branch the session axis takes for these sizes on CUDA ``device``."""
+    return countmin_sessions_plan(sessions, n, depth, width, *_device_limits(torch.device(device)))[0]
+
+
+def _countmin_sessions_kernel(values: Tensor, bits: Tensor, w: Tensor, seeds: Tensor) -> Tensor:
+    """Launch the session axis of ``csrc/countmin.cu`` on canonical CUDA inputs."""
+    for name, x, dtype, ndim in (
+        ("values", values, torch.float32, 3),
+        ("bits", bits, torch.int32, 2),
+        ("w", w, torch.float32, 2),
+        ("seeds", seeds, torch.int32, 1),
+    ):
+        if x.dtype != dtype:
+            raise TypeError(f"countmin_update_sessions: `{name}` must be {dtype}, got {x.dtype}")
+        if x.ndim != ndim:
+            raise ValueError(f"countmin_update_sessions: `{name}` must be {ndim}-D, got shape {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"countmin_update_sessions: `{name}` must be contiguous")
+    sessions, depth, width = values.shape
+    n = bits.shape[1]
+    if bits.shape[0] != sessions or w.shape != bits.shape or seeds.shape[0] != depth:
+        raise ValueError(
+            f"countmin_update_sessions: {tuple(bits.shape)} keys with {tuple(w.shape)} weights into "
+            f"{tuple(values.shape)} tables, and {seeds.shape[0]} seeds"
+        )
+    if sessions * n >= 2**31 or sessions * depth * width >= 2**31:
+        raise ValueError(
+            f"countmin_update_sessions: {sessions} x {n} keys into {tuple(values.shape)} is beyond the kernel's"
+            " int32 indexing"
+        )
+    lib = _lib()
+    branch, blocks, warps = countmin_sessions_plan(sessions, n, depth, width, *_device_limits(values.device))
+    out = torch.empty_like(values)
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = lib.countmin_sessions_launch(
+            bits.data_ptr(), w.data_ptr(), seeds.data_ptr(), sessions, n, depth, width, values.data_ptr(),
+            out.data_ptr(), warps, blocks, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"countmin session-axis launch failed: {lib.countmin_error_string(err).decode()}")
+    # the single table's terms (countmin_update) for S tables: keys and weights read, the seeds read, every table
+    # read and written; the hash, the modulo and the add a key and row
+    registry.note_launch(_NAME, branch, (sessions, n, depth, width), cost_key=("sessions", sessions, n, depth, width),
+                         flops=11.0 * sessions * n * depth,
+                         bytes_accessed=8.0 * sessions * n + 4.0 * depth + 8.0 * sessions * depth * width)
+    return out
+
+
+def countmin_update_sessions(values: Tensor, bits: Tensor, w: Tensor, seeds: Tensor) -> Tensor:
+    """New ``(S, depth, width)`` tables after each absorbs its own batch:
+    :func:`countmin_update` on every session at once.
+
+    ``bits`` ``(S, n)`` are the keys' 32-bit patterns and ``seeds`` ``(depth,)``
+    one per table row (int32 or uint32); ``w`` ``(S, n)`` the weights (0 for
+    masked keys). Bit-identical between the kernel, the plain version and the
+    JAX package's vmapped ``countmin_update`` for integral weights; other
+    weights are summed in another order and agree to float32 rounding (the
+    kernel's sessions branch gives the same bits on every call on one device).
+    """
+    if values.ndim != 3 or bits.ndim != 2 or w.shape != bits.shape or bits.shape[0] != values.shape[0] \
+            or seeds.shape != values.shape[1:2]:
+        raise ValueError(
+            "countmin_update_sessions expects (S, depth, width) `values`, (S, n) `bits` and `w` and (depth,) "
+            f"`seeds`, got {tuple(values.shape)}, {tuple(bits.shape)}, {tuple(w.shape)} and {tuple(seeds.shape)}"
+        )
+    if not registry.use_kernel(values, bits, w, seeds):
+        return _countmin_sessions_plain(values, bits, w, seeds)
+    for name, x in (("bits", bits), ("seeds", seeds)):
+        if x.dtype not in (torch.int32, torch.uint32):
+            raise TypeError(f"countmin_update_sessions: `{name}` must be int32 or uint32, got {x.dtype}")
+    return _countmin_sessions_kernel(
+        values.to(torch.float32).contiguous(),
         bits.view(torch.int32).contiguous(),
         w.to(torch.float32).contiguous(),
         seeds.view(torch.int32).contiguous(),

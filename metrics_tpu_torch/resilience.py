@@ -164,6 +164,32 @@ class ResiliencePolicy:
         }
 
 
+def aggregate_policy_stats(stats_list: Any) -> Dict[str, Any]:
+    """Fold per-shard :meth:`ResiliencePolicy.stats` dicts into one fleet view
+    (:class:`metrics_tpu_torch.fabric.ShardedMetricsService`): counters sum,
+    ``cooldown`` is the longest live one, ``permanent`` is true if any shard's
+    is, ``last_cause`` the last cause in shard order."""
+    out: Dict[str, Any] = {
+        "demotions": 0,
+        "repromotions": 0,
+        "cooldown": 0,
+        "permanent": False,
+        "last_cause": None,
+        "shards": 0,
+    }
+    for stats in stats_list:
+        if not stats:
+            continue
+        out["shards"] += 1
+        out["demotions"] += int(stats.get("demotions", 0))
+        out["repromotions"] += int(stats.get("repromotions", 0))
+        out["cooldown"] = max(out["cooldown"], int(stats.get("cooldown", 0)))
+        out["permanent"] = out["permanent"] or bool(stats.get("permanent", False))
+        if stats.get("last_cause") is not None:
+            out["last_cause"] = stats["last_cause"]
+    return out
+
+
 def classify(err: BaseException) -> str:
     """The cause tag of an engine failure."""
     if isinstance(err, faults.InjectedFault):

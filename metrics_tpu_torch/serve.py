@@ -1,7 +1,6 @@
 """Serving: multi-tenant metric sessions as rows of stacked state.
 
-Port of ``metrics_tpu/serve.py`` without its checkpoint ladder and time
-travel (ROADMAP.md, Queue A item 11, part two). A :class:`MetricsService`
+Port of ``metrics_tpu/serve.py``. A :class:`MetricsService`
 is built from ONE template metric; every named session is a row of a
 stacked tensor per state leaf (``(capacity, *leaf_shape)``, on the
 template's device), and one launch advances every session of a flush.
@@ -37,6 +36,14 @@ template's device), and one launch advances every session of a flush.
   and ``__meta__`` JSON under crc32 checksums
   (:mod:`metrics_tpu_torch.utilities.checksums`), the JAX package's keys and
   meta, so a checkpoint of either package restores in the other.
+* **Time travel.** With ``history=HistoryPolicy(...)`` every checkpoint also
+  lands as an immutable ladder rung (``<ckpt>.rung-<fence>``, the same npz),
+  the journal's truncation floor is pinned to the oldest rung's fence, and
+  :meth:`~MetricsService.compute_at` / :meth:`~MetricsService.compute_range`
+  rebuild the service as of a wall-clock instant in a scratch service (a
+  rung, then the fenced journal replay). :meth:`~MetricsService.scrub`
+  verifies the ladder and quarantines (renames, never deletes) a rung that
+  fails; ``scrub_interval_s=`` runs it on a ``scrub-worker`` thread.
 * **Crash consistency.** With ``journal_dir``, every ``submit()`` appends a
   record to the write-ahead journal (:mod:`metrics_tpu_torch.wal`) before
   the request can be flushed; checkpoints embed the journal's high-water
@@ -69,6 +76,7 @@ import gc
 import hashlib
 import json
 import os
+import shutil
 import threading
 import time
 import zlib
@@ -103,8 +111,6 @@ _MIN_CAPACITY = 64
 
 _ADMISSION_POLICIES = ("block", "reject", "shed-oldest")
 
-_PART_TWO = "ROADMAP.md, Queue A item 11, part two"
-
 
 class QueueFullError(RuntimeError):
     """Admission control rejected a submit: the bounded queue is full and
@@ -128,14 +134,38 @@ _UNSET = object()
 
 
 class HistoryPolicy:
-    """Checkpoint-ladder retention for point-in-time reads: not ported yet.
+    """Checkpoint-ladder retention for point-in-time reads.
 
-    The ladder, ``history=`` and the time-travel reads come with the second
-    part of the serving stack (ROADMAP.md, Queue A item 11); building a
-    policy raises."""
+    With ``MetricsService(history=HistoryPolicy(...))`` every checkpoint also
+    lands as an immutable ladder rung (``<ckpt>.rung-<fence>``, the fence the
+    checkpoint's ``journal_seq``) beside the newest checkpoint, and the
+    journal's truncation floor is pinned to the oldest retained rung's fence,
+    so every rung keeps a contiguous replay tail.
+
+    Args:
+        keep_last: always retain the newest N rungs (N >= 1).
+        keep_per_interval_s: among older rungs, also keep the newest rung of
+            each wall-clock interval of this many seconds (``None``: older
+            rungs are collected outright).
+    """
+
+    __slots__ = ("keep_last", "keep_per_interval_s")
 
     def __init__(self, keep_last: int = 3, keep_per_interval_s: Optional[float] = None) -> None:
-        raise NotImplementedError(f"HistoryPolicy (the checkpoint ladder) is not ported yet ({_PART_TWO})")
+        self.keep_last = int(keep_last)
+        if self.keep_last < 1:
+            raise ValueError(f"keep_last must be >= 1, got {keep_last}")
+        self.keep_per_interval_s = None if keep_per_interval_s is None else float(keep_per_interval_s)
+        if self.keep_per_interval_s is not None and self.keep_per_interval_s <= 0:
+            raise ValueError(
+                f"keep_per_interval_s must be positive, got {keep_per_interval_s}"
+            )
+
+    def __repr__(self) -> str:
+        return (
+            f"HistoryPolicy(keep_last={self.keep_last}, "
+            f"keep_per_interval_s={self.keep_per_interval_s})"
+        )
 
 
 class ValueTicket:
@@ -380,6 +410,46 @@ class _StackedProgram:
         self.build: Optional[Tuple[str, float]] = None  # on the card, until the capture: the build's cause and start
 
 
+# one capture at a time in a process: a fleet's shards flush on a thread pool and may reach their first
+# launches together. Replays and eager work on other threads go on meanwhile (thread-local capture mode).
+_CAPTURE_LOCK = threading.Lock()
+
+
+def capture_graph(run: Callable[[], Any], pool: Any) -> Tuple[Any, Any, List[registry.Launch]]:
+    """Capture ``run`` into one CUDA graph on a side stream, in thread-local
+    mode, into the memory ``pool``: ``(graph, run's outputs, the registry
+    launches it made, written down)``. The capture runs nothing. Garbage
+    collection is off meanwhile (a graph freed during a capture spoils it)."""
+    with _CAPTURE_LOCK:
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with registry.recording() as launched, tracing(), \
+                    torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                values = run()
+            return graph, values, launched
+        finally:
+            if collecting:
+                gc.enable()
+
+
+def warm_run(side: Any, fn: Callable[[], Any]) -> Any:
+    """A program's warm-up run on the card: ``fn`` on the stream ``side``
+    after the current stream's queued work, with value checks skipped; its
+    outputs copied and ordered before the current stream's later work. It
+    builds the kernels and warms the allocator outside a capture."""
+    current = torch.cuda.current_stream(side.device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side), tracing():
+        out = copy_tensors(fn())
+    current.wait_stream(side)
+    for v in _flatten(out)[0]:
+        if isinstance(v, Tensor):
+            v.record_stream(current)
+    return out
+
+
 def _nbytes(t: Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -427,14 +497,17 @@ class MetricsService:
             expire instead of being served.
         flush_interval_s: with a value, a daemon ``flush-worker`` thread
             flushes every interval; :meth:`shutdown` stops it.
-        scrub_interval_s: the ladder's background scrubber: not ported yet
-            (a value raises).
+        scrub_interval_s: with a value, a daemon ``scrub-worker`` thread runs
+            :meth:`scrub` over the checkpoint ladder every interval (under the
+            flush lock); its run and error counts and its latest report are
+            ``telemetry_snapshot()["history"]``.
         shard_id, rid_offset, rid_stride, epoch: the shard this service hosts
             (a telemetry tag), its request-id lattice, and the journal's
             ownership epoch (:class:`~metrics_tpu_torch.wal.WriteAheadLog`).
         shard_capacity: an int ``N > 1`` returns a
             :class:`ShardedCapacityService` (N stacks, crc32 routing).
-        history: the checkpoint ladder: not ported yet (a value raises).
+        history: a :class:`HistoryPolicy` keeps a ladder of past checkpoints
+            for :meth:`compute_at`, :meth:`compute_range` and :meth:`scrub`.
     """
 
     def __new__(cls, *args: Any, **kwargs: Any) -> "MetricsService":
@@ -477,10 +550,10 @@ class MetricsService:
             )
         if not isinstance(template, Metric):
             raise TypeError(f"template must be a Metric, got {type(template).__name__}")
-        if history is not None:
-            raise NotImplementedError(f"history= (the checkpoint ladder) is not ported yet ({_PART_TWO})")
-        if scrub_interval_s is not None:
-            raise NotImplementedError(f"scrub_interval_s= (the ladder's scrubber) is not ported yet ({_PART_TWO})")
+        if history is not None and not isinstance(history, HistoryPolicy):
+            raise TypeError(
+                f"history must be a HistoryPolicy (or None), got {type(history).__name__}"
+            )
         defaults = template.default_state()
         for name, leaf in defaults.items():
             if isinstance(leaf, list):
@@ -505,7 +578,7 @@ class MetricsService:
         self.coalesce = coalesce and not isinstance(template, _StreamingWindow)
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = int(checkpoint_every)
-        self.history = None
+        self.history = history
         self.max_inflight = max(1, int(max_inflight))
         self.journal_dir = journal_dir
         self.max_queue = None if max_queue is None else max(1, int(max_queue))
@@ -589,6 +662,29 @@ class MetricsService:
             )
             self._flush_thread.start()
 
+        self.scrub_interval_s = scrub_interval_s
+        self._scrub_stats: Dict[str, Any] = {"runs": 0, "errors": 0, "last": None}
+        self._stop_scrub = threading.Event()
+        self._scrub_thread: Optional[threading.Thread] = None
+        if scrub_interval_s is not None:
+            self._scrub_thread = threading.Thread(
+                target=self._scrub_loop, name="scrub-worker", daemon=True
+            )
+            self._scrub_thread.start()
+
+    def _scrub_loop(self) -> None:
+        telemetry.set_thread_name("scrub-worker")
+        while not self._stop_scrub.wait(self.scrub_interval_s):
+            try:
+                # a rung is never verified while the periodic checkpoint inside flush() writes it
+                with self._flush_lock:
+                    report = self.scrub()
+                self._scrub_stats["runs"] += 1
+                self._scrub_stats["last"] = report
+            except Exception as err:  # noqa: BLE001 - the worker must survive a failed pass
+                self._scrub_stats["errors"] += 1
+                resilience.record_degrade(self.label, "history", err, stage="scrub-worker")
+
     def _flush_loop(self) -> None:
         telemetry.set_thread_name("flush-worker")
         while not self._stop_flush.wait(self.flush_interval_s):
@@ -600,12 +696,16 @@ class MetricsService:
                 resilience.record_degrade(self.label, "flush-worker", err)
 
     def shutdown(self) -> None:
-        """Stop the background flush worker (if any), then flush and retire
-        everything outstanding. Idempotent."""
+        """Stop the background flush and scrub workers (if any), then flush
+        and retire everything outstanding. Idempotent."""
         self._stop_flush.set()
+        self._stop_scrub.set()
         if self._flush_thread is not None:
             self._flush_thread.join(timeout=5.0)
             self._flush_thread = None
+        if self._scrub_thread is not None:
+            self._scrub_thread.join(timeout=5.0)
+            self._scrub_thread = None
         self.drain()
 
     # -------------------------------------------------------------- state rows
@@ -933,6 +1033,7 @@ class MetricsService:
                 self._queue_cond.notify_all()
             if not queued:
                 return 0
+            self._maybe_slow()
             now = time.monotonic()
             for req in queued:
                 req.queue_us = max(0.0, (now - req.t_enq) * 1e6)
@@ -969,6 +1070,19 @@ class MetricsService:
                 except Exception as err:  # noqa: BLE001 - checkpointing must never take serving down
                     resilience.record_degrade(self.label, "checkpoint", err)
             return served
+
+    def _maybe_slow(self) -> None:
+        """The ``shard-slow`` seam: while a spec targets this shard (param
+        ``shard``, default any), a flush that found work sleeps ``ms``
+        (default 25) first. The service stays correct, only slow."""
+        if not faults.any_active():
+            return
+        params = faults.fault_params("shard-slow")
+        target = params.get("shard")
+        if target is not None and self.shard_id is not None and int(target) != self.shard_id:
+            return
+        if faults.should_fire("shard-slow"):
+            time.sleep(float(params.get("ms", 25.0)) * 1e-3)
 
     def drain(self) -> None:
         """Barrier: flush the queue and wait until every launch retired."""
@@ -1397,21 +1511,14 @@ class MetricsService:
         program.inputs = [x.new_zeros((s_bucket, b_bucket) + tuple(x.shape[1:])) for x in lanes[0]]
         self._stage(program, idx, n_valid, lanes)
         cause, t0 = program.build
-        current = torch.cuda.current_stream(dev)
         if self._side_stream is None:
             self._side_stream = torch.cuda.Stream(dev)
-        side = self._side_stream
-        side.wait_stream(current)
         try:
-            with torch.cuda.stream(side), tracing():
-                served_vals = copy_tensors(program.body(self._phys, program.idx, program.n_valid, program.inputs))
+            served_vals = warm_run(self._side_stream,
+                                   lambda: program.body(self._phys, program.idx, program.n_valid, program.inputs))
         except Exception:
             program.idx = None  # nothing was served: the next launch of this program starts over
             raise
-        current.wait_stream(side)
-        for v in _flatten(served_vals)[0]:
-            if isinstance(v, Tensor):
-                v.record_stream(current)
         allocated = torch.cuda.memory_stats(dev).get("allocated_bytes.all.current", 0)
         try:
             self._capture(program, lambda: program.body(self._phys, program.idx, program.n_valid, program.inputs))
@@ -1430,18 +1537,7 @@ class MetricsService:
         runs nothing."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        # no garbage collection while capturing: a graph freed then could not be destroyed during the capture
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            graph = torch.cuda.CUDAGraph()
-            with registry.recording() as launched, tracing(), \
-                    torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-                program.values = run()
-            program.graph, program.launched = graph, launched
-        finally:
-            if collecting:
-                gc.enable()
+        program.graph, program.values, program.launched = capture_graph(run, self._pool)
 
     def _cache_put(self, key: Tuple, program: _StackedProgram) -> None:
         self._exec_cache[key] = program
@@ -1887,9 +1983,140 @@ class MetricsService:
                 journal_seq=fence,
             )
             self.stats["checkpoints"] += 1
+            if self.history is not None:
+                # the rung and the floor before the truncation: a retained rung keeps its replay tail
+                self._retain_rung(path, fence)
             if self._wal is not None:
                 self._wal.truncate(fence)
         return path
+
+    # ----------------------------------------------------- checkpoint ladder
+    @staticmethod
+    def _rung_path(path: str, fence: int) -> str:
+        return f"{path}.rung-{fence:020d}"
+
+    def _ladder_rungs(self, path: Optional[str] = None) -> List[Tuple[int, str]]:
+        """Retained (not quarantined) rungs as ``(fence, path)``, by fence;
+        empty without a checkpoint tier."""
+        try:
+            path = self._checkpoint_path(path)
+        except ValueError:
+            return []
+        directory = os.path.dirname(path) or "."
+        prefix = os.path.basename(path) + ".rung-"
+        try:
+            names = os.listdir(directory)
+        except FileNotFoundError:
+            return []
+        rungs: List[Tuple[int, str]] = []
+        for n in names:
+            if not n.startswith(prefix) or n.endswith(".quarantine"):
+                continue
+            try:
+                fence = int(n[len(prefix):])
+            except ValueError:
+                continue
+            rungs.append((fence, os.path.join(directory, n)))
+        rungs.sort()
+        return rungs
+
+    @staticmethod
+    def _rung_meta(rung_path: str) -> Dict[str, Any]:
+        """One rung's ``__meta__`` (``StateCorruptionError`` on anything
+        unreadable or damaged)."""
+        try:
+            with np.load(rung_path) as data:
+                payload = {k: data[k] for k in data.files}
+        except Exception as err:  # noqa: BLE001 - torn write, not-a-zip, ...
+            raise resilience.StateCorruptionError(
+                f"ladder rung {rung_path!r} is unreadable: {err}"
+            ) from err
+        verify_checksums(payload)
+        try:
+            return json.loads(bytes(payload["__meta__"]).decode())
+        except Exception as err:  # noqa: BLE001 - missing/garbled meta entry
+            raise resilience.StateCorruptionError(
+                f"ladder rung {rung_path!r} has a missing or garbled __meta__: {err}"
+            ) from err
+
+    def _pin_history_floor(self, path: Optional[str] = None) -> None:
+        """Pin the journal's ladder floor to the oldest retained rung's fence."""
+        if self._wal is None:
+            return
+        rungs = self._ladder_rungs(path)
+        self._wal.history_floor = rungs[0][0] if rungs else None
+
+    def _retain_rung(self, path: str, fence: int) -> None:
+        """Land the checkpoint just written as a rung, apply the retention
+        policy, and re-pin the journal floor."""
+        rung = self._rung_path(path, fence)
+        # the fault targets the rung alone, so it gets its own inode: a hard link would rot the head with it
+        corrupt = faults.should_fire("history-corruption")
+        if not os.path.exists(rung):
+            if corrupt:
+                shutil.copyfile(path, rung)
+            else:
+                try:
+                    os.link(path, rung)
+                except OSError:
+                    shutil.copyfile(path, rung)
+        if corrupt:
+            self._corrupt_rung_file(rung)
+        self._history_gc(path)
+        self._pin_history_floor(path)
+
+    @staticmethod
+    def _corrupt_rung_file(rung: str) -> None:
+        """At-rest bit rot, deterministic: four bytes flipped at the middle."""
+        try:
+            with open(rung, "r+b") as f:
+                f.seek(max(0, os.path.getsize(rung) // 2))
+                chunk = f.read(4)
+                f.seek(-len(chunk), os.SEEK_CUR)
+                f.write(bytes(b ^ 0xFF for b in chunk))
+        except OSError:
+            pass  # the fault is best-effort; a vanished rung is its own fault
+
+    def _history_gc(self, path: str) -> None:
+        """Keep the newest ``keep_last`` rungs, and among older ones the
+        newest of each ``keep_per_interval_s`` interval; unlink the rest
+        behind the ``mid-history-gc`` crash point (a kill mid-GC leaves extra
+        rungs, never a missing tail)."""
+        pol = self.history
+        assert pol is not None
+        rungs = self._ladder_rungs(path)
+        if len(rungs) <= pol.keep_last:
+            return
+        newest_first = list(reversed(rungs))
+        keep = {fence for fence, _ in newest_first[: pol.keep_last]}
+        if pol.keep_per_interval_s is not None:
+            seen_buckets: set = set()
+            for fence, rp in newest_first[pol.keep_last:]:
+                try:
+                    ts = self._rung_meta(rp).get("ts")
+                except resilience.StateCorruptionError:
+                    keep.add(fence)  # a damaged rung is scrub's to quarantine, not GC's to delete
+                    continue
+                bucket = None if ts is None else int(float(ts) // pol.keep_per_interval_s)
+                if bucket not in seen_buckets:
+                    seen_buckets.add(bucket)
+                    keep.add(fence)
+        removed = 0
+        for fence, rp in rungs:
+            if fence in keep:
+                continue
+            faults.crash_point("mid-history-gc", self.label)
+            try:
+                os.remove(rp)
+            except FileNotFoundError:
+                pass  # an earlier, interrupted GC removed it
+            removed += 1
+        if removed:
+            self.stats["history_rungs_gcd"] = self.stats.get("history_rungs_gcd", 0) + removed
+            telemetry.emit(
+                "checkpoint", self.label, "history-gc", stream="serve",
+                removed=removed, retained=len(rungs) - removed,
+            )
 
     def restore(
         self,
@@ -1962,13 +2189,41 @@ class MetricsService:
             self._wal.ensure_seq(fence)
             if replay:
                 self._replay_journal(fence)
+        if self.history is not None:
+            # a restored process inherits the ladder on disk: the floor is pinned before any truncation
+            self._pin_history_floor()
         return True
 
     def recover(self, path: Optional[str] = None) -> bool:
         """Crash recovery: :meth:`restore` tolerating a missing checkpoint
         (first boot) and always replaying the journal tail. Returns ``True``
-        when a checkpoint was installed."""
-        return self.restore(path, missing_ok=True, replay=True)
+        when a checkpoint was installed.
+
+        With a ladder (``history=``) a corrupt newest checkpoint does not end
+        recovery: it is quarantined (renamed, never deleted) with a
+        ``degrade`` span of kind ``history``, and recovery falls back to the
+        newest rung that verifies, replaying its longer journal tail."""
+        try:
+            return self.restore(path, missing_ok=True, replay=True)
+        except resilience.StateCorruptionError as err:
+            if self.history is None:
+                raise
+            bad = self._checkpoint_path(path)
+            if os.path.exists(bad):
+                os.replace(bad, bad + ".quarantine")
+            resilience.record_degrade(self.label, "history", err, stage="recover")
+            self.stats["quarantined_rungs"] = self.stats.get("quarantined_rungs", 0) + 1
+        for fence, rp in reversed(self._ladder_rungs(path)):
+            try:
+                return self.restore(rp, missing_ok=False, replay=True)
+            except resilience.StateCorruptionError as err:
+                os.replace(rp, rp + ".quarantine")
+                resilience.record_degrade(self.label, "history", err, stage="recover", rung=fence)
+                self.stats["quarantined_rungs"] = self.stats.get("quarantined_rungs", 0) + 1
+        # every rung failed: the journal alone (its floor kept the whole tail)
+        if self._wal is not None:
+            self._replay_journal(0)
+        return False
 
     def _replay_journal(self, fence: int) -> int:
         """Apply the journal tail above ``fence`` in sequence order through
@@ -2018,21 +2273,146 @@ class MetricsService:
         return len(records)
 
     # ------------------------------------------------------- time travel
+    def _boundary_seq(self, t: float, records: List[wal.WalRecord]) -> int:
+        """The sequence fence a wall-clock boundary ``t`` resolves to: the
+        highest seq whose record has ``ts <= t`` (a record without ``ts``
+        never moves it). Clocks skew (``clock-skew``), so ``t`` only picks a
+        fence: replay is then by seq, every record at or below it."""
+        fence = (self._wal.first_seq() - 1) if self._wal is not None else 0
+        for rec in records:
+            if rec.ts is not None and rec.ts <= t:
+                fence = max(fence, rec.seq)
+        return fence
+
+    def _scratch(self) -> "MetricsService":
+        # a journal-less service on a copy of the template: a pure update loads states into its template
+        return MetricsService(copy.deepcopy(self.template))
+
     def service_at(self, t: float) -> Tuple["MetricsService", int]:
-        """Point-in-time service: not ported yet (the checkpoint ladder)."""
-        raise NotImplementedError(f"service_at (time travel) is not ported yet ({_PART_TWO})")
+        """This service's state as of wall-clock ``t``, rebuilt in a
+        journal-less scratch service (live rows are never touched): returns
+        ``(scratch, fence)``. The newest readable rung at or below the fence,
+        then the journal records between the rung's fence and this one,
+        through the scratch's flush machinery. A rung that fails verification
+        is skipped with a ``degrade`` span of kind ``history`` (a read never
+        changes the ladder: quarantine is :meth:`scrub`'s), and the next
+        older rung carries the longer replay."""
+        records = self._wal.read_tail(0) if self._wal is not None else []
+        fence = self._boundary_seq(t, records)
+        scratch = self._scratch()
+        base_fence = 0
+        for rung_fence, rp in reversed(self._ladder_rungs()):
+            if rung_fence > fence:
+                continue
+            try:
+                scratch.restore(rp, missing_ok=False, replay=False)
+                base_fence = rung_fence
+                break
+            except resilience.StateCorruptionError as err:
+                resilience.record_degrade(self.label, "history", err, stage="read", rung=rung_fence)
+        scratch.apply_records([r for r in records if base_fence < r.seq <= fence])
+        return scratch, fence
 
     def compute_at(self, t: float, name: Optional[str] = None) -> Any:
-        """Point-in-time read: not ported yet (the checkpoint ladder)."""
-        raise NotImplementedError(f"compute_at (time travel) is not ported yet ({_PART_TWO})")
+        """Point-in-time read: the value of session ``name`` (else of every
+        session open at ``t``) as of wall-clock ``t``, from the ladder and the
+        fenced journal replay (:meth:`service_at`). Emits a ``read`` span of
+        kind ``time-travel``."""
+        t0 = telemetry.clock()
+        scratch, fence = self.service_at(t)
+        try:
+            out = scratch.compute(name) if name is not None else scratch.compute_all()
+        finally:
+            scratch.shutdown()
+        self.stats["time_travel_reads"] = self.stats.get("time_travel_reads", 0) + 1
+        telemetry.emit(
+            "read", self.label, "time-travel", t0=t0, stream="serve",
+            fence=fence, sessions=1 if name is not None else scratch.session_count,
+        )
+        return out
 
     def compute_range(self, t1: float, t2: float, name: Optional[str] = None) -> Any:
-        """Range read over the journal: not ported yet (time travel)."""
-        raise NotImplementedError(f"compute_range (time travel) is not ported yet ({_PART_TWO})")
+        """Range read: the value(s) over the updates whose journal ``ts``
+        lies in ``(t1, t2]``, replayed by seq into a fresh scratch service
+        (records without ``ts`` are left out). Emits a ``read`` span of kind
+        ``time-travel``."""
+        if t2 < t1:
+            raise ValueError(f"compute_range wants t1 <= t2, got ({t1}, {t2})")
+        t0 = telemetry.clock()
+        records = self._wal.read_tail(0) if self._wal is not None else []
+        picked = [r for r in records if r.ts is not None and t1 < r.ts <= t2]
+        scratch = self._scratch()
+        try:
+            scratch.apply_records(picked)
+            out = scratch.compute(name) if name is not None else scratch.compute_all()
+            sessions = 1 if name is not None else scratch.session_count
+        finally:
+            scratch.shutdown()
+        self.stats["time_travel_reads"] = self.stats.get("time_travel_reads", 0) + 1
+        telemetry.emit(
+            "read", self.label, "time-travel", t0=t0, stream="serve",
+            records=len(picked), sessions=sessions,
+        )
+        return out
 
     def scrub(self, path: Optional[str] = None, *, quarantine: bool = True) -> Dict[str, Any]:
-        """The ladder's integrity scrub: not ported yet (the checkpoint ladder)."""
-        raise NotImplementedError(f"scrub (the checkpoint ladder) is not ported yet ({_PART_TWO})")
+        """Verify every ladder rung and the live checkpoint end to end (the
+        archive's crc and meta, the template, and a journal tail that starts
+        right above the rung's fence and decodes). A rung that fails is
+        quarantined (renamed ``*.quarantine``, never deleted) with a
+        ``degrade`` span of kind ``history``; ``quarantine=False`` only
+        reports. Re-pins the journal floor; returns ``{"checked",
+        "verified", "quarantined", "newest_verified"}``."""
+        candidates: List[Tuple[Optional[int], str]] = list(self._ladder_rungs(path))
+        try:
+            head: Optional[str] = self._checkpoint_path(path)
+        except ValueError:
+            head = None
+        if head is not None and os.path.exists(head):
+            candidates.append((None, head))
+        verified: List[int] = []
+        bad: List[str] = []
+        for fence, rp in candidates:
+            err: Optional[Exception] = None
+            try:
+                meta = self._rung_meta(rp)
+                if meta["template"] != type(self.template).__name__:
+                    raise resilience.StateCorruptionError(
+                        f"rung {rp!r} holds {meta['template']} state, service "
+                        f"template is {type(self.template).__name__}"
+                    )
+                rung_fence = int(meta.get("journal_seq", 0))
+                if fence is not None and rung_fence != fence:
+                    raise resilience.StateCorruptionError(
+                        f"rung {rp!r} names fence {fence} but its meta says {rung_fence}"
+                    )
+                if self._wal is not None:
+                    if self._wal.first_seq() > rung_fence + 1:
+                        raise resilience.StateCorruptionError(
+                            f"rung {rp!r} (fence {rung_fence}) lost its replay "
+                            f"tail: journal starts at {self._wal.first_seq()}"
+                        )
+                    self._wal.read_tail(rung_fence)  # the tail decodes (frame crcs)
+            except resilience.StateCorruptionError as caught:
+                err = caught
+            if err is None:
+                verified.append(rung_fence)
+                continue
+            bad.append(rp)
+            resilience.record_degrade(
+                self.label, "history", err, stage="scrub", rung=os.path.basename(rp),
+            )
+            if quarantine:
+                os.replace(rp, rp + ".quarantine")
+                self.stats["quarantined_rungs"] = self.stats.get("quarantined_rungs", 0) + 1
+        if self.history is not None:
+            self._pin_history_floor(path)
+        return {
+            "checked": len(candidates),
+            "verified": sorted(verified),
+            "quarantined": bad,
+            "newest_verified": max(verified) if verified else None,
+        }
 
     # --------------------------------- elastic membership / replication
     def replication_floor(self) -> int:
@@ -2185,9 +2565,9 @@ class MetricsService:
 
     def telemetry_snapshot(self) -> Dict[str, Any]:
         """Service counters, resilience state, the journal's counters
-        (``None`` without one), memory, health, and the keys the JAX package
-        gives for its program cache and scrubber (zeros here: neither is
-        ported)."""
+        (``None`` without one), memory, health, the background scrubber's
+        run and error counts with its latest report (``"history"``), and the
+        JAX package's program-cache key (zeros here: not ported)."""
         from metrics_tpu_torch.metric import aot_cache_stats
 
         return {
@@ -2202,7 +2582,7 @@ class MetricsService:
             "wal": self._wal.stats() if self._wal is not None else None,
             "memory": self.memory_snapshot(),
             "health": self.health(),
-            "history": {"runs": 0, "errors": 0, "last": None},
+            "history": dict(self._scrub_stats),
         }
 
 
@@ -2364,6 +2744,37 @@ class ShardedCapacityService(MetricsService):
             for k, c in enumerate(self.shards)
         ]
         return any(got)
+
+    # ---------------------------------------------------------- time travel
+    def compute_at(self, t: float, name: Optional[str] = None) -> Any:
+        """Point-in-time read across the capacity shards: with ``name`` its
+        shard's, else the union of every shard's (each resolves ``t`` against
+        its own journal)."""
+        if name is not None:
+            return self._child(name).compute_at(t, name)
+        out: Dict[str, Any] = {}
+        for c in self.shards:
+            out.update(c.compute_at(t))
+        return out
+
+    def compute_range(self, t1: float, t2: float, name: Optional[str] = None) -> Any:
+        if name is not None:
+            return self._child(name).compute_range(t1, t2, name)
+        out: Dict[str, Any] = {}
+        for c in self.shards:
+            out.update(c.compute_range(t1, t2))
+        return out
+
+    def scrub(self, path: Optional[str] = None, *, quarantine: bool = True) -> Dict[str, Any]:
+        reports = [
+            c.scrub(None if path is None else f"{path}.shard{k}", quarantine=quarantine)
+            for k, c in enumerate(self.shards)
+        ]
+        return {
+            "checked": sum(r["checked"] for r in reports),
+            "quarantined": [p for r in reports for p in r["quarantined"]],
+            "shards": reports,
+        }
 
     # --------------------------------------------------------------- stats
     @property

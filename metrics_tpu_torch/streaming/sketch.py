@@ -27,7 +27,7 @@ geometry (``metrics_tpu/streaming/sketch.py:62-64, 129, 158, 331, 350, 415,
 438``).
 """
 import math
-from typing import Any, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -35,7 +35,7 @@ from torch import Tensor
 
 from metrics_tpu_torch import quant, telemetry
 from metrics_tpu_torch.aggregation import BaseAggregator
-from metrics_tpu_torch.ops.sketch_ops import as_u32_bits, countmin_update, hash_u32
+from metrics_tpu_torch.ops.sketch_ops import as_u32_bits, countmin_update, countmin_update_sessions, hash_u32
 from metrics_tpu_torch.utilities.checks import _is_traced
 
 __all__ = [
@@ -339,7 +339,8 @@ class CountMinHeavyHitters(BaseAggregator):
     of ``width`` counters with its own seed. :meth:`estimate` returns the
     row-wise minimum, an upper bound on the true (weighted) frequency that
     is never an underestimate. An update is one launch of the ``countmin``
-    kernel on the card.
+    kernel on the card; a service's flush of S such sessions is one launch of
+    its session axis.
 
     Example:
         >>> import torch
@@ -406,6 +407,34 @@ class CountMinHeavyHitters(BaseAggregator):
         else:
             weight = torch.full_like(value, float(weight))
         self._add(value, weight, mask)
+
+    # the multi-tenant service's stacked update (metrics_tpu_torch/serve.py): one launch for S sessions
+    def _stacked_masked_update(
+        self, rows: Dict[str, Tensor], sample_mask: Tensor, value: Tensor, weight: Union[float, Tensor] = 1.0
+    ) -> Optional[Dict[str, Tensor]]:
+        """S sessions' :meth:`_masked_update` at once: ``rows["value"]`` is
+        ``(S, depth, width)``, ``sample_mask`` and ``value`` ``(S, B)``, ``weight``
+        a number or an ``(S, B)`` tensor. Returns the new rows, each session's
+        equal to its own masked update, from one session-axis ``countmin``
+        launch; ``None`` where the inputs or the class take another path (the
+        caller then updates the sessions one by one). Decided from shapes and
+        the class alone: no value is read from the device."""
+        cls = type(self)
+        if cls._masked_update is not CountMinHeavyHitters._masked_update or cls._add is not CountMinHeavyHitters._add:
+            return None  # a subclass whose masked update this hook does not mirror
+        if not isinstance(value, Tensor) or value.ndim != 2 or sample_mask.shape != value.shape:
+            return None
+        if isinstance(weight, Tensor) and weight.shape != value.shape:
+            return None
+        value, mask = self._cast_and_nan_mask_input(value)
+        mask = mask & sample_mask
+        if isinstance(weight, Tensor):
+            weight = weight.to(torch.float32)
+        else:
+            weight = torch.full_like(value, float(weight))
+        bits = _key_bits(torch.where(mask, value, 0.0))
+        w = torch.where(mask, weight, 0.0)
+        return {"value": countmin_update_sessions(rows["value"], bits, w, self._seeds())}
 
     def estimate(self, keys: Union[float, Tensor]) -> Tensor:
         """Frequency upper bound per key (scalar or vector)."""

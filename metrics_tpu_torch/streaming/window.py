@@ -136,6 +136,37 @@ def _rows(mask: Tensor, like: Tensor) -> Tensor:
     return mask.reshape(mask.shape + (1,) * (like.ndim - 1))
 
 
+def fold_rows(metric: Metric, carry: Tuple[State, Tensor], rows: State, live: Tensor) -> Tuple[State, Tensor]:
+    """Continue the oracle fold of ``metric``'s states over the ``(m, ...)``
+    stacked ``rows`` (oldest first) where the ``(m,)`` bool mask ``live``
+    holds: a row where it is False adds exactly nothing. ``carry`` is
+    ``(acc, seen)``, ``seen`` the live rows folded so far: the running-mean
+    merge's ``count``, so each live row weighs equally and a count of 1 on the
+    first drops the fold's default seed exactly. Where every state is an
+    integer sum, max or min (a fold of any order), one masked reduction a
+    state; else the left fold, row by row. The windows' folds and the fleet
+    roll-up (:func:`metrics_tpu_torch.sync_engine.build_fleet_rollup`)."""
+    acc, seen = carry
+    if all(not a.is_floating_point() and not a.is_complex() and a.dtype != torch.bool
+           and metric._reductions[k] in _ORDER_FREE for k, a in acc.items()):
+        out = {}
+        for k, a in acc.items():
+            b, red = rows[k], metric._reductions[k]
+            if red is dim_zero_sum:
+                out[k] = a + torch.where(_rows(live, b), b, 0).sum(dim=0, dtype=a.dtype)
+            elif red is dim_zero_max:
+                out[k] = torch.maximum(a, torch.where(_rows(live, b), b, a).amax(dim=0))
+            else:
+                out[k] = torch.minimum(a, torch.where(_rows(live, b), b, a).amin(dim=0))
+        return out, seen + live.sum(dtype=torch.int32)
+    for j in range(live.shape[0]):
+        v = live[j]
+        seen = seen + v.to(torch.int32)
+        merged = metric.pure_merge(acc, {k: b[j] for k, b in rows.items()}, count=seen.clamp(min=1).to(torch.float32))
+        acc = {k: torch.where(v, merged[k], acc[k]) for k in acc}
+    return acc, seen
+
+
 def _live(gate: Optional[Tensor]) -> Union[int, Tensor]:
     """1 for an update, the 0-d int32 gate for a masked one."""
     return 1 if gate is None else gate.to(torch.int32)
@@ -185,48 +216,11 @@ class _StreamingWindow(Metric):
     def _zero_seen(self) -> Tensor:
         return torch.zeros((), dtype=torch.int32, device=self.device)
 
-    def _fold_step(self, carry: Tuple[State, Tensor], xs: Tuple[State, Tensor]) -> Tuple[Tuple[State, Tensor], None]:
-        """One step of the oracle fold: merge a bucket iff it holds updates,
-        with ``count`` the nonempty buckets folded so far (the running-mean
-        merge then weighs each bucket equally, and a count of 1 on the first
-        live bucket drops the fold's default seed exactly)."""
-        acc, seen = carry
-        bucket, c = xs
-        nonempty = c > 0
-        seen_new = seen + nonempty.to(torch.int32)
-        merged = self._inner.pure_merge(acc, bucket, count=seen_new.clamp(min=1).to(torch.float32))
-        acc = {k: torch.where(nonempty, merged[k], acc[k]) for k in acc}
-        return (acc, seen_new), None
-
-    def _order_free(self) -> bool:
-        """Whether every inner state is an integer sum, max or min, whose
-        fold is the same for any order of the buckets."""
-        return all(
-            not d.is_floating_point() and not d.is_complex() and d.dtype != torch.bool
-            and self._inner._reductions[k] in _ORDER_FREE
-            for k, d in self._inner_defaults.items()
-        )
-
     def _fold(self, carry: Tuple[State, Tensor], buckets: State, counts: Tensor) -> Tuple[State, Tensor]:
         """Continue the oracle fold over the ``(m, ...)`` stacked ``buckets``
-        (oldest first) and their ``(m,)`` update counts."""
-        acc, seen = carry
-        if self._order_free():
-            nonempty = counts > 0
-            out = {}
-            for k, a in acc.items():
-                b, red = buckets[k], self._inner._reductions[k]
-                if red is dim_zero_sum:
-                    out[k] = a + torch.where(_rows(nonempty, b), b, 0).sum(dim=0, dtype=a.dtype)
-                elif red is dim_zero_max:
-                    out[k] = torch.maximum(a, torch.where(_rows(nonempty, b), b, a).amax(dim=0))
-                else:
-                    out[k] = torch.minimum(a, torch.where(_rows(nonempty, b), b, a).amin(dim=0))
-            return out, seen + nonempty.sum(dtype=torch.int32)
-        carry = (acc, seen)
-        for j in range(counts.shape[0]):
-            carry, _ = self._fold_step(carry, ({k: b[j] for k, b in buckets.items()}, counts[j]))
-        return carry
+        (oldest first) and their ``(m,)`` update counts: a bucket that holds
+        no update adds nothing (:func:`fold_rows`)."""
+        return fold_rows(self._inner, carry, buckets, counts > 0)
 
     # --------------------------------------------------------------- device
     def to(self, device: Union[str, torch.device]) -> "_StreamingWindow":

@@ -47,13 +47,21 @@ of a ``sync`` entry of :mod:`metrics_tpu_torch.analysis.cost_model` whose
 bytes are the bucket's wire bytes (the JAX package lowers a probe program
 for its entry; a collective's model cost here is its bytes, no flops).
 
-Not ported here: the fleet reads (``metrics_tpu/sync_engine.py:613-811``,
-with the serving fabric, ROADMAP.md Queue A item 11, part two).
+The fleet reads (``metrics_tpu/sync_engine.py:600-811``) are the read-side
+twin of the buckets: :func:`build_fleet_read` gathers the requested session
+rows of every shard of a :class:`~metrics_tpu_torch.fabric.ShardedMetricsService`
+into one byte-packed buffer (leaves of mixed dtypes cross as raw bytes,
+``Tensor.view(torch.uint8)``: exact), unpacks it per leaf and evaluates every
+row; :func:`build_fleet_rollup` folds the rows into one state (pad lanes add
+nothing) and computes it once. Under ``sync_precision`` a float leaf may
+cross as q8 codes and scales (:mod:`metrics_tpu_torch.quant`). On the card
+the fabric captures each into one CUDA graph.
 """
 import os
 import time
-from typing import Any, Dict, Hashable, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Hashable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import Tensor
@@ -372,3 +380,171 @@ def execute_buckets(
             nbytes = int(buf.numel()) * wire.itemsize
         _account(stats, owner, t0, leaves, wire_name, op, nbytes, logical_nbytes, codec)
     return out
+
+
+# --------------------------------------------------------- fleet reads
+# A fleet read gathers the requested session rows of every shard into one byte-packed buffer (one concatenation),
+# then unpacks it per leaf and evaluates every row. Leaves of mixed dtypes share the buffer as raw bytes: a
+# reinterpretation, never a value cast.
+
+
+def _to_wire_bytes(x: Tensor) -> Tensor:
+    """``x`` as its uint8 bytes, flat (exact). bool crosses as one byte an element."""
+    if x.dtype == torch.bool:
+        return x.reshape(-1).to(torch.uint8)
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _from_wire_bytes(flat: Tensor, shape: Tuple[int, ...], dtype: torch.dtype) -> Tensor:
+    """Inverse of :func:`_to_wire_bytes` from a flat uint8 segment."""
+    if dtype == torch.bool:
+        return flat.reshape(shape).to(torch.bool)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if flat.storage_offset() % itemsize:
+        flat = flat.clone()  # a dtype view needs an aligned start
+    return flat.view(dtype).reshape(shape)
+
+
+def _fleet_codec(template: Any, name: str, dt: torch.dtype) -> Optional[quant.QuantCodec]:
+    """The fleet wire's codec for one leaf (``None``: full precision): q8 for a
+    float leaf of a template with ``sync_precision``, unless the leaf opted out
+    (``add_state(quantize=False)``) or ``METRICS_TPU_QUANT_SYNC=0``."""
+    if getattr(template, "sync_precision", None) is None or not quant.quant_enabled():
+        return None
+    if not (getattr(template, "_quantize", None) or {}).get(name, True):
+        return None
+    if dt.is_floating_point:
+        return quant.QuantCodec("q8")
+    return None
+
+
+def _leaf_wire_specs(
+    template: Any, names: List[str], m: Optional[int] = None
+) -> List[Tuple[str, Tuple[int, ...], torch.dtype, int, Optional[quant.QuantCodec]]]:
+    """``(name, row shape, dtype, full-precision wire bytes a row, codec)`` for
+    every state leaf. A codec needs the session bucket ``m`` (a leaf whose q8
+    segment would not be smaller crosses at full precision), so ``m=None``
+    always gives full precision."""
+    defaults = template.default_state()
+    specs = []
+    for k in names:
+        d = defaults[k]
+        dt = d.dtype
+        itemsize = 1 if dt == torch.bool else d.element_size()
+        row_elems = int(np.prod(tuple(d.shape), dtype=np.int64))
+        codec = None if m is None else _fleet_codec(template, k, dt)
+        if codec is not None:
+            count = row_elems * m
+            if quant.bucket_wire_nbytes(count, codec) >= count * itemsize:
+                codec = None  # quantizing this leaf would inflate the wire
+        specs.append((k, tuple(d.shape), dt, row_elems * itemsize, codec))
+    return specs
+
+
+def fleet_wire_sig(specs: List[Tuple]) -> Tuple[str, ...]:
+    """Per-leaf wire tags: part of a fleet program's key, so a codec change
+    never reuses a stale program."""
+    return tuple(quant.wire_tag(c, dtype_name(dt)) for _k, _sh, dt, _rb, c in specs)
+
+
+def fleet_wire_nbytes(specs: List[Tuple], n_shards: int, m: int) -> int:
+    """The bytes one fleet read packs."""
+    total = 0
+    for _k, shape, _dt, row_bytes, codec in specs:
+        if codec is None:
+            total += row_bytes * n_shards * m
+        else:
+            count = int(np.prod(shape, dtype=np.int64)) * m
+            total += quant.bucket_wire_nbytes(count, codec) * n_shards
+    return total
+
+
+def _pack_fleet_segments(specs: List[Tuple], shard_leaves: Tuple, shard_idx: Tuple, n_shards: int,
+                         block: int) -> Tensor:
+    """The packed byte buffer: leaf-major then shard, a quantised leaf as its
+    shards' q8 code segments followed by their scale segments. One
+    concatenation whatever the codecs."""
+    segs = []
+    for ki, (_k, _shape, _dt, _rb, codec) in enumerate(specs):
+        if codec is None:
+            for s in range(n_shards):
+                segs.append(_to_wire_bytes(shard_leaves[s][ki].index_select(0, shard_idx[s])))
+        else:
+            scale_segs = []
+            for s in range(n_shards):
+                q, scale = quant.encode_q8(shard_leaves[s][ki].index_select(0, shard_idx[s]), block=block)
+                segs.append(q.reshape(-1).view(torch.uint8))
+                scale_segs.append(scale.reshape(-1).view(torch.uint8))
+            segs.extend(scale_segs)
+    return segs[0] if len(segs) == 1 else torch.cat(segs)
+
+
+def _unpack_fleet_segments(packed: Tensor, specs: List[Tuple], n_shards: int, m: int, block: int) -> List[Tensor]:
+    """Per leaf, the ``(n_shards * m,) + shape`` rows of the packed buffer."""
+    leaves_rows = []
+    off = 0
+    for _k, shape, dt, row_bytes, codec in specs:
+        if codec is None:
+            size = n_shards * m * row_bytes
+            leaves_rows.append(_from_wire_bytes(packed[off: off + size], (n_shards * m,) + shape, dt))
+            off += size
+        else:
+            count = int(np.prod(shape, dtype=np.int64)) * m
+            nb = -(-count // block)
+            qsize = n_shards * nb * block
+            q = _from_wire_bytes(packed[off: off + qsize], (n_shards * nb, block), torch.int8)
+            off += qsize
+            ssize = n_shards * nb * 4
+            scales = _from_wire_bytes(packed[off: off + ssize], (n_shards * nb,), torch.float32)
+            off += ssize
+            vals = (q.to(torch.float32) * scales[:, None]).reshape(n_shards, nb * block)[:, :count]
+            leaves_rows.append(vals.reshape((n_shards * m,) + shape).to(dt))
+    return leaves_rows
+
+
+def build_fleet_read(template: Any, names: List[str], n_shards: int, m: int) -> Callable:
+    """A fleet read: ``fleet_read(shard_leaves, shard_idx)`` gathers ``m``
+    session rows from each of ``n_shards`` stacked services (``shard_leaves``
+    a tuple a shard of its leaf buffers in ``names`` order, ``shard_idx`` a
+    tuple of ``(m,)`` int64 row indices; pad lanes read a scratch row and
+    the caller drops them), crosses them as one packed byte buffer and
+    returns ``pure_compute`` of every row, stacked, row ``shard * m + lane``.
+    Under ``sync_precision`` eligible float leaves cross as q8 codes and
+    scales in the same buffer."""
+    from metrics_tpu_torch.serve import _stack_values
+
+    specs = _leaf_wire_specs(template, names, m=m)
+    block = quant.default_block()
+
+    def fleet_read(shard_leaves: Tuple, shard_idx: Tuple) -> Any:
+        packed = _pack_fleet_segments(specs, shard_leaves, shard_idx, n_shards, block)
+        rows = _unpack_fleet_segments(packed, specs, n_shards, m, block)
+        return _stack_values([template.pure_compute({k: r[i] for k, r in zip(names, rows)})
+                              for i in range(n_shards * m)])
+
+    return fleet_read
+
+
+def build_fleet_rollup(template: Any, names: List[str], n_shards: int, m: int) -> Callable:
+    """A fleet-wide roll-up: the packed gather of :func:`build_fleet_read`,
+    then one fold of the ``n_shards * m`` rows into one state and ONE
+    ``pure_compute``. ``fleet_rollup(shard_leaves, shard_idx, valid)`` takes
+    the ``(n_shards * m,)`` bool mask of live rows in packed order: a row
+    where it is False adds exactly nothing. The fold is the windows'
+    (:func:`metrics_tpu_torch.streaming.window.fold_rows`): one masked
+    reduction a leaf where every leaf is an integer sum, max or min, else the
+    JAX package's left fold of ``pure_merge`` in packed order, step for step."""
+    from metrics_tpu_torch.streaming.window import fold_rows
+
+    specs = _leaf_wire_specs(template, names, m=m)
+    block = quant.default_block()
+    defaults = template.default_state()
+
+    def fleet_rollup(shard_leaves: Tuple, shard_idx: Tuple, valid: Tensor) -> Any:
+        packed = _pack_fleet_segments(specs, shard_leaves, shard_idx, n_shards, block)
+        rows = dict(zip(names, _unpack_fleet_segments(packed, specs, n_shards, m, block)))
+        acc = {k: defaults[k].to(valid.device).clone() for k in names}
+        acc, _ = fold_rows(template, (acc, torch.zeros((), dtype=torch.int32, device=valid.device)), rows, valid)
+        return template.pure_compute(acc)
+
+    return fleet_rollup

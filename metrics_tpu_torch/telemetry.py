@@ -45,7 +45,19 @@ sketch     one sketch-aggregator operation on the eager path
 read       one window read: ``window-cached`` / ``window-rebuild`` (with
            the ``merges`` paid) and ``window-range``; and one serving read
            (:mod:`metrics_tpu_torch.serve`): ``memo-hit``, ``memo-miss``,
-           ``batch`` (a ``compute_all`` of its ``dirty`` rows)
+           ``batch`` (a ``compute_all`` of its ``dirty`` rows),
+           ``time-travel`` (a ``compute_at`` / ``compute_range``); and one
+           fabric read (:mod:`metrics_tpu_torch.fabric`): ``fleet`` /
+           ``rollup``, with ``shards``, ``dirty``, ``memoized`` and its
+           packed ``collectives`` (the packed gather itself is one
+           ``collective`` span of kind ``packed-read``)
+failover   one shard recovered on a peer (:mod:`metrics_tpu_torch.fabric`),
+           with its ``cause``, ``epoch``, ``peer``, ``ms`` and, for a
+           promoted standby, the records ``replayed``; ``handoff`` a
+           planned move of sessions, ``membership`` a shard added or
+           removed, ``replicate`` a journal ship or re-seed,
+           ``anti-entropy`` a standby's check, ``suspect`` a shard the
+           suspicion sweep quarantines
 request    one admitted ``submit()``'s flight record
            (:mod:`metrics_tpu_torch.serve`), from submit to retirement, on
            the submitting thread's lane: kinds ``served`` / ``fallback`` /

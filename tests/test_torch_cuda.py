@@ -1469,3 +1469,179 @@ def test_a_failed_capture_benches_the_stacked_path(card, monkeypatch):
     values = svc.compute_all()
     for i, ref in enumerate(refs):
         assert torch.equal(values[f"t{i}"], ref.compute())
+
+
+# ------------------------------------------------------------------ slice 15: countmin's session axis, the fabric
+@pytest.mark.parametrize("sessions,n,depth,width,integral", [
+    (1, 1, 1, 1, True), (7, 37, 4, 1000, True), (256, 4096, 4, 1024, True), (3, 0, 4, 64, True),
+    (5, 100, 8, 1023, True), (4, 65536, 4, 65536, True), (16, 4096, 4, 1024, False), (4, 4096, 4, 65536, False),
+])
+def test_countmin_session_axis_equals_plain(card, sessions, n, depth, width, integral):
+    from metrics_tpu_torch.ops import countmin_update_sessions
+    from metrics_tpu_torch.ops.sketch_ops import _countmin_sessions_plain, countmin_sessions_branch
+
+    g = torch.Generator(device=card).manual_seed(sessions * 7 + n)
+    values = torch.randint(0, 5, (sessions, depth, width), generator=g, device=card).float()
+    keys = torch.randint(0, 3000, (sessions, n), generator=g, device=card).float()
+    bits = keys.view(torch.int32)
+    w = (torch.randint(0, 3, (sessions, n), generator=g, device=card).float() if integral
+         else torch.rand(sessions, n, generator=g, device=card))
+    seeds = (torch.arange(depth, device=card, dtype=torch.int64) * 0x9E3779B9 + 1) & 0xFFFFFFFF
+    seeds = torch.where(seeds >= 2**31, seeds - 2**32, seeds).to(torch.int32)
+    reset_launches()
+    got = countmin_update_sessions(values, bits, w, seeds)
+    torch.cuda.synchronize()
+    branch = countmin_sessions_branch(sessions, n, depth, width, card)
+    assert launches()["countmin"] == 1
+    assert registry.launches_by_shape("countmin") == {(branch, (sessions, n, depth, width)): 1}
+    ref = _countmin_sessions_plain(values, bits, w, seeds)
+    if integral:
+        assert torch.equal(got, ref)
+    else:  # fractional weights summed in another order
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-5)
+    if branch == "sessions":  # no atomics: the same bits every call
+        assert torch.equal(countmin_update_sessions(values, bits, w, seeds), got)
+
+
+def test_countmin_service_is_one_session_axis_launch_a_flush(card):
+    from metrics_tpu_torch import CountMinHeavyHitters
+    from metrics_tpu_torch.serve import MetricsService
+
+    svc = MetricsService(CountMinHeavyHitters(depth=4, width=1024, device=card))
+    refs = [CountMinHeavyHitters(depth=4, width=1024, device=card) for _ in range(24)]
+    g = torch.Generator(device=card).manual_seed(90)
+    reset_launches()
+    flushes = [torch.randint(0, 5000, (24, 512), generator=g, device=card).float() for _ in range(3)]
+    for ids in flushes:
+        for i in range(24):
+            svc.submit(f"a{i}", ids[i])
+        svc.drain()
+    torch.cuda.synchronize()
+    assert launches()["countmin"] == 3 and registry.replayed_launches()["countmin"] == 2
+    assert registry.launches_by_shape("countmin") == {("sessions", (32, 512, 4, 1024)): 3}
+    assert svc.stats["launches"] == 3 and svc.stats["fallback_requests"] == 0
+    for ids in flushes:
+        for i, ref in enumerate(refs):
+            ref.update(ids[i])
+    for i, ref in enumerate(refs):
+        assert torch.equal(svc._stacked["value"][svc._rows[f"a{i}"]], ref.value)
+
+
+def _fleet_names(fab, per_shard):
+    """Session names that fill every shard of ``fab`` with ``per_shard`` sessions."""
+    names, counts, i = [], {s.shard_id: 0 for s in fab._shards}, 0
+    while min(counts.values()) < per_shard:
+        name, i = f"t{i}", i + 1
+        k = fab.shard_for(name)
+        if counts[k] < per_shard:
+            counts[k] += 1
+            names.append(name)
+    return names
+
+
+def test_four_shards_capture_concurrently_and_serve_the_cpus_values(card, tmp_path):
+    """The fleet read flushes the four shards on its thread pool: their first
+    captures run at once. Every capture stands, nothing degrades, and the
+    fleet equals the same stream on a CPU fabric."""
+    from metrics_tpu_torch import Accuracy, resilience
+    from metrics_tpu_torch.fabric import ShardedMetricsService
+
+    fab = ShardedMetricsService(Accuracy(num_classes=100, average="macro", device=card), num_shards=4,
+                                data_dir=str(tmp_path / "card"))
+    cpu = ShardedMetricsService(Accuracy(num_classes=100, average="macro", device="cpu"), num_shards=4)
+    names = _fleet_names(fab, 16)
+    degrades = sum(resilience.degrades().values())
+    batches = _service_batches(card, len(names), 3, seed=91)
+    with metrics_tpu_torch.telemetry.instrument() as session:
+        for flush in batches:
+            for name, (p, t) in zip(names, flush):
+                fab.submit(name, p, t)
+                cpu.submit(name, p.cpu(), t.cpu())
+            values = fab.compute_all()
+    torch.cuda.synchronize()
+    assert sum(resilience.degrades().values()) == degrades and not session.spans(name="degrade")
+    for s in fab._shards:
+        assert s.service.stats["launches"] == 3 and s.service.stats["fallback_requests"] == 0
+        assert any(p.graph is not None for p in s.service._exec_cache.values())
+    # the counts bit for bit; the macro mean of the card's values to float32 rounding of the CPU's
+    want = cpu.compute_all()
+    assert [s.service.state_digest() for s in fab._shards] == [s.service.state_digest() for s in cpu._shards]
+    for n in names:
+        torch.testing.assert_close(values[n].cpu(), want[n], rtol=1e-6, atol=0)
+
+
+def test_fleet_read_replays_one_graph_and_drops_it_when_rows_move(card, tmp_path):
+    """A warm fleet read is one graph replay with no ``fleet-read`` degrade; a
+    rebalance (and a failover) move rows to new buffers, and the graph that
+    read the old ones is gone: the next read captures anew and equals an
+    unmoved twin's values."""
+    from metrics_tpu_torch import Accuracy, resilience
+    from metrics_tpu_torch.fabric import ShardedMetricsService
+
+    make = lambda: Accuracy(num_classes=100, average="macro", device=card)  # noqa: E731
+    fab = ShardedMetricsService(make(), num_shards=3, data_dir=str(tmp_path / "fab"))
+    twin = ShardedMetricsService(make(), num_shards=3)
+    names = _fleet_names(fab, 8)
+    batches = _service_batches(card, len(names), 2, seed=92)
+    for flush in batches:
+        for name, (p, t) in zip(names, flush):
+            fab.submit(name, p, t)
+            twin.submit(name, p, t)
+    before = resilience.degrades().get("fleet-read", 0)
+    with metrics_tpu_torch.telemetry.instrument() as session:
+        first = fab.compute_all()
+        for name, (p, t) in zip(names, batches[0]):
+            fab.submit(name, p, t)
+            twin.submit(name, p, t)
+        replay = torch.cuda.CUDAGraph.replay
+        replays = []
+        try:
+            torch.cuda.CUDAGraph.replay = lambda self: (replays.append(self), replay(self))[1]
+            warm = fab.compute_all()
+        finally:
+            torch.cuda.CUDAGraph.replay = replay
+    assert len(session.spans(name="compile", kind="fleet-read")) == 1
+    (program,) = fab._fleet_programs.values()
+    assert program.graph in replays and resilience.degrades().get("fleet-read", 0) == before
+    want = twin.compute_all()
+    assert all(torch.equal(warm[n], want[n]) for n in names) and set(first) == set(names)
+    stale = set(fab._fleet_programs)
+    fab.add_shard()
+    fab.rebalance()
+    assert fab._fleet_programs == {}
+    moved = fab.compute_all()
+    assert all(torch.equal(moved[n], want[n]) for n in names) and not stale & set(fab._fleet_programs)
+    fab.kill_shard(0)
+    fab.fail_over(0)
+    assert fab._fleet_programs == {}
+    after = fab.compute_all()
+    assert all(torch.equal(after[n], want[n]) for n in names)
+    assert resilience.degrades().get("fleet-read", 0) == before
+    rolled, want_rolled = fab.rollup(), twin.rollup()
+    assert torch.equal(rolled, want_rolled)
+
+
+def test_a_capacity_doubling_drops_the_fleet_graph_of_the_old_buffers(card):
+    """A shard that outgrows its rows reallocates its buffers: the fleet graph
+    captured on the old ones can never replay again, and its next build drops
+    it (with its graph's memory) instead of keeping it beside the new one."""
+    from metrics_tpu_torch import Accuracy
+    from metrics_tpu_torch.fabric import ShardedMetricsService
+
+    make = lambda: Accuracy(num_classes=100, average="macro", device=card)  # noqa: E731
+    fab, twin = ShardedMetricsService(make(), num_shards=2), ShardedMetricsService(make(), num_shards=2)
+    few, many = _fleet_names(fab, 8), _fleet_names(fab, 100)  # 100 rows a shard: past 64, the buffers double
+    for group, seed in ((few, 93), (many, 94)):
+        for name, (p, t) in zip(group, _service_batches(card, len(group), 1, seed=seed)[0]):
+            fab.submit(name, p, t)
+            twin.submit(name, p, t)
+        fab.compute_all()
+        fab.rollup()
+        if group is few:
+            old = {k: p.graph for k, p in fab._fleet_programs.items()}
+            assert len(old) == 2 and all(g is not None for g in old.values())
+    assert len(fab._fleet_programs) == 2 and not set(old) & set(fab._fleet_programs)
+    got, want = fab.compute_all(), twin.compute_all()
+    assert sorted(got) == sorted(many) and all(torch.equal(got[n], want[n]) for n in many)
+    fab.shutdown()
+    twin.shutdown()

@@ -1,5 +1,6 @@
-"""Guards on the port's boundary: it imports neither JAX nor the JAX package,
-and ``chip_smoke.py`` fails (and claims nothing) where there is no card."""
+"""Guards on the port's boundary: it imports neither JAX nor the JAX package
+(nor do its tools, ``tools/torch_*.py``), and ``chip_smoke.py`` fails (and
+claims nothing) where there is no card."""
 import ast
 import os
 import subprocess
@@ -21,8 +22,10 @@ def _env():
 
 def test_import_leaves_jax_and_the_jax_package_out():
     code = (
-        "import sys, metrics_tpu_torch, metrics_tpu_torch.interop, metrics_tpu_torch.parallel,"
-        " metrics_tpu_torch.quant, metrics_tpu_torch.sync_engine\n"
+        "import sys, runpy, metrics_tpu_torch, metrics_tpu_torch.interop, metrics_tpu_torch.parallel,"
+        " metrics_tpu_torch.quant, metrics_tpu_torch.sync_engine, metrics_tpu_torch.fabric, metrics_tpu_torch.serve\n"
+        "for tool in ('tools/torch_wal_scrub.py', 'tools/torch_loadgen.py'):\n"
+        "    runpy.run_path(tool, run_name='tool')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'metrics_tpu' or m.startswith('metrics_tpu.')]\n"
         "print(bad)\n"
@@ -41,7 +44,8 @@ def _imported_modules(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"], ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + sorted((REPO / "tools").glob("torch_*.py"))
+                         + [REPO / "chip_smoke.py"], ids=lambda p: p.name)
 def test_no_jax_import_in_the_port(path):
     for name in _imported_modules(path):
         root = name.split(".")[0]

@@ -1047,18 +1047,28 @@ def test_epoch_fence_and_zombie_reads(tmp_path):
     assert float(svc.compute("t")) == 2.0
 
 
-# ------------------------------------------------------------- deferred parts
+# ----------------------------------------------------------- formerly deferred parts
+# Queue A item 11, part two, is ported: each part that raised naming it runs now, on a journaled service with a
+# checkpoint ladder that holds one update of 1.0 to session "t".
 @pytest.mark.parametrize("call", [
-    lambda svc: svc.compute_at(0.0),
-    lambda svc: svc.compute_range(0.0, 1.0),
-    lambda svc: svc.service_at(0.0),
-    lambda svc: svc.scrub(),
-    lambda svc: serve.HistoryPolicy(keep_last=2),
-    lambda svc: MetricsService(FloatSum(device="cpu"), history=object()),
-    lambda svc: MetricsService(FloatSum(device="cpu"), scrub_interval_s=1.0),
-    lambda svc: faults.crash("mid-history-gc"),
+    lambda svc: float(svc.compute_at(time.time())["t"]) == 1.0,
+    lambda svc: float(svc.compute_range(0.0, time.time())["t"]) == 1.0,
+    lambda svc: svc.service_at(time.time())[1] == 1,
+    lambda svc: svc.scrub()["quarantined"] == [],
+    lambda svc: serve.HistoryPolicy(keep_last=2).keep_last == 2,
+    lambda svc: svc.history is not None and svc._ladder_rungs() == [],
+    lambda svc: (lambda s: (s.shutdown(), s._scrub_thread is None)[1])(
+        MetricsService(FloatSum(device="cpu"), scrub_interval_s=1.0)),
+    lambda svc: (faults.crash("mid-history-gc"), faults.crash("mid-history-gc", nth=0),
+                 faults.crash_armed("mid-history-gc"))[2] is False,
 ], ids=["compute_at", "compute_range", "service_at", "scrub", "HistoryPolicy", "history", "scrub_interval_s",
         "mid-history-gc"])
-def test_deferred_parts_raise_naming_queue_a_item_11(call):
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        call(MetricsService(FloatSum(device="cpu")))
+def test_deferred_parts_raise_naming_queue_a_item_11(call, tmp_path):
+    """The parts once deferred to Queue A item 11's second part (they raised
+    ``NotImplementedError`` naming it) now run: each call succeeds. The name is
+    kept so that runs from before and after this change name the same test."""
+    svc = MetricsService(FloatSum(device="cpu"), journal_dir=str(tmp_path / "wal"),
+                         checkpoint_dir=str(tmp_path / "ckpt"), history=serve.HistoryPolicy(keep_last=2))
+    svc.update("t", torch.tensor([1.0]))
+    assert call(svc)
+    svc.shutdown()

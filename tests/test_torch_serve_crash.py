@@ -9,7 +9,7 @@ and values must equal an uncrashed twin's, and the JAX package's
 ``MetricsService`` fed the same stream. Checkpoints written by either
 package restore in the other, to equal digests.
 
-The five points' runs start together (one wave of kills, one of recoveries),
+The six points' runs start together (one wave of kills, one of recoveries),
 so the matrix costs about two subprocess lifetimes.
 
 Worker usage: ``python tests/test_torch_serve_crash.py {run|recover} WORKDIR {torch|jax}``
@@ -33,6 +33,8 @@ CRASH_NTH = {
     "mid-flush": 3,
     "mid-checkpoint": 2,
     "mid-truncate": 2,
+    # keep-last-1 ladder: the 2nd GC unlink happens inside the 3rd periodic checkpoint, mid-stream
+    "mid-history-gc": 2,
 }
 
 
@@ -64,7 +66,7 @@ def worker(phase, root, package):
         import torch
 
         from metrics_tpu_torch import Accuracy
-        from metrics_tpu_torch.serve import MetricsService
+        from metrics_tpu_torch.serve import HistoryPolicy, MetricsService
 
         template = Accuracy(num_classes=CLASSES, average="macro", device="cpu")
         as_array = torch.from_numpy
@@ -75,7 +77,7 @@ def worker(phase, root, package):
         import jax.numpy as jnp
 
         from metrics_tpu import Accuracy
-        from metrics_tpu.serve import MetricsService
+        from metrics_tpu.serve import HistoryPolicy, MetricsService
 
         template = Accuracy(num_classes=CLASSES, average="macro")
         as_array = jnp.asarray
@@ -84,7 +86,7 @@ def worker(phase, root, package):
             return np.asarray(v).tobytes().hex()
 
     svc = MetricsService(template, journal_dir=os.path.join(root, "wal"), checkpoint_dir=os.path.join(root, "ckpt"),
-                         checkpoint_every=2)
+                         checkpoint_every=2, history=HistoryPolicy(keep_last=1))
     start_seq = 0
     if phase == "recover":
         svc.recover()
