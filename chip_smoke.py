@@ -301,6 +301,34 @@
    every op): shard 0 SIGKILLed at each of the six crash points, then
    recovered in a fresh process, the fleet's union equal to the uncrashed
    twin fleet's.
+   Slice 16, the image metrics without a net (``metrics_tpu_torch.image`` and
+   ``functional.image``; no kernel of the registry runs), on images made on
+   the card from seeds: smooth 1/f-like fields in [0, 1] as targets (three
+   octaves of an upsampled random grid), the prediction the target plus
+   gaussian noise near 30 dB, clipped. A. Kodak (24 images of 3 x 512 x 768)
+   in batches of 4 through one ``MetricCollection`` of PSNR, SSIM, MS-SSIM and
+   UQI: the JAX package's two compute groups (``KODAK_GROUPS``), PSNR against
+   float64 over the 24, SSIM on a 96 x 96 crop and SSIM and UQI of the first
+   two images against float64 numpy, the first two images against the CPU run;
+   SSIM under cuDNN's default flags equal to SSIM with TF32 off, the flags as
+   the caller left them. B. Cityscapes val at full resolution (500 images of
+   3 x 1024 x 2048, batches of 4): ``PeakSignalNoiseRatio()`` eager and with
+   ``jit_update=True`` (one captured program, bit-equal to eager, an int64
+   count of 3,145,728,000 values and a finite value equal to the float64
+   closed form, where the JAX package's int32 count wraps), per-image PSNR
+   (``dim=(1, 2, 3)``, 500 values against float64), SSIM and MS-SSIM by
+   ``forward`` (the batch value a loop logs, the state reset after it) and
+   ``image_gradients``; a 256 x 256 crop against the CPU; each call's ms, host
+   syncs (none allowed) and peak memory, and SSIM's window convolution alone
+   against its bound. C. BraTS 2021 volumes (8 of the 219 validation cases, 4
+   modalities x 155 x 240 x 240; the cut is for time) through a 3-D SSIM by
+   ``forward``: each volume's ms and the convolution's against the 11^3
+   window's bound, the epoch's compute against the forwards' mean, a crop
+   against the CPU and float64 numpy. D. WorldView-3 (20 x 8 x 256 x 256) and
+   Indian Pines (1 x 200 x 145 x 145: 20,100 band pairs), endmember spectra
+   mixed by seeded abundance maps, through SAM, ERGAS (ratio 4) and
+   ``SpectralDistortionIndex``: SAM and ERGAS against float64 numpy, D-lambda
+   on a crop against the CPU, each compute's ms, peak memory and host syncs.
    Slice 9's ranks compute inside a session: on each, the ``collective``
    spans and their bytes equal ``sync_stats``. Before the ``kernels`` line
    each kernel's cost-model entry (``model_bytes``, ``model_flops``) must
@@ -465,6 +493,33 @@ SLICE15_TT_INTERVAL_S, SLICE15_TT_INSTANTS = 1.0, 6
 SLICE15_CHAOS_OPS, SLICE15_CHAOS_SESSIONS, SLICE15_CHAOS_ROWS = 64, 16, 16
 SLICE15_CRASH_NTH = {"post-journal": 6, "mid-journal-append": 6, "mid-flush": 2, "mid-checkpoint": 1,
                      "mid-truncate": 2, "mid-history-gc": 1}
+# slice 16: the image metrics without a net. A: Kodak (24 images of 3 x 512 x 768) in batches of 4 through one codec
+# evaluation collection; B: Cityscapes val at full resolution (500 images of 3 x 1024 x 2048, batches of 4); C: BraTS
+# 2021 validation volumes (four modalities x 155 x 240 x 240; 8 of the 219 cases, cut for time); D: WorldView-3
+# pan-sharpening as PanCollection's reduced-resolution test ships it (20 x 8 x 256 x 256) and Indian Pines (the 200
+# corrected AVIRIS bands of 145 x 145)
+KODAK_IMAGES, KODAK_SHAPE, IMAGE_BATCH, KODAK_CPU_IMAGES = 24, (3, 512, 768), 4, 2
+CITY_IMAGES, CITY_SHAPE, CITY_CPU_CROP = 500, (3, 1024, 2048), 256
+BRATS_VOLUMES, BRATS_SHAPE, BRATS_CPU_CROP = 8, (4, 155, 240, 240), (32, 48, 48)
+WV3_SHAPE, PINES_SHAPE, SPECTRAL_ENDMEMBERS = (20, 8, 256, 256), (1, 200, 145, 145), 5
+SPECTRAL_CPU_CROP, PINES_CPU_BANDS = 64, 16
+IMAGE_OCTAVES = ((64, 1.0), (16, 0.5), (4, 0.25))  # (grid cell in pixels, amplitude): a 1/f-like natural image
+IMAGE_NOISE = 0.0316  # the prediction's noise: about 30 dB PSNR on a [0, 1] range
+# the compute groups the JAX package forms for the Kodak collection (tests/test_torch_image_paths.py holds the port's
+# groups equal to them on the CPU)
+KODAK_GROUPS = {0: ["ms_ssim", "ssim", "uqi"], 1: ["psnr"]}
+# the tolerances: PSNR and ERGAS rtol 1e-5 and SAM atol 1e-3 (arccos near 0), as tests/test_torch_image.py holds the
+# port to the JAX package. The windowed values (SSIM, MS-SSIM, UQI) of these smooth full-size images: each float32 run
+# lands within 1.4e-5 of float64 numpy, the card's below and the CPU's above (the two convolutions round their 121-tap
+# sums differently; measured on an H100), so each is held to float64 at 2e-5 and the card to the CPU at 5e-5. A 3-D
+# SSIM's 1,331-tap sums: to float64 at
+# 1e-4 (the JAX package's own 3-D oracle tolerance, tests/image/test_image_params.py), two float32 runs at 2e-4
+RTOL16, SAM_ATOL16 = 1e-5, 1e-3
+F64_ATOL16, CARD_CPU_ATOL16 = 2e-5, 5e-5
+# D-lambda, a mean of |UQI differences| between bands whose windows hold little variance: against the float64 run of
+# the same formula at 2e-4 a device (9e-5 seen on the CPU), the card against the CPU at twice that
+SPECTRAL_F64_ATOL16 = 2e-4
+VOLUME_F64_ATOL16, VOLUME_CARD_CPU_ATOL16 = 1e-4, 2e-4
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -3934,6 +3989,443 @@ def run_slice15(torch, dev, laps):
     return totals, by_shape15, cm_inputs
 
 
+def natural_images(torch, g, n, shape, dev):
+    """``n`` images (or volumes) of ``shape`` (channels first) made on ``dev``:
+    three octaves of a seeded coarse grid (cells of 64, 16 and 4 pixels,
+    amplitudes 1/f-like), upsampled and summed, each image scaled to [0, 1]."""
+    import torch.nn.functional as F
+
+    c, *spatial = shape
+    mode = "bilinear" if len(spatial) == 2 else "trilinear"
+    out = torch.zeros((n, c, *spatial), device=dev)
+    for cell, amp in IMAGE_OCTAVES:
+        coarse = torch.rand(n, c, *(max(2, s // cell + 1) for s in spatial), generator=g, device=dev)
+        out += amp * F.interpolate(coarse, size=tuple(spatial), mode=mode, align_corners=True)
+    flat = out.reshape(n, -1)
+    lo, hi = flat.amin(1), flat.amax(1)
+    return ((flat - lo[:, None]) / (hi - lo)[:, None]).reshape(out.shape)
+
+
+def noisy(torch, g, target):
+    """The prediction: the target plus seeded gaussian noise near 30 dB, clipped to [0, 1]."""
+    return (target + IMAGE_NOISE * torch.randn(target.shape, generator=g, device=target.device)).clamp(0, 1)
+
+
+def spectral_images(torch, g, n, bands, h, w, dev):
+    """``(preds, target)`` of ``n`` images of ``bands`` bands: a few seeded
+    endmember spectra (smooth positive bumps over the band axis) mixed by
+    abundance maps (a softmax of natural images over the endmembers), so the
+    bands correlate; the prediction noisy at 30 dB of the band's scale,
+    floored at 1e-3 (ERGAS divides by a band's mean)."""
+    e = SPECTRAL_ENDMEMBERS
+    axis = torch.linspace(0, 1, bands, device=dev)
+    centres = torch.rand(e, 1, generator=g, device=dev)
+    widths = 0.1 + 0.3 * torch.rand(e, 1, generator=g, device=dev)
+    spectra = 0.1 + torch.exp(-(((axis - centres) / widths) ** 2))
+    abundance = torch.softmax(4 * natural_images(torch, g, n, (e, h, w), dev), dim=1)
+    target = (abundance[:, :, None] * spectra[None, :, :, None, None]).sum(1)
+    preds = (target + IMAGE_NOISE * torch.randn(target.shape, generator=g, device=dev)).clamp_min(1e-3)
+    return preds, target
+
+
+def numpy_windowed(preds, target, size, sigma, c1=None, c2=None):
+    """Float64 SSIM (UQI where ``c1`` and ``c2`` are None) of each image of
+    ``(B, C, *spatial)`` numpy arrays with a gaussian window of ``size`` taps
+    an axis: reflect-pad, valid correlation (the window is separable: one
+    axis at a time), crop ``slice(p, size - p)``, mean over channels and
+    pixels."""
+    x = np.arange(size, dtype=np.float64) - (size - 1) / 2
+    taps = np.exp(-(x**2) / (2 * sigma**2))
+    taps /= taps.sum()
+    dims = preds.ndim - 2
+    pads = [(size - 1) // 2] * dims
+
+    def correlate(x):
+        for axis in range(dims):
+            windows = np.lib.stride_tricks.sliding_window_view(np.moveaxis(x, axis, -1), size, axis=-1)
+            x = np.moveaxis(windows @ taps, -1, axis)
+        return x
+
+    out = []
+    for b in range(preds.shape[0]):
+        maps = []
+        for c in range(preds.shape[1]):
+            p = np.pad(preds[b, c].astype(np.float64), [(d, d) for d in pads], mode="reflect")
+            t = np.pad(target[b, c].astype(np.float64), [(d, d) for d in pads], mode="reflect")
+            mu_p, mu_t = correlate(p), correlate(t)
+            s_pp, s_tt = correlate(p * p) - mu_p**2, correlate(t * t) - mu_t**2
+            s_pt = correlate(p * t) - mu_p * mu_t
+            if c1 is None:
+                m = (4 * mu_p * mu_t * s_pt) / ((mu_p**2 + mu_t**2) * (s_pp + s_tt))
+            else:
+                m = ((2 * mu_p * mu_t + c1) * (2 * s_pt + c2)) / ((mu_p**2 + mu_t**2 + c1) * (s_pp + s_tt + c2))
+            maps.append(m[tuple(slice(d, n - d) for d, n in zip(pads, m.shape))])
+        out.append(np.mean(maps))
+    return np.asarray(out)
+
+
+def kodak_members(M, dev):
+    """The codec evaluation's collection: PSNR, SSIM and MS-SSIM on the
+    known [0, 1] range, and UQI."""
+    return M.MetricCollection({
+        "psnr": M.PeakSignalNoiseRatio(data_range=1.0, device=dev),
+        "ssim": M.StructuralSimilarityIndexMeasure(data_range=1.0, device=dev),
+        "ms_ssim": M.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=dev),
+        "uqi": M.UniversalImageQualityIndex(device=dev),
+    })
+
+
+def centre(shape, size):
+    """Slices of the central ``size`` (one a trailing dim) of ``shape``."""
+    return tuple(slice((n - k) // 2, (n - k) // 2 + k) for n, k in zip(shape[-len(size):], size))
+
+
+def window_bound(shape, taps):
+    """The least time (ms) of the five window statistics of images of
+    ``shape``: the two inputs read once; ``taps`` multiply-adds an output of
+    each statistic."""
+    n = math.prod(shape)
+    return bound(2 * n * 4, 5 * n * taps * 2)
+
+
+def peak_mib(torch, fn):
+    """Peak device memory (MiB) while ``fn`` runs, over what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def close(torch, got, want, what, **tol):
+    """``got`` (any device) against ``want``, NaN where NaN, at ``tol`` (absolute and relative)."""
+    torch.testing.assert_close(got.detach().cpu().double(), want.detach().cpu().double(), equal_nan=True,
+                               atol=tol.get("atol", 0.0), rtol=tol.get("rtol", 0.0),
+                               msg=lambda found: f"{what}: {found}")
+
+
+def run_slice16(torch, dev, laps):
+    """Slice 16 (see the module's docstring): returns the kernels' launches on
+    its path (all 0: no image metric reaches a kernel of the registry)."""
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch.functional.image.helper import _depthwise_conv, _gaussian_kernel_2d, _gaussian_kernel_3d
+    from metrics_tpu_torch.functional.image.d_lambda import pair_chunk
+    from metrics_tpu_torch.ops import launches, reset_launches
+
+    t_slice = time.perf_counter()
+    cpu = torch.device("cpu")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    report = {"card": card}
+    windowed = {"atol": CARD_CPU_ATOL16}
+    reset_launches()
+
+    # ------------------------------------------------------------ A. Kodak
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    target = natural_images(torch, g, KODAK_IMAGES, KODAK_SHAPE, dev)
+    preds = noisy(torch, g, target)
+    mc = kodak_members(M, dev)
+    for i in range(0, KODAK_IMAGES, IMAGE_BATCH):
+        mc.update(preds[i:i + IMAGE_BATCH], target[i:i + IMAGE_BATCH])
+    values = mc.compute()
+    check(mc.compute_groups == KODAK_GROUPS, f"the Kodak collection formed the groups {mc.compute_groups}, not the "
+          f"JAX package's {KODAK_GROUPS}")
+    check(all(bool(torch.isfinite(v)) for v in values.values()), f"a Kodak value is not finite: {values}")
+    p64, t64 = preds.double(), target.double()
+    psnr64 = float(10 * torch.log10(1.0 / ((p64 - t64) ** 2).mean()))
+    np.testing.assert_allclose(float(values["psnr"]), psnr64, rtol=RTOL16, err_msg="Kodak PSNR against float64")
+    crop = (slice(0, 2), slice(None), *centre(KODAK_SHAPE, (96, 96)))
+    ssim_crop = M.functional.structural_similarity_index_measure(preds[crop], target[crop], data_range=1.0,
+                                                                 reduction="none")
+    want = numpy_windowed(preds[crop].cpu().numpy(), target[crop].cpu().numpy(), 11, 1.5, c1=1e-4, c2=9e-4)
+    np.testing.assert_allclose(ssim_crop.cpu().numpy(), want, atol=F64_ATOL16,
+                               err_msg="Kodak SSIM on a 96 x 96 crop against float64 numpy")
+    # the TF32 guard: the default flag (on) gives the flag-off bits, and the caller's flag stays as it was
+    tf32_before = torch.backends.cudnn.allow_tf32
+    batch = (preds[:IMAGE_BATCH], target[:IMAGE_BATCH])
+    torch.backends.cudnn.allow_tf32 = True
+    on = M.functional.structural_similarity_index_measure(*batch, data_range=1.0, reduction="none")
+    check(torch.backends.cudnn.allow_tf32 is True, "SSIM left cuDNN's TF32 flag changed")
+    torch.backends.cudnn.allow_tf32 = False
+    off = M.functional.structural_similarity_index_measure(*batch, data_range=1.0, reduction="none")
+    check(torch.backends.cudnn.allow_tf32 is False, "SSIM left cuDNN's TF32 flag changed")
+    torch.backends.cudnn.allow_tf32 = True
+    check(torch.equal(on, off), "SSIM under the default cuDNN flags differs from SSIM with TF32 off")
+    pads = (5, 5, 5, 5)
+    pp, tp = (torch.nn.functional.pad(x, pads, mode="reflect") for x in batch)
+    stack = torch.cat((pp, tp, pp * pp, tp * tp, pp * tp))
+    kernel = _gaussian_kernel_2d(3, (11, 11), (1.5, 1.5), torch.float32, dev)
+    tf32_conv = torch.nn.functional.conv2d(stack, kernel, groups=3)  # cuDNN with TF32 allowed
+    report["A_tf32_conv_max_abs_diff"] = float((tf32_conv - _depthwise_conv(stack, kernel)).abs().max())
+    torch.backends.cudnn.allow_tf32 = tf32_before
+    del stack, tf32_conv, pp, tp
+    laps.mark("3. slice 16 A: Kodak on the card")
+    head = (preds[:KODAK_CPU_IMAGES], target[:KODAK_CPU_IMAGES])
+    on_card, on_cpu = kodak_members(M, dev), kodak_members(M, cpu)
+    on_card.update(*head)
+    on_cpu.update(*(x.cpu() for x in head))
+    card_head, cpu_head = on_card.compute(), on_cpu.compute()
+    for key, want in cpu_head.items():
+        close(torch, card_head[key], want, f"Kodak {key} (first {KODAK_CPU_IMAGES} images) against the CPU",
+              **({"rtol": RTOL16} if key == "psnr" else windowed))
+    head64 = [x.cpu().numpy() for x in head]
+    for key, c in (("ssim", (1e-4, 9e-4)), ("uqi", (None, None))):
+        want = float(numpy_windowed(*head64, 11, 1.5, *c).mean())
+        for where, got in (("card", card_head[key]), ("CPU", cpu_head[key])):
+            np.testing.assert_allclose(float(got), want, atol=F64_ATOL16,
+                                       err_msg=f"Kodak {key} (first {KODAK_CPU_IMAGES} images) on the {where} "
+                                       "against float64 numpy")
+    laps.mark("3. slice 16 A: Kodak on the CPU")
+    upd = (preds[-IMAGE_BATCH:], target[-IMAGE_BATCH:])
+    timed = kodak_members(M, dev)
+    timed.update(preds, target)  # the groups formed, then the epoch's 24 images in one state
+
+    def members_compute():
+        return [m._compute_impl() for m in timed.values(copy_state=False)]
+
+    report["A_kodak"] = {
+        "values": {k: float(v) for k, v in values.items()}, "psnr_float64": psnr64,
+        "groups": mc.compute_groups,
+        "collection_update_ms": host_ms(torch, lambda: mc.update(*upd), reps=5),
+        "collection_compute_ms": host_ms(torch, members_compute, reps=3),
+        "update_syncs": one_call_syncs(torch, lambda: mc.update(*upd))[0],
+        "compute_syncs": one_call_syncs(torch, members_compute)[0],
+        "compute_peak_mib": peak_mib(torch, members_compute),
+    }
+    check(report["A_kodak"]["update_syncs"] == 0 and report["A_kodak"]["compute_syncs"] == 0,
+          "a Kodak update or compute synchronised with the host")
+    print("slice 16 A, Kodak: " + json.dumps(report["A_kodak"]))
+    del mc, timed, on_card, preds, target, p64, t64
+    laps.mark("3. slice 16 A: Kodak timings")
+
+    # ------------------------------------------------- B. Cityscapes val, full resolution
+    g = torch.Generator(device=dev).manual_seed(SEED + 161)
+    psnr = M.PeakSignalNoiseRatio(device=dev)
+    engine = M.PeakSignalNoiseRatio(jit_update=True, device=dev)
+    per_image = M.PeakSignalNoiseRatio(data_range=1.0, dim=(1, 2, 3), reduction="none", device=dev)
+    ssim = M.StructuralSimilarityIndexMeasure(data_range=1.0, device=dev)
+    ms_ssim = M.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=dev)
+    sse64, per64 = torch.zeros((), dtype=torch.float64, device=dev), []
+    lo64 = torch.full((), math.inf, dtype=torch.float64, device=dev)
+    hi64 = torch.full((), -math.inf, dtype=torch.float64, device=dev)
+    ssim_vals, ms_vals, grad_sums = [], [], torch.zeros(2, dtype=torch.float64, device=dev)
+    first = None
+    for step in range(CITY_IMAGES // IMAGE_BATCH):
+        t = natural_images(torch, g, IMAGE_BATCH, CITY_SHAPE, dev)
+        p = noisy(torch, g, t)
+        if first is None:
+            first = (p[:1].clone(), t[:1].clone())
+        psnr.update(p, t)
+        engine.update(p, t)
+        per_image.update(p, t)
+        ssim_vals.append(ssim(p, t))
+        ssim.reset()  # the loop logs the batch value; 500 full-resolution images would hold 25 GB a metric
+        ms_vals.append(ms_ssim(p, t))
+        ms_ssim.reset()
+        dy, dx = M.functional.image_gradients(p)
+        grad_sums += torch.stack((dy.double().abs().sum(), dx.double().abs().sum()))
+        d = (p.double() - t.double()) ** 2
+        sse64 += d.sum()
+        per64.append(d.reshape(IMAGE_BATCH, -1).mean(1))
+        lo64 = torch.minimum(lo64, t.double().min())
+        hi64 = torch.maximum(hi64, t.double().max())
+    torch.cuda.synchronize()
+    laps.mark("3. slice 16 B: Cityscapes epoch on the card")
+    n_values = CITY_IMAGES * math.prod(CITY_SHAPE)
+    check(psnr.total.dtype == torch.int64 and int(psnr.total) == n_values,
+          f"Cityscapes PSNR counted {int(psnr.total)} values ({psnr.total.dtype}), not {n_values} in int64")
+    for key in psnr._defaults:
+        check(torch.equal(getattr(engine, key), getattr(psnr, key)),
+              f"the PSNR engine's {key} is not the eager update's bits")
+    value, engine_value, epoch_total = psnr.compute(), engine.compute(), int(psnr.total)
+    check(torch.equal(value, engine_value), "the PSNR engine's value is not the eager value's bits")
+    psnr_want = 10 * math.log10(float(hi64 - lo64) ** 2 / (float(sse64) / n_values))
+    check(bool(torch.isfinite(value)), f"Cityscapes PSNR over {n_values} values is not finite: {value}")
+    np.testing.assert_allclose(float(value), psnr_want, rtol=RTOL16, err_msg="Cityscapes PSNR against float64")
+    stats = engine.dispatch_stats
+    check(stats["dispatches"] == CITY_IMAGES // IMAGE_BATCH and stats["retraces"] == 1 and stats["demotions"] == 0,
+          f"the PSNR engine's stats {stats}")
+    programs = list(engine._dispatcher._cache.values())
+    check(len(programs) == 1 and len(programs[0].graphs) == 2, "the PSNR engine holds no captured program")
+    per_value = per_image.compute()
+    check(per_value.shape == (CITY_IMAGES,), f"per-image PSNR has the shape {tuple(per_value.shape)}")
+    np.testing.assert_allclose(per_value.cpu().numpy(), (-10 * torch.log10(torch.cat(per64))).cpu().numpy(),
+                               rtol=RTOL16, err_msg="per-image PSNR against float64")
+    ssim_vals, ms_vals = torch.stack(ssim_vals), torch.stack(ms_vals)
+    check(bool(((ssim_vals > 0) & (ssim_vals <= 1)).all() and ((ms_vals > 0) & (ms_vals <= 1)).all()),
+          "a Cityscapes SSIM or MS-SSIM batch value falls outside (0, 1]")
+    # the CPU on a 256 x 256 crop of the first image, against the card on the same crop
+    sl = (slice(None), slice(None), *centre(CITY_SHAPE, (CITY_CPU_CROP, CITY_CPU_CROP)))
+    fp, ft = first[0][sl], first[1][sl]
+    crop_card = {
+        "psnr": M.functional.peak_signal_noise_ratio(fp, ft),
+        "ssim": M.functional.structural_similarity_index_measure(fp, ft, data_range=1.0),
+        "ms_ssim": M.functional.multiscale_structural_similarity_index_measure(fp, ft, data_range=1.0),
+    }
+    fpc, ftc = fp.cpu(), ft.cpu()
+    crop_cpu = {
+        "psnr": M.functional.peak_signal_noise_ratio(fpc, ftc),
+        "ssim": M.functional.structural_similarity_index_measure(fpc, ftc, data_range=1.0),
+        "ms_ssim": M.functional.multiscale_structural_similarity_index_measure(fpc, ftc, data_range=1.0),
+    }
+    for key, want in crop_cpu.items():
+        close(torch, crop_card[key], want, f"Cityscapes {key} on a crop against the CPU",
+              **({"rtol": RTOL16} if key == "psnr" else windowed))
+    for a, b in zip(M.functional.image_gradients(fp), M.functional.image_gradients(fpc)):
+        check(torch.equal(a.cpu(), b), "image_gradients on the card differs from the CPU's")
+    laps.mark("3. slice 16 B: Cityscapes on the CPU")
+    t = natural_images(torch, g, IMAGE_BATCH, CITY_SHAPE, dev)
+    p = noisy(torch, g, t)
+    fresh = {"psnr eager": M.PeakSignalNoiseRatio(device=dev), "ssim": M.StructuralSimilarityIndexMeasure(
+        data_range=1.0, device=dev), "ms_ssim": M.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0,
+                                                                                           device=dev)}
+    calls = {
+        "psnr eager update": lambda: psnr.update(p, t),
+        "psnr engine update": lambda: engine.update(p, t),
+        "psnr dim update": lambda: per_image.update(p, t),
+        "psnr compute": psnr._compute_impl,
+        "psnr dim compute": per_image._compute_impl,
+        "ssim forward": lambda: (fresh["ssim"](p, t), fresh["ssim"].reset()),
+        "ssim update": lambda: (fresh["ssim"].update(p, t), fresh["ssim"].reset()),
+        "ms_ssim forward": lambda: (fresh["ms_ssim"](p, t), fresh["ms_ssim"].reset()),
+        "image_gradients": lambda: M.functional.image_gradients(p),
+    }
+    b_ms = host_ms_in_turns(torch, {k: calls[k] for k in ("psnr eager update", "psnr engine update")}, reps=10)
+    b_ms.update({k: host_ms(torch, fn, reps=5) for k, fn in calls.items() if k not in b_ms})
+    b_syncs = {k: one_call_syncs(torch, fn)[0] for k, fn in calls.items()}
+    check(not any(b_syncs.values()), f"a Cityscapes update, forward or compute synchronised with the host: {b_syncs}")
+    b_peak = {k: peak_mib(torch, fn) for k, fn in calls.items()}
+    # SSIM's window statistics alone (one depthwise convolution) and the whole SSIM, against the bound
+    pp, tp = (torch.nn.functional.pad(x, (5, 5, 5, 5), mode="reflect") for x in (p, t))
+    stack = torch.cat((pp, tp, pp * pp, tp * tp, pp * tp))
+    kernel = _gaussian_kernel_2d(3, (11, 11), (1.5, 1.5), torch.float32, dev)
+    conv_bound = window_bound(tuple(p.shape), 121)
+    conv = {"conv_ms": device_ms(torch, lambda: _depthwise_conv(stack, kernel), reps=10),
+            "ssim_ms": device_ms(torch, lambda: M.functional.structural_similarity_index_measure(p, t, data_range=1.0),
+                                 reps=10),
+            "bound_ms": conv_bound[0], "bound_by": conv_bound[1],
+            "shape": list(p.shape), "gflop": 5 * p.numel() * 121 * 2 / 1e9, "read_mb": 2 * p.numel() * 4 / 1e6}
+    del stack, pp, tp
+    report["B_cityscapes"] = {
+        "psnr": float(value), "psnr_float64": psnr_want, "total": epoch_total, "engine": stats,
+        "per_image_psnr_mean": float(per_value.mean()), "ssim_batch_mean": float(ssim_vals.mean()),
+        "ms_ssim_batch_mean": float(ms_vals.mean()), "gradient_abs_sums": grad_sums.tolist(),
+        "ms": b_ms, "syncs": b_syncs, "peak_mib": b_peak, "ssim_window": conv,
+    }
+    print("slice 16 B, Cityscapes: " + json.dumps(report["B_cityscapes"]))
+    del psnr, engine, per_image, ssim, ms_ssim, fresh, calls, p, t, first
+    laps.mark("3. slice 16 B: Cityscapes timings")
+
+    # ----------------------------------------------------------- C. BraTS 2021 volumes
+    g = torch.Generator(device=dev).manual_seed(SEED + 162)
+    ssim3d = M.StructuralSimilarityIndexMeasure(data_range=1.0, device=dev)
+    forward_ms, fwd_vals, vol0 = [], [], None
+    for _ in range(BRATS_VOLUMES):
+        t = natural_images(torch, g, 1, BRATS_SHAPE, dev)
+        p = noisy(torch, g, t)
+        vol0 = (p.clone(), t.clone()) if vol0 is None else vol0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd_vals.append(ssim3d(p, t))
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t0) * 1e3)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    epoch = ssim3d.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    epoch_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    fwd_vals = torch.stack(fwd_vals)
+    check(bool(((fwd_vals > 0) & (fwd_vals <= 1)).all()), f"a BraTS SSIM falls outside (0, 1]: {fwd_vals}")
+    close(torch, epoch, fwd_vals.mean(), "BraTS SSIM over the 8 volumes against the mean of their forward values",
+          atol=VOLUME_F64_ATOL16)
+    kernel3 = _gaussian_kernel_3d(BRATS_SHAPE[0], (11, 11, 11), (1.5, 1.5, 1.5), torch.float32, dev)
+    pp, tp = (torch.nn.functional.pad(x, (5,) * 6, mode="reflect") for x in vol0)
+    stack = torch.cat((pp, tp, pp * pp, tp * tp, pp * tp))
+    vol_bound = window_bound(tuple(vol0[0].shape), 1331)
+    report["C_brats"] = {
+        "ssim_by_volume": fwd_vals.tolist(), "ssim_epoch": float(epoch), "forward_ms_by_volume": forward_ms,
+        "conv_ms": device_ms(torch, lambda: _depthwise_conv(stack, kernel3), reps=3),
+        "bound_ms": vol_bound[0], "bound_by": vol_bound[1], "gflop": 5 * vol0[0].numel() * 1331 * 2 / 1e9,
+        "epoch_compute_ms": compute_ms, "epoch_compute_peak_mib": epoch_peak,
+        "forward_peak_mib": peak_mib(torch, lambda: ssim3d.forward(*vol0)),
+        "forward_syncs": one_call_syncs(torch, lambda: ssim3d.forward(*vol0))[0],
+    }
+    print("slice 16 C, BraTS: " + json.dumps(report["C_brats"]))
+    check(report["C_brats"]["forward_syncs"] == 0, "a BraTS SSIM forward synchronised with the host")
+    del stack, pp, tp, ssim3d
+    laps.mark("3. slice 16 C: BraTS on the card")
+    crop3 = (slice(None), slice(None), *centre(BRATS_SHAPE, BRATS_CPU_CROP))
+    cp, ct = vol0[0][crop3], vol0[1][crop3]
+    close(torch, M.functional.structural_similarity_index_measure(cp, ct, data_range=1.0),
+          M.functional.structural_similarity_index_measure(cp.cpu(), ct.cpu(), data_range=1.0),
+          "BraTS SSIM on a crop against the CPU", atol=VOLUME_CARD_CPU_ATOL16)
+    want3 = numpy_windowed(cp.cpu().numpy(), ct.cpu().numpy(), 11, 1.5, c1=1e-4, c2=9e-4)
+    np.testing.assert_allclose(float(M.functional.structural_similarity_index_measure(cp, ct, data_range=1.0)),
+                               want3.mean(), atol=VOLUME_F64_ATOL16, err_msg="BraTS SSIM on a crop against float64")
+    del vol0
+    laps.mark("3. slice 16 C: BraTS on the CPU")
+
+    # ------------------------------------------------------------ D. spectral
+    g = torch.Generator(device=dev).manual_seed(SEED + 163)
+    report["D_spectral"] = {}
+    for name, (n, bands, h, w) in (("worldview3", WV3_SHAPE), ("indian_pines", PINES_SHAPE)):
+        p, t = spectral_images(torch, g, n, bands, h, w, dev)
+        mods = {"sam": M.SpectralAngleMapper(device=dev), "ergas": M.ErrorRelativeGlobalDimensionlessSynthesis(
+            ratio=4, device=dev), "d_lambda": M.SpectralDistortionIndex(device=dev)}
+        for m in mods.values():
+            m.update(p, t)
+        ms, peak, syncs, vals = {}, {}, {}, {}
+        for key, m in mods.items():
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            vals[key] = m.compute()
+            torch.cuda.synchronize()
+            ms[key] = (time.perf_counter() - t0) * 1e3
+            peak[key] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            syncs[key] = one_call_syncs(torch, m._compute_impl)[0]
+        check(not any(syncs.values()), f"a {name} compute synchronised with the host: {syncs}")
+        d_lambda = float(vals["d_lambda"])
+        check(math.isfinite(d_lambda) and 0 <= d_lambda <= 1, f"{name} D-lambda {d_lambda} is not in [0, 1]")
+        p64, t64 = p.cpu().numpy().astype(np.float64), t.cpu().numpy().astype(np.float64)
+        cos = (p64 * t64).sum(1) / (np.linalg.norm(p64, axis=1) * np.linalg.norm(t64, axis=1))
+        sam64 = float(np.arccos(np.clip(cos, -1, 1)).mean())
+        pf, tf_ = p64.reshape(n, bands, -1), t64.reshape(n, bands, -1)
+        rmse = np.sqrt(((pf - tf_) ** 2).mean(-1))
+        ergas64 = float((100 * 4 * np.sqrt(((rmse / tf_.mean(-1)) ** 2).sum(1) / bands)).mean())
+        np.testing.assert_allclose(float(vals["sam"]), sam64, atol=SAM_ATOL16, err_msg=f"{name} SAM against float64")
+        np.testing.assert_allclose(float(vals["ergas"]), ergas64, rtol=RTOL16, err_msg=f"{name} ERGAS against float64")
+        # D-lambda on the CPU: a crop (and, for the 200 bands, the first 16) against the card on the same crop
+        cb = min(bands, PINES_CPU_BANDS)
+        sl = (slice(0, 2), slice(0, cb), slice(0, SPECTRAL_CPU_CROP), slice(0, SPECTRAL_CPU_CROP))
+        crop_card = M.functional.spectral_distortion_index(p[sl], t[sl])
+        crop_cpu = M.functional.spectral_distortion_index(p[sl].cpu(), t[sl].cpu())
+        crop64 = M.functional.spectral_distortion_index(p[sl].cpu().double(), t[sl].cpu().double())
+        for where, got in (("card", crop_card), ("CPU", crop_cpu)):
+            close(torch, got, crop64, f"{name} D-lambda on a crop on the {where} against float64",
+                  atol=SPECTRAL_F64_ATOL16)
+        close(torch, crop_card, crop_cpu, f"{name} D-lambda on a crop against the CPU", atol=2 * SPECTRAL_F64_ATOL16)
+        report["D_spectral"][name] = {
+            "shape": [n, bands, h, w], "pairs": bands * (bands + 1) // 2, "pairs_a_chunk": pair_chunk(t),
+            "values": {k: float(v) for k, v in vals.items()}, "sam_float64": sam64, "ergas_float64": ergas64,
+            "d_lambda_crop": {"card": float(crop_card), "cpu": float(crop_cpu), "float64": float(crop64)},
+            "compute_ms": ms, "compute_peak_mib": peak, "compute_syncs": syncs,
+        }
+        print(f"slice 16 D, {name}: " + json.dumps(report["D_spectral"][name]))
+        del p, t, mods
+    laps.mark("3. slice 16 D: spectral")
+
+    slice16_launches = launches()
+    check(all(n == 0 for n in slice16_launches.values()), f"slice 16 launched a kernel: {slice16_launches}")
+    report["launches"] = slice16_launches
+    report["command_s"] = time.perf_counter() - t_slice
+    print(f"slice 16 ({card}): " + json.dumps(report, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)))
+    return slice16_launches
+
+
 def main() -> int:
     import torch
 
@@ -5279,6 +5771,9 @@ def main() -> int:
 
     # ------------------------------------------ 3n. slice 15: the serving fabric
     slice15_launches, slice15_by_shape, cm_session_inputs = run_slice15(torch, dev, laps)
+
+    # ------------------------------------------ 3o. slice 16: the image metrics without a net
+    run_slice16(torch, dev, laps)
 
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000

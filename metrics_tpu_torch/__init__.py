@@ -37,6 +37,15 @@ from metrics_tpu_torch.classification.roc import ROC  # noqa: F401
 from metrics_tpu_torch.classification.specificity import Specificity  # noqa: F401
 from metrics_tpu_torch.classification.stat_scores import StatScores  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
+from metrics_tpu_torch.image import (  # noqa: F401
+    ErrorRelativeGlobalDimensionlessSynthesis,
+    MultiScaleStructuralSimilarityIndexMeasure,
+    PeakSignalNoiseRatio,
+    SpectralAngleMapper,
+    SpectralDistortionIndex,
+    StructuralSimilarityIndexMeasure,
+    UniversalImageQualityIndex,
+)
 from metrics_tpu_torch.metric import CompositionalMetric, Metric, StateCorruptionError  # noqa: F401
 from metrics_tpu_torch.regression import (  # noqa: F401
     CosineSimilarity,
@@ -100,6 +109,7 @@ __all__ = [
     "CosineSimilarity",
     "CountMinHeavyHitters",
     "CoverageError",
+    "ErrorRelativeGlobalDimensionlessSynthesis",
     "ExplainedVariance",
     "ExponentialDecay",
     "F1Score",
@@ -125,7 +135,9 @@ __all__ = [
     "MetricTracker",
     "MinMaxMetric",
     "MinMetric",
+    "MultiScaleStructuralSimilarityIndexMeasure",
     "MultioutputWrapper",
+    "PeakSignalNoiseRatio",
     "PearsonCorrCoef",
     "Precision",
     "PrecisionRecallCurve",
@@ -146,12 +158,16 @@ __all__ = [
     "SlidingWindow",
     "SpearmanCorrCoef",
     "Specificity",
+    "SpectralAngleMapper",
+    "SpectralDistortionIndex",
     "StatScores",
     "StateCorruptionError",
+    "StructuralSimilarityIndexMeasure",
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
     "TumblingWindow",
     "TweedieDevianceScore",
+    "UniversalImageQualityIndex",
     "WeightedMeanAbsolutePercentageError",
     "functional",
 ]

@@ -16,8 +16,14 @@ over the whole payload, as the JAX package's collection writes them.
 
 Only persistent states are written, as in both packages: call
 ``metric.persistent(True)`` on the writing side first.
+
+The JAX package runs with x64 off, so its counts are int32. A port count
+kept in int64 (``Metric._int64_states``, e.g. ``PeakSignalNoiseRatio``'s
+``total``) is widened from the payload's int32 on loading, and narrowed to
+int32 on export; a count int32 cannot hold raises ``OverflowError`` there
+instead of wrapping.
 """
-from typing import Any, Dict, Union
+from typing import Any, Dict, Iterator, Tuple, Union
 
 import torch
 
@@ -26,11 +32,45 @@ from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utilities.checksums import CHECKSUM_PREFIX, attach_checksums
 
 
+def _int64_states(metric: Union[Metric, MetricCollection]) -> Iterator[Tuple[str, Metric, str]]:
+    """``(payload key, metric, state)`` of every ``_int64_states`` entry in
+    ``metric``'s tree, keyed as its ``state_dict`` keys them."""
+    stack = (
+        [(f"{name}.", m) for name, m in metric.items(keep_base=True)]
+        if isinstance(metric, MetricCollection)
+        else [("", metric)]
+    )
+    while stack:
+        prefix, m = stack.pop()
+        yield from ((prefix + name, m, name) for name in m._int64_states)
+        stack.extend((f"{prefix}{name}.", child) for name, child in m._children())
+
+
+def _widen(value: Any) -> Any:
+    if isinstance(value, list):
+        return [_widen(v) for v in value]
+    return value.to(torch.int64) if value.dtype == torch.int32 else value
+
+
+def _narrow(value: Any, key: str) -> Any:
+    if isinstance(value, list):
+        return [_narrow(v, key) for v in value]
+    info = torch.iinfo(torch.int32)
+    if value.numel() and bool((value < info.min).any() or (value > info.max).any()):
+        raise OverflowError(
+            f"state {key!r} holds a count past int32, which the JAX package's state (x64 off) cannot hold"
+        )
+    return value.to(torch.int32)
+
+
 def load_jax_state_dict(
     metric: Union[Metric, MetricCollection], payload: Dict[str, Any], strict: bool = True
 ) -> Union[Metric, MetricCollection]:
-    """Verify ``payload``'s checksums, then load it into ``metric``."""
+    """Verify ``payload``'s checksums, then load it into ``metric``; the
+    int32 counts of ``_int64_states`` come in as int64."""
     metric.load_state_dict(payload, strict=strict)
+    for _, m, name in _int64_states(metric):
+        object.__setattr__(m, name, _widen(getattr(m, name)))
     return metric
 
 
@@ -44,9 +84,9 @@ def _to_numpy(value: Any) -> Any:
 
 def to_jax_state_dict(metric: Union[Metric, MetricCollection]) -> Dict[str, Any]:
     """``metric``'s persistent state as numpy leaves with checksums."""
-    payload = {
-        key: _to_numpy(value)
-        for key, value in metric.state_dict().items()
-        if not str(key).startswith(CHECKSUM_PREFIX)
-    }
+    payload = {key: value for key, value in metric.state_dict().items() if not str(key).startswith(CHECKSUM_PREFIX)}
+    for key, _, _ in _int64_states(metric):
+        if key in payload:
+            payload[key] = _narrow(payload[key], key)
+    payload = {key: _to_numpy(value) for key, value in payload.items()}
     return attach_checksums(payload)

@@ -221,6 +221,9 @@ class Metric(ABC):
     _aux_attributes: tuple = ()
     # tensor attributes that are not states but live on the metric's device (e.g. thresholds)
     _device_attributes: tuple = ()
+    # count states kept in int64 where the JAX package's are int32 (x64 off); the checkpoint boundary
+    # (metrics_tpu_torch.interop) widens them on loading and narrows them, range checked, on export
+    _int64_states: tuple = ()
 
     def __init__(
         self,

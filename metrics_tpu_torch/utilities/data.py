@@ -26,8 +26,10 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 def dim_zero_sum(x: Tensor) -> Tensor:
     """The sum over dim 0 in ``jnp.sum``'s dtype (32-bit): integers and
-    bools count in int32, not int64."""
-    return torch.sum(x, dim=0, dtype=None if x.is_floating_point() or x.is_complex() else torch.int32)
+    bools count in int32, but an int64 state (a count past 2**31,
+    ``Metric._int64_states``) stays int64."""
+    wide = x.is_floating_point() or x.is_complex() or x.dtype == torch.int64
+    return torch.sum(x, dim=0, dtype=None if wide else torch.int32)
 
 
 def dim_zero_mean(x: Tensor) -> Tensor:

@@ -1645,3 +1645,121 @@ def test_a_capacity_doubling_drops_the_fleet_graph_of_the_old_buffers(card):
     assert sorted(got) == sorted(many) and all(torch.equal(got[n], want[n]) for n in many)
     fab.shutdown()
     twin.shutdown()
+
+
+# ------------------------------------------------------------ image metrics
+def _card_images(card, shape, seed):
+    """A smooth target in [0, 1] (a coarse random grid, upsampled) and a noisy
+    prediction near 30 dB, clipped: textured enough that no window is flat."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    coarse = torch.rand(*shape[:2], *(max(2, n // 8) for n in shape[2:]), generator=g, device=card)
+    mode = "bilinear" if len(shape) == 4 else "trilinear"
+    field = torch.nn.functional.interpolate(coarse, size=shape[2:], mode=mode, align_corners=True)
+    target = 0.5 * field + 0.5 * torch.rand(*shape, generator=g, device=card)
+    preds = (target + 0.0316 * torch.randn(*shape, generator=g, device=card)).clamp(0, 1)
+    return preds, target
+
+
+IMAGE_MODULES = {
+    "PeakSignalNoiseRatio": {},
+    "StructuralSimilarityIndexMeasure": {},
+    "MultiScaleStructuralSimilarityIndexMeasure": {"kernel_size": 5, "sigma": 0.5, "betas": (0.3, 0.4, 0.3)},
+    "UniversalImageQualityIndex": {},
+    "ErrorRelativeGlobalDimensionlessSynthesis": {},
+    "SpectralAngleMapper": {},
+    "SpectralDistortionIndex": {},
+}
+
+
+@pytest.mark.parametrize("cls", sorted(IMAGE_MODULES))
+def test_image_metrics_live_on_the_card_and_equal_the_cpu(card, cls):
+    """No ``device``: the states are on the card, and the value equals the
+    same module on the CPU (windowed values atol 1e-5, the rest rtol 1e-5;
+    D-lambda also atol 1e-6)."""
+    kwargs = IMAGE_MODULES[cls]
+    m, ref = getattr(metrics_tpu_torch, cls)(**kwargs), getattr(metrics_tpu_torch, cls)(**kwargs, device="cpu")
+    for seed in (60, 61):
+        p, t = _card_images(card, (2, 4, 48, 48), seed)
+        m.update(p, t)
+        ref.update(p.cpu(), t.cpu())
+    for key in m._defaults:
+        value = getattr(m, key)
+        assert all(v.device.type == "cuda" for v in (value if isinstance(value, list) else [value])), key
+    got = m.compute()
+    assert got.device.type == "cuda"
+    tol = {"atol": 1e-5, "rtol": 0} if cls in ("StructuralSimilarityIndexMeasure", "UniversalImageQualityIndex",
+                                               "MultiScaleStructuralSimilarityIndexMeasure") else {"rtol": 1e-5,
+                                                                                                  "atol": 1e-6}
+    if cls == "SpectralAngleMapper":
+        tol = {"atol": 1e-3, "rtol": 0}
+    torch.testing.assert_close(got.cpu(), ref.compute(), **tol)
+
+
+def test_ssim_is_tf32_free_under_default_flags_and_restores_them(card):
+    """cuDNN runs float32 convolutions in TF32 unless told otherwise: SSIM's
+    value under the default flag (on) equals the value with the flag off, bit
+    for bit, and the caller's flag reads as it was after each call."""
+    from metrics_tpu_torch.functional import structural_similarity_index_measure, universal_image_quality_index
+
+    p, t = _card_images(card, (2, 3, 128, 128), 62)
+    before = torch.backends.cudnn.allow_tf32
+    try:
+        values = {}
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            values[flag] = (structural_similarity_index_measure(p, t, reduction="none"),
+                            universal_image_quality_index(p, t, reduction="none"))
+            assert torch.backends.cudnn.allow_tf32 is flag
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    for on, off in zip(values[True], values[False]):
+        assert torch.equal(on, off)
+    cpu = structural_similarity_index_measure(p.cpu(), t.cpu(), reduction="none")
+    torch.testing.assert_close(values[True][0].cpu(), cpu, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["psnr", "psnr range", "psnr dim", "ssim", "ms-ssim", "d-lambda"])
+def test_image_update_and_compute_make_no_host_sync(card, case):
+    M = metrics_tpu_torch
+    make, shape = {
+        "psnr": (lambda: M.PeakSignalNoiseRatio(), (2, 3, 64, 64)),
+        "psnr range": (lambda: M.PeakSignalNoiseRatio(data_range=1.0), (2, 3, 64, 64)),
+        "psnr dim": (lambda: M.PeakSignalNoiseRatio(data_range=1.0, dim=(1, 2, 3), reduction="none"),
+                     (2, 3, 64, 64)),
+        "ssim": (lambda: M.StructuralSimilarityIndexMeasure(), (2, 3, 64, 64)),
+        "ms-ssim": (lambda: M.MultiScaleStructuralSimilarityIndexMeasure(kernel_size=5, sigma=0.5,
+                                                                         betas=(0.3, 0.4, 0.3)), (2, 3, 64, 64)),
+        "d-lambda": (lambda: M.SpectralDistortionIndex(), (2, 8, 48, 48)),
+    }[case]
+    m, ref = make(), make()
+    batches = [_card_images(card, shape, seed) for seed in (63, 64)]
+    m.update(*batches[0])
+    m.compute()  # warm: the first call of an operation may read the device while it sets up
+    _no_sync(lambda: m.update(*batches[1]))
+    value = []
+    _no_sync(lambda: value.append(m.compute()))
+    for b in batches:
+        ref.update(*b)
+    assert torch.equal(value[0], ref.compute())
+
+
+def test_psnr_engine_captures_and_replays_bit_equal_to_eager(card):
+    """``PeakSignalNoiseRatio(jit_update=True)``: one captured program (two
+    graphs), every later update a replay without a host sync, the states and
+    value bit-equal to the eager update's, an int64 count."""
+    M = metrics_tpu_torch
+    engine, eager = M.PeakSignalNoiseRatio(jit_update=True), M.PeakSignalNoiseRatio()
+    batches = [_card_images(card, (4, 3, 64, 96), seed) for seed in range(65, 70)]
+    engine.update(*batches[0])
+    for b in batches[1:]:
+        _no_sync(lambda b=b: engine.update(*b))
+    for b in batches:
+        eager.update(*b)
+    programs = list(engine._dispatcher._cache.values())
+    assert len(programs) == 1 and len(programs[0].graphs) == 2
+    for key in eager._defaults:
+        assert torch.equal(getattr(engine, key), getattr(eager, key)), key
+    assert engine.total.dtype == torch.int64 and int(engine.total) == 5 * 4 * 3 * 64 * 96
+    assert torch.equal(engine.compute(), eager.compute())
+    stats = engine.dispatch_stats
+    assert stats["dispatches"] == 5 and stats["retraces"] == 1 and stats["demotions"] == 0
