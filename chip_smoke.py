@@ -329,6 +329,32 @@
    mixed by seeded abundance maps, through SAM, ERGAS (ratio 4) and
    ``SpectralDistortionIndex``: SAM and ERGAS against float64 numpy, D-lambda
    on a crop against the CPU, each compute's ms, peak memory and host syncs.
+   Slice 17, the audio metrics (``metrics_tpu_torch.audio`` and
+   ``functional.audio``; no kernel of the registry runs), on signals made on
+   the card from seeds: sources are white noise shaped 1/f-like, under a
+   syllabic envelope with two silent gaps; each estimate is its source plus
+   leakage of the others and noise (SI-SDR 8 to 15 dB), handed out in a
+   planted speaker order. A. WSJ0-2mix's test set (3,000 mixtures at 8 kHz, 2
+   to 8 s in 0.5 s steps, batches of 8 of one length) through the functional
+   PIT over SI-SDR (every planted order recovered),
+   ``PermutationInvariantTraining(scale_invariant_signal_distortion_ratio)``
+   eager and with ``jit_update=True`` (one captured program a shape, states
+   bit-equal to eager) and ``PermutationInvariantTraining(signal_distortion_ratio,
+   filter_length=512)`` (12,000 Toeplitz solves); the first two batches
+   against the CPU and float64 (numpy SI-SDR, ``scipy.linalg.solve_toeplitz``);
+   the SDR engine on three batches, printed as captured or demoted with its
+   cause; update and compute ms and host syncs (none allowed), the batched
+   512 x 512 solve against its bound. B. WSJ0-3mix (3,000 x 3 speakers) and
+   WSJ0-5mix (256 x 5: scipy's Hungarian search, one host read an update):
+   every planted order recovered, a batch against the CPU and float64.
+   C. VoiceBank+DEMAND's test set (824 utterances at 16 kHz, 1.5 to 10 s,
+   noise at 0 to 15 dB) through STOI and extended STOI (each run twice: the
+   same bits), SI-SDR and SNR (two batches against the CPU and float64) and
+   ``PerceptualEvaluationSpeechQuality(16000, "wb", backend="native")`` (its
+   sum equal to the core called on the same host arrays; with
+   ``jit_update=True`` the JAX package's warning and the eager update); each
+   update and compute's ms and host syncs, STOI's resampling convolution
+   against its bound, PESQ's host ms an utterance.
    Slice 9's ranks compute inside a session: on each, the ``collective``
    spans and their bytes equal ``sync_stats``. Before the ``kernels`` line
    each kernel's cost-model entry (``model_bytes``, ``model_flops``) must
@@ -520,6 +546,23 @@ F64_ATOL16, CARD_CPU_ATOL16 = 2e-5, 5e-5
 # the same formula at 2e-4 a device (9e-5 seen on the CPU), the card against the CPU at twice that
 SPECTRAL_F64_ATOL16 = 2e-4
 VOLUME_F64_ATOL16, VOLUME_CARD_CPU_ATOL16 = 1e-4, 2e-4
+# slice 17: WSJ0-2mix/3mix test sets (3,000 mixtures at 8 kHz, 2 to 8 s in 0.5 s steps), WSJ0-5mix (256 of them),
+# VoiceBank+DEMAND's test set (824 utterances at 16 kHz, 1.5 to 10 s); mixtures of one length go in batches of 8
+WSJ_MIXTURES, WSJ5_MIXTURES, WSJ_FS, WSJ_BATCH = 3000, 256, 8000, 8
+WSJ_LENGTHS_S = tuple(2.0 + 0.5 * i for i in range(13))
+WSJ_SDR_EVERY = 1  # PIT over SDR on every 2-mix batch: 12,000 Toeplitz solves
+WSJ_CPU_BATCHES, SDR_TAPS, SDR_ENGINE_BATCHES = 2, 512, 3
+VB_UTTERANCES, VB_FS, VB_BATCH, VB_CPU_BATCHES = 824, 16000, 8, 2
+VB_LENGTHS_S = tuple(1.5 + 0.5 * i for i in range(18))
+VB_PESQ_UTTERANCES = 824
+VB_SNR_DB = (0.0, 15.0)  # the test set's noise levels
+# the sources: white noise shaped 1/f-like above 200 Hz, a syllabic envelope, two silent gaps of 0.3 s
+SPEECH_CORNER_HZ, SYLLABLE_HZ, SPEECH_GAPS, SPEECH_GAP_S = 200.0, 4.0, 2, 0.3
+# a separation system's estimates: 0.1 of the other sources leaked in, noise of a seeded level, SI-SDR 8 to 15 dB
+SEP_LEAK, SEP_NOISE, SEP_SI_SDR_DB = 0.1, (0.17, 0.38), (8.0, 15.0)
+# the tolerances, as tests/test_torch_audio.py holds the port to the JAX package: SNR and SI-SDR within 1e-4 dB of
+# float64, STOI 1e-5 between devices; SDR's float32 solve 2e-5 * (1 + 10 ** (SDR / 10)) dB of float64
+DB_ATOL17, STOI_ATOL17, SDR_TOL_DB = 1e-4, 1e-5, 2e-5
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -4426,6 +4469,415 @@ def run_slice16(torch, dev, laps):
     return slice16_launches
 
 
+def speech_sources(torch, g, n, spk, samples, fs, dev):
+    """``(n, spk, samples)`` speech-shaped sources at ``fs`` Hz, unit RMS: white
+    noise shaped 1/f-like above ``SPEECH_CORNER_HZ``, under a syllabic envelope
+    (3 to 5 Hz, a random phase each) with ``SPEECH_GAPS`` silent gaps of
+    ``SPEECH_GAP_S`` each."""
+    white = torch.randn(n, spk, samples, generator=g, device=dev)
+    freqs = torch.fft.rfftfreq(samples, 1.0 / fs, device=dev)
+    shaped = torch.fft.irfft(torch.fft.rfft(white) / torch.sqrt(1 + freqs / SPEECH_CORNER_HZ), n=samples)
+    t = torch.arange(samples, device=dev) / fs
+    rate = SYLLABLE_HZ * (0.75 + 0.5 * torch.rand(n, spk, 1, generator=g, device=dev))
+    phase = 2 * math.pi * torch.rand(n, spk, 1, generator=g, device=dev)
+    envelope = torch.sin(2 * math.pi * rate * t + phase).abs()
+    starts = torch.rand(n, spk, SPEECH_GAPS, 1, generator=g, device=dev) * samples
+    idx = torch.arange(samples, device=dev)
+    silent = ((idx >= starts) & (idx < starts + SPEECH_GAP_S * fs)).any(dim=2)
+    x = shaped * envelope * ~silent
+    return x / x.square().mean(dim=-1, keepdim=True).sqrt()
+
+
+def separation_batch(torch, g, n, spk, samples, dev):
+    """A separation system's output on ``n`` mixtures of ``spk`` sources at
+    ``WSJ_FS``: ``(preds, target, planted)``. Each estimate is its source plus
+    ``SEP_LEAK`` of the others and noise of a seeded level (SI-SDR 8 to 15 dB),
+    and the estimates come out in a planted order: ``preds[b, k]`` estimates
+    ``target[b, planted[b, k]]``, so PIT must find ``argsort(planted)``."""
+    target = speech_sources(torch, g, n, spk, samples, WSJ_FS, dev)
+    others = target.sum(dim=1, keepdim=True) - target
+    sigma = SEP_NOISE[0] + (SEP_NOISE[1] - SEP_NOISE[0]) * torch.rand(n, 1, 1, generator=g, device=dev)
+    est = target + SEP_LEAK / math.sqrt(spk - 1) * others + sigma * torch.randn(n, spk, samples, generator=g,
+                                                                                   device=dev)
+    planted = torch.argsort(torch.rand(n, spk, generator=g, device=dev), dim=1)
+    return torch.gather(est, 1, planted[..., None].expand_as(est)), target, planted
+
+
+def length_batches(mixtures, lengths_s, batch):
+    """``(length in s, mixtures)`` batches: mixture ``i`` takes length
+    ``lengths_s[i % len(lengths_s)]``, and each length's mixtures go in batches
+    of ``batch`` (the last of a length may hold fewer)."""
+    out = []
+    for k, length in enumerate(lengths_s):
+        count = len(range(k, mixtures, len(lengths_s)))
+        out += [(length, min(batch, count - i)) for i in range(0, count, batch)]
+    return out
+
+
+def numpy_si_sdr(preds, target):
+    """Float64 SI-SDR (dB) over the trailing axis."""
+    preds, target = preds.astype(np.float64), target.astype(np.float64)
+    alpha = (preds * target).sum(-1, keepdims=True) / (target**2).sum(-1, keepdims=True)
+    scaled = alpha * target
+    return 10 * np.log10((scaled**2).sum(-1) / ((scaled - preds) ** 2).sum(-1))
+
+
+def numpy_snr(preds, target):
+    preds, target = preds.astype(np.float64), target.astype(np.float64)
+    return 10 * np.log10((target**2).sum(-1) / ((target - preds) ** 2).sum(-1))
+
+
+def numpy_sdr(preds, target, filter_length):
+    """Float64 SDR (dB) of row pairs through ``scipy.linalg.solve_toeplitz`` (a Levinson solve)."""
+    from scipy.linalg import solve_toeplitz
+
+    preds = preds.reshape(-1, preds.shape[-1]).astype(np.float64)
+    target = target.reshape(-1, target.shape[-1]).astype(np.float64)
+    preds /= np.linalg.norm(preds, axis=-1, keepdims=True)
+    target /= np.linalg.norm(target, axis=-1, keepdims=True)
+    n_fft = 2 ** math.ceil(math.log2(2 * preds.shape[-1] - 1))
+    t_fft = np.fft.rfft(target, n_fft)
+    r_0 = np.fft.irfft(np.abs(t_fft) ** 2, n_fft)[:, :filter_length]
+    b = np.fft.irfft(np.conj(t_fft) * np.fft.rfft(preds, n_fft), n_fft)[:, :filter_length]
+    coh = np.array([b_row @ solve_toeplitz(r_row, b_row) for r_row, b_row in zip(r_0, b)])
+    return 10 * np.log10(coh / (1 - coh))
+
+
+def sdr_tol(sdr):
+    """The float32 SDR's tolerance in dB at each value: its error in the
+    coherence grows as 1 / (1 - coh) = 1 + 10 ** (SDR / 10) (tests/test_torch_audio.py)."""
+    return SDR_TOL_DB * (1 + 10 ** (np.asarray(sdr, np.float64) / 10))
+
+
+def best_of(pairs, perm):
+    """``pairs[b, j, perm[b, j]]`` averaged over ``j``: the metric of a permutation."""
+    return np.take_along_axis(pairs, perm[:, :, None], axis=2)[..., 0].mean(-1)
+
+
+def pair_matrix(fn, preds, target):
+    """``(B, S, S)`` float64 ``fn(preds[b, k], target[b, j])`` at ``[b, j, k]``."""
+    spk = preds.shape[1]
+    return np.stack([np.stack([fn(preds[:, k], target[:, j]) for k in range(spk)], -1) for j in range(spk)], 1)
+
+
+def solve_bound(batch, taps):
+    """The least time (ms) of a batched ``taps`` x ``taps`` solve: (2/3) taps^3
+    operations a matrix (the LU) at the float32 rate, or its matrix, right-hand
+    side and solution read and written once."""
+    return bound(batch * (taps * taps + 2 * taps) * 4, batch * 2 * taps**3 / 3)
+
+
+def run_slice17(torch, dev, laps):
+    """Slice 17 (see the module's docstring): returns the kernels' launches on
+    its path (all 0: no audio metric reaches a kernel of the registry)."""
+    import metrics_tpu_torch as M
+    import metrics_tpu_torch.functional as tF
+    from metrics_tpu_torch import telemetry
+    from metrics_tpu_torch.functional.audio._pesq_core import pesq_native
+    from metrics_tpu_torch.functional.audio.sdr import _compute_autocorr_crosscorr, _symmetric_toeplitz
+    from metrics_tpu_torch.functional.audio.stoi import _resample_kernel, _resample_to_10k
+    from metrics_tpu_torch.functional.image.helper import _full_float32
+    from metrics_tpu_torch.ops import launches, reset_launches
+
+    t_slice = time.perf_counter()
+    cpu = torch.device("cpu")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    report = {"card": card}
+    reset_launches()
+    si_sdr, sdr = tF.scale_invariant_signal_distortion_ratio, tF.signal_distortion_ratio
+
+    # ------------------------------------------------------------ A. WSJ0-2mix
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    pit_si = M.PermutationInvariantTraining(si_sdr, device=dev)
+    pit_si_engine = M.PermutationInvariantTraining(si_sdr, jit_update=True, device=dev)
+    pit_sdr = M.PermutationInvariantTraining(sdr, filter_length=SDR_TAPS, device=dev)
+    batches = length_batches(WSJ_MIXTURES, WSJ_LENGTHS_S, WSJ_BATCH)
+    misses, values, prefix, shapes, solves = torch.zeros((), dtype=torch.int64, device=dev), [], [], set(), 0
+    for step, (length, n) in enumerate(batches):
+        preds, target, planted = separation_batch(torch, g, n, 2, int(length * WSJ_FS), dev)
+        metric, perm = tF.permutation_invariant_training(preds, target, si_sdr)
+        misses += (perm.long() != torch.argsort(planted, dim=1)).any(dim=1).sum()
+        values.append(metric)
+        pit_si.update(preds, target)
+        pit_si_engine.update(preds, target)
+        shapes.add(tuple(preds.shape))
+        if step % WSJ_SDR_EVERY == 0:
+            pit_sdr.update(preds, target)
+            solves += n * 4
+        if step < WSJ_CPU_BATCHES:
+            prefix.append((preds, target, planted))
+    torch.cuda.synchronize()
+    laps.mark("3. slice 17 A: WSJ0-2mix on the card")
+    values = torch.cat(values)
+    check(int(misses) == 0, f"PIT over SI-SDR missed {int(misses)} of the {WSJ_MIXTURES} planted 2-speaker orders")
+    check(int(pit_si.total) == WSJ_MIXTURES and int(pit_sdr.total) == solves // 4,
+          f"the 2-mix counts {int(pit_si.total)} and {int(pit_sdr.total)}")
+    for key in pit_si._defaults:
+        check(torch.equal(getattr(pit_si_engine, key), getattr(pit_si, key)),
+              f"the PIT engine's {key} is not the eager update's bits")
+    stats = pit_si_engine.dispatch_stats
+    programs = list(pit_si_engine._dispatcher._cache.values())
+    check(stats["dispatches"] == len(batches) and stats["retraces"] == len(shapes) and stats["demotions"] == 0
+          and all(len(p.graphs) == 2 for p in programs), f"the PIT engine's stats {stats} over {len(shapes)} shapes")
+    # the card against the CPU port and float64 references on the first batches
+    a_prefix = {"si_sdr_max_abs_diff_cpu": 0.0, "si_sdr_max_abs_diff_f64": 0.0, "sdr_max_abs_diff_cpu": 0.0,
+                "sdr_max_abs_diff_f64": 0.0, "sdr_range_db": [math.inf, -math.inf]}
+    for preds, target, planted in prefix:
+        want_perm = torch.argsort(planted, dim=1).cpu()
+        p_np, t_np = preds.cpu().numpy(), target.cpu().numpy()
+        for fn, key, kwargs in ((si_sdr, "si_sdr", {}), (sdr, "sdr", {"filter_length": SDR_TAPS})):
+            got, got_perm = tF.permutation_invariant_training(preds, target, fn, **kwargs)
+            want, want_cpu_perm = tF.permutation_invariant_training(preds.cpu(), target.cpu(), fn, **kwargs)
+            check(torch.equal(got_perm.cpu(), want_cpu_perm) and torch.equal(want_cpu_perm.long(), want_perm),
+                  f"PIT over {key} on the card, on the CPU and the planted orders differ")
+            ref = best_of(pair_matrix(numpy_si_sdr if key == "si_sdr" else
+                                      (lambda p, t: numpy_sdr(p, t, SDR_TAPS)), p_np, t_np), want_perm.numpy())
+            got, want = got.cpu().double().numpy(), want.double().numpy()
+            tol = DB_ATOL17 if key == "si_sdr" else sdr_tol(ref)
+            check(bool(np.all(np.abs(got - ref) <= tol) and np.all(np.abs(want - ref) <= tol)
+                       and np.all(np.abs(got - want) <= 2 * tol)),
+                  f"PIT over {key} on the card {got} and the CPU {want} against float64 {ref} (tolerance {tol})")
+            a_prefix[f"{key}_max_abs_diff_cpu"] = max(a_prefix[f"{key}_max_abs_diff_cpu"], float(np.abs(got - want).max()))
+            a_prefix[f"{key}_max_abs_diff_f64"] = max(a_prefix[f"{key}_max_abs_diff_f64"], float(np.abs(got - ref).max()))
+            if key == "sdr":
+                a_prefix["sdr_range_db"] = [min(a_prefix["sdr_range_db"][0], float(ref.min())),
+                                            max(a_prefix["sdr_range_db"][1], float(ref.max()))]
+    laps.mark("3. slice 17 A: WSJ0-2mix against the CPU and float64")
+    # the SDR engine: it captures the Toeplitz solve or demotes, and says which
+    sdr_engine = M.PermutationInvariantTraining(sdr, filter_length=SDR_TAPS, jit_update=True, device=dev)
+    sdr_eager = M.PermutationInvariantTraining(sdr, filter_length=SDR_TAPS, device=dev)
+    g_sdr = torch.Generator(device=dev).manual_seed(SEED + 171)
+    sdr_batches = [separation_batch(torch, g_sdr, WSJ_BATCH, 2, int(WSJ_LENGTHS_S[0] * WSJ_FS), dev)[:2]
+                   for _ in range(SDR_ENGINE_BATCHES)]
+    with telemetry.instrument() as session:
+        for b in sdr_batches:
+            sdr_engine.update(*b)
+            sdr_eager.update(*b)
+    degrades = [e.attrs for e in session.spans(name="degrade", owner="PermutationInvariantTraining")]
+    sdr_stats = dict(sdr_engine.dispatch_stats)
+    captured = bool(sdr_engine._dispatcher and any(len(p.graphs) == 2 for p in sdr_engine._dispatcher._cache.values()))
+    for key in sdr_eager._defaults:
+        check(torch.equal(getattr(sdr_engine, key), getattr(sdr_eager, key)),
+              f"the SDR PIT engine's {key} is not the eager update's bits")
+    check(captured or sdr_stats.get("demotions", 0) > 0, f"the SDR engine neither captured nor demoted: {sdr_stats}")
+    sdr_engine_report = {"captured": captured, "stats": {k: v for k, v in sdr_stats.items() if k != "last_cause"},
+                         "cause": None if captured else sdr_stats.get("last_cause"),
+                         "errors": [d.get("error") for d in degrades]}
+    check(captured or degrades, "the SDR engine demoted without a degrade span")
+    print("slice 17 A, SDR under the engine: " + json.dumps(sdr_engine_report, default=str))
+    # timings on one warm 4 s batch: updates, computes, syncs; the solve and its bound
+    p4, t4 = separation_batch(torch, g_sdr, WSJ_BATCH, 2, 4 * WSJ_FS, dev)[:2]
+    fresh_sdr = M.PermutationInvariantTraining(sdr, filter_length=SDR_TAPS, device=dev)
+    calls = {
+        "pit_si_sdr update": lambda: pit_si.update(p4, t4),
+        "pit_si_sdr engine update": lambda: pit_si_engine.update(p4, t4),
+        "pit_sdr update": lambda: fresh_sdr.update(p4, t4),
+        "pit_si_sdr compute": pit_si._compute_impl,
+        "pit_sdr compute": fresh_sdr._compute_impl,
+    }
+    a_ms = {k: host_ms(torch, fn, reps=5) for k, fn in calls.items()}
+    a_syncs = {k: one_call_syncs(torch, fn)[0] for k, fn in calls.items()}
+    check(not any(a_syncs.values()), f"a 2-mix update or compute synchronised with the host: {a_syncs}")
+    # the solve alone on the systems of the 4 s batch's 32 speaker pairs, as PIT builds them
+    t_norm = t4.repeat_interleave(2, dim=1).reshape(-1, t4.shape[-1])
+    p_norm = p4.repeat(1, 2, 1).reshape(-1, p4.shape[-1])
+    t_norm = t_norm / t_norm.norm(dim=-1, keepdim=True)
+    p_norm = p_norm / p_norm.norm(dim=-1, keepdim=True)
+    r_0, b = _compute_autocorr_crosscorr(t_norm, p_norm, SDR_TAPS)
+    r_0[:, 0] *= 1 + 1e-6
+    r = _symmetric_toeplitz(r_0)
+    solve_lim = solve_bound(r.shape[0], SDR_TAPS)
+    report["A_wsj0_2mix"] = {
+        "mixtures": WSJ_MIXTURES, "batches": len(batches), "shapes": len(shapes),
+        "si_sdr_pit_mean_db": float(values.mean()), "si_sdr_pit_range_db": [float(values.min()), float(values.max())],
+        "pit_si_sdr_value": float(pit_si.compute()), "pit_sdr_value": float(pit_sdr.compute()),
+        "sdr_mixtures": int(pit_sdr.total), "toeplitz_solves": solves,
+        "engine": {k: v for k, v in stats.items() if k != "last_cause"}, "prefix": a_prefix,
+        "ms": a_ms, "syncs": a_syncs,
+        "solve": {"batch": r.shape[0], "taps": SDR_TAPS,
+                  "solve_ex_ms": device_ms(torch, lambda: torch.linalg.solve_ex(r, b[..., None], check_errors=False),
+                                           reps=5),
+                  "bound_ms": solve_lim[0], "bound_by": solve_lim[1],
+                  "sdr_functional_ms": device_ms(torch, lambda: sdr(p_norm, t_norm), reps=5),
+                  "syncs": one_call_syncs(torch, lambda: torch.linalg.solve_ex(r, b[..., None],
+                                                                               check_errors=False))[0]},
+    }
+    check(report["A_wsj0_2mix"]["solve"]["syncs"] == 0, "the batched solve synchronised with the host")
+    check(SEP_SI_SDR_DB[0] <= float(values.mean()) <= SEP_SI_SDR_DB[1],
+          f"the 2-mix estimates' mean SI-SDR {float(values.mean())} dB is outside {SEP_SI_SDR_DB}")
+    print("slice 17 A, WSJ0-2mix: " + json.dumps(report["A_wsj0_2mix"]))
+    del pit_si, pit_si_engine, pit_sdr, sdr_engine, sdr_eager, fresh_sdr, prefix, r, b
+    laps.mark("3. slice 17 A: WSJ0-2mix timings")
+
+    # ------------------------------------------------------ B. WSJ0-3mix and WSJ0-5mix
+    report["B_wsj0_3mix_5mix"] = {}
+    for spk, mixtures, seed in ((3, WSJ_MIXTURES, SEED + 172), (5, WSJ5_MIXTURES, SEED + 173)):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        pit = M.PermutationInvariantTraining(si_sdr, device=dev)
+        misses, values = torch.zeros((), dtype=torch.int64, device=dev), []
+        first = None
+        for length, n in length_batches(mixtures, WSJ_LENGTHS_S, WSJ_BATCH):
+            preds, target, planted = separation_batch(torch, g, n, spk, int(length * WSJ_FS), dev)
+            metric, perm = tF.permutation_invariant_training(preds, target, si_sdr)
+            misses += (perm.long() != torch.argsort(planted, dim=1)).any(dim=1).sum()
+            values.append(metric)
+            pit.update(preds, target)
+            first = first or (preds, target, planted)
+        torch.cuda.synchronize()
+        values = torch.cat(values)
+        check(int(misses) == 0, f"PIT over SI-SDR missed {int(misses)} of the {mixtures} planted {spk}-speaker orders")
+        check(int(pit.total) == mixtures, f"the {spk}-mix count {int(pit.total)}")
+        preds, target, planted = first
+        got, got_perm = tF.permutation_invariant_training(preds, target, si_sdr)
+        want, want_perm = tF.permutation_invariant_training(preds.cpu(), target.cpu(), si_sdr)
+        ref = best_of(pair_matrix(numpy_si_sdr, preds.cpu().numpy(), target.cpu().numpy()), want_perm.long().numpy())
+        check(torch.equal(got_perm.cpu(), want_perm), f"{spk}-mix PIT orders on the card and the CPU differ")
+        close(torch, got, want, f"{spk}-mix PIT over SI-SDR against the CPU", atol=2 * DB_ATOL17)
+        close(torch, got, torch.from_numpy(ref), f"{spk}-mix PIT over SI-SDR against float64", atol=DB_ATOL17)
+        upd = lambda: pit.update(preds, target)  # noqa: E731
+        entry = {"speakers": spk, "mixtures": mixtures, "permutations": math.factorial(spk),
+                 "search": "exhaustive" if spk < 4 else "hungarian",
+                 "value": float(pit.compute()), "si_sdr_pit_mean_db": float(values.mean()),
+                 "update_ms": host_ms(torch, upd, reps=5), "compute_ms": host_ms(torch, pit._compute_impl, reps=5),
+                 "update_syncs": one_call_syncs(torch, upd), "compute_syncs": one_call_syncs(torch, pit._compute_impl)[0]}
+        if spk < 4:
+            check(entry["update_syncs"][0] == 0, f"a {spk}-mix PIT update synchronised with the host")
+        else:
+            check(entry["update_syncs"][0] == 1, f"a {spk}-mix PIT update made {entry['update_syncs']} host syncs, "
+                  "not the Hungarian search's one read")
+        check(entry["compute_syncs"] == 0, f"a {spk}-mix PIT compute synchronised with the host")
+        report["B_wsj0_3mix_5mix"][f"{spk}mix"] = entry
+        print(f"slice 17 B, WSJ0-{spk}mix: " + json.dumps(entry))
+        del pit, first
+    laps.mark("3. slice 17 B: WSJ0-3mix and WSJ0-5mix")
+
+    # ------------------------------------------------------ C. VoiceBank+DEMAND
+    g = torch.Generator(device=dev).manual_seed(SEED + 174)
+    vb = []
+    for length, n in length_batches(VB_UTTERANCES, VB_LENGTHS_S, VB_BATCH):
+        samples = int(length * VB_FS)
+        clean = speech_sources(torch, g, n, 1, samples, VB_FS, dev)[:, 0]
+        noise = speech_sources(torch, g, n, 1, samples, VB_FS, dev)[:, 0].roll(samples // 3, dims=-1)
+        noise = noise + torch.randn(n, samples, generator=g, device=dev)  # a babble and a broadband floor
+        snr_db = VB_SNR_DB[0] + (VB_SNR_DB[1] - VB_SNR_DB[0]) * torch.rand(n, 1, generator=g, device=dev)
+        noise = noise / noise.square().mean(-1, keepdim=True).sqrt() * 10 ** (-snr_db / 20)
+        vb.append((clean + noise, clean))
+    mods = {"stoi": M.ShortTimeObjectiveIntelligibility(VB_FS, device=dev),
+            "estoi": M.ShortTimeObjectiveIntelligibility(VB_FS, extended=True, device=dev),
+            "si_sdr": M.ScaleInvariantSignalDistortionRatio(device=dev), "snr": M.SignalNoiseRatio(device=dev)}
+    for noisy_b, clean_b in vb:
+        for m in mods.values():
+            m.update(noisy_b, clean_b)
+    torch.cuda.synchronize()
+    c_values = {k: float(m.compute()) for k, m in mods.items()}
+    check(all(int(m.total) == VB_UTTERANCES for m in mods.values()), "a VoiceBank count is not 824")
+    check(all(math.isfinite(v) for v in c_values.values()), f"a VoiceBank value is not finite: {c_values}")
+    laps.mark("3. slice 17 C: VoiceBank+DEMAND on the card")
+    # STOI twice on the card: the same bits
+    again = {k: M.ShortTimeObjectiveIntelligibility(VB_FS, extended=k == "estoi", device=dev) for k in ("stoi", "estoi")}
+    for noisy_b, clean_b in vb:
+        for m in again.values():
+            m.update(noisy_b, clean_b)
+    for key, m in again.items():
+        check(torch.equal(m.sum_stoi, mods[key].sum_stoi), f"{key} on the card differs between two runs")
+    laps.mark("3. slice 17 C: STOI again")
+    # the first batches on the CPU, and SNR and SI-SDR against float64
+    c_prefix = {}
+    for noisy_b, clean_b in vb[:VB_CPU_BATCHES]:
+        n_np, c_np = noisy_b.cpu().numpy(), clean_b.cpu().numpy()
+        for key, fn, kwargs, tol, f64 in (
+            ("snr", tF.signal_noise_ratio, {}, {"atol": DB_ATOL17}, numpy_snr),
+            ("si_sdr", si_sdr, {}, {"atol": DB_ATOL17}, numpy_si_sdr),
+            ("stoi", tF.short_time_objective_intelligibility, {"fs": VB_FS}, {"atol": STOI_ATOL17}, None),
+            ("estoi", tF.short_time_objective_intelligibility, {"fs": VB_FS, "extended": True},
+             {"atol": STOI_ATOL17}, None),
+        ):
+            got, want = fn(noisy_b, clean_b, **kwargs), fn(noisy_b.cpu(), clean_b.cpu(), **kwargs)
+            close(torch, got, want, f"VoiceBank {key} on the card against the CPU", **tol)
+            c_prefix[key] = max(c_prefix.get(key, 0.0), float((got.cpu().double() - want.double()).abs().max()))
+            if f64 is not None:
+                close(torch, got, torch.from_numpy(f64(n_np, c_np)), f"VoiceBank {key} against float64", **tol)
+    laps.mark("3. slice 17 C: VoiceBank on the CPU")
+    # PESQ: the module over the utterances, and its value against the core called on the same host arrays
+    pesq = M.PerceptualEvaluationSpeechQuality(VB_FS, "wb", backend="native", device=dev)
+    t0 = time.perf_counter()
+    done = 0
+    for noisy_b, clean_b in vb:
+        if done >= VB_PESQ_UTTERANCES:
+            break
+        pesq.update(noisy_b, clean_b)
+        done += noisy_b.shape[0]
+    torch.cuda.synchronize()
+    pesq_s = time.perf_counter() - t0
+    direct = torch.zeros((), dtype=torch.float32, device=dev)
+    check_mod = M.PerceptualEvaluationSpeechQuality(VB_FS, "wb", backend="native", device=dev)
+    for noisy_b, clean_b in vb[:VB_CPU_BATCHES]:
+        check_mod.update(noisy_b, clean_b)
+        n_np = noisy_b.detach().to(cpu, torch.float32).numpy()
+        c_np = clean_b.detach().to(cpu, torch.float32).numpy()
+        scores = np.array([pesq_native(VB_FS, c, p, "wb") for c, p in zip(c_np, n_np)], np.float32)
+        direct = direct + float(scores.sum())
+    check(torch.equal(check_mod.sum_pesq, direct), "PESQ's module sum differs from the core called on the host arrays")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pesq_jit = M.PerceptualEvaluationSpeechQuality(VB_FS, "wb", backend="native", jit_update=True, device=dev)
+    messages = [str(w.message) for w in caught]
+    check(messages == ["PerceptualEvaluationSpeechQuality is host_only (host-side update path); ignoring "
+                       "jit_update=True — updates run eagerly."], f"PESQ with jit_update=True warned {messages}")
+    pesq_jit.update(*vb[0])
+    first_pesq = M.PerceptualEvaluationSpeechQuality(VB_FS, "wb", backend="native", device=dev)
+    first_pesq.update(*vb[0])
+    check(torch.equal(pesq_jit.sum_pesq, first_pesq.sum_pesq) and pesq_jit._dispatcher is None,
+          "PESQ with jit_update=True did not run the eager update")
+    laps.mark("3. slice 17 C: PESQ")
+    # timings on a warm batch of 8 utterances of 5 s; the resampling convolution and its bound
+    mid = next(b for b in vb if b[0].shape == (VB_BATCH, 5 * VB_FS))
+    fresh = {"stoi": M.ShortTimeObjectiveIntelligibility(VB_FS, device=dev),
+             "estoi": M.ShortTimeObjectiveIntelligibility(VB_FS, extended=True, device=dev),
+             "si_sdr": M.ScaleInvariantSignalDistortionRatio(device=dev), "snr": M.SignalNoiseRatio(device=dev)}
+    c_ms, c_syncs = {}, {}
+    for key, m in fresh.items():
+        c_ms[f"{key} update"] = host_ms(torch, lambda m=m: m.update(*mid), reps=5)
+        c_ms[f"{key} compute"] = host_ms(torch, m._compute_impl, reps=5)
+        c_syncs[f"{key} update"] = one_call_syncs(torch, lambda m=m: m.update(*mid))[0]
+        c_syncs[f"{key} compute"] = one_call_syncs(torch, m._compute_impl)[0]
+    check(not any(c_syncs.values()), f"a VoiceBank update or compute synchronised with the host: {c_syncs}")
+    g_up = math.gcd(VB_FS, 10_000)
+    up, down = 10_000 // g_up, VB_FS // g_up
+    h = _resample_kernel(up, down, dev)
+    half = (h.shape[-1] - 1) // 2
+    x_up = torch.nn.functional.pad(torch.nn.functional.pad(mid[1][..., None], (0, up - 1)).reshape(VB_BATCH, -1),
+                                   (half, half))[:, None, :]
+
+    def conv():
+        with _full_float32():
+            return torch.nn.functional.conv1d(x_up, h, stride=down)
+
+    n_out = conv().shape[-1]
+    conv_lim = bound((x_up.numel() + VB_BATCH * n_out + h.numel()) * 4, VB_BATCH * n_out * h.numel() * 2)
+    report["C_voicebank"] = {
+        "utterances": VB_UTTERANCES, "batches": len(vb), "values": c_values, "prefix_max_abs_diff_cpu": c_prefix,
+        "pesq": {"utterances": done, "value": float(pesq.compute()), "host_s": pesq_s,
+                 "host_ms_per_utterance": pesq_s * 1e3 / done},
+        "ms": c_ms, "syncs": c_syncs,
+        "resample": {"shape": list(mid[1].shape), "up": up, "down": down, "taps": h.numel(), "outputs": n_out,
+                     "conv_ms": device_ms(torch, conv, reps=5), "bound_ms": conv_lim[0], "bound_by": conv_lim[1],
+                     "resample_ms": device_ms(torch, lambda: _resample_to_10k(mid[1], VB_FS), reps=5),
+                     "gflop": VB_BATCH * n_out * h.numel() * 2 / 1e9},
+    }
+    print("slice 17 C, VoiceBank+DEMAND: " + json.dumps(report["C_voicebank"]))
+    del vb, mods, again, fresh, x_up
+    laps.mark("3. slice 17 C: VoiceBank timings")
+
+    slice17_launches = launches()
+    check(all(n == 0 for n in slice17_launches.values()), f"slice 17 launched a kernel: {slice17_launches}")
+    report["launches"] = slice17_launches
+    report["command_s"] = time.perf_counter() - t_slice
+    print(f"slice 17 ({card}): " + json.dumps(report, default=str))
+    return slice17_launches
+
+
 def main() -> int:
     import torch
 
@@ -5774,6 +6226,9 @@ def main() -> int:
 
     # ------------------------------------------ 3o. slice 16: the image metrics without a net
     run_slice16(torch, dev, laps)
+
+    # ------------------------------------------ 3p. slice 17: the audio metrics
+    run_slice17(torch, dev, laps)
 
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000

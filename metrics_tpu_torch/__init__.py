@@ -8,6 +8,15 @@ PyTorch versions.
 """
 from metrics_tpu_torch import functional  # noqa: F401
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric  # noqa: F401
+from metrics_tpu_torch.audio import (  # noqa: F401
+    PerceptualEvaluationSpeechQuality,
+    PermutationInvariantTraining,
+    ScaleInvariantSignalDistortionRatio,
+    ScaleInvariantSignalNoiseRatio,
+    ShortTimeObjectiveIntelligibility,
+    SignalDistortionRatio,
+    SignalNoiseRatio,
+)
 from metrics_tpu_torch.classification.accuracy import Accuracy  # noqa: F401
 from metrics_tpu_torch.classification.auc import AUC  # noqa: F401
 from metrics_tpu_torch.classification.auroc import AUROC  # noqa: F401
@@ -139,6 +148,8 @@ __all__ = [
     "MultioutputWrapper",
     "PeakSignalNoiseRatio",
     "PearsonCorrCoef",
+    "PerceptualEvaluationSpeechQuality",
+    "PermutationInvariantTraining",
     "Precision",
     "PrecisionRecallCurve",
     "QuantileSketch",
@@ -155,6 +166,11 @@ __all__ = [
     "RetrievalPrecision",
     "RetrievalRPrecision",
     "RetrievalRecall",
+    "ScaleInvariantSignalDistortionRatio",
+    "ScaleInvariantSignalNoiseRatio",
+    "ShortTimeObjectiveIntelligibility",
+    "SignalDistortionRatio",
+    "SignalNoiseRatio",
     "SlidingWindow",
     "SpearmanCorrCoef",
     "Specificity",

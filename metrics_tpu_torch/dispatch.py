@@ -204,6 +204,9 @@ class FastDispatcher:
         forward_stats: the owner's ``launches``/``retraces``/``engine_us`` counters.
         make_scan: ``fn(leaves, *stacked_args, **stacked_dyn) -> leaves``, a
             fold over a stack of batches.
+        host_only: the owner's update runs host-side code
+            (``Metric.host_only``): every call raises
+            :class:`FastDispatchUnsupported` before any capture.
     """
 
     def __init__(
@@ -220,8 +223,10 @@ class FastDispatcher:
         make_masked_forward: Optional[Callable[[Dict], Callable]] = None,
         forward_stats: Optional[Dict[str, Any]] = None,
         make_scan: Optional[Callable[[Dict], Callable]] = None,
+        host_only: bool = False,
     ) -> None:
         self.label = label
+        self._host_only = bool(host_only)
         # the launch kind in telemetry, the JAX engine's names (fused_window_tick sets "window-tick")
         self.kind = "fused-aot" if label.startswith("MetricCollection") else "aot"
         self.device = torch.device(device)
@@ -295,6 +300,11 @@ class FastDispatcher:
               counts: Any = None) -> Tuple[Tuple[Tuple, Any], Tuple]:
         """One call through the cache: ``((new leaves, batch value), launch)``,
         ``launch`` being ``(t0, masked, bucket, program)`` for its span."""
+        if self._host_only:
+            raise FastDispatchUnsupported(
+                f"{self.label} is host_only: its update runs host-side code"
+                " (strings/tokenizers/native libraries) the engine cannot trace"
+            )
         t0 = time.perf_counter()
         flat, layout = _flatten((args, dyn_kwargs))
         flat = [self._canonicalize(x) for x in flat]

@@ -51,14 +51,14 @@ def _gaussian_kernel_3d(
 
 @contextmanager
 def _full_float32() -> Iterator[None]:
-    """cuDNN's float32 convolutions without TF32 for the block; the caller's
-    flag is restored on the way out."""
-    before = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    """cuDNN's float32 convolutions and cuBLAS's float32 products without TF32
+    for the block; the caller's flags are restored on the way out."""
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = before
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def _depthwise_conv(x: Tensor, kernel: Tensor) -> Tensor:

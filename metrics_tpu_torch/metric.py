@@ -217,6 +217,8 @@ class Metric(ABC):
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = True
+    # an update that runs host-side code (PESQ): jit_update=True warns and runs eagerly, the engines refuse it
+    host_only: bool = False
     # non-tensor attributes that belong in checkpoints (e.g. an inferred input mode)
     _aux_attributes: tuple = ()
     # tensor attributes that are not states but live on the metric's device (e.g. thresholds)
@@ -264,6 +266,12 @@ class Metric(ABC):
         self.sync_precision = sync_precision
         self._sync_env = sync_env
         self._device = resolve_device(device)
+        if jit_update and type(self).host_only:
+            rank_zero_warn(
+                f"{type(self).__name__} is host_only (host-side update path); "
+                "ignoring jit_update=True — updates run eagerly."
+            )
+            jit_update = False
         self._jit_update_requested = bool(jit_update)
         # the fast-dispatch engine, built at the first engine call; its failures go through
         # the resilience policies (eager serves the call, the engine is benched for a cooldown)
@@ -812,6 +820,7 @@ class Metric(ABC):
             make_masked_forward=make_masked_forward,
             forward_stats=self._forward_stats,
             make_scan=make_scan,
+            host_only=type(self).host_only,
         )
 
     @property

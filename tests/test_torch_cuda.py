@@ -1763,3 +1763,161 @@ def test_psnr_engine_captures_and_replays_bit_equal_to_eager(card):
     assert torch.equal(engine.compute(), eager.compute())
     stats = engine.dispatch_stats
     assert stats["dispatches"] == 5 and stats["retraces"] == 1 and stats["demotions"] == 0
+
+
+# ------------------------------------------------------------ audio metrics
+def _card_speech(card, shape, seed, noise=0.2):
+    """Seeded sources on the card (white noise under a 4 Hz envelope with a
+    silent gap) and estimates: each source plus noise."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    n = shape[-1]
+    t = torch.arange(n, device=card, dtype=torch.float32)
+    envelope = (0.3 + 0.7 * torch.sin(2 * np.pi * 4 * t / 8000).abs())
+    envelope[n // 3: n // 3 + n // 8] = 0.0
+    target = torch.randn(*shape, generator=g, device=card) * envelope
+    preds = target + noise * torch.randn(*shape, generator=g, device=card)
+    return preds, target
+
+
+AUDIO_MODULES = {
+    "SignalNoiseRatio": ({}, (4, 8000)),
+    "ScaleInvariantSignalNoiseRatio": ({}, (4, 8000)),
+    "SignalDistortionRatio": ({}, (4, 8000)),
+    "ScaleInvariantSignalDistortionRatio": ({}, (4, 8000)),
+    "PermutationInvariantTraining": ({"metric_func": "scale_invariant_signal_distortion_ratio"}, (4, 3, 8000)),
+    "ShortTimeObjectiveIntelligibility": ({"fs": 16000, "extended": False}, (4, 24000)),
+    "PerceptualEvaluationSpeechQuality": ({"fs": 16000, "mode": "wb", "backend": "native"}, (2, 32000)),
+}
+
+
+def _audio_module(cls, **extra):
+    kwargs = dict(AUDIO_MODULES[cls][0])
+    if "metric_func" in kwargs:
+        kwargs["metric_func"] = getattr(metrics_tpu_torch.functional, kwargs["metric_func"])
+    return getattr(metrics_tpu_torch, cls)(**kwargs, **extra)
+
+
+@pytest.mark.parametrize("cls", sorted(AUDIO_MODULES))
+def test_audio_metrics_live_on_the_card_and_equal_the_cpu(card, cls):
+    """No ``device``: the states are on the card, and the value equals the same
+    module on the CPU (rtol 1e-5; SDR 1e-4 dB near 10 dB, the float32 solve's
+    tolerance; PESQ exact, one numpy core)."""
+    m, ref = _audio_module(cls), _audio_module(cls, device="cpu")
+    for seed in (70, 71):
+        p, t = _card_speech(card, AUDIO_MODULES[cls][1], seed)
+        m.update(p, t)
+        ref.update(p.cpu(), t.cpu())
+    assert all(getattr(m, key).device.type == "cuda" for key in m._defaults)
+    assert m.total.dtype == torch.int32 and torch.equal(m.total.cpu(), ref.total)
+    got = m.compute()
+    assert got.device.type == "cuda"
+    tol = {"atol": 0, "rtol": 0} if cls == "PerceptualEvaluationSpeechQuality" else {"atol": 1e-4, "rtol": 1e-5}
+    torch.testing.assert_close(got.cpu(), ref.compute(), **tol)
+
+
+@pytest.mark.parametrize("case", ["snr", "si-sdr", "sdr", "stoi", "stoi extended", "pit 2", "pit 3"])
+def test_audio_update_and_compute_make_no_host_sync(card, case):
+    """SDR's solve (``solve_ex`` without its status check), STOI's compaction
+    and PIT's search below four speakers stay on the card."""
+    M, tF = metrics_tpu_torch, metrics_tpu_torch.functional
+    make, shape = {
+        "snr": (lambda: M.SignalNoiseRatio(), (4, 8000)),
+        "si-sdr": (lambda: M.ScaleInvariantSignalDistortionRatio(), (4, 8000)),
+        "sdr": (lambda: M.SignalDistortionRatio(), (4, 8000)),
+        "stoi": (lambda: M.ShortTimeObjectiveIntelligibility(16000), (4, 24000)),
+        "stoi extended": (lambda: M.ShortTimeObjectiveIntelligibility(16000, extended=True), (4, 24000)),
+        "pit 2": (lambda: M.PermutationInvariantTraining(tF.scale_invariant_signal_distortion_ratio), (4, 2, 8000)),
+        "pit 3": (lambda: M.PermutationInvariantTraining(tF.signal_distortion_ratio, filter_length=128),
+                  (2, 3, 8000)),
+    }[case]
+    m, ref = make(), make()
+    batches = [_card_speech(card, shape, seed) for seed in (72, 73)]
+    m.update(*batches[0])
+    m.compute()  # warm: cuFFT plans, the permutation table
+    _no_sync(lambda: m.update(*batches[1]))
+    value = []
+    _no_sync(lambda: value.append(m.compute()))
+    for b in batches:
+        ref.update(*b)
+    assert torch.equal(value[0], ref.compute())
+
+
+def test_sdr_on_the_card_equals_the_cpu_and_a_singular_system_is_nan(card):
+    from metrics_tpu_torch.functional import signal_distortion_ratio
+
+    p, t = _card_speech(card, (8, 16000), 74)
+    got = signal_distortion_ratio(p, t)
+    want = signal_distortion_ratio(p.cpu(), t.cpu())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)  # ~14 dB: 2e-5 * (1 + 10 ** 1.4) dB
+    got64 = signal_distortion_ratio(p.double(), t.double())
+    assert got64.dtype == torch.float64
+    torch.testing.assert_close(got64.cpu(), signal_distortion_ratio(p.cpu().double(), t.cpu().double()), atol=1e-9,
+                               rtol=0)
+    singular = []
+    _no_sync(lambda: singular.append(signal_distortion_ratio(p[:2], torch.zeros_like(p[:2]), filter_length=32)))
+    assert torch.isnan(singular[0]).all()
+
+
+def test_stoi_overlap_add_is_bit_stable_and_equals_the_cpu(card):
+    """Each sample of the overlap-add has at most two addends: two runs on the
+    card give the same bits, and so does the CPU."""
+    from metrics_tpu_torch.functional.audio.stoi import _compact_loud_frames
+
+    p, t = _card_speech(card, (8, 80000), 75)
+    runs = [_compact_loud_frames(t, p, 256, 128) for _ in range(2)]
+    cpu = _compact_loud_frames(t.cpu(), p.cpu(), 256, 128)
+    assert int(runs[0][2].min()) < 80000 // 128 - 1  # the silent gap was dropped
+    for a, b, c in zip(*runs, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_stoi_convolution_and_band_product_are_tf32_free_and_restore_the_flags(card):
+    from metrics_tpu_torch.functional import short_time_objective_intelligibility
+
+    p, t = _card_speech(card, (4, 32000), 76)
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        values = {}
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = flag
+            values[flag] = short_time_objective_intelligibility(p, t, 16000)
+            assert torch.backends.cudnn.allow_tf32 is flag and torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+    assert torch.equal(values[True], values[False])
+    torch.testing.assert_close(values[True].cpu(), short_time_objective_intelligibility(p.cpu(), t.cpu(), 16000),
+                               atol=1e-5, rtol=0)
+
+
+def test_pit_permutation_table_is_built_on_the_card_and_hungarian_reads_the_host_once(card):
+    from metrics_tpu_torch.functional import permutation_invariant_training, scale_invariant_signal_distortion_ratio
+    from metrics_tpu_torch.functional.audio.pit import _permutation_table
+
+    for spk in (2, 3):
+        p, t = _card_speech(card, (4, spk, 4000), 77 + spk)
+        metric, perm = permutation_invariant_training(p, t, scale_invariant_signal_distortion_ratio)
+        table = _permutation_table(spk, p.device)
+        assert table.device == p.device and table.shape == (spk, int(np.prod(range(1, spk + 1))))
+        assert perm.device == p.device and perm.dtype == torch.int32
+        assert torch.equal(perm.cpu(), torch.arange(spk, dtype=torch.int32).expand(4, spk))
+    p, t = _card_speech(card, (4, 5, 4000), 80)
+    permutation_invariant_training(p, t, scale_invariant_signal_distortion_ratio)
+    assert _sync_count(lambda: permutation_invariant_training(p, t, scale_invariant_signal_distortion_ratio)) == 1
+
+
+def test_pit_engine_captures_and_replays_bit_equal_to_eager(card):
+    M, tF = metrics_tpu_torch, metrics_tpu_torch.functional
+    engine = M.PermutationInvariantTraining(tF.scale_invariant_signal_distortion_ratio, jit_update=True)
+    eager = M.PermutationInvariantTraining(tF.scale_invariant_signal_distortion_ratio)
+    batches = [_card_speech(card, (8, 2, 16000), seed) for seed in range(81, 85)]
+    engine.update(*batches[0])
+    for b in batches[1:]:
+        _no_sync(lambda b=b: engine.update(*b))
+    for b in batches:
+        eager.update(*b)
+    programs = list(engine._dispatcher._cache.values())
+    assert len(programs) == 1 and len(programs[0].graphs) == 2
+    for key in eager._defaults:
+        assert torch.equal(getattr(engine, key), getattr(eager, key)), key
+    stats = engine.dispatch_stats
+    assert stats["dispatches"] == 4 and stats["retraces"] == 1 and stats["demotions"] == 0

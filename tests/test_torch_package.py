@@ -23,7 +23,8 @@ def _env():
 def test_import_leaves_jax_and_the_jax_package_out():
     code = (
         "import sys, runpy, metrics_tpu_torch, metrics_tpu_torch.interop, metrics_tpu_torch.parallel,"
-        " metrics_tpu_torch.quant, metrics_tpu_torch.sync_engine, metrics_tpu_torch.fabric, metrics_tpu_torch.serve\n"
+        " metrics_tpu_torch.quant, metrics_tpu_torch.sync_engine, metrics_tpu_torch.fabric, metrics_tpu_torch.serve,"
+        " metrics_tpu_torch.audio, metrics_tpu_torch.functional.audio, metrics_tpu_torch.functional.audio._pesq_core\n"
         "for tool in ('tools/torch_wal_scrub.py', 'tools/torch_loadgen.py'):\n"
         "    runpy.run_path(tool, run_name='tool')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
