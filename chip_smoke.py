@@ -355,6 +355,43 @@
    ``jit_update=True`` the JAX package's warning and the eager update); each
    update and compute's ms and host syncs, STOI's resampling convolution
    against its bound, PESQ's host ms an utterance.
+   Slice 18, the text metrics (``metrics_tpu_torch.text`` and
+   ``functional.text``; no kernel of the registry runs: strings stay on the
+   host, where the edit-distance core, ``metrics_tpu_torch/native``, built
+   with ``g++`` at the start of the slice, runs the dynamic programs), on
+   corpora made from seeds: Zipf (s = 1.1) vocabularies of synthetic words,
+   sentence lengths at each corpus's size, hypotheses the references with
+   planted edits. A. LibriSpeech test-clean (2,620 utterances, 52,576 words)
+   and test-other (2,939, 52,343) in uppercase words with apostrophes, planted
+   WER about 3% and 7%: a substitution is a fresh word of the replaced word's
+   length and an insertion a fresh word joined by a tab, fresh meaning made
+   of characters no reference holds (lowercase letters, the tab), so every
+   planted edit costs one word and one character each of its characters in
+   any alignment and the planted alignment no more: WER and CER must equal
+   ``float32(planted) / float32(total)`` bit for bit. Batches of 32 go
+   through one ``MetricCollection`` of WER, CER, MER, WIL and WIP on the
+   card; the same corpus on the CPU gives the same bits; 200 pairs with
+   deletions and shifts hold the core's batched Levenshtein to the Python
+   DP. B. WMT14 en-de newstest2014 (3,003 segments, one reference), a NIST
+   MT02-shaped set (878 segments, four references) and WMT17 en-zh
+   newstest2017 (2,001 segments of Chinese from the CJK ranges SacreBLEU's
+   ``zh`` tokenizer splits) in batches of 64 through ``BLEUScore`` (the two
+   English and German sets), ``SacreBLEUScore`` (``13a``; ``zh`` and
+   ``char`` on en-zh), ``CHRFScore`` as chrF and as chrF++ with sentence
+   scores, ``TranslationEditRate`` with sentence scores (``normalize`` and
+   ``asian_support`` on en-zh) and ``ExtendedEditDistance``: BLEU within
+   1e-6 of a float64 BLEU written here (clipped counts, the first closest
+   reference length, the brevity penalty), chrF's core bit-equal to its
+   ``Counter`` path on 200 segments, EED's core within 1e-12 of the numpy
+   grid on 200, TER's core equal to the Python DP's on 100, and every value
+   after the first 4 batches equal to the CPU run over them. C. No registry
+   kernel launches; ``jit_update=True`` warns with the JAX package's message
+   and the engine refuses with its error; an update makes no host sync,
+   BLEU's compute none and chrF's one. Each metric's update ms a batch
+   (median), the core's share of it, compute ms and each corpus's epoch
+   seconds are printed. SacreBLEU's ``intl`` tokenizer needs ``regex``
+   (``tests/test_torch_text_mt.py`` holds it on the CPU); it runs on en-de
+   where ``regex`` can be imported, and the slice prints whether it ran.
    Slice 9's ranks compute inside a session: on each, the ``collective``
    spans and their bytes equal ``sync_stats``. Before the ``kernels`` line
    each kernel's cost-model entry (``model_bytes``, ``model_flops``) must
@@ -396,6 +433,7 @@ elsewhere. The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. There is no CPU mode: without a card the
 script fails.
 """
+import collections
 import contextlib
 import ctypes
 import json
@@ -563,6 +601,17 @@ SEP_LEAK, SEP_NOISE, SEP_SI_SDR_DB = 0.1, (0.17, 0.38), (8.0, 15.0)
 # the tolerances, as tests/test_torch_audio.py holds the port to the JAX package: SNR and SI-SDR within 1e-4 dB of
 # float64, STOI 1e-5 between devices; SDR's float32 solve 2e-5 * (1 + 10 ** (SDR / 10)) dB of float64
 DB_ATOL17, STOI_ATOL17, SDR_TOL_DB = 1e-4, 1e-5, 2e-5
+# slice 18: LibriSpeech test-clean and test-other (utterances, words, planted WER), batches of 32; WMT14 en-de
+# newstest2014, a NIST MT02-shaped set and WMT17 en-zh newstest2017 (segments, references, mean length in words, or in
+# characters for Chinese), batches of 64; the first MT_CPU_BATCHES batches again on the CPU
+LIBRI_SETS = (("test-clean", 2620, 52576, 0.03), ("test-other", 2939, 52343, 0.07))
+MT_SETS = (("wmt14-en-de", 3003, 1, 22.0), ("nist-mt02", 878, 4, 30.0), ("wmt17-en-zh", 2001, 1, 45.0))
+ASR_BATCH, MT_BATCH, MT_CPU_BATCHES, TEXT_ZIPF = 32, 64, 4, 1.1
+TEXT_VOCAB, CJK_INVENTORY = 20_000, 4_000
+# the segments the core is held against its plain versions on
+CORE_CHECKS = {"levenshtein": 200, "chrf": 200, "eed": 200, "ter": 100}
+BLEU_F64_ATOL = 1e-6
+TEXT_CARD_CPU_RTOL = 1e-6  # BLEU's and EED's device arithmetic (log, exp, a mean); every count is exact
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -4878,6 +4927,422 @@ def run_slice17(torch, dev, laps):
     return slice17_launches
 
 
+_UPPER_SYLLABLES = [c + v for c in "BCDFGHJKLMNPRSTVWY" for v in "AEIOU"] + ["TH", "SH", "CH", "ST", "NG"]
+_LOWER_SYLLABLES = [c + v for c in "bcdfghklmnprstvwz" for v in "aeiou"] + ["sch", "ei", "ie", "ung", "st"]
+
+
+def synthetic_vocab(rng, n, syllables, apostrophe=0.0):
+    """``n`` distinct words of one to three syllables, in the order a Zipf draw ranks them."""
+    words, seen = [], set()
+    while len(words) < n:
+        for k in rng.randint(1, 4, 4 * n):
+            w = "".join(syllables[i] for i in rng.randint(0, len(syllables), k))
+            if rng.rand() < apostrophe:
+                w += "'S"
+            if w not in seen:
+                seen.add(w)
+                words.append(w)
+                if len(words) == n:
+                    break
+    return words
+
+
+def zipf_draw(rng, n_types, size):
+    """``size`` ranks of a Zipf law (s = ``TEXT_ZIPF``) over ``n_types`` types."""
+    p = 1.0 / np.arange(1, n_types + 1) ** TEXT_ZIPF
+    return rng.choice(n_types, size, p=p / p.sum())
+
+
+def corpus_lengths(rng, n, total, sigma=0.6):
+    """``n`` log-normal sentence lengths of at least 1 that sum to ``total``."""
+    raw = rng.lognormal(0.0, sigma, n)
+    lengths = np.maximum(1, np.round(raw / raw.mean() * total / n)).astype(np.int64)
+    while lengths.sum() != total:
+        step = 1 if lengths.sum() < total else -1
+        idx = rng.randint(0, n, abs(int(total - lengths.sum())))
+        np.add.at(lengths, idx[lengths[idx] + step >= 1], step)
+    return lengths
+
+
+def fresh_word(rng, k):
+    """A word of ``k`` lowercase letters: characters no LibriSpeech-style reference holds."""
+    return "".join(chr(97 + c) for c in rng.randint(0, 26, k))
+
+
+def asr_corpus(rng, vocab, n, total_words, rate):
+    """LibriSpeech-shaped references and hypotheses with planted substitutions
+    and insertions of fresh words; the planted word and character counts."""
+    lengths = corpus_lengths(rng, n, total_words)
+    ranks = zipf_draw(rng, len(vocab), total_words)
+    draws = rng.rand(total_words, 2)
+    refs, hyps, planted_w, planted_c, pos = [], [], 0, 0, 0
+    for length in lengths:
+        ref = [vocab[i] for i in ranks[pos:pos + length]]
+        hyp = []
+        for j, w in enumerate(ref):
+            if draws[pos + j, 0] < 0.6 * rate:  # a fresh word of the replaced word's length: len(w) characters
+                hyp.append(fresh_word(rng, len(w)))
+                planted_w, planted_c = planted_w + 1, planted_c + len(w)
+            else:
+                hyp.append(w)
+            if draws[pos + j, 1] < 0.4 * rate:  # a fresh word joined by a tab: its characters and the tab
+                word = fresh_word(rng, int(rng.randint(2, 9)))
+                hyp[-1] += "\t" + word
+                planted_w, planted_c = planted_w + 1, planted_c + len(word) + 1
+        pos += length
+        refs.append(" ".join(ref))
+        hyps.append(" ".join(hyp))
+    return hyps, refs, planted_w, planted_c
+
+
+def edit_words(rng, words, vocab, sub=0.1, dele=0.05, ins=0.05, shift=0.4):
+    """``words`` with substitutions and insertions from ``vocab``, deletions and at most one phrase shift."""
+    out = []
+    for w in words:
+        r = rng.rand()
+        if r < dele:
+            continue
+        out.append(vocab[rng.randint(0, len(vocab))] if r < dele + sub else w)
+        if rng.rand() < ins:
+            out.append(vocab[rng.randint(0, len(vocab))])
+    if len(out) > 4 and rng.rand() < shift:
+        start = int(rng.randint(0, len(out) - 1))
+        size = int(rng.randint(1, min(4, len(out) - start) + 1))
+        span, rest = out[start:start + size], out[:start] + out[start + size:]
+        at = int(np.clip(start + rng.randint(-8, 9), 0, len(rest)))
+        out = rest[:at] + span + rest[at:]
+    return out
+
+
+def mt_corpus(rng, name, n, n_refs, mean_len):
+    """A translation test set's shape: ``(preds, targets)`` with ``n_refs``
+    references a segment. Words (German-like, English-like for MT02) with
+    capitals, commas, numbers and a final stop; for en-zh, characters of the
+    CJK Unified Ideographs block with full-width punctuation and an odd Latin
+    token. The hypothesis edits a base sentence (fresh words or characters
+    substituted and inserted, deletions, a shift); each reference is the base,
+    or a paraphrase of it for the second and later ones."""
+    zh = name.endswith("zh")
+    lengths = corpus_lengths(rng, n, int(n * mean_len))
+    if zh:
+        inventory = [chr(0x4E00 + i) for i in rng.permutation(0x9FA5 - 0x4E00)[:CJK_INVENTORY]]
+        fresh = [chr(0x3400 + i) for i in range(2000)]  # Extension A: in no reference
+        tokens, fresh_tokens = inventory, fresh
+    else:
+        tokens = synthetic_vocab(rng, TEXT_VOCAB, _LOWER_SYLLABLES)
+        fresh_tokens = [w + "x" for w in synthetic_vocab(rng, 2000, _UPPER_SYLLABLES)]
+    ranks = zipf_draw(rng, len(tokens), int(lengths.sum()))
+    preds, targets, pos = [], [], 0
+    for length in lengths:
+        base = [tokens[i] for i in ranks[pos:pos + length]]
+        pos += length
+        if not zh:
+            base = [w.capitalize() if rng.rand() < 0.25 else w for w in base]
+            base = [w + "," if rng.rand() < 0.07 else w for w in base]
+            if rng.rand() < 0.2:
+                base.insert(int(rng.randint(0, len(base) + 1)), f"{rng.randint(1, 2020)}")
+        hyp = edit_words(rng, base, fresh_tokens, sub=0.12, dele=0.05, ins=0.05)
+        refs = [base] + [edit_words(rng, base, tokens, sub=0.15, dele=0.05, ins=0.05) for _ in range(n_refs - 1)]
+        preds.append(mt_segment(hyp, zh))
+        targets.append([mt_segment(r, zh) for r in refs])
+    return preds, targets
+
+
+def mt_segment(tokens, zh):
+    """Chinese characters with a full-width comma midway and a full stop; words with spaces and a stop."""
+    if zh:
+        half = len(tokens) // 2
+        return "".join(tokens[:half]) + "，" + "".join(tokens[half:]) + "。"
+    return " ".join(tokens) + ("." if tokens else "")
+
+
+def float64_bleu(preds, targets, n_gram=4):
+    """Corpus BLEU in float64, written apart from the port: clipped n-gram
+    counts (a reference n-gram's count is its most in any reference), the
+    first reference of the closest length, the brevity penalty."""
+    num, den = np.zeros(n_gram), np.zeros(n_gram)
+    p_len = t_len = 0
+    for pred, refs in zip(preds, targets):
+        hyp, refs = pred.split(), [r.split() for r in refs]
+        p_len += len(hyp)
+        diffs = [abs(len(hyp) - len(r)) for r in refs]
+        t_len += len(refs[diffs.index(min(diffs))])
+        for n in range(1, n_gram + 1):
+            grams = collections.Counter(tuple(hyp[i:i + n]) for i in range(len(hyp) - n + 1))
+            most = collections.Counter()
+            for r in refs:
+                for g, c in collections.Counter(tuple(r[i:i + n]) for i in range(len(r) - n + 1)).items():
+                    most[g] = max(most[g], c)
+            num[n - 1] += sum(min(c, most[g]) for g, c in grams.items())
+            den[n - 1] += sum(grams.values())
+    if num.min() == 0:
+        return 0.0
+    bp = 1.0 if p_len > t_len else math.exp(1 - t_len / p_len)
+    return bp * math.exp(np.mean(np.log(num / den)))
+
+
+@contextlib.contextmanager
+def native_clock():
+    """Seconds spent in the edit-distance core's entry points while the block runs (``spent[0]``)."""
+    from metrics_tpu_torch import native
+
+    spent = [0.0]
+    names = ("levenshtein_ids", "levenshtein_batch_ids", "ngram_overlap", "eed_score")
+    saved = {name: getattr(native, name) for name in names}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[0] += time.perf_counter() - t0
+
+        return call
+
+    for name in names:
+        setattr(native, name, timed(saved[name]))
+    try:
+        yield spent
+    finally:
+        for name, fn in saved.items():
+            setattr(native, name, fn)
+
+
+def text_epoch(torch, mods, batches, on_batch=None):
+    """Every batch through every module, each update timed to the card's
+    completion with the core's seconds inside it; ``on_batch(i)`` after batch
+    ``i``. Returns the epoch's seconds and, a module, its median update ms and
+    the core's share of its update time."""
+    ms = {k: [] for k in mods}
+    core = dict.fromkeys(mods, 0.0)
+    t_epoch = time.perf_counter()
+    with native_clock() as spent:
+        for i, (preds, target) in enumerate(batches):
+            for key, m in mods.items():
+                before, t0 = spent[0], time.perf_counter()
+                m.update(preds, target)
+                torch.cuda.synchronize()
+                ms[key].append((time.perf_counter() - t0) * 1e3)
+                core[key] += spent[0] - before
+            if on_batch is not None:
+                on_batch(i)
+    epoch_s = time.perf_counter() - t_epoch
+    return epoch_s, {k: {"update_ms_median": statistics.median(v), "core_share": core[k] / (sum(v) / 1e3)}
+                     for k, v in ms.items()}
+
+
+def text_values(m):
+    """A text metric's value as host numbers: a float, or a float and a list of sentence scores."""
+    value = m.compute()
+    if isinstance(value, tuple):
+        return [float(value[0]), value[1].reshape(-1).tolist()]
+    return float(value)
+
+
+def text_close(got, want, rtol):
+    """Two :func:`text_values`: the scores within ``rtol``, any sentence scores equal."""
+    g, w = (got, want) if isinstance(got, float) else (got[0], want[0])
+    return abs(g - w) <= rtol * abs(w) and (isinstance(got, float) or got[1] == want[1])
+
+
+def text_states_equal(torch, a, b):
+    for key in a._defaults:
+        x, y = getattr(a, key), getattr(b, key)
+        pairs = zip(x, y) if isinstance(x, list) else [(x, y)]
+        if (isinstance(x, list) and len(x) != len(y)) or not all(torch.equal(u.cpu(), v.cpu()) for u, v in pairs):
+            return False
+    return True
+
+
+def mt_modules(M, dev, zh, intl=False):
+    mods = {} if zh else {"bleu": M.BLEUScore(device=dev)}
+    mods["sacrebleu_13a"] = M.SacreBLEUScore(tokenize="13a", device=dev)
+    if intl:
+        mods["sacrebleu_intl"] = M.SacreBLEUScore(tokenize="intl", device=dev)
+    if zh:
+        mods["sacrebleu_zh"] = M.SacreBLEUScore(tokenize="zh", device=dev)
+        mods["sacrebleu_char"] = M.SacreBLEUScore(tokenize="char", device=dev)
+    mods["chrf"] = M.CHRFScore(n_word_order=0, device=dev)
+    mods["chrf++"] = M.CHRFScore(n_word_order=2, return_sentence_level_score=True, device=dev)
+    mods["ter"] = M.TranslationEditRate(return_sentence_level_score=True, normalize=zh, asian_support=zh, device=dev)
+    mods["eed"] = M.ExtendedEditDistance(device=dev)
+    return mods
+
+
+def run_slice18(torch, dev, laps):
+    """Slice 18 (see the module's docstring): returns the kernels' launches on
+    its path (all 0: strings stay on the host, and no text metric reaches a
+    kernel of the registry)."""
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch import native
+    from metrics_tpu_torch.dispatch import FastDispatchUnsupported
+    from metrics_tpu_torch.functional.text.chrf import _sentence_stats, _sentence_stats_plain
+    from metrics_tpu_torch.functional.text.eed import _eed_function, _eed_function_plain, _preprocess_en
+    from metrics_tpu_torch.functional.text.helper import _edit_distance_py, _edit_distances
+    from metrics_tpu_torch.functional.text.ter import _TercomTokenizer, _ter_stats
+    from metrics_tpu_torch.ops import launches, reset_launches
+    from metrics_tpu_torch.utilities.imports import _REGEX_AVAILABLE
+
+    t_slice = time.perf_counter()
+    cpu = torch.device("cpu")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    native.load()
+    report = {"card": card, "core_build_s": time.perf_counter() - t0}
+    reset_launches()
+    rng = np.random.RandomState(SEED + 18)
+
+    # ------------------------------------------------------------ A. LibriSpeech
+    vocab = synthetic_vocab(rng, TEXT_VOCAB, _UPPER_SYLLABLES, apostrophe=0.03)
+    names = ("WordErrorRate", "CharErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved")
+    report["A_librispeech"] = {}
+    for split, n, words, rate in LIBRI_SETS:
+        hyps, refs, planted_w, planted_c = asr_corpus(rng, vocab, n, words, rate)
+        batches = [(hyps[i:i + ASR_BATCH], refs[i:i + ASR_BATCH]) for i in range(0, n, ASR_BATCH)]
+        coll = M.MetricCollection({k: getattr(M, k)(device=dev) for k in names})
+        epoch_s, _ = text_epoch(torch, {"collection": coll}, batches)
+        alone = {k: getattr(M, k)(device=dev) for k in names}
+        _, per_metric = text_epoch(torch, alone, batches)
+        host = M.MetricCollection({k: getattr(M, k)(device=cpu) for k in names})
+        for b in batches:
+            host.update(*b)
+        values, host_values = coll.compute(), host.compute()
+        n_chars = sum(len(r) for r in refs)
+        wer, cer = coll["WordErrorRate"], coll["CharErrorRate"]
+        check(float(wer.errors) == planted_w and float(wer.total) == words and float(cer.errors) == planted_c
+              and float(cer.total) == n_chars,
+              f"{split}: the error counts {float(wer.errors)}, {float(cer.errors)} are not the planted {planted_w}, "
+              f"{planted_c} over {words} words and {n_chars} characters")
+        for key, planted, total in (("WordErrorRate", planted_w, words), ("CharErrorRate", planted_c, n_chars)):
+            want = np.float32(planted) / np.float32(total)
+            check(values[key].cpu().numpy().tobytes() == want.tobytes(),
+                  f"{split}: {key} {float(values[key])!r} is not float32({planted}) / float32({total}) = {want!r}")
+        for key in names:
+            check(values[key].device.type == "cuda" and torch.equal(values[key].cpu(), host_values[key])
+                  and text_states_equal(torch, coll[key], host[key]),
+                  f"{split}: {key} on the card differs from the CPU run")
+        b = batches[len(batches) // 2]
+        report["A_librispeech"][split] = {
+            "utterances": n, "words": words, "characters": n_chars, "batches": len(batches),
+            "planted_word_edits": planted_w, "planted_char_edits": planted_c,
+            "values": {k: float(v) for k, v in values.items()}, "epoch_s": epoch_s,
+            "update_ms": per_metric, "collection_update_ms": host_ms(torch, lambda b=b: coll.update(*b), reps=5),
+            "compute_ms": {k: host_ms(torch, m._compute_impl, reps=5) for k, m in alone.items()},
+            "update_syncs": one_call_syncs(torch, lambda b=b: coll.update(*b))[0],
+            "compute_syncs": {k: one_call_syncs(torch, m._compute_impl)[0] for k, m in alone.items()},
+        }
+        entry = report["A_librispeech"][split]
+        check(entry["update_syncs"] == 0 and not any(entry["compute_syncs"].values()),
+              f"{split}: an error-rate update or compute synchronised with the host: {entry['update_syncs']}, "
+              f"{entry['compute_syncs']}")
+        print(f"slice 18 A, LibriSpeech {split}: " + json.dumps(entry))
+        laps.mark(f"3. slice 18 A: LibriSpeech {split}")
+    # the core's batched Levenshtein against the Python DP, on pairs with deletions and shifts, words and characters
+    pairs = []
+    for ref in refs[:CORE_CHECKS["levenshtein"]]:
+        hyp = edit_words(rng, ref.split(), vocab, sub=0.05, dele=0.1, ins=0.03, shift=0.5)
+        pairs += [(hyp, ref.split()), (list(" ".join(hyp)), list(ref))]
+    check(_edit_distances(pairs) == [_edit_distance_py(a, b) for a, b in pairs],
+          "the core's batched Levenshtein differs from the Python DP")
+    laps.mark("3. slice 18 A: the core against the Python DP")
+
+    # ------------------------------------------------------------ B. translation
+    report["B_translation"] = {}
+    for name, n, n_refs, mean_len in MT_SETS:
+        zh = name.endswith("zh")
+        preds, targets = mt_corpus(rng, name, n, n_refs, mean_len)
+        batches = [(preds[i:i + MT_BATCH], targets[i:i + MT_BATCH]) for i in range(0, n, MT_BATCH)]
+        intl = name == "wmt14-en-de" and _REGEX_AVAILABLE
+        mods = mt_modules(M, dev, zh, intl)
+        prefix = {}
+
+        def note_prefix(i, mods=mods, prefix=prefix):
+            if i == MT_CPU_BATCHES - 1:
+                prefix.update({k: text_values(m) for k, m in mods.items()})
+
+        epoch_s, per_metric = text_epoch(torch, mods, batches, note_prefix)
+        values = {k: text_values(m) for k, m in mods.items()}
+        host = mt_modules(M, cpu, zh, intl)
+        for b in batches[:MT_CPU_BATCHES]:
+            for m in host.values():
+                m.update(*b)
+        for key, m in host.items():
+            got, want = prefix[key], text_values(m)
+            # BLEU's log and exp and EED's nanmean round apart on the two devices; chrF's score is host arithmetic,
+            # TER's one division, the sentence scores host numbers: exact
+            rtol = TEXT_CARD_CPU_RTOL if key.startswith(("bleu", "sacrebleu", "eed")) else 0.0
+            check(text_close(got, want, rtol), f"{name}: {key} on the card after {MT_CPU_BATCHES} batches, "
+                  f"{str(got)[:200]}, differs from the CPU run over them, {str(want)[:200]}")
+        entry = {"segments": n, "references": n_refs, "batches": len(batches), "epoch_s": epoch_s,
+                 "values": {k: v if isinstance(v, float) else v[0] for k, v in values.items()},
+                 "update_ms": per_metric}
+        if not zh:
+            f64 = float64_bleu(preds, targets)
+            entry["bleu_float64"] = f64
+            check(abs(values["bleu"] - f64) <= BLEU_F64_ATOL, f"{name}: BLEU {values['bleu']} against float64 {f64}")
+        b = batches[len(batches) // 2]
+        entry["compute_ms"] = {k: host_ms(torch, m._compute_impl, reps=5) for k, m in mods.items()}
+        entry["update_syncs"] = {k: one_call_syncs(torch, lambda m=m: m.update(*b))[0] for k, m in mods.items()}
+        entry["compute_syncs"] = {k: one_call_syncs(torch, m._compute_impl)[0] for k, m in mods.items()}
+        want_reads = {k: (1 if k.startswith("chrf") else 0) for k in mods}
+        check(not any(entry["update_syncs"].values()) and entry["compute_syncs"] == want_reads,
+              f"{name}: host syncs {entry['update_syncs']} an update and {entry['compute_syncs']} a compute, not 0 "
+              f"and {want_reads}")
+        if name == "wmt14-en-de":
+            # the core against its plain versions on the first segments
+            sample = list(zip(preds, targets))
+            for pred, tgts in sample[:CORE_CHECKS["chrf"]]:
+                check(_sentence_stats(pred, tgts, 6, 2, False, False, 2.0)
+                      == _sentence_stats_plain(pred, tgts, 6, 2, False, False, 2.0),
+                      "chrF's core differs from its Counter path")
+            gaps = [abs(_eed_function(_preprocess_en(p), _preprocess_en(t[0]))
+                        - _eed_function_plain(_preprocess_en(p), _preprocess_en(t[0])))
+                    for p, t in sample[:CORE_CHECKS["eed"]]]
+            check(max(gaps) <= 1e-12, f"EED's core is {max(gaps)} from the numpy grid")
+            tok = _TercomTokenizer()
+            sub_p, sub_t = preds[:CORE_CHECKS["ter"]], targets[:CORE_CHECKS["ter"]]
+            check(_ter_stats(sub_p, sub_t, tok) == _ter_stats(
+                sub_p, sub_t, tok, lambda ps: [_edit_distance_py(a, b) for a, b in ps]),
+                "TER through the core differs from TER through the Python DP")
+            entry["core_checks"] = dict(CORE_CHECKS, eed_max_abs_diff=max(gaps))
+        report["B_translation"][name] = entry
+        print(f"slice 18 B, {name}: " + json.dumps(entry))
+        laps.mark(f"3. slice 18 B: {name}")
+        del mods, host
+
+    # ------------------------------------------------------------ C. the engines refuse
+    for cls in ("WordErrorRate", "CHRFScore", "TranslationEditRate"):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            m = getattr(M, cls)(jit_update=True, device=dev)
+        messages = [str(w.message) for w in caught]
+        check(messages == [f"{cls} is host_only (host-side update path); ignoring jit_update=True — updates run "
+                           "eagerly."], f"{cls} with jit_update=True warned {messages}")
+        m.update(["A B"], ["A C"])
+        check(m._dispatcher is None and m.dispatch_stats["dispatches"] == 1,
+              f"{cls} with jit_update=True did not run the eager update")
+        try:
+            m._make_dispatcher().update({}, (), (["A B"], ["A C"]), {})
+            refused = None
+        except FastDispatchUnsupported as err:
+            refused = str(err)
+        check(refused == f"{cls} is host_only: its update runs host-side code (strings/tokenizers/native libraries)"
+              " the engine cannot trace", f"{cls}'s engine did not refuse with the JAX package's error: {refused}")
+    print("slice 18: SacreBLEU's intl tokenizer " + ("ran on WMT14 en-de" if _REGEX_AVAILABLE else
+          "is not driven: it needs the regex package, which this machine lacks") +
+          "; tests/test_torch_text_mt.py holds it against the JAX package on the CPU")
+
+    slice18_launches = launches()
+    check(all(n == 0 for n in slice18_launches.values()), f"slice 18 launched a kernel: {slice18_launches}")
+    report["launches"] = slice18_launches
+    report["command_s"] = time.perf_counter() - t_slice
+    laps.mark("3. slice 18 C: the engines")
+    print(f"slice 18 ({card}): " + json.dumps(report, default=str))
+    return slice18_launches
+
+
 def main() -> int:
     import torch
 
@@ -6229,6 +6694,9 @@ def main() -> int:
 
     # ------------------------------------------ 3p. slice 17: the audio metrics
     run_slice17(torch, dev, laps)
+
+    # ------------------------------------------ 3q. slice 18: the text metrics
+    run_slice18(torch, dev, laps)
 
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000

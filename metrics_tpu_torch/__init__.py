@@ -92,6 +92,18 @@ from metrics_tpu_torch.streaming import (  # noqa: F401
     SlidingWindow,
     TumblingWindow,
 )
+from metrics_tpu_torch.text import (  # noqa: F401
+    BLEUScore,
+    CharErrorRate,
+    CHRFScore,
+    ExtendedEditDistance,
+    MatchErrorRate,
+    SacreBLEUScore,
+    TranslationEditRate,
+    WordErrorRate,
+    WordInfoLost,
+    WordInfoPreserved,
+)
 from metrics_tpu_torch.wrappers import (  # noqa: F401
     BootStrapper,
     ClasswiseWrapper,
@@ -105,12 +117,15 @@ __all__ = [
     "AUROC",
     "Accuracy",
     "AveragePrecision",
+    "BLEUScore",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
     "BootStrapper",
+    "CHRFScore",
     "CalibrationError",
     "CatMetric",
+    "CharErrorRate",
     "ClasswiseWrapper",
     "CohenKappa",
     "CompositionalMetric",
@@ -121,6 +136,7 @@ __all__ = [
     "ErrorRelativeGlobalDimensionlessSynthesis",
     "ExplainedVariance",
     "ExponentialDecay",
+    "ExtendedEditDistance",
     "F1Score",
     "FBetaScore",
     "FoldTreeWindow",
@@ -132,6 +148,7 @@ __all__ = [
     "KLDivergence",
     "LabelRankingAveragePrecision",
     "LabelRankingLoss",
+    "MatchErrorRate",
     "MatthewsCorrCoef",
     "MaxMetric",
     "MeanAbsoluteError",
@@ -166,6 +183,7 @@ __all__ = [
     "RetrievalPrecision",
     "RetrievalRPrecision",
     "RetrievalRecall",
+    "SacreBLEUScore",
     "ScaleInvariantSignalDistortionRatio",
     "ScaleInvariantSignalNoiseRatio",
     "ShortTimeObjectiveIntelligibility",
@@ -181,9 +199,13 @@ __all__ = [
     "StructuralSimilarityIndexMeasure",
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
+    "TranslationEditRate",
     "TumblingWindow",
     "TweedieDevianceScore",
     "UniversalImageQualityIndex",
     "WeightedMeanAbsolutePercentageError",
+    "WordErrorRate",
+    "WordInfoLost",
+    "WordInfoPreserved",
     "functional",
 ]

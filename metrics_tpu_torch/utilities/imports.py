@@ -11,3 +11,4 @@ def _package_available(name: str) -> bool:
 
 
 _PESQ_AVAILABLE = _package_available("pesq")
+_REGEX_AVAILABLE = _package_available("regex")

@@ -1921,3 +1921,110 @@ def test_pit_engine_captures_and_replays_bit_equal_to_eager(card):
         assert torch.equal(getattr(engine, key), getattr(eager, key)), key
     stats = engine.dispatch_stats
     assert stats["dispatches"] == 4 and stats["retraces"] == 1 and stats["demotions"] == 0
+
+
+TEXT_MODULES = {
+    "WordErrorRate": {}, "CharErrorRate": {}, "MatchErrorRate": {}, "WordInfoLost": {}, "WordInfoPreserved": {},
+    "BLEUScore": {}, "SacreBLEUScore": {"tokenize": "13a"}, "CHRFScore": {"return_sentence_level_score": True},
+    "TranslationEditRate": {"return_sentence_level_score": True},
+    "ExtendedEditDistance": {"return_sentence_level_score": True},
+}
+_TEXT_WORDS = ["the", "council", "said", "on", "Tuesday", "3.5", "U.S.", "don't", "end.", "why?", "a", "of"]
+
+
+def _text_batches(seed, n=3, size=16):
+    rng = np.random.RandomState(seed)
+    batches = []
+    for _ in range(n):
+        preds, target = [], []
+        for _ in range(size):
+            ref = list(rng.choice(_TEXT_WORDS, rng.randint(1, 14)))
+            hyp = [w if rng.rand() > 0.2 else rng.choice(_TEXT_WORDS) for w in ref if rng.rand() > 0.1]
+            preds.append(" ".join(hyp))
+            target.append(" ".join(ref))
+        batches.append((preds, target))
+    return batches
+
+
+def _text_tolerance(name):
+    """BLEU's ``log`` and ``exp`` and EED's ``nanmean`` round differently on the
+    two devices: rtol 1e-6; every other text value is exact (host numbers,
+    float32 sums and one division)."""
+    inexact = ("bleu", "BLEU", "extended_edit_distance", "ExtendedEditDistance")
+    return {"rtol": 1e-6, "atol": 0} if any(k in name for k in inexact) else {"rtol": 0, "atol": 0}
+
+
+@pytest.mark.parametrize("name", sorted(TEXT_MODULES))
+def test_text_metrics_live_on_the_card_and_equal_the_cpu(card, name):
+    """No ``device``: the states are float32 on the card and equal the same
+    module's on the CPU bit for bit (the counts are host numbers; both devices
+    add them in float32 in one order); the values too, but BLEU's and EED's
+    (rtol 1e-6)."""
+    m = getattr(metrics_tpu_torch, name)(**TEXT_MODULES[name])
+    ref = getattr(metrics_tpu_torch, name)(**TEXT_MODULES[name], device="cpu")
+    for preds, target in _text_batches(90):
+        m.update(preds, target)
+        ref.update(preds, target)
+    for key in m._defaults:
+        got, want = getattr(m, key), getattr(ref, key)
+        for g, w in zip(got, want) if isinstance(got, list) else [(got, want)]:
+            assert g.device.type == "cuda" and g.dtype == torch.float32 and torch.equal(g.cpu(), w), key
+    got, want = m.compute(), ref.compute()
+    for g, w in zip(got, want) if isinstance(got, tuple) else [(got, want)]:
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), w, **_text_tolerance(name))
+
+
+@pytest.mark.parametrize("name", ["WordErrorRate", "WordInfoLost", "BLEUScore", "CHRFScore", "TranslationEditRate",
+                                  "ExtendedEditDistance"])
+def test_text_updates_make_no_host_sync(card, name):
+    """An update's counts reach the card from pinned memory (or as kernel
+    arguments): the host never waits."""
+    m = getattr(metrics_tpu_torch, name)(**TEXT_MODULES[name])
+    batches = _text_batches(91)
+    m.update(*batches[0])
+    _no_sync(lambda: m.update(*batches[1]))
+
+
+def test_bleu_compute_makes_no_host_sync_and_chrf_compute_reads_once(card):
+    """BLEU selects its score on the card; chrF reads its three sums back in one piece."""
+    bleu, chrf = metrics_tpu_torch.BLEUScore(), metrics_tpu_torch.CHRFScore()
+    ter, eed = metrics_tpu_torch.TranslationEditRate(), metrics_tpu_torch.ExtendedEditDistance()
+    for preds, target in _text_batches(92, n=2):
+        for m in (bleu, chrf, ter, eed):
+            m.update(preds, [[t] for t in target])
+    assert _sync_count(bleu._compute_impl) == 0
+    assert _sync_count(ter._compute_impl) == 0
+    assert _sync_count(eed._compute_impl) == 0
+    assert _sync_count(chrf._compute_impl) == 1
+
+
+def test_text_engines_refuse_and_updates_run_eagerly_on_the_card(card):
+    from metrics_tpu_torch.dispatch import FastDispatchUnsupported
+
+    preds, target = _text_batches(93, n=1)[0]
+    for name in sorted(TEXT_MODULES):
+        with pytest.warns(UserWarning, match="host_only"):
+            m = getattr(metrics_tpu_torch, name)(**TEXT_MODULES[name], jit_update=True)
+        eager = getattr(metrics_tpu_torch, name)(**TEXT_MODULES[name])
+        m.update(preds, target)
+        eager.update(preds, target)
+        assert m._dispatcher is None
+        for key in m._defaults:
+            got, want = getattr(m, key), getattr(eager, key)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)) if isinstance(got, list) else torch.equal(got, want)
+        with pytest.raises(FastDispatchUnsupported, match="host_only"):
+            m._make_dispatcher().update({}, (), (preds, target), {})
+
+
+def test_text_functionals_run_on_the_card_and_equal_the_cpu(card):
+    tF = metrics_tpu_torch.functional
+    preds, target = _text_batches(94, n=1)[0]
+    refs = [[t] for t in target]
+    for fn, args in ((tF.word_error_rate, (preds, target)), (tF.char_error_rate, (preds, target)),
+                     (tF.bleu_score, (preds, refs)), (tF.sacre_bleu_score, (preds, refs)),
+                     (tF.chrf_score, (preds, refs)), (tF.translation_edit_rate, (preds, refs)),
+                     (tF.extended_edit_distance, (preds, refs))):
+        got, want = fn(*args), fn(*args, device="cpu")
+        assert got.device.type == "cuda", fn.__name__
+        torch.testing.assert_close(got.cpu(), want, **_text_tolerance(fn.__name__))

@@ -24,7 +24,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
     code = (
         "import sys, runpy, metrics_tpu_torch, metrics_tpu_torch.interop, metrics_tpu_torch.parallel,"
         " metrics_tpu_torch.quant, metrics_tpu_torch.sync_engine, metrics_tpu_torch.fabric, metrics_tpu_torch.serve,"
-        " metrics_tpu_torch.audio, metrics_tpu_torch.functional.audio, metrics_tpu_torch.functional.audio._pesq_core\n"
+        " metrics_tpu_torch.audio, metrics_tpu_torch.functional.audio, metrics_tpu_torch.functional.audio._pesq_core,"
+        " metrics_tpu_torch.native, metrics_tpu_torch.text, metrics_tpu_torch.functional.text\n"
         "for tool in ('tools/torch_wal_scrub.py', 'tools/torch_loadgen.py'):\n"
         "    runpy.run_path(tool, run_name='tool')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
@@ -34,6 +35,31 @@ def test_import_leaves_jax_and_the_jax_package_out():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(), capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_the_text_core_builds_the_ports_own_source(tmp_path, monkeypatch):
+    """The edit-distance core's loader compiles ``metrics_tpu_torch/native/edit_distance.cpp``
+    into the port's build directory, and reads nothing under ``metrics_tpu/``."""
+    from metrics_tpu_torch import native
+
+    commands = []
+    run = subprocess.run
+
+    def spy(cmd, *args, **kwargs):
+        commands.append([str(part) for part in cmd])
+        return run(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(native.subprocess, "run", spy)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(native, "_lib", None)
+    native.load()
+    assert len(commands) == 1
+    source = str(PACKAGE / "native" / "edit_distance.cpp")
+    assert commands[0][-1] == source and commands[0][1:-3] == list(native.CXX_FLAGS)
+    jax_package = str(REPO / "metrics_tpu") + os.sep
+    assert not any(part.startswith(jax_package) for part in commands[0])
+    assert native.library_path().parent == tmp_path / "_build" and native.library_path().exists()
+    assert native.levenshtein_ids([1, 2, 3], [1, 3]) == 1
 
 
 def _imported_modules(path: Path):
