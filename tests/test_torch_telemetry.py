@@ -482,9 +482,16 @@ def test_emission_from_many_threads_loses_no_event():
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
+        # all workers alive together, so no thread reuses another's ident
+        start = threading.Barrier(threads)
+
+        def work(i):
+            start.wait(30)
+            for _ in range(per_thread):
+                telemetry.emit("update", f"T{i}", "eager", nbytes=1)
+
         with telemetry.instrument() as session:
-            workers = [threading.Thread(target=lambda i=i: [telemetry.emit("update", f"T{i}", "eager", nbytes=1)
-                                                            for _ in range(per_thread)]) for i in range(threads)]
+            workers = [threading.Thread(target=work, args=(i,)) for i in range(threads)]
             for w in workers:
                 w.start()
             for w in workers:
