@@ -550,8 +550,10 @@ SLICE14_MAX_QUEUE = 64
 SLICE15_SHARDS, SLICE15_TENANTS, SLICE15_ROWS, SLICE15_FLUSHES = 4, 1024, 64, 8
 SLICE15_VALUE_SAMPLE = 256  # tenants whose fleet-read value is held against the single service's compute
 SLICE15_CM_TENANTS, SLICE15_CM_IDS, SLICE15_CM_FLUSHES, SLICE15_CM_NUMPY = 256, 4096, 3, 16
-# the slow shard's sleep: its p99 must pass 4x its peers' on a host twice as slow as the ones measured (PERF.md §5)
-SLICE15_C_TENANTS, SLICE15_C_ROWS, SLICE15_SLOW_MS, SLICE15_SLOW_WARM, SLICE15_SLOW_OPS = 64, 16, 200, 150, 20
+# the slow shard's sleep: its p99 must pass 4x its peers' on a host twice as slow as the ones measured (PERF.md §5).
+# 1,030 requests a shard put a fast shard's p99 at about its 10th longest, so a few host pauses cannot set it; the
+# slow shard's 30 slow requests are 2.9% of its 1,030
+SLICE15_C_TENANTS, SLICE15_C_ROWS, SLICE15_SLOW_MS, SLICE15_SLOW_WARM, SLICE15_SLOW_OPS = 64, 16, 200, 1000, 30
 SLICE15_TT_TENANTS, SLICE15_TT_ROUNDS, SLICE15_TT_ROUND_TENANTS, SLICE15_TT_ROWS = 1024, 12, 128, 8
 SLICE15_TT_INTERVAL_S, SLICE15_TT_INSTANTS = 1.0, 6
 SLICE15_CHAOS_OPS, SLICE15_CHAOS_SESSIONS, SLICE15_CHAOS_ROWS = 64, 16, 16
@@ -3911,7 +3913,7 @@ def run_slice15(torch, dev, laps):
                 svc.drain()
             torch.cuda.synchronize()
 
-        # enough fast requests a shard that its p99 (about its 2nd longest) passes over a stray pause; the slow
+        # enough fast requests a shard that its p99 (about its 10th longest) passes over stray pauses; the slow
         # phase's requests are more than 1% of the slow shard's
         closed_loop(SLICE15_SLOW_WARM * shards)
         slow_fleet.replicate()
