@@ -471,6 +471,10 @@ SEG_PATCH, SEG_ZIPF, SEG_VOID_SHARE, SEG_RIGHT = 32, 1.1, 0.10, 0.94
 SEG_CPU_IMAGES = 8
 FBETA = 0.5
 COLLECTION_CPU_BATCHES = 8
+# the ImageNet binned path's CPU rerun: a prefix of the epoch, held against a card run over the same prefix
+BINNED_CPU_BATCHES = 8
+# slice 10's CPU rerun: the first batches of ImageNet, COCO and MS MARCO, held against card runs over the same prefixes
+SLICE10_CPU_BATCHES = 8
 # the compute groups the JAX package forms for slice 7's collection (tests/test_torch_collections.py holds
 # the port's groups equal to them on the CPU)
 COLLECTION_GROUPS = {
@@ -1610,13 +1614,19 @@ def run_slice10(torch, dev, batches, coco_batches, marco_batches, laps):
     check(all(v.device.type == "cpu" for v in moved.preds + moved.target), "AUROC(compute_on_cpu=True) states")
     laps.mark("3. slice 10 on the card")
 
+    # the CPU reruns a prefix of each dataset, held against a card run over the same prefix; the whole epochs on
+    # the card are held against the float64 references below
+    head = SLICE10_CPU_BATCHES
     cpu_im = [(p.cpu(), t.cpu()) for p, t in batches]
+    _, _, h_im10, _, _ = run_slice10_imagenet(torch, M, dev, batches[:head], teacher_batches[:head])
+    _, h_coco10, _, _ = run_modules(torch, coco_ranking_modules(M, dev), dev, coco_batches[:head])
+    _, h_marco10, _, _ = run_modules(torch, marco_binary_modules(M, dev), dev, marco_binary[:head])
     _, _, c_im10, c_im10_update_s, c_im10_compute_s = run_slice10_imagenet(
-        torch, M, cpu, cpu_im, [q.cpu() for q in teacher_batches])
+        torch, M, cpu, cpu_im[:head], [q.cpu() for q in teacher_batches[:head]])
     _, c_coco10, _, c_coco10_compute_s = run_modules(
-        torch, coco_ranking_modules(M, cpu), cpu, [(p.cpu(), t.cpu()) for p, t in coco_batches])
+        torch, coco_ranking_modules(M, cpu), cpu, [(p.cpu(), t.cpu()) for p, t in coco_batches[:head]])
     _, c_marco10, _, c_marco10_compute_s = run_modules(
-        torch, marco_binary_modules(M, cpu), cpu, [(p.cpu(), t.cpu()) for p, t in marco_binary])
+        torch, marco_binary_modules(M, cpu), cpu, [(p.cpu(), t.cpu()) for p, t in marco_binary[:head]])
     laps.mark("3. slice 10 on the CPU")
 
     def same_curves(a, b, what):
@@ -1631,19 +1641,23 @@ def run_slice10(torch, dev, batches, coco_batches, marco_batches, laps):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0, msg=f"{what} differs from the CPU run")
 
     for key, got in im10["collection"].items():
-        close(got, c_im10["collection"][key], f"ImageNet {key}")
+        check(bool(torch.isfinite(got).all()), f"ImageNet {key} is not finite: {got}")
+    for key, got in h_im10["collection"].items():
+        close(got, c_im10["collection"][key], f"ImageNet {key} of the first {head} batches")
     for key in ("hinge", "kl", "kl_log_prob", "dice_score"):
-        close(im10[key], c_im10[key], f"ImageNet {key}")
-    close(im10["auroc_compute_on_cpu"], c_im10["collection"]["auroc"], "ImageNet AUROC(compute_on_cpu=True)")
+        check(bool(torch.isfinite(im10[key]).all()), f"ImageNet {key} is not finite: {im10[key]}")
+        close(h_im10[key], c_im10[key], f"ImageNet {key} of the first {head} batches")
     check(im10["auroc_compute_on_cpu"].device.type == "cpu", "AUROC(compute_on_cpu=True) computed off the CPU")
     torch.testing.assert_close(im10["auroc_compute_on_cpu"], im10["collection"]["auroc"].cpu(), rtol=1e-6, atol=0,
                                msg="AUROC(compute_on_cpu=True) differs from the AUROC on the card")
-    same_curves(im10["roc"], c_im10["roc"], "ImageNet ROC")
+    same_curves(h_im10["roc"], c_im10["roc"], f"ImageNet ROC of the first {head} batches")
     check(len(im10["roc"][0]) == NUM_CLASSES, "ImageNet ROC is not a curve a class")
     for key in coco10:
-        close(coco10[key], c_coco10[key], f"COCO {key}")
-    close(marco10["auroc_max_fpr"], c_marco10["auroc_max_fpr"], "MS MARCO AUROC(max_fpr=0.1)")
-    same_curves(marco10["roc"], c_marco10["roc"], "MS MARCO ROC")
+        check(bool(torch.isfinite(coco10[key]).all()), f"COCO {key} is not finite: {coco10[key]}")
+        close(h_coco10[key], c_coco10[key], f"COCO {key} of the first {head} batches")
+    check(bool(torch.isfinite(marco10["auroc_max_fpr"]).all()), "MS MARCO AUROC(max_fpr=0.1) is not finite")
+    close(h_marco10["auroc_max_fpr"], c_marco10["auroc_max_fpr"], f"MS MARCO AUROC(max_fpr=0.1) of the first {head} batches")
+    same_curves(h_marco10["roc"], c_marco10["roc"], f"MS MARCO ROC of the first {head} batches")
 
     # independent float64 references
     np_scores = torch.cat([p for p, _ in cpu_im]).numpy()
@@ -1734,11 +1748,11 @@ def run_slice10(torch, dev, batches, coco_batches, marco_batches, laps):
     print("slice 10 update ms at a full batch (median of 10): " + json.dumps(slice10_update_ms))
     print("slice 10 host syncs an update: " + json.dumps(slice10_update_syncs))
     print(f"slice 10 epoch updates: ImageNet (collection and five standalone modules) {im10_update_s * 1e3:.1f} ms on "
-          f"the card, {c_im10_update_s * 1e3:.1f} ms on the CPU; COCO {coco10_update_s * 1e3:.1f} ms; MS MARCO "
+          f"the card, {c_im10_update_s * 1e3:.1f} ms on the CPU for its first {head} batches; COCO {coco10_update_s * 1e3:.1f} ms; MS MARCO "
           f"{marco10_update_s * 1e3:.1f} ms")
     print("slice 10 compute ms on the card (the epoch's compute, one call): " + json.dumps(compute_ms))
     print("slice 10 compute ms on the card, a member's own compute again (one call): " + json.dumps(warm_compute_ms))
-    print("slice 10 compute ms on the CPU (plain versions): " + json.dumps(cpu_compute_ms))
+    print(f"slice 10 compute ms on the CPU (plain versions), the first {head} batches: " + json.dumps(cpu_compute_ms))
     print("slice 10 host syncs a compute (on the card): " + json.dumps(compute_syncs))
     print(f"slice 10 compute syncs by the port's line (the first {SYNC_SITES_SAMPLED}): " + json.dumps(sync_sites))
     print("ImageNet AUROC compute under torch.profiler: " + json.dumps(auroc_busy))
@@ -6064,7 +6078,8 @@ def main() -> int:
     imagenet_onehot = torch.zeros(N_VAL, NUM_CLASSES, dtype=torch.bool, device=dev)
     imagenet_onehot[torch.arange(N_VAL, device=dev), labels] = True
     binned_paths = {
-        "imagenet": (run_imagenet_binned, batches, cpu_batches, 2 * len(batches), (scores, imagenet_onehot)),
+        "imagenet": (run_imagenet_binned, batches, cpu_batches[:BINNED_CPU_BATCHES], 2 * len(batches),
+                     (scores, imagenet_onehot)),
         "coco": (run_coco_binned, coco_batches, [(p.cpu(), t.cpu()) for p, t in coco_batches], len(coco_batches),
                  (coco_scores, coco_target)),
     }
@@ -6081,20 +6096,27 @@ def main() -> int:
         check(sum(path_by_shape.values()) == expected and all(b.startswith("hist") for b, _ in path_by_shape),
               f"binned_stats launches by branch and shape on the {path} path: {path_by_shape}")
         c_metrics, c_values, cpu_path_s = run(cpu, cpu_data)
-        print(f"{path} binned path: {len(data)} batches in {card_s * 1e3:.1f} ms on the card, "
+        # a CPU run over a prefix is held against a card run over the same prefix (made after the path's launches
+        # were read); the whole epoch on the card against the searchsorted reference
+        head = len(cpu_data)
+        head_metrics, head_values = (metrics, values) if head == len(data) else run(dev, data[:head])[:2]
+        print(f"{path} binned path: {len(data)} batches in {card_s * 1e3:.1f} ms on the card, the first {head} in "
               f"{cpu_path_s * 1e3:.1f} ms on the CPU (plain versions); binned_stats launches {binned_launches[path]}, "
               f"by branch and shape {json.dumps(by_shape(path_by_shape))}")
         ref = searchsorted_counts(torch, all_scores, all_target, thr_ref)
-        for m, c_m in zip(metrics, c_metrics):
+        for m, h_m, c_m in zip(metrics, head_metrics, c_metrics):
             for name, r in zip(("TPs", "FPs", "FNs"), ref):
                 a = getattr(m, name)
                 check(a.dtype == torch.float32 and a.shape == (all_scores.shape[1], THRESHOLDS),
                       f"{path} {type(m).__name__}.{name} dtype or shape")
-                check(torch.equal(a.cpu(), getattr(c_m, name)), f"{path} {type(m).__name__}.{name} differs from the CPU run")
+                check(torch.equal(getattr(h_m, name).cpu(), getattr(c_m, name)),
+                      f"{path} {type(m).__name__}.{name} of the first {head} batches differs from the CPU run")
                 check(torch.equal(a, r), f"{path} {type(m).__name__}.{name} differs from the searchsorted reference")
-        for got, want in zip(values, c_values):
+        for got in values:
             check(bool(torch.isfinite(got).all()), f"{path} values are not finite")
-            torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0, msg=f"{path} values differ from the CPU run")
+        for got, want in zip(head_values, c_values):
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0,
+                                       msg=f"{path} values of the first {head} batches differ from the CPU run")
         for m in metrics:
             m.persistent(True)
             kwargs = dict(num_classes=m.num_classes, thresholds=THRESHOLDS, device=dev)
