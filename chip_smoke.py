@@ -392,6 +392,39 @@
    seconds are printed. SacreBLEU's ``intl`` tokenizer needs ``regex``
    (``tests/test_torch_text_mt.py`` holds it on the CPU); it runs on en-de
    where ``regex`` can be imported, and the slice prints whether it ran.
+   Slice 19, the text metrics' second part and detection
+   (``ROUGEScore``, ``SQuAD``, ``BERTScore``,
+   ``detection.MeanAveragePrecision``; no kernel of the registry runs: the
+   strings, the longest common subsequences and COCO's matching stay on the
+   host, and BERTScore's matcher is a TF32-free batched product). A.
+   CNN/DailyMail 3.0.0 test (11,490 pairs in batches of 64): reference
+   highlights of 3 to 5 sentences, about 56 Zipf words, with abbreviations
+   and initials for the sentence splitter, candidates keeping 3 of their
+   sentences, edited. ``ROUGEScore()`` with its default keys (no stemmer):
+   every tenth pair is planted (distinct words, k of them replaced by fresh
+   ones), so its ROUGE-1 and ROUGE-L precision, recall and F-measure must be
+   ``float32((n - k) / n)`` (and the F-measure's formula) bit for bit, every
+   25th pair identical (all 1). ``BERTScore()`` over the same pairs with the
+   hash embedder, without and with ``idf``, and with an embedder at
+   roberta-large's width written here (a seeded 50,265 x 1,024 float32
+   table on the card, [CLS] and [SEP] around the words, right padding): the
+   identical pairs' F1 within 1e-6 of 1. B. SQuAD v1.1 dev (10,570
+   questions, 1 to 6 gold answers, batches of 256): predictions that are a
+   gold answer in other case with an article and a stop, a prefix of one
+   plus fresh words, fresh words, or missing; the float32 states must be the
+   planted sums added batch by batch, and the values ``100 * state / total``
+   bit for bit. C. COCO val2017 (80 classes, about 7.3 boxes an image in
+   xywh, 100 detections an image from a noisy detector; the first 1,500 of
+   its 5,000 images, batches of 8) through
+   ``MeanAveragePrecision(box_format="xywh", class_metrics=True)``: values
+   finite, float32, int32 classes on the card; a perfect detector on the
+   first 160 images gives ``map`` and ``mar_100`` of exactly 1.0. Each part's
+   first batches (ROUGE and BERTScore 4 of 64, SQuAD 4 of 256, COCO 160
+   images) run again on the CPU: states and values equal (ROUGE's means
+   rtol 1e-6, BERTScore rtol and atol 1e-6). An update makes no host
+   sync; ROUGE's, SQuAD's and BERTScore's compute none (with ``idf``, four
+   reads of ids and masks); mAP's compute reads the card once. Update and
+   compute ms and each part's seconds are printed.
    Slice 9's ranks compute inside a session: on each, the ``collective``
    spans and their bytes equal ``sync_stats``. Before the ``kernels`` line
    each kernel's cost-model entry (``model_bytes``, ``model_flops``) must
@@ -436,6 +469,7 @@ script fails.
 import collections
 import contextlib
 import ctypes
+import hashlib
 import json
 import math
 import os
@@ -618,6 +652,19 @@ TEXT_VOCAB, CJK_INVENTORY = 20_000, 4_000
 CORE_CHECKS = {"levenshtein": 200, "chrf": 200, "eed": 200, "ter": 100}
 BLEU_F64_ATOL = 1e-6
 TEXT_CARD_CPU_RTOL = 1e-6  # BLEU's and EED's device arithmetic (log, exp, a mean); every count is exact
+# slice 19: CNN/DailyMail 3.0.0 test (articles; reference highlights of about 4 sentences and 56 words, candidate
+# summaries of about 3 sentences) in batches of 64 through ROUGE and BERTScore, a share of the pairs planted: distinct
+# words with k replaced by fresh ones (exact ROUGE-1 and ROUGE-L), or identical (BERTScore F1 of 1); SQuAD v1.1 dev
+# (questions, 1 to 6 gold answers) in batches of 256; COCO val2017 (images of 640 x 480, 80 classes, about 7.3 boxes
+# an image, 100 detections an image) in batches of 8, the first COCO_MAP_IMAGES of them (the compute is host numpy,
+# about 6 ms an image); the first batches or images of each again on the CPU
+CNNDM_ARTICLES, CNNDM_REF_SENTS, CNNDM_REF_WORDS, CNNDM_CAND_SENTS, SUMM_BATCH = 11_490, 4, 56, 3, 64
+CNNDM_PLANTED_EVERY, CNNDM_IDENTICAL_EVERY, SUMM_CPU_BATCHES = 10, 25, 4
+ROBERTA_VOCAB, ROBERTA_WIDTH, ROBERTA_MAX_TOKENS = 50_265, 1024, 512  # roberta-large's embedding table
+SQUAD_QUESTIONS, SQUAD_BATCH, SQUAD_CPU_BATCHES = 10_570, 256, 4
+COCO_VAL_IMAGES, COCO_VAL_CLASSES, COCO_GT_PER_IMAGE, COCO_DETS, COCO_SIZE = 5000, 80, 7.3, 100, (640, 480)
+COCO_BATCH, COCO_MAP_IMAGES, COCO_CPU_IMAGES, COCO_PERFECT_IMAGES = 8, 1500, 160, 160
+BERT_CARD_CPU_RTOL, BERT_CARD_CPU_ATOL = 1e-6, 1e-6  # a float32 product summed in another order on each device
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -5359,6 +5406,431 @@ def run_slice18(torch, dev, laps):
     return slice18_launches
 
 
+def distinct_ranks(rng, n, k):
+    """``k`` distinct ranks below ``n``, in a random order."""
+    while True:
+        ranks = list(dict.fromkeys(rng.randint(0, n, 2 * k).tolist()))
+        if len(ranks) >= k:
+            return ranks[:k]
+
+
+def summary_sentence(rng, words):
+    """A highlight sentence: the first word capitalized, now and then behind an
+    abbreviation (``Mr.``, ``U.S.``, ...) or initials, ending in ``.``, ``!`` or ``?``."""
+    words = list(words) or ["news"]
+    r = rng.rand()
+    if r < 0.12:
+        words = [str(rng.choice(["Mr.", "Mrs.", "Dr.", "Sen.", "Gov."])), words[0].capitalize()] + words[1:]
+    elif r < 0.18:
+        words = ["U.S."] + words
+    elif r < 0.22:
+        words = [f"{chr(65 + rng.randint(26))}. {chr(65 + rng.randint(26))}.", words[0].capitalize()] + words[1:]
+    words[0] = words[0][0].upper() + words[0][1:]
+    end = rng.rand()
+    return " ".join(words) + ("." if end < 0.8 else "!" if end < 0.9 else "?")
+
+
+def cnndm_corpus(rng, vocab, n):
+    """CNN/DailyMail 3.0.0 test's shape: ``(preds, targets, planted)``. A
+    reference highlight has 3 to 5 sentences of Zipf words, about
+    ``CNNDM_REF_WORDS`` words in all; its candidate keeps ``CNNDM_CAND_SENTS``
+    of them in order, edited (substitutions, deletions, insertions, a shift).
+    Every ``CNNDM_PLANTED_EVERY``-th pair is planted: a reference of 40 to 71
+    distinct words in four sentences and a candidate of the same words with k
+    of them replaced by fresh ones (a word and an ``x``, which no vocabulary
+    word holds), so ROUGE-1's and ROUGE-L's hits are ``n - k`` of ``n`` on each
+    side; ``planted[i] = (n, k)``. Every ``CNNDM_IDENTICAL_EVERY``-th pair is
+    identical (``planted[i] = None``)."""
+    ranks = zipf_draw(rng, len(vocab), 2 * n * CNNDM_REF_WORDS)
+    preds, targets, planted, pos = [], [], {}, 0
+    for i in range(n):
+        if i % CNNDM_PLANTED_EVERY == 0:
+            n_words = int(rng.randint(40, 72))
+            words = [vocab[j] for j in distinct_ranks(rng, len(vocab), n_words)]
+            k = int(rng.randint(0, n_words // 3))
+            swapped = set(distinct_ranks(rng, n_words, k))
+            cand = [vocab[int(rng.randint(len(vocab)))] + "x" if j in swapped else w for j, w in enumerate(words)]
+            cuts = np.linspace(0, n_words, CNNDM_REF_SENTS + 1).astype(int)
+
+            def fmt(ws, cuts=cuts):
+                return " ".join(" ".join(ws[a:b]).capitalize() + "." for a, b in zip(cuts[:-1], cuts[1:]))
+
+            targets.append(fmt(words))
+            preds.append(fmt(cand))
+            planted[i] = (n_words, k)
+            continue
+        n_sents = int(rng.choice([3, 4, 4, 5]))
+        lengths = np.maximum(3, rng.poisson(CNNDM_REF_WORDS / CNNDM_REF_SENTS, n_sents))
+        sents = []
+        for length in lengths:
+            sents.append([vocab[j] for j in ranks[pos:pos + length]])
+            pos += int(length)
+        ref = " ".join(summary_sentence(rng, s) for s in sents)
+        if i % CNNDM_IDENTICAL_EVERY == 0:
+            preds.append(ref)
+            planted[i] = None
+        else:
+            keep = sorted(rng.choice(n_sents, min(CNNDM_CAND_SENTS, n_sents), replace=False).tolist())
+            preds.append(" ".join(summary_sentence(rng, edit_words(rng, sents[j], vocab, sub=0.1, dele=0.1, ins=0.05,
+                                                                    shift=0.2)) for j in keep))
+        targets.append(ref)
+    return preds, targets, planted
+
+
+class WideEmbedder:
+    """An embedder at roberta-large's width: a seeded (50,265 x 1,024)
+    float32 table on ``table``'s device. A word's row is a BLAKE2b hash of it
+    folded into the vocabulary (3 and up); a sentence is [CLS] (0), its words
+    and [SEP] (2), cut at 512 tokens, right-padded with PAD (1). The ids and
+    the mask reach the device in one copy."""
+
+    emits_special_tokens = True
+
+    def __init__(self, torch, table):
+        self.torch, self.table, self.rows = torch, table, {}
+
+    def row(self, word):
+        row = self.rows.get(word)
+        if row is None:
+            digest = hashlib.blake2b(word.encode("utf-8"), digest_size=8).digest()
+            row = self.rows[word] = 3 + int.from_bytes(digest, "little") % (ROBERTA_VOCAB - 3)
+        return row
+
+    def __call__(self, sentences):
+        torch = self.torch
+        rows = [[0] + [self.row(w) for w in s.split()][: ROBERTA_MAX_TOKENS - 2] + [2] for s in sentences]
+        length = max(len(r) for r in rows)
+        host = np.ones((2, len(rows), length), dtype=np.int32)
+        host[1] = 0
+        for i, r in enumerate(rows):
+            host[0, i, :len(r)] = r
+            host[1, i, :len(r)] = 1
+        buf = torch.from_numpy(host)
+        if self.table.device.type == "cuda":
+            buf = buf.pin_memory().to(self.table.device, non_blocking=True)
+        ids, mask = buf.unbind(0)
+        return self.table[ids], mask, ids
+
+
+def squad_corpus(rng, vocab, n):
+    """SQuAD v1.1 dev's shape: ``(preds, targets, oracle)``, questions with 1
+    to 6 gold answers of 1 to 6 words. The prediction is, by construction, a
+    gold answer behind "The ", in capitals with a trailing stop (exact match,
+    F1 1), the first m words of the one gold answer that shares words with it
+    plus j fresh ones (F1 ``2PR / (P + R)`` with P = m / (m + j) and
+    R = m / n), fresh words only (0, 0), or missing (0, 0). ``oracle[i]`` is
+    question i's (exact match, F1), written here from that construction."""
+    words = [w for w in vocab if w not in ("a", "an", "the")]
+    preds, targets, oracle = [], [], []
+    for i in range(n):
+        qid = f"{i:024x}"
+        kind = rng.rand()
+        n_answers = int(rng.randint(1, 7))
+        drawn = [words[j] for j in distinct_ranks(rng, len(words), 6 * n_answers)]
+        answers = [drawn[6 * a:6 * a + int(rng.randint(1, 7))] for a in range(n_answers)]
+        if kind < 0.45:
+            gold = answers[int(rng.randint(n_answers))]
+            preds.append({"prediction_text": "The " + " ".join(gold).upper() + ".", "id": qid})
+            oracle.append((1.0, 1.0))
+        elif kind < 0.75:
+            gold = answers[0]
+            m, j = int(rng.randint(1, len(gold) + 1)), int(rng.randint(0, 3))
+            if m == len(gold) and j == 0:
+                j = 1
+            pred = gold[:m] + [w + "x" for w in drawn[-j:]] if j else gold[:m]
+            preds.append({"prediction_text": " ".join(pred), "id": qid})
+            p, r = m / (m + j), m / len(gold)
+            oracle.append((0.0, 2 * p * r / (p + r)))
+        elif kind < 0.9:
+            preds.append({"prediction_text": " ".join(w + "x" for w in drawn[:3]), "id": qid})
+            oracle.append((0.0, 0.0))
+        else:
+            oracle.append((0.0, 0.0))  # no prediction: counted, scored 0
+        targets.append({"answers": {"answer_start": [0] * n_answers, "text": [" ".join(a) for a in answers]},
+                        "id": qid})
+    return preds, targets, oracle
+
+
+def coco_val(rng, n):
+    """COCO val2017's shape, as host arrays: ``n`` images of 640 x 480 with a
+    Poisson(7.3) count of ground-truth boxes (a Zipf law over the 80 classes,
+    log-uniform sizes from 6 to 400 px: small, medium and large) and
+    ``COCO_DETS`` detections each from a noisy detector: one or two jittered
+    copies of each ground truth (its class nine times in ten, scores 0.3 to
+    1), the rest random boxes of random classes (scores 0 to 0.6). Boxes in
+    xywh. Returns per-image counts and the concatenated arrays."""
+    w_img, h_img = COCO_SIZE
+    n_gt = rng.poisson(COCO_GT_PER_IMAGE, n)
+    total = int(n_gt.sum())
+    size = np.exp(rng.uniform(np.log(6), np.log(400), (total, 2)))
+    size[:, 1] *= rng.uniform(0.5, 1.5, total)
+    xy = rng.uniform(0, 1, (total, 2)) * np.maximum(np.array([w_img, h_img]) - size, 1)
+    gt_boxes = np.concatenate([xy, size], 1).astype(np.float32)
+    gt_labels = zipf_draw(rng, COCO_VAL_CLASSES, total).astype(np.int32)
+    det_boxes = np.empty((n * COCO_DETS, 4), np.float32)
+    det_scores = rng.uniform(0, 0.6, n * COCO_DETS).astype(np.float32)
+    det_labels = rng.randint(0, COCO_VAL_CLASSES, n * COCO_DETS).astype(np.int32)
+    rand_wh = np.exp(rng.uniform(np.log(6), np.log(300), (n * COCO_DETS, 2)))
+    det_boxes[:] = np.concatenate([rng.uniform(0, 1, (n * COCO_DETS, 2)) * [w_img, h_img], rand_wh], 1)
+    start = 0
+    for i, g in enumerate(n_gt.tolist()):
+        src = np.repeat(np.arange(start, start + g), rng.randint(1, 3, g))[:COCO_DETS]
+        d = slice(i * COCO_DETS, i * COCO_DETS + len(src))
+        box = gt_boxes[src].astype(np.float64)
+        box[:, :2] += rng.normal(0, 0.05, (len(src), 2)) * box[:, 2:]
+        box[:, 2:] *= np.exp(rng.normal(0, 0.05, (len(src), 2)))
+        det_boxes[d] = box
+        det_scores[d] = rng.uniform(0.3, 1.0, len(src))
+        det_labels[d] = np.where(rng.rand(len(src)) < 0.9, gt_labels[src], det_labels[d])
+        start += g
+    return n_gt, gt_boxes, gt_labels, det_boxes, det_scores, det_labels
+
+
+def coco_images(torch, dev, data, first, count, perfect=False):
+    """Images ``first`` to ``first + count`` of :func:`coco_val` as the
+    metric's list-of-dicts input, views of one device copy of each array;
+    ``perfect``: each image's detections are its ground truths, scored in
+    decreasing order."""
+    n_gt, gt_boxes, gt_labels, det_boxes, det_scores, det_labels = data
+    offsets = np.concatenate([[0], np.cumsum(n_gt)])
+    g0, g1 = int(offsets[first]), int(offsets[first + count])
+    counts = n_gt[first:first + count].tolist()
+
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+    gb, gl = put(gt_boxes[g0:g1]).split(counts), put(gt_labels[g0:g1]).split(counts)
+    if perfect:
+        scores = np.concatenate([np.linspace(1.0, 0.5, c, dtype=np.float32) for c in counts] or [np.zeros(0, np.float32)])
+        preds = [{"boxes": b, "scores": s, "labels": lab}
+                 for b, s, lab in zip(gb, put(scores).split(counts), gl)]
+    else:
+        d = slice(first * COCO_DETS, (first + count) * COCO_DETS)
+        db, ds, dl = (put(a[d]).split(COCO_DETS) for a in (det_boxes, det_scores, det_labels))
+        preds = [{"boxes": b, "scores": s, "labels": lab} for b, s, lab in zip(db, ds, dl)]
+    return preds, [{"boxes": b, "labels": lab} for b, lab in zip(gb, gl)]
+
+
+def run_slice19(torch, dev, laps):
+    """Slice 19 (see the module's docstring): returns the kernels' launches on
+    its path (all 0: the text and detection metrics run on the host, and
+    BERTScore's matcher is a product and reductions, no kernel of the
+    registry)."""
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch import native
+    from metrics_tpu_torch.detection import MeanAveragePrecision
+    from metrics_tpu_torch.ops import launches, reset_launches
+
+    t_slice = time.perf_counter()
+    cpu = torch.device("cpu")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    native.load()
+    reset_launches()
+    rng = np.random.RandomState(SEED + 19)
+    report = {"card": card}
+    vocab = synthetic_vocab(rng, TEXT_VOCAB, _LOWER_SYLLABLES)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ------------------------------------------------------------ A. CNN/DailyMail
+    preds, targets, planted = cnndm_corpus(rng, vocab, CNNDM_ARTICLES)
+    batches = [(preds[i:i + SUMM_BATCH], targets[i:i + SUMM_BATCH]) for i in range(0, len(preds), SUMM_BATCH)]
+    head = batches[:SUMM_CPU_BATCHES]
+    rouge = M.ROUGEScore(device=dev)
+    update_ms = []
+    for b in batches:
+        _, s = timed(lambda b=b: rouge.update(*b))
+        update_ms.append(s * 1e3)
+    values, compute_s = timed(rouge.compute)
+    for key, v in values.items():
+        check(v.device == dev and v.dtype == torch.float32 and bool(torch.isfinite(v)), f"CNN/DM ROUGE {key}: {v}")
+    states = {k: torch.cat(getattr(rouge, k)).cpu().numpy() for k in ("rouge1_fmeasure", "rouge1_precision",
+                                                                     "rouge1_recall", "rougeL_fmeasure",
+                                                                     "rougeL_precision", "rougeL_recall")}
+    check(all(len(v) == CNNDM_ARTICLES for v in states.values()), "CNN/DM: a ROUGE state lacks samples")
+    n_planted = 0
+    for i, plant in planted.items():
+        if plant is None:
+            want = {"fmeasure": 1.0, "precision": 1.0, "recall": 1.0}
+        else:
+            n_words, k = plant
+            p = r = (n_words - k) / n_words
+            want = {"fmeasure": 2 * p * r / (p + r), "precision": p, "recall": r}
+            n_planted += 1
+        for key in ("rouge1", "rougeL"):
+            for tp, x in want.items():
+                check(states[f"{key}_{tp}"][i] == np.float32(x),
+                      f"CNN/DM pair {i}: {key}_{tp} {states[f'{key}_{tp}'][i]!r}, planted {np.float32(x)!r}")
+    card_head, host_head = M.ROUGEScore(device=dev), M.ROUGEScore(device=cpu)
+    for b in head:
+        card_head.update(*b)
+        host_head.update(*b)
+    check(text_states_equal(torch, card_head, host_head), "CNN/DM: ROUGE's states on the card differ from the CPU's")
+    got, want = card_head.compute(), host_head.compute()
+    for key in want:
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=TEXT_CARD_CPU_RTOL, atol=0,
+                                   msg=f"CNN/DM ROUGE {key} over {len(head)} batches differs from the CPU run")
+    mid = batches[len(batches) // 2]
+    rouge_entry = {
+        "articles": CNNDM_ARTICLES, "batches": len(batches), "planted_pairs": n_planted,
+        "identical_pairs": sum(v is None for v in planted.values()),
+        "values": {k: float(v) for k, v in values.items()},
+        "update_ms_median": statistics.median(update_ms), "epoch_update_s": sum(update_ms) / 1e3,
+        "compute_ms": compute_s * 1e3,
+        "update_syncs": one_call_syncs(torch, lambda: card_head.update(*mid))[0],
+        "compute_syncs": one_call_syncs(torch, card_head._compute_impl)[0],
+    }
+    check(rouge_entry["update_syncs"] == 0 and rouge_entry["compute_syncs"] == 0,
+          f"CNN/DM: ROUGE synchronised with the host: {rouge_entry['update_syncs']} an update, "
+          f"{rouge_entry['compute_syncs']} a compute")
+    print("slice 19 A, CNN/DailyMail ROUGE: " + json.dumps(rouge_entry))
+    laps.mark("3. slice 19 A: CNN/DailyMail ROUGE")
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    table = torch.randn(ROBERTA_VOCAB, ROBERTA_WIDTH, generator=g, device=dev)
+    embedders = {"hash": {}, "hash_idf": {"idf": True}, "roberta_width": {"embedder": WideEmbedder(torch, table)}}
+    host_embedders = {"hash": {}, "hash_idf": {"idf": True},
+                      "roberta_width": {"embedder": WideEmbedder(torch, table.cpu())}}
+    identical = [i for i, v in planted.items() if v is None]
+    bert_entry = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the hash embedder's one warning
+        for name, kwargs in embedders.items():
+            m = M.BERTScore(device=dev, **kwargs)
+            for b in batches:
+                m.update(*b)
+            out, s = timed(m.compute)
+            for key, v in out.items():
+                check(v.device == dev and v.shape == (CNNDM_ARTICLES,) and bool(torch.isfinite(v).all()),
+                      f"CNN/DM BERTScore ({name}) {key}")
+            f1 = out["f1"].cpu().numpy()
+            check(np.abs(f1[identical] - 1.0).max() <= 1e-6,
+                  f"CNN/DM BERTScore ({name}): identical pairs' F1 is {np.abs(f1[identical] - 1.0).max()} from 1")
+            card_m, host_m = M.BERTScore(device=dev, **kwargs), M.BERTScore(device=cpu, **host_embedders[name])
+            for b in head:
+                card_m.update(*b)
+                host_m.update(*b)
+            got, want = card_m.compute(), host_m.compute()
+            gaps = {}
+            for key in want:
+                torch.testing.assert_close(got[key].cpu(), want[key], rtol=BERT_CARD_CPU_RTOL, atol=BERT_CARD_CPU_ATOL,
+                                           msg=f"CNN/DM BERTScore ({name}) {key} differs from the CPU run")
+                gaps[key] = float(((got[key].cpu() - want[key]).abs() / want[key].abs().clamp(min=1e-30)).max())
+            bert_entry[name] = {"compute_s": s, "f1_mean": float(f1.mean()), "card_cpu_max_rel_gap": gaps,
+                                "compute_syncs": one_call_syncs(torch, card_m._compute_impl)[0]}
+            del m, out
+    want_syncs = {"hash": 0, "hash_idf": 4, "roberta_width": 0}  # idf: ids and masks of both sides, read once each
+    check({k: v["compute_syncs"] for k, v in bert_entry.items()} == want_syncs,
+          f"CNN/DM BERTScore's compute syncs {bert_entry}, not {want_syncs}")
+    del table, embedders, host_embedders
+    torch.cuda.empty_cache()
+    print("slice 19 A, CNN/DailyMail BERTScore: " + json.dumps(bert_entry))
+    report["A_cnndm"] = {"rouge": rouge_entry, "bertscore": bert_entry}
+    laps.mark("3. slice 19 A: CNN/DailyMail BERTScore")
+
+    # ------------------------------------------------------------ B. SQuAD v1.1
+    s_preds, s_targets, oracle = squad_corpus(rng, vocab, SQUAD_QUESTIONS)
+    s_batches = []
+    for i in range(0, SQUAD_QUESTIONS, SQUAD_BATCH):
+        ids = {t["id"] for t in s_targets[i:i + SQUAD_BATCH]}
+        s_batches.append(([p for p in s_preds if p["id"] in ids], s_targets[i:i + SQUAD_BATCH]))
+    squad = M.SQuAD(device=dev)
+    update_ms = []
+    for b in s_batches:
+        _, s = timed(lambda b=b: squad.update(*b))
+        update_ms.append(s * 1e3)
+    out, compute_s = timed(squad.compute)
+    # the oracle's states: each batch's Python sums, added in float32 in batch order
+    f1_state, em_state = np.float32(0), np.float32(0)
+    for i in range(0, SQUAD_QUESTIONS, SQUAD_BATCH):
+        em_state = np.float32(em_state + np.float32(sum(e for e, _ in oracle[i:i + SQUAD_BATCH])))
+        f1_state = np.float32(f1_state + np.float32(sum(f for _, f in oracle[i:i + SQUAD_BATCH])))
+    check(squad.f1_score.cpu().numpy() == f1_state and squad.exact_match.cpu().numpy() == em_state
+          and int(squad.total) == SQUAD_QUESTIONS,
+          f"SQuAD states {float(squad.f1_score)!r}, {float(squad.exact_match)!r}, {int(squad.total)} against the "
+          f"planted {f1_state!r}, {em_state!r}, {SQUAD_QUESTIONS}")
+    total32 = torch.tensor(SQUAD_QUESTIONS, dtype=torch.int32)
+    for key, state in (("exact_match", em_state), ("f1", f1_state)):
+        want = 100.0 * torch.from_numpy(np.asarray(state)) / total32
+        check(out[key].device == dev and torch.equal(out[key].cpu(), want), f"SQuAD {key} {out[key]} is not {want}")
+    card_head, host_head = M.SQuAD(device=dev), M.SQuAD(device=cpu)
+    for b in s_batches[:SQUAD_CPU_BATCHES]:
+        card_head.update(*b)
+        host_head.update(*b)
+    check(text_states_equal(torch, card_head, host_head), "SQuAD's states on the card differ from the CPU's")
+    squad_entry = {
+        "questions": SQUAD_QUESTIONS, "batches": len(s_batches), "values": {k: float(v) for k, v in out.items()},
+        "update_ms_median": statistics.median(update_ms), "compute_ms": compute_s * 1e3,
+        "update_syncs": one_call_syncs(torch, lambda: card_head.update(*s_batches[1]))[0],
+        "compute_syncs": one_call_syncs(torch, card_head._compute_impl)[0],
+    }
+    check(squad_entry["update_syncs"] == 0 and squad_entry["compute_syncs"] == 0,
+          f"SQuAD synchronised with the host: {squad_entry}")
+    report["B_squad"] = squad_entry
+    print("slice 19 B, SQuAD v1.1 dev: " + json.dumps(squad_entry))
+    laps.mark("3. slice 19 B: SQuAD v1.1 dev")
+
+    # ------------------------------------------------------------ C. COCO val2017
+    data = coco_val(rng, COCO_VAL_IMAGES)
+    kwargs = {"box_format": "xywh", "class_metrics": True}
+    cm = MeanAveragePrecision(device=dev, **kwargs)
+    update_ms = []
+    for first in range(0, COCO_MAP_IMAGES, COCO_BATCH):
+        p_, t_ = coco_images(torch, dev, data, first, COCO_BATCH)
+        _, s = timed(lambda p_=p_, t_=t_: cm.update(p_, t_))
+        update_ms.append(s * 1e3)
+    p_, t_ = coco_images(torch, dev, data, 0, COCO_BATCH)
+    fresh = MeanAveragePrecision(device=dev, **kwargs)
+    update_syncs = one_call_syncs(torch, lambda: fresh.update(p_, t_))[0]
+    result, compute_s = timed(cm.compute)
+    check(all(v.device == dev for v in result.values()) and result["classes"].dtype == torch.int32
+          and all(v.dtype == torch.float32 for k, v in result.items() if k != "classes"),
+          "COCO: the result's devices or dtypes")
+    check(result["classes"].numel() == COCO_VAL_CLASSES and all(bool(torch.isfinite(v).all()) for v in result.values()),
+          f"COCO: classes {result['classes'].numel()} or a value not finite")
+    check(0.0 < float(result["map"]) < 1.0 and float(result["map_50"]) >= float(result["map_75"]),
+          f"COCO: map {float(result['map'])}, map_50 {float(result['map_50'])}, map_75 {float(result['map_75'])}")
+    head_card, head_host = MeanAveragePrecision(device=dev, **kwargs), MeanAveragePrecision(device=cpu, **kwargs)
+    head_card.update(*coco_images(torch, dev, data, 0, COCO_CPU_IMAGES))
+    head_host.update(*coco_images(torch, cpu, data, 0, COCO_CPU_IMAGES))
+    compute_syncs = one_call_syncs(torch, head_card._compute_impl)[0]
+    got, want = head_card.compute(), head_host.compute()
+    check(list(got) == list(want) and all(torch.equal(got[k].cpu(), want[k]) for k in want),
+          f"COCO: the first {COCO_CPU_IMAGES} images on the card differ from the CPU run")
+    perfect = MeanAveragePrecision(device=dev, **kwargs)
+    perfect.update(*coco_images(torch, dev, data, 0, COCO_PERFECT_IMAGES, perfect=True))
+    best = perfect.compute()
+    check(float(best["map"]) == 1.0 and float(best["mar_100"]) == 1.0,
+          f"COCO: a perfect detector's map {float(best['map'])!r}, mar_100 {float(best['mar_100'])!r}, not 1.0")
+    check(compute_syncs == 1 and update_syncs == 0,
+          f"COCO: {update_syncs} host syncs an update and {compute_syncs} a compute, not 0 and 1")
+    coco_entry = {
+        "images": COCO_MAP_IMAGES, "of": COCO_VAL_IMAGES, "gt_boxes": int(data[0][:COCO_MAP_IMAGES].sum()),
+        "detections": COCO_MAP_IMAGES * COCO_DETS, "batches": len(update_ms),
+        "values": {k: float(v) for k, v in result.items() if v.numel() == 1},
+        "update_ms_median": statistics.median(update_ms), "compute_s": compute_s,
+        "compute_ms_per_image": compute_s * 1e3 / COCO_MAP_IMAGES,
+        "update_syncs": update_syncs, "compute_syncs": compute_syncs,
+    }
+    report["C_coco"] = coco_entry
+    print("slice 19 C, COCO val2017: " + json.dumps(coco_entry))
+    laps.mark("3. slice 19 C: COCO val2017")
+
+    slice19_launches = launches()
+    check(all(n == 0 for n in slice19_launches.values()), f"slice 19 launched a kernel: {slice19_launches}")
+    report["launches"] = slice19_launches
+    report["command_s"] = time.perf_counter() - t_slice
+    print(f"slice 19 ({card}): " + json.dumps({k: report[k] for k in ("card", "launches", "command_s")}))
+    return slice19_launches
+
+
 def main() -> int:
     import torch
 
@@ -6721,6 +7193,9 @@ def main() -> int:
 
     # ------------------------------------------ 3q. slice 18: the text metrics
     run_slice18(torch, dev, laps)
+
+    # ------------------------------------------ 3r. slice 19: summaries, questions, BERTScore and detection
+    run_slice19(torch, dev, laps)
 
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000

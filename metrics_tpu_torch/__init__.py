@@ -93,12 +93,15 @@ from metrics_tpu_torch.streaming import (  # noqa: F401
     TumblingWindow,
 )
 from metrics_tpu_torch.text import (  # noqa: F401
+    BERTScore,
     BLEUScore,
     CharErrorRate,
     CHRFScore,
     ExtendedEditDistance,
     MatchErrorRate,
+    ROUGEScore,
     SacreBLEUScore,
+    SQuAD,
     TranslationEditRate,
     WordErrorRate,
     WordInfoLost,
@@ -117,6 +120,7 @@ __all__ = [
     "AUROC",
     "Accuracy",
     "AveragePrecision",
+    "BERTScore",
     "BLEUScore",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
@@ -172,6 +176,7 @@ __all__ = [
     "QuantileSketch",
     "R2Score",
     "ROC",
+    "ROUGEScore",
     "Recall",
     "ResolutionLadder",
     "RetrievalFallOut",
@@ -183,6 +188,7 @@ __all__ = [
     "RetrievalPrecision",
     "RetrievalRPrecision",
     "RetrievalRecall",
+    "SQuAD",
     "SacreBLEUScore",
     "ScaleInvariantSignalDistortionRatio",
     "ScaleInvariantSignalNoiseRatio",

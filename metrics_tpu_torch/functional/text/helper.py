@@ -63,11 +63,15 @@ def _edit_distances(pairs: Sequence[Tuple[Sequence, Sequence]]) -> List[int]:
     return [int(v) for v in native.levenshtein_batch_ids(seqs[0::2], seqs[1::2])]
 
 
-def _float32_on(values: Sequence, device: torch.device) -> Tensor:
-    """Python floats (or rows of them) as one float32 tensor on ``device``,
-    each value rounded as ``jnp.asarray`` rounds it. On a card the one copy
-    goes from pinned memory, so the host does not wait for it."""
-    host = torch.tensor(values, dtype=torch.float32)
+def _to_device(host: Tensor, device: torch.device) -> Tensor:
+    """A host tensor on ``device``. On a card the one copy goes from pinned
+    memory, so the host does not wait for it."""
     if device.type == "cuda":
         return host.pin_memory().to(device, non_blocking=True)
     return host.to(device)
+
+
+def _float32_on(values: Sequence, device: torch.device) -> Tensor:
+    """Python floats (or rows of them) as one float32 tensor on ``device``,
+    each value rounded as ``jnp.asarray`` rounds it, in one copy."""
+    return _to_device(torch.tensor(values, dtype=torch.float32), device)

@@ -39,8 +39,6 @@ _lib = None
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
-_F64P = ctypes.POINTER(ctypes.c_double)
-_U8P = ctypes.POINTER(ctypes.c_uint8)
 
 
 def library_path() -> Path:
@@ -74,12 +72,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tm_levenshtein_batch.restype = None
     lib.tm_levenshtein_batch.argtypes = [_I32P, _I64P, _I32P, _I64P, ctypes.c_int64, _I64P]
     lib.tm_coco_match.restype = None
-    lib.tm_coco_match.argtypes = [_F64P, ctypes.c_int64, ctypes.c_int64, _U8P, _F64P, ctypes.c_int64, _U8P, _U8P]
+    lib.tm_coco_match.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
     lib.tm_eed.restype = ctypes.c_double
     lib.tm_eed.argtypes = [_I32P, ctypes.c_int64, _I32P, ctypes.c_int64, ctypes.c_int32,
                            ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double]
     # void* arguments: the raw ``.ctypes.data`` integer passes without a cast object a call. These run once a
-    # sentence pair on the chrF and ROUGE paths, where that cost rivals the C work
+    # sentence pair on the chrF and ROUGE paths, and COCO's matching once an (image, class, area), where that cost
+    # rivals the C work
     lib.tm_ngram_overlap.restype = None
     lib.tm_ngram_overlap.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                                      ctypes.c_int32, ctypes.c_void_p]
@@ -188,6 +188,6 @@ def coco_match(ious: np.ndarray, gt_ignore: np.ndarray, thresholds: np.ndarray) 
     thrs = np.ascontiguousarray(thresholds, dtype=np.float64)
     det_matched = np.zeros((n_thr, n_det), dtype=np.uint8)
     det_matched_ig = np.zeros((n_thr, n_det), dtype=np.uint8)
-    lib.tm_coco_match(ious.ctypes.data_as(_F64P), n_det, n_gt, gt_ig.ctypes.data_as(_U8P), thrs.ctypes.data_as(_F64P),
-                      n_thr, det_matched.ctypes.data_as(_U8P), det_matched_ig.ctypes.data_as(_U8P))
+    lib.tm_coco_match(ious.ctypes.data, n_det, n_gt, gt_ig.ctypes.data, thrs.ctypes.data, n_thr,
+                      det_matched.ctypes.data, det_matched_ig.ctypes.data)
     return det_matched.astype(bool), det_matched_ig.astype(bool)

@@ -10,5 +10,7 @@ def _package_available(name: str) -> bool:
         return False
 
 
+_NLTK_AVAILABLE = _package_available("nltk")
 _PESQ_AVAILABLE = _package_available("pesq")
 _REGEX_AVAILABLE = _package_available("regex")
+_TRANSFORMERS_AVAILABLE = _package_available("transformers")

@@ -2028,3 +2028,122 @@ def test_text_functionals_run_on_the_card_and_equal_the_cpu(card):
         got, want = fn(*args), fn(*args, device="cpu")
         assert got.device.type == "cuda", fn.__name__
         torch.testing.assert_close(got.cpu(), want, **_text_tolerance(fn.__name__))
+
+
+# ------------------------------------------------------- slice 19: ROUGE, SQuAD, BERTScore and mAP
+_SUMM_WORDS = ["the", "council", "said", "on", "Tuesday", "shares", "rose", "by", "3.5", "percent", "Mr.", "U.S."]
+
+
+def _summ_batches(seed, n=3, size=16):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        preds, target = [], []
+        for _ in range(size):
+            sents = [" ".join(rng.choice(_SUMM_WORDS, rng.randint(3, 10))).capitalize() + "." for _ in range(3)]
+            preds.append(" ".join(sents[:2]))
+            target.append(" ".join(s if rng.rand() > 0.3 else s[::-1] for s in sents))
+        out.append((preds, target))
+    return out
+
+
+def test_rouge_batched_state_copy_equals_the_cpu_and_makes_no_host_sync(card):
+    """An update's scores reach the card as one pinned buffer, split into
+    ``(1,)`` views: the states equal the CPU's bit for bit, the means rtol
+    1e-6, and a warm update never waits on the card."""
+    m, ref = metrics_tpu_torch.ROUGEScore(), metrics_tpu_torch.ROUGEScore(device="cpu")
+    batches = _summ_batches(95)
+    for preds, target in batches[:2]:
+        m.update(preds, target)
+        ref.update(preds, target)
+    _no_sync(lambda: m.update(*batches[2]))
+    ref.update(*batches[2])
+    for key in m._defaults:
+        got, want = getattr(m, key), getattr(ref, key)
+        assert len(got) == len(want) == 48, key
+        assert all(g.device.type == "cuda" and g.shape == (1,) and torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert len({v.untyped_storage().data_ptr() for v in m.rouge1_fmeasure[32:]}) == 1  # one buffer a batch
+    got, want = m.compute(), ref.compute()
+    for key in want:
+        assert got[key].device.type == "cuda"
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-6, atol=0)
+
+
+def test_squad_on_the_card_equals_the_cpu_and_updates_without_a_sync(card):
+    preds = [{"prediction_text": t, "id": str(i)} for i, (t, _) in enumerate(zip(*_summ_batches(96, n=1)[0]))]
+    target = [{"answers": {"text": [r[:20], r]}, "id": str(i)} for i, r in enumerate(_summ_batches(96, n=1)[0][1])]
+    m, ref = metrics_tpu_torch.SQuAD(), metrics_tpu_torch.SQuAD(device="cpu")
+    m.update(preds[:8], target[:8])
+    _no_sync(lambda: m.update(preds[8:], target[8:]))
+    ref.update(preds[:8], target[:8])
+    ref.update(preds[8:], target[8:])
+    for key in m._defaults:
+        assert getattr(m, key).device.type == "cuda" and torch.equal(getattr(m, key).cpu(), getattr(ref, key)), key
+    for key, value in ref.compute().items():
+        assert torch.equal(m.compute()[key].cpu(), value), key
+
+
+def test_bert_matcher_on_the_card_equals_the_cpu(card):
+    """The special-token exclusion's running sums are bit-equal on both
+    devices (float32 adds in one order) and make no host sync; the matcher's precision, recall and
+    F1 within rtol 1e-5 (a TF32-free product, summed in another order)."""
+    from metrics_tpu_torch.functional.text import bert
+
+    rng = np.random.RandomState(97)
+    for length in (7, 16, 40, 300):
+        mask = torch.from_numpy((rng.rand(256, length) < rng.rand(256, 1)).astype(np.int32))
+        on_card = mask.to(card)
+        _no_sync(lambda: bert._exclude_special_tokens(on_card))
+        assert torch.equal(bert._exclude_special_tokens(on_card).cpu(), bert._exclude_special_tokens(mask))
+    n, lp, lt, d = 64, 40, 57, 1024
+    pe, te = (torch.from_numpy(rng.standard_normal((n, l, d)).astype(np.float32)) for l in (lp, lt))
+    pm, tm = (torch.from_numpy((np.arange(l)[None] < rng.randint(1, l + 1, (n, 1))).astype(np.int32)) for l in (lp, lt))
+    pw, tw = torch.rand(n, lp), torch.rand(n, lt)
+    for weights in ((None, None), (pw, tw)):
+        want = bert._greedy_cosine_match(pe, pm, te, tm, *weights)
+        got = bert._greedy_cosine_match(pe.to(card), pm.to(card), te.to(card), tm.to(card),
+                                        *(w if w is None else w.to(card) for w in weights))
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-6)
+    preds, target = _summ_batches(98, n=1)[0]
+    for idf in (False, True):
+        got = metrics_tpu_torch.functional.bert_score(preds, target, idf=idf)
+        want = metrics_tpu_torch.functional.bert_score(preds, target, idf=idf, device="cpu")
+        for key in want:
+            assert got[key].device.type == "cuda"
+            torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-5, atol=1e-6)
+
+
+def _card_detections(seed, n, dev):
+    rng = np.random.RandomState(seed)
+    preds, target = [], []
+    for _ in range(n):
+        gt = rng.uniform(0, 400, (7, 2))
+        gt = np.concatenate([gt, gt + rng.uniform(10, 200, (7, 2))], 1).astype(np.float32)
+        labels = rng.randint(0, 80, 7)
+        det = np.concatenate([gt, gt + rng.normal(0, 5, gt.shape)]).astype(np.float32)
+        det[:, 2:] = np.maximum(det[:, 2:], det[:, :2] + 1)
+        preds.append({"boxes": torch.from_numpy(det).to(dev), "scores": torch.rand(14, device=dev),
+                      "labels": torch.from_numpy(np.concatenate([labels, labels])).to(dev)})
+        target.append({"boxes": torch.from_numpy(gt).to(dev), "labels": torch.from_numpy(labels).to(dev)})
+    return preds, target
+
+
+def test_map_compute_reads_the_card_once_and_equals_the_cpu(card):
+    """Every image's arrays cross in one device-to-host copy; the result
+    comes back from pinned memory; the values equal the CPU's bit for bit."""
+    from metrics_tpu_torch.detection import MeanAveragePrecision
+
+    preds, target = _card_detections(99, 40, card)
+    m = MeanAveragePrecision(class_metrics=True)
+    ref = MeanAveragePrecision(class_metrics=True, device="cpu")
+    m.update(preds, target)
+    ref.update([{k: v.cpu() for k, v in p.items()} for p in preds], [{k: v.cpu() for k, v in t.items()} for t in target])
+    assert all(v.device.type == "cuda" for key in m._defaults for v in getattr(m, key))
+    assert _sync_count(m._compute_impl) == 1
+    got, want = m.compute(), ref.compute()
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key].device.type == "cuda" and got[key].dtype == want[key].dtype
+        assert torch.equal(got[key].cpu(), want[key]), key

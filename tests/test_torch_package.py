@@ -25,7 +25,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import sys, runpy, metrics_tpu_torch, metrics_tpu_torch.interop, metrics_tpu_torch.parallel,"
         " metrics_tpu_torch.quant, metrics_tpu_torch.sync_engine, metrics_tpu_torch.fabric, metrics_tpu_torch.serve,"
         " metrics_tpu_torch.audio, metrics_tpu_torch.functional.audio, metrics_tpu_torch.functional.audio._pesq_core,"
-        " metrics_tpu_torch.native, metrics_tpu_torch.text, metrics_tpu_torch.functional.text\n"
+        " metrics_tpu_torch.native, metrics_tpu_torch.text, metrics_tpu_torch.functional.text,"
+        " metrics_tpu_torch.functional.text.rouge, metrics_tpu_torch.functional.text.sentence_split,"
+        " metrics_tpu_torch.functional.text.squad, metrics_tpu_torch.functional.text.bert, metrics_tpu_torch.detection\n"
         "for tool in ('tools/torch_wal_scrub.py', 'tools/torch_loadgen.py'):\n"
         "    runpy.run_path(tool, run_name='tool')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
