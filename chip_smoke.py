@@ -657,7 +657,7 @@ TEXT_CARD_CPU_RTOL = 1e-6  # BLEU's and EED's device arithmetic (log, exp, a mea
 # words with k replaced by fresh ones (exact ROUGE-1 and ROUGE-L), or identical (BERTScore F1 of 1); SQuAD v1.1 dev
 # (questions, 1 to 6 gold answers) in batches of 256; COCO val2017 (images of 640 x 480, 80 classes, about 7.3 boxes
 # an image, 100 detections an image) in batches of 8, the first COCO_MAP_IMAGES of them (the compute is host numpy,
-# about 6 ms an image); the first batches or images of each again on the CPU
+# about 14 ms an image); the first batches or images of each again on the CPU
 CNNDM_ARTICLES, CNNDM_REF_SENTS, CNNDM_REF_WORDS, CNNDM_CAND_SENTS, SUMM_BATCH = 11_490, 4, 56, 3, 64
 CNNDM_PLANTED_EVERY, CNNDM_IDENTICAL_EVERY, SUMM_CPU_BATCHES = 10, 25, 4
 ROBERTA_VOCAB, ROBERTA_WIDTH, ROBERTA_MAX_TOKENS = 50_265, 1024, 512  # roberta-large's embedding table
