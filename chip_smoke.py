@@ -425,6 +425,36 @@
    sync; ROUGE's, SQuAD's and BERTScore's compute none (with ``idf``, four
    reads of ids and masks); mAP's compute reads the card once. Update and
    compute ms and each part's seconds are printed.
+   Slice 20, the nets and their metrics (``FrechetInceptionDistance``,
+   ``KernelInceptionDistance``, ``InceptionScore``,
+   ``LearnedPerceptualImagePatchSimilarity`` and their ``torch.nn`` nets with
+   seeded weights; no kernel of the registry runs: the nets are cuDNN's
+   convolutions in full float32). A. FID-10k: 10,000 "real" natural images
+   and 10,000 "generated" ones (smoothed and noisy) of 299 x 299, made on the
+   card from seeds and quantised to uint8, through
+   ``InceptionV3FeatureExtractor`` in batches of 200 (images a second, ms a
+   batch against the convolutions' bound from the layer shapes, peak
+   memory); the generated set again with ``dtype=torch.bfloat16`` (its
+   largest feature difference within 5% of the features' scale, its FID
+   drift printed); the first 8 images on the CPU within 1e-4 of the
+   features' scale. B. FID on the list and the moment path with each
+   ``sqrtm_method`` against float64 on the card (1e-4 of the covariances'
+   traces; Newton-Schulz 1e-2 of the square root's trace), a set against
+   itself about 0, planted diagonal Gaussians (Hadamard columns: exact
+   sample moments) in closed form; KID (100 subsets of 1,000; the buffer
+   path its list path's bits; the in-graph draw finite) against float64
+   over the same ``np.random`` subsets; IS (10 splits) on the head's
+   unbiased logits against float64 after the same shuffle, streaming, and
+   logits spread evenly over 10 classes giving 10; each metric through its
+   own bundled net on the first 500 images a side equal to feeding the
+   extracted features. C. LPIPS (alex, vgg, squeeze) over 12,000 64 x 64
+   patch pairs (BAPPS 2AFC's size) in batches of 500, alex and vgg over
+   slice 16's Kodak pairs, ms an update and pairs a second; identical
+   pairs 0 exactly; 16 pairs on the CPU within 1e-5. D. FID's moments,
+   KID's buffer, IS's streaming sums (``assignment_rng_key``) and LPIPS
+   with ``jit_update=True``: each update a replay of a captured graph, the
+   states the eager updates' bits, no host sync a captured update (the
+   eager and captured updates' and the computes' syncs printed).
    Slice 9's ranks compute inside a session: on each, the ``collective``
    spans and their bytes equal ``sync_stats``. Before the ``kernels`` line
    each kernel's cost-model entry (``model_bytes``, ``model_flops``) must
@@ -665,6 +695,19 @@ SQUAD_QUESTIONS, SQUAD_BATCH, SQUAD_CPU_BATCHES = 10_570, 256, 4
 COCO_VAL_IMAGES, COCO_VAL_CLASSES, COCO_GT_PER_IMAGE, COCO_DETS, COCO_SIZE = 5000, 80, 7.3, 100, (640, 480)
 COCO_BATCH, COCO_MAP_IMAGES, COCO_CPU_IMAGES, COCO_PERFECT_IMAGES = 8, 1500, 160, 160
 BERT_CARD_CPU_RTOL, BERT_CARD_CPU_ATOL = 1e-6, 1e-6  # a float32 product summed in another order on each device
+# slice 20: FID-10k (10,000 real and 10,000 generated 299 x 299 images, batches of 200) through the bundled
+# InceptionV3 (seeded weights), FID, KID (100 subsets of 1,000) and IS (10 splits) on its features and logits, each
+# metric through its own net on the first 500 images a side; LPIPS on 12,000 BAPPS 2AFC-shaped 64 x 64 patch pairs
+# (batches of 500) and on slice 16's 24 Kodak pairs; the engines on the first ENGINE_BATCHES20 batches
+FID_IMAGES, FID_BATCH, FID_SHAPE, FID_CPU_IMAGES, FID_GEN_NOISE = 10_000, 200, (3, 299, 299), 8, 0.02
+NET_METRIC_IMAGES, KID_SUBSETS, KID_SUBSET_SIZE, IS_SPLITS, BUNDLED_KID_SUBSET = 500, 100, 1000, 10, 200
+BAPPS_PAIRS, BAPPS_BATCH, BAPPS_SHAPE, ENGINE_BATCHES20 = 12_000, 500, (3, 64, 64), 6
+# the tolerances: FID on every square root within 1e-4 of tr S1 + tr S2 of float64 (tests/test_torch_image_fid.py's
+# eigh tolerance; the compute runs in float64); the card's float32 features within 1e-4 of the CPU's scale, bf16
+# within 5e-2; KID within 1e-5 of the kernel's scale; IS rtol 1e-5 of float64, and IS's streaming sums on the card
+# within 1e-5 of their scale of the CPU's (tests/test_torch_image_kid_is.py's atol against the JAX package)
+FID_TOL20, NET_CARD_CPU_RTOL20, BF16_BOUND20 = 1e-4, 1e-4, 5e-2
+KID_ATOL20, IS_RTOL20, IS_STATE_ATOL20, LPIPS_CARD_CPU_ATOL20 = 1e-5, 1e-5, 1e-5, 1e-5
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -1778,13 +1821,9 @@ def run_slice10(torch, dev, batches, coco_batches, marco_batches, laps):
     on_card = [(f"ImageNet {k}", coll10[k]) for k in coll10.keys()]
     on_card += [(f"ImageNet {k}", m) for k, m in alone10.items() if k != "auroc_compute_on_cpu"]
     on_card += [(f"COCO {k}", m) for k, m in coco_mods.items()] + [(f"MS MARCO {k}", m) for k, m in marco_mods.items()]
-    compute_syncs, sync_sites, warm_compute_ms = {}, {}, {}
+    # the host syncs of one more compute each (the epoch's compute above is each member's timed call)
+    compute_syncs, sync_sites = {}, {}
     for key, m in on_card:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        m._compute_impl()
-        torch.cuda.synchronize()
-        warm_compute_ms[key] = (time.perf_counter() - t0) * 1e3
         compute_syncs[key], sites = one_call_syncs(torch, m._compute_impl)
         if sites:
             sync_sites[key] = sites
@@ -1798,7 +1837,6 @@ def run_slice10(torch, dev, batches, coco_batches, marco_batches, laps):
           f"the card, {c_im10_update_s * 1e3:.1f} ms on the CPU for its first {head} batches; COCO {coco10_update_s * 1e3:.1f} ms; MS MARCO "
           f"{marco10_update_s * 1e3:.1f} ms")
     print("slice 10 compute ms on the card (the epoch's compute, one call): " + json.dumps(compute_ms))
-    print("slice 10 compute ms on the card, a member's own compute again (one call): " + json.dumps(warm_compute_ms))
     print(f"slice 10 compute ms on the CPU (plain versions), the first {head} batches: " + json.dumps(cpu_compute_ms))
     print("slice 10 host syncs a compute (on the card): " + json.dumps(compute_syncs))
     print(f"slice 10 compute syncs by the port's line (the first {SYNC_SITES_SAMPLED}): " + json.dumps(sync_sites))
@@ -5831,6 +5869,451 @@ def run_slice19(torch, dev, laps):
     return slice19_launches
 
 
+def trunk_macs(torch, net, hw, dev):
+    """Multiply-adds of one ``hw`` x ``hw`` image through the InceptionV3,
+    counted from the layer shapes: each convolution's output elements times
+    its kernel's fan-in, and the head."""
+    from metrics_tpu_torch.image.inception_net import BasicConv2d
+
+    macs = [net.fc.weight.numel()]
+
+    def count(module, _inputs, out):
+        macs[0] += out[0].numel() * module.conv.weight[0].numel()
+
+    hooks = [m.register_forward_hook(count) for m in net.modules() if isinstance(m, BasicConv2d)]
+    try:
+        net(torch.zeros(1, 3, hw, hw, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return macs[0]
+
+
+def fid_images(torch, seed, step, n, dev, generated=False):
+    """Batch ``step`` of a FID set as uint8 ``(n, 3, 299, 299)``: natural
+    images from a generator seeded by the set and the step; the generated set
+    smoothed (a 3 x 3 mean, as a generator loses detail) and noisy."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed * 100_003 + step)
+    x = natural_images(torch, g, n, FID_SHAPE, dev)
+    if generated:
+        x = F.avg_pool2d(x, 3, 1, 1, count_include_pad=False)
+        x = (x + FID_GEN_NOISE * torch.randn(x.shape, generator=g, device=dev)).clamp(0, 1)
+    return (x * 255).round().to(torch.uint8)
+
+
+def fid64(torch, real, fake):
+    """FID of two feature sets in float64 on the card: the means and unbiased
+    covariances, and tr sqrt(S1^1/2 S2 S1^1/2) from two eigendecompositions.
+    Returns the value, tr S1 + tr S2 and the square root's trace."""
+    r, f = real.double(), fake.double()
+    s1, s2 = torch.cov(r.T), torch.cov(f.T)
+    vals, vecs = torch.linalg.eigh(s1)
+    half = (vecs * vals.clamp_min(0).sqrt()) @ vecs.T
+    m = half @ s2 @ half
+    c = torch.linalg.eigvalsh((m + m.T) / 2).clamp_min(0).sqrt().sum()
+    traces = torch.trace(s1) + torch.trace(s2)
+    return float(((r.mean(0) - f.mean(0)) ** 2).sum() + traces - 2 * c), float(traces), float(c)
+
+
+def kid64(torch, real, fake, seed, subsets, size, degree=3, coef=1.0):
+    """KID in float64 on the card over the subsets ``np.random`` draws after
+    ``seed`` (one permutation a side a subset, real and fake interleaved):
+    the unbiased polynomial MMD's mean and biased std, and the mean of the
+    first subset's real kernel (the scale of the sums)."""
+    np.random.seed(seed)
+    gamma = 1.0 / real.shape[1]
+    scores, scale = [], None
+    for _ in range(subsets):
+        ir, if_ = np.random.permutation(real.shape[0])[:size], np.random.permutation(fake.shape[0])[:size]
+        x = real[torch.from_numpy(ir).to(real.device)].double()
+        y = fake[torch.from_numpy(if_).to(fake.device)].double()
+        kxx, kyy, kxy = ((a @ b.T * gamma + coef) ** degree for a, b in ((x, x), (y, y), (x, y)))
+        m = size
+        off = lambda k: (k.sum() - torch.diagonal(k).sum()) / (m * (m - 1))  # noqa: E731
+        scores.append(off(kxx) + off(kyy) - 2 * kxy.sum() / m**2)
+        scale = float(kxx.mean()) if scale is None else scale
+    s = torch.stack(scores)
+    return float(s.mean()), float(s.std(unbiased=False)), scale
+
+
+def is64(torch, logits, seed, splits):
+    """The list path's IS in float64 on the card after the same shuffle
+    (``np.random.permutation`` after ``seed``) and torch.chunk's sizes."""
+    np.random.seed(seed)
+    x = logits[torch.from_numpy(np.random.permutation(logits.shape[0])).to(logits.device)].double()
+    p, logp = torch.softmax(x, 1), torch.log_softmax(x, 1)
+    scores = []
+    for cp, clp in zip(torch.chunk(p, splits), torch.chunk(logp, splits)):
+        scores.append(torch.exp((cp * (clp - torch.log(cp.mean(0, keepdim=True)))).sum(1).mean()))
+    s = torch.stack(scores)
+    return float(s.mean()), float(s.std())
+
+
+def exact_features(torch, n, d, mu, sd, dev):
+    """``n`` features of width ``d`` whose sample mean is ``mu`` and sample
+    covariance ``diag(sd**2) * n / (n - 1)`` exactly: ``mu + sd * H``, the
+    columns of ``H`` the non-constant columns of a Sylvester Hadamard matrix
+    (+-1, orthogonal, mean 0)."""
+    h = torch.ones(1, 1, device=dev)
+    while h.shape[0] < n:
+        h = torch.cat([torch.cat([h, h], 1), torch.cat([h, -h], 1)], 0)
+    return mu + sd * h[:n, 1:d + 1]
+
+
+def run_slice20(torch, dev, laps):
+    """Slice 20 (see the module's docstring): returns the kernels' launches on
+    its path (all 0: the nets are cuDNN's convolutions and the metrics'
+    arithmetic is products, eigensolvers and reductions)."""
+    import torch.nn.functional as F
+
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch.functional.image.helper import _full_float32
+    from metrics_tpu_torch.image import InceptionV3FeatureExtractor
+    from metrics_tpu_torch.image.lpips_net import LPIPSNet
+    from metrics_tpu_torch.ops import launches, reset_launches
+
+    t_slice = time.perf_counter()
+    cpu = torch.device("cpu")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    report = {"card": card}
+    reset_launches()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def quiet(fn):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the seeded nets' "randomly initialized" warning
+            return fn()
+
+    # ------------------------------------------------------------ A. InceptionV3 over FID-10k
+    ext = quiet(lambda: InceptionV3FeatureExtractor()).to(dev)
+    macs = trunk_macs(torch, ext.net, FID_SHAPE[1], dev)
+    steps = FID_IMAGES // FID_BATCH
+    feats = {"real": [], "fake": []}
+    extract_s, peak = 0.0, 0.0
+    for side, generated in (("real", False), ("fake", True)):
+        for step in range(steps):
+            x = fid_images(torch, SEED + 20, step + (steps if generated else 0), FID_BATCH, dev, generated)
+            if step == 0 and not generated:
+                peak = peak_mib(torch, lambda x=x: ext(x))
+            f, s = timed(lambda x=x: ext(x))
+            feats[side].append(f)
+            extract_s += s
+    real, fake = torch.cat(feats["real"]), torch.cat(feats["fake"])
+    check(real.shape == fake.shape == (FID_IMAGES, 2048) and real.dtype == torch.float32
+          and bool(torch.isfinite(real).all() and torch.isfinite(fake).all()),
+          f"FID-10k features: {tuple(real.shape)} {real.dtype}, finite {bool(torch.isfinite(real).all())}")
+    batch_ms = extract_s * 1e3 / (2 * steps)
+    batch_bound_ms, bound_by = bound(FID_BATCH * (math.prod(FID_SHAPE) + 2048 * 4)
+                                     + sum(p.numel() * 4 for p in ext.net.parameters()), 2 * macs * FID_BATCH)
+    laps.mark("3. slice 20 A: InceptionV3 over FID-10k")
+
+    x0 = fid_images(torch, SEED + 20, 0, FID_CPU_IMAGES, dev)
+    cpu_ext = quiet(lambda: InceptionV3FeatureExtractor())
+    want = cpu_ext(x0.cpu())
+    got = ext(x0).cpu()
+    prefix_err = float((got - want).abs().max())
+    check(prefix_err <= NET_CARD_CPU_RTOL20 * float(want.abs().max()),
+          f"InceptionV3: the first {FID_CPU_IMAGES} images' features on the card differ from the CPU's by {prefix_err}")
+
+    ext16 = quiet(lambda: InceptionV3FeatureExtractor(dtype=torch.bfloat16)).to(dev)
+    fake16, bf16_s = [], 0.0
+    for step in range(steps):
+        x = fid_images(torch, SEED + 20, step + steps, FID_BATCH, dev, generated=True)
+        f, s = timed(lambda x=x: ext16(x))
+        fake16.append(f)
+        bf16_s += s
+    fake16 = torch.cat(fake16)
+    bf16_err = float((fake16 - fake).abs().max())
+    check(fake16.dtype == torch.float32 and bf16_err <= BF16_BOUND20 * float(fake.abs().max()),
+          f"InceptionV3 bf16: largest feature difference {bf16_err} past {BF16_BOUND20} of the features' scale")
+    fid_ref, traces, _ = fid64(torch, real, fake)
+    fid_bf16 = fid64(torch, real, fake16)[0]
+    report["A_inception"] = {
+        "images": 2 * FID_IMAGES, "batch": FID_BATCH, "images_per_s": 2 * FID_IMAGES / extract_s,
+        "ms_per_batch": batch_ms, "bound_ms_per_batch": batch_bound_ms, "bound_by": bound_by,
+        "gmacs_per_image": macs / 1e9, "peak_mib_per_batch": peak, "cpu_prefix_max_abs_err": prefix_err,
+        "bf16": {"images": FID_IMAGES, "ms_per_batch": bf16_s * 1e3 / steps, "images_per_s": FID_IMAGES / bf16_s,
+                 "max_abs_feature_diff": bf16_err, "feature_scale": float(fake.abs().max()),
+                 "fid_float64": fid_bf16, "fid_drift": fid_bf16 - fid_ref},
+    }
+    print("slice 20 A, InceptionV3 over FID-10k: " + json.dumps(report["A_inception"]))
+    laps.mark("3. slice 20 A: bf16 pass and the CPU prefix")
+
+    # ------------------------------------------------------------ B. FID, KID and IS
+    fid_tol = FID_TOL20 * traces
+    fid_values = {}
+    for path, kwargs in (("list", {}), ("moments", {"feature_dim": 2048})):
+        for method in (None, "eigh_host", "newton_schulz"):
+            m = M.FrechetInceptionDistance(sqrtm_method=method, **kwargs, device=dev)
+            for a, b in zip(feats["real"], feats["fake"]):
+                m.update(a, real=True)
+                m.update(b, real=False)
+            value, s = timed(m.compute)
+            value = float(value)
+            check(math.isfinite(value) and abs(value - fid_ref) <= fid_tol,
+                  f"FID ({path}, {method}) {value} against float64 {fid_ref}: past {fid_tol}")
+            fid_values[f"{path}/{method}"] = {"value": value, "compute_s": s}
+    # the JAX package's precision (x64 off): float32 covariances and a float32 square root, on the same features
+    from metrics_tpu_torch.image.fid import _trace_sqrtm_eigh
+
+    s1_32, s2_32 = torch.cov(real.T), torch.cov(fake.T)
+    mean_term = float(((real.double().mean(0) - fake.double().mean(0)) ** 2).sum())
+    try:  # a reading, not a check: float32 eigensolvers may not converge on a rank-deficient covariance
+        fid_f32_sqrt = mean_term + float(torch.trace(s1_32) + torch.trace(s2_32)) - 2 * float(
+            _trace_sqrtm_eigh(s1_32, s2_32))
+    except torch.linalg.LinAlgError as err:
+        fid_f32_sqrt = f"eigh failed: {str(err)[:80]}"
+    eigs = torch.linalg.eigvalsh(torch.cov(real.double().T))
+    spectrum = {"real_eigs": eigs.numel(), "below_1e-6_of_largest": int((eigs < 1e-6 * eigs.max()).sum())}
+    del s1_32, s2_32, eigs
+    same = M.FrechetInceptionDistance(device=dev)
+    same.update(real, real=True)
+    same.update(real, real=False)
+    self_fid = float(same.compute())
+    check(abs(self_fid) <= FID_TOL20 * 2 * float(torch.cov(real.double().T).trace()),
+          f"FID of a set against itself is {self_fid}")
+    n_ex = 4096
+    mu1, mu2 = 0.5, -0.25
+    sd1 = torch.linspace(0.5, 2.0, 2048, device=dev)
+    sd2 = torch.linspace(1.5, 0.25, 2048, device=dev)
+    planted = M.FrechetInceptionDistance(feature_dim=2048, device=dev)
+    planted.update(exact_features(torch, n_ex, 2048, mu1, sd1, dev), real=True)
+    planted.update(exact_features(torch, n_ex, 2048, mu2, sd2, dev), real=False)
+    closed = 2048 * (mu1 - mu2) ** 2 + n_ex / (n_ex - 1) * float(((sd1.double() - sd2.double()) ** 2).sum())
+    closed_traces = n_ex / (n_ex - 1) * float((sd1.double() ** 2 + sd2.double() ** 2).sum())
+    planted_fid = float(planted.compute())
+    check(abs(planted_fid - closed) <= FID_TOL20 * closed_traces,
+          f"FID of the planted diagonal Gaussians {planted_fid}, closed form {closed}")
+    laps.mark("3. slice 20 B: FID")
+
+    kid = M.KernelInceptionDistance(subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, device=dev)
+    kid_buf = M.KernelInceptionDistance(subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, feature_dim=2048,
+                                        max_samples=FID_IMAGES, device=dev)
+    for a, b in zip(feats["real"], feats["fake"]):
+        for m in (kid, kid_buf):
+            m.update(a, real=True)
+            m.update(b, real=False)
+    np.random.seed(SEED + 201)
+    (kid_mean, kid_std), kid_s = timed(kid.compute)
+    np.random.seed(SEED + 201)
+    kid_buf_vals = kid_buf.compute()
+    check(torch.equal(kid_buf_vals[0], kid_mean) and torch.equal(kid_buf_vals[1], kid_std),
+          "KID's buffer path is not its list path's bits")
+    k_mean64, k_std64, k_scale = kid64(torch, real, fake, SEED + 201, KID_SUBSETS, KID_SUBSET_SIZE)
+    check(abs(float(kid_mean) - k_mean64) <= KID_ATOL20 * k_scale and abs(float(kid_std) - k_std64) <= KID_ATOL20 * k_scale,
+          f"KID ({float(kid_mean)}, {float(kid_std)}) against float64 ({k_mean64}, {k_std64}), kernel scale {k_scale}")
+    kid_graph = M.KernelInceptionDistance(subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, feature_dim=2048,
+                                          max_samples=FID_IMAGES, compute_rng_key=SEED + 202, device=dev)
+    for a, b in zip(feats["real"], feats["fake"]):
+        kid_graph.update(a, real=True)
+        kid_graph.update(b, real=False)
+    graph_vals, graph_s = timed(kid_graph.compute)
+    check(all(bool(torch.isfinite(v)) for v in graph_vals), f"KID with compute_rng_key: {graph_vals}")
+
+    head = ext.net.fc.weight
+    with _full_float32():
+        logits = [F.linear(f, head) for f in feats["fake"]]  # the head without its bias: 'logits_unbiased'
+    all_logits = torch.cat(logits)
+    is_list = M.InceptionScore(splits=IS_SPLITS, device=dev)
+    is_stream = M.InceptionScore(splits=IS_SPLITS, num_classes=1008, device=dev)
+    for lg in logits:
+        is_list.update(lg)
+        is_stream.update(lg)
+    np.random.seed(SEED + 203)
+    is_mean, is_std = is_list.compute()
+    is_ref = is64(torch, all_logits, SEED + 203, IS_SPLITS)
+    check(abs(float(is_mean) - is_ref[0]) <= IS_RTOL20 * is_ref[0] and abs(float(is_std) - is_ref[1]) <= IS_RTOL20 * is_ref[0],
+          f"IS list path ({float(is_mean)}, {float(is_std)}) against float64 {is_ref}")
+    stream_vals = is_stream.compute()
+    check(all(bool(torch.isfinite(v)) for v in stream_vals) and int(is_stream.split_count.sum()) == FID_IMAGES,
+          f"IS streaming: {stream_vals}, split counts {is_stream.split_count.tolist()}")
+    # the streaming sums on the card against a CPU run of the same metric on the same logits, round-robin and keyed
+    is_keyed = M.InceptionScore(splits=IS_SPLITS, num_classes=1008, assignment_rng_key=SEED + 208, device=dev)
+    for lg in logits:
+        is_keyed.update(lg)
+    is_stream_err = {}
+    for name, card_m, key in (("round_robin", is_stream, None), ("keyed", is_keyed, SEED + 208)):
+        host_m = M.InceptionScore(splits=IS_SPLITS, num_classes=1008, assignment_rng_key=key, device=cpu)
+        for lg in logits:
+            host_m.update(lg.cpu())
+        errs = {}
+        for state in ("prob_sum", "plogp_sum"):
+            want_s = getattr(host_m, state)
+            errs[state] = float((getattr(card_m, state).cpu() - want_s).abs().max()) / float(want_s.abs().max())
+        card_v, host_v = card_m.compute(), host_m.compute()
+        errs["mean"], errs["std"] = (abs(float(c) - float(h)) / float(host_v[0]) for c, h in zip(card_v, host_v))
+        check(torch.equal(card_m.split_count.cpu(), host_m.split_count)
+              and all(errs[k] <= IS_STATE_ATOL20 for k in ("prob_sum", "plogp_sum"))
+              and errs["mean"] <= IS_RTOL20 and errs["std"] <= IS_RTOL20,
+              f"IS streaming ({name}) on the card against the CPU: {errs}, split counts"
+              f" {card_m.split_count.tolist()} and {host_m.split_count.tolist()}")
+        is_stream_err[name] = errs
+    del is_keyed
+    k_cls, per = 10, 1000
+    onehot = 50.0 * F.one_hot((torch.arange(k_cls * per, device=dev) // IS_SPLITS) % k_cls, k_cls).float()
+    planted_is = M.InceptionScore(splits=IS_SPLITS, num_classes=k_cls, device=dev)
+    planted_is.update(onehot)
+    planted_list = M.InceptionScore(splits=IS_SPLITS, device=dev)
+    planted_list.update(onehot)
+    np.random.seed(SEED + 204)
+    pis_stream, pis_list = float(planted_is.compute()[0]), float(planted_list.compute()[0])
+    check(abs(pis_stream - k_cls) <= 1e-4 * k_cls and abs(pis_list - k_cls) <= 1e-2 * k_cls,
+          f"IS of logits spread evenly over {k_cls} classes: streaming {pis_stream}, list {pis_list}")
+    laps.mark("3. slice 20 B: KID and IS")
+
+    bundled_in = {side: [fid_images(torch, SEED + 20, s + (steps if side == "fake" else 0), FID_BATCH, dev,
+                                    side == "fake") for s in range(NET_METRIC_IMAGES // FID_BATCH + 1)]
+                  for side in ("real", "fake")}
+    for side in bundled_in:
+        bundled_in[side][-1] = bundled_in[side][-1][: NET_METRIC_IMAGES % FID_BATCH]
+    ext_logits = quiet(lambda: InceptionV3FeatureExtractor(output="logits_unbiased")).to(dev)
+    fed = {side: [ext(x) for x in xs] for side, xs in bundled_in.items()}
+    fed_logits = [ext_logits(x) for x in bundled_in["fake"]]
+    fid_b = quiet(lambda: M.FrechetInceptionDistance(feature=2048, device=dev))
+    kid_b = quiet(lambda: M.KernelInceptionDistance(feature=2048, subsets=10, subset_size=BUNDLED_KID_SUBSET,
+                                                    device=dev))
+    is_b = quiet(lambda: M.InceptionScore(feature="logits_unbiased", splits=IS_SPLITS, device=dev))
+    fid_f = M.FrechetInceptionDistance(device=dev)
+    kid_f = M.KernelInceptionDistance(subsets=10, subset_size=BUNDLED_KID_SUBSET, device=dev)
+    is_f = M.InceptionScore(splits=IS_SPLITS, device=dev)
+    for side in ("real", "fake"):
+        for x, f in zip(bundled_in[side], fed[side]):
+            for mb, mf in ((fid_b, fid_f), (kid_b, kid_f)):
+                mb.update(x, real=side == "real")
+                mf.update(f, real=side == "real")
+    for x, lg in zip(bundled_in["fake"], fed_logits):
+        is_b.update(x)
+        is_f.update(lg)
+    bundled_equal = {"fid": torch.equal(fid_b.compute(), fid_f.compute())}
+    for name, mb, mf in (("kid", kid_b, kid_f), ("is", is_b, is_f)):
+        np.random.seed(SEED + 205)
+        vb = mb.compute()
+        np.random.seed(SEED + 205)
+        vf = mf.compute()
+        bundled_equal[name] = all(torch.equal(a, b) for a, b in zip(vb, vf))
+    check(all(bundled_equal.values()), f"a metric through its bundled net differs from the fed features: {bundled_equal}")
+    del fid_b, kid_b, is_b, ext_logits
+    report["B_metrics"] = {
+        "fid_float64": fid_ref, "traces": traces, "fid": fid_values, "fid_self": self_fid,
+        "fid_float32_sqrt": fid_f32_sqrt, "spectrum": spectrum,
+        "fid_planted": {"value": planted_fid, "closed_form": closed},
+        "kid": {"mean": float(kid_mean), "std": float(kid_std), "float64": [k_mean64, k_std64],
+                "kernel_scale": k_scale, "compute_s": kid_s, "in_graph": [float(v) for v in graph_vals],
+                "in_graph_compute_s": graph_s},
+        "is": {"list": [float(is_mean), float(is_std)], "float64": list(is_ref),
+               "streaming": [float(v) for v in stream_vals], "streaming_card_cpu_rel_err": is_stream_err,
+               "planted_10": [pis_stream, pis_list]},
+        "bundled_equal": bundled_equal,
+    }
+    print("slice 20 B, FID, KID and IS: " + json.dumps(report["B_metrics"]))
+    laps.mark("3. slice 20 B: each metric through its bundled net")
+
+    # ------------------------------------------------------------ C. LPIPS
+    g = torch.Generator(device=dev).manual_seed(SEED + 206)
+    bapps = []
+    for _ in range(BAPPS_PAIRS // BAPPS_BATCH):
+        ref = natural_images(torch, g, BAPPS_BATCH, BAPPS_SHAPE, dev)
+        bapps.append((ref * 2 - 1, noisy(torch, g, ref) * 2 - 1))
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)  # slice 16's Kodak pairs
+    k_target = natural_images(torch, g, KODAK_IMAGES, KODAK_SHAPE, dev)
+    k_preds = noisy(torch, g, k_target)
+    lpips_entry = {}
+    for net in ("alex", "vgg", "squeeze"):
+        metric = quiet(lambda net=net: M.LearnedPerceptualImagePatchSimilarity(net_type=net, device=dev))
+        update_ms = []
+        for a, b in bapps:
+            _, s = timed(lambda a=a, b=b: metric.update(a, b))
+            update_ms.append(s * 1e3)
+        value = metric.compute()
+        check(bool(torch.isfinite(value)) and float(value) > 0 and float(metric.total) == BAPPS_PAIRS,
+              f"LPIPS ({net}) over {BAPPS_PAIRS} pairs: {value}, total {float(metric.total)}")
+        zero = metric.net(bapps[0][0][:16], bapps[0][0][:16])
+        check(torch.equal(zero, torch.zeros_like(zero)), f"LPIPS ({net}) of identical pairs is not 0")
+        host = quiet(lambda net=net: LPIPSNet(net_type=net))
+        want = host(bapps[0][0][:16].cpu(), bapps[0][1][:16].cpu())
+        got = metric.net(bapps[0][0][:16], bapps[0][1][:16]).cpu()
+        check(bool((got > 0).all()), f"LPIPS ({net}) of noisy pairs is not above identical pairs' 0: {got.tolist()}")
+        check(float((got - want).abs().max()) <= LPIPS_CARD_CPU_ATOL20,
+              f"LPIPS ({net}) on the card differs from the CPU by {float((got - want).abs().max())}")
+        entry = {"value": float(value), "update_ms_median": statistics.median(update_ms),
+                 "pairs_per_s": BAPPS_BATCH / (statistics.median(update_ms) / 1e3)}
+        if net != "squeeze":
+            kodak = quiet(lambda net=net: M.LearnedPerceptualImagePatchSimilarity(net_type=net, device=dev))
+            kodak_ms = []
+            for i in range(0, KODAK_IMAGES, IMAGE_BATCH):
+                _, s = timed(lambda i=i: kodak.update(k_preds[i:i + IMAGE_BATCH] * 2 - 1,
+                                                      k_target[i:i + IMAGE_BATCH] * 2 - 1))
+                kodak_ms.append(s * 1e3)
+            kv = kodak.compute()
+            check(bool(torch.isfinite(kv)) and float(kv) > 0, f"LPIPS ({net}) over Kodak: {kv}")
+            entry["kodak"] = {"value": float(kv), "update_ms_median": statistics.median(kodak_ms),
+                              "pairs_per_s": IMAGE_BATCH / (statistics.median(kodak_ms) / 1e3)}
+        lpips_entry[net] = entry
+    report["C_lpips"] = lpips_entry
+    print("slice 20 C, LPIPS on BAPPS-shaped patches and Kodak: " + json.dumps(lpips_entry))
+    laps.mark("3. slice 20 C: LPIPS")
+
+    # ------------------------------------------------------------ D. the engines
+    feat_batches = [((a,), {"real": True}) for a in feats["real"][:ENGINE_BATCHES20]] + \
+        [((b,), {"real": False}) for b in feats["fake"][:ENGINE_BATCHES20]]
+    cases = {
+        "fid_moments": (M.FrechetInceptionDistance, {"feature_dim": 2048}, feat_batches),
+        "kid_buffer": (M.KernelInceptionDistance, {"feature_dim": 2048, "max_samples": FID_IMAGES,
+                                                   "subsets": 10, "subset_size": BUNDLED_KID_SUBSET}, feat_batches),
+        "is_streaming": (M.InceptionScore, {"num_classes": 1008, "splits": IS_SPLITS, "assignment_rng_key": 20},
+                         [((lg,), {}) for lg in logits[:ENGINE_BATCHES20]]),
+        "lpips_alex": (M.LearnedPerceptualImagePatchSimilarity, {"net_type": "alex"},
+                       [((a, b), {}) for a, b in bapps[:ENGINE_BATCHES20]]),
+    }
+    engines = {}
+    for name, (cls, kwargs, batches) in cases.items():
+        eager = quiet(lambda: cls(**kwargs, device=dev))
+        engine = quiet(lambda: cls(**kwargs, jit_update=True, device=dev))
+        for args, kw in batches:
+            eager.update(*args, **kw)
+            engine.update(*args, **kw)
+        torch.cuda.synchronize()
+        for key in eager._defaults:
+            check(torch.equal(getattr(engine, key), getattr(eager, key)),
+                  f"{name}: the captured update's {key} is not the eager update's bits")
+        stats = engine.dispatch_stats
+        graphs = sum(len(p.graphs) for p in engine._dispatcher._cache.values())
+        check(stats["demotions"] == 0 and stats["dispatches"] == len(batches) and graphs >= 2,
+              f"{name}: the engine's stats {stats}, {graphs} graphs")
+        args, kw = batches[0]
+        engines[name] = {
+            "dispatches": stats["dispatches"], "retraces": stats["retraces"], "graphs": graphs,
+            "eager_update_syncs": one_call_syncs(torch, lambda: eager.update(*args, **kw))[0],
+            "engine_update_syncs": one_call_syncs(torch, lambda: engine.update(*args, **kw))[0],
+        }
+        if name != "kid_buffer":  # its compute draws the host's np.random stream: reads the counts
+            engines[name]["compute_syncs"] = one_call_syncs(torch, eager._compute_impl)[0]
+        else:
+            np.random.seed(SEED + 207)
+            engines[name]["compute_syncs"] = one_call_syncs(torch, eager._compute_impl)[0]
+    check(all(e["engine_update_syncs"] == 0 for e in engines.values()),
+          f"a captured update synced with the host: {engines}")
+    report["D_engines"] = engines
+    print("slice 20 D, the engines: " + json.dumps(engines))
+    laps.mark("3. slice 20 D: the engines")
+
+    slice20_launches = launches()
+    check(all(n == 0 for n in slice20_launches.values()), f"slice 20 launched a kernel: {slice20_launches}")
+    report["launches"] = slice20_launches
+    report["command_s"] = time.perf_counter() - t_slice
+    print(f"slice 20 ({card}): " + json.dumps({k: report[k] for k in ("card", "launches", "command_s")}))
+    return slice20_launches
+
+
 def main() -> int:
     import torch
 
@@ -7196,6 +7679,9 @@ def main() -> int:
 
     # ------------------------------------------ 3r. slice 19: summaries, questions, BERTScore and detection
     run_slice19(torch, dev, laps)
+
+    # ------------------------------------------ 3s. slice 20: the nets and their metrics
+    run_slice20(torch, dev, laps)
 
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000

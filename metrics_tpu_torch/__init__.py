@@ -48,6 +48,10 @@ from metrics_tpu_torch.classification.stat_scores import StatScores  # noqa: F40
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.image import (  # noqa: F401
     ErrorRelativeGlobalDimensionlessSynthesis,
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    LearnedPerceptualImagePatchSimilarity,
     MultiScaleStructuralSimilarityIndexMeasure,
     PeakSignalNoiseRatio,
     SpectralAngleMapper,
@@ -144,14 +148,18 @@ __all__ = [
     "F1Score",
     "FBetaScore",
     "FoldTreeWindow",
+    "FrechetInceptionDistance",
     "HammingDistance",
     "HingeLoss",
     "HostQuantileSketch",
     "HyperLogLog",
+    "InceptionScore",
     "JaccardIndex",
     "KLDivergence",
+    "KernelInceptionDistance",
     "LabelRankingAveragePrecision",
     "LabelRankingLoss",
+    "LearnedPerceptualImagePatchSimilarity",
     "MatchErrorRate",
     "MatthewsCorrCoef",
     "MaxMetric",

@@ -1152,6 +1152,14 @@ class Metric(ABC):
         self._cache = None
         self._is_synced = False
 
+    def _reset_preserving(self, prefix: str) -> None:
+        """Base reset, then restore every state whose name starts with
+        ``prefix``: FID's and KID's ``reset_real_features=False``."""
+        saved = {k: getattr(self, k) for k in self._defaults if k.startswith(prefix)}
+        Metric.reset(self)
+        for k, v in saved.items():
+            object.__setattr__(self, k, v)
+
     def clone(self) -> "Metric":
         return deepcopy(self)
 

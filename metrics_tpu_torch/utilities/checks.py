@@ -19,6 +19,7 @@ import threading
 from contextlib import contextmanager
 from typing import Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -43,6 +44,29 @@ def tracing() -> Iterator[None]:
 def _is_traced() -> bool:
     """Whether an engine is building or running a program on this thread."""
     return getattr(_TRACING, "depth", 0) > 0
+
+
+def as_rng_key(value, arg_name: str) -> Tensor:
+    """An int seed or raw ``jax.random`` key data (a uint32 ``(..., 2)``
+    numpy array or tensor) as the key words :mod:`jax_random` draws from,
+    checked at construction as the JAX package checks them
+    (``metrics_tpu/utilities/checks.py:29-51``). The port has no typed keys."""
+    from metrics_tpu_torch.utilities import jax_random
+
+    if isinstance(value, int) and not isinstance(value, bool):
+        return jax_random.PRNGKey(value)
+    uint32 = (isinstance(value, np.ndarray) and value.dtype == np.uint32) or (
+        isinstance(value, Tensor) and value.dtype == torch.uint32
+    )
+    if uint32 and value.ndim >= 1 and value.shape[-1] == 2:
+        return jax_random.as_key_data(value)
+    shaped = isinstance(value, (np.ndarray, Tensor))
+    raise ValueError(
+        f"Argument `{arg_name}` expected to be an int seed or a jax.random key"
+        " (typed key or raw uint32 (..., 2) PRNGKey),"
+        f" got {type(value).__name__}"
+        + (f" with dtype={value.dtype} shape={tuple(value.shape)}" if shaped else "")
+    )
 
 
 def _is_floating(x: Tensor) -> bool:

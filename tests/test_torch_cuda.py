@@ -4,6 +4,8 @@ These tests need an NVIDIA card with ``nvcc`` (a CUDA kernel has no CPU or
 interpret mode); elsewhere they skip. On a machine with a card:
 ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -2147,3 +2149,127 @@ def test_map_compute_reads_the_card_once_and_equals_the_cpu(card):
     for key in want:
         assert got[key].device.type == "cuda" and got[key].dtype == want[key].dtype
         assert torch.equal(got[key].cpu(), want[key]), key
+
+
+# ------------------------------------------------------------------ slice 20: the nets and their metrics
+def _nets_images(n, hw, seed=0, dtype=torch.uint8):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, 256, (n, 3, hw, hw), generator=g, dtype=torch.uint8)
+    return x if dtype == torch.uint8 else x.to(dtype) / 127.5 - 1.0
+
+
+def test_inception_on_the_card_equals_the_cpu(card):
+    """The seeded extractor at 299 x 299: the card's float32 (TF32 off) pool
+    features, logits and 768 tap within 1e-4 of the CPU's largest magnitude."""
+    from metrics_tpu_torch.image import InceptionV3FeatureExtractor
+
+    x = _nets_images(4, 299, seed=1)
+    for output in ("pool", "logits_unbiased", 768):
+        with pytest.warns(UserWarning):
+            cpu = InceptionV3FeatureExtractor(output=output)
+        want = cpu(x)
+        got = cpu.to(card)(x.to(card)).cpu()
+        assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_inception_bf16_stays_within_its_bound(card):
+    """The bf16 option: float32 outputs within 5% of the float32 features' scale."""
+    from metrics_tpu_torch.image import InceptionV3FeatureExtractor
+
+    x = _nets_images(8, 299, seed=2).to(card)
+    with pytest.warns(UserWarning):
+        f32 = InceptionV3FeatureExtractor().to(card)
+        bf16 = InceptionV3FeatureExtractor(dtype=torch.bfloat16).to(card)  # the same seeded weights
+    want, got = f32(x), bf16(x)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("net", ["alex", "vgg", "squeeze"])
+def test_lpips_nets_on_the_card_equal_the_cpu(card, net):
+    from metrics_tpu_torch.image.lpips_net import LPIPSNet
+
+    a, b = _nets_images(6, 64, seed=3, dtype=torch.float32), _nets_images(6, 64, seed=4, dtype=torch.float32)
+    with pytest.warns(UserWarning):
+        cpu = LPIPSNet(net_type=net)
+    want = cpu(a, b)
+    got = cpu.to(card)(a.to(card), b.to(card)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_fid_card_eigh_equals_eigh_host(card):
+    """``sqrtm_method=None`` on the card is cuSOLVER's eigh; ``eigh_host``
+    the CPU's: within 1e-4 of tr(S1) + tr(S2)."""
+    from metrics_tpu_torch import FrechetInceptionDistance
+
+    g = torch.Generator(device=card).manual_seed(5)
+    real = torch.randn(4096, 256, generator=g, device=card) @ torch.randn(256, 256, generator=g, device=card) / 16
+    fake = torch.randn(4096, 256, generator=g, device=card) * 1.1 + 0.2
+    values = {}
+    for method in (None, "eigh_host"):
+        m = FrechetInceptionDistance(feature_dim=256, sqrtm_method=method, device=card)
+        m.update(real, real=True)
+        m.update(fake, real=False)
+        values[method] = float(m.compute())
+    scale = float(torch.trace(torch.cov(real.T)) + torch.trace(torch.cov(fake.T)))
+    assert abs(values[None] - values["eigh_host"]) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("key", [None, 3], ids=["round-robin", "keyed"])
+def test_is_streaming_on_the_card_equals_the_cpu(card, key):
+    """IS's streaming sums (a one-hot product) on the card against a CPU run
+    of the same metric on the same logits: ``split_count`` equal, the sums
+    within 1e-5 of their scale, the mean and std at rtol 1e-5."""
+    from metrics_tpu_torch import InceptionScore
+
+    g = torch.Generator().manual_seed(8)
+    logits = [torch.randn(n, 50, generator=g) * 3 for n in (64, 17, 100, 33)]
+    on_card = InceptionScore(splits=7, num_classes=50, assignment_rng_key=key, device=card)
+    on_cpu = InceptionScore(splits=7, num_classes=50, assignment_rng_key=key, device="cpu")
+    for x in logits:
+        on_card.update(x.to(card))
+        on_cpu.update(x)
+    assert torch.equal(on_card.split_count.cpu(), on_cpu.split_count)
+    for name in ("prob_sum", "plogp_sum"):
+        want = getattr(on_cpu, name)
+        assert float((getattr(on_card, name).cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max()), name
+    for got, want in zip(on_card.compute(), on_cpu.compute()):
+        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(on_cpu.compute()[0]))
+
+
+def _engine_pair(card, cls, kwargs, batches):
+    eager, engine = cls(**kwargs, device=card), cls(**kwargs, jit_update=True, device=card)
+    for args, kw in batches:
+        eager.update(*args, **kw)
+        engine.update(*args, **kw)
+    torch.cuda.synchronize()
+    return eager, engine
+
+
+def test_captured_updates_equal_eager_on_the_card(card):
+    """LPIPS (its net inside the graph), FID's moments, KID's buffer and IS's
+    streaming sums with ``fold_in`` on the device count: each update a replay
+    of a captured graph, the states the eager updates' bits."""
+    import metrics_tpu_torch as M
+
+    g = torch.Generator(device=card).manual_seed(6)
+    imgs = [torch.rand(4, 3, 64, 64, generator=g, device=card) * 2 - 1 for _ in range(3)]
+    lp = [((x, (x + 0.1 * torch.randn(x.shape, generator=g, device=card)).clamp(-1, 1)), {}) for x in imgs]
+    feats = [((torch.randn(32, 64, generator=g, device=card),), {"real": bool(i % 2)}) for i in range(6)]
+    logits = [((torch.randn(32, 10, generator=g, device=card),), {}) for _ in range(4)]
+    cases = [
+        (M.LearnedPerceptualImagePatchSimilarity, {"net_type": "alex"}, lp),
+        (M.FrechetInceptionDistance, {"feature_dim": 64}, feats),
+        (M.KernelInceptionDistance, {"feature_dim": 64, "max_samples": 512, "subset_size": 16, "subsets": 3}, feats),
+        (M.InceptionScore, {"num_classes": 10, "splits": 4, "assignment_rng_key": 3}, logits),
+    ]
+    for cls, kwargs, batches in cases:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the seeded LPIPS network's warning
+            eager, engine = _engine_pair(card, cls, kwargs, batches)
+        for key in eager._defaults:
+            assert torch.equal(getattr(engine, key), getattr(eager, key)), (cls.__name__, key)
+        stats = engine.dispatch_stats
+        assert stats["demotions"] == 0 and stats["dispatches"] == len(batches), (cls.__name__, stats)
+        assert any(len(p.graphs) == 2 for p in engine._dispatcher._cache.values()), cls.__name__

@@ -27,10 +27,13 @@ def test_import_leaves_jax_and_the_jax_package_out():
         " metrics_tpu_torch.audio, metrics_tpu_torch.functional.audio, metrics_tpu_torch.functional.audio._pesq_core,"
         " metrics_tpu_torch.native, metrics_tpu_torch.text, metrics_tpu_torch.functional.text,"
         " metrics_tpu_torch.functional.text.rouge, metrics_tpu_torch.functional.text.sentence_split,"
-        " metrics_tpu_torch.functional.text.squad, metrics_tpu_torch.functional.text.bert, metrics_tpu_torch.detection\n"
+        " metrics_tpu_torch.functional.text.squad, metrics_tpu_torch.functional.text.bert, metrics_tpu_torch.detection,"
+        " metrics_tpu_torch.image.inception_net, metrics_tpu_torch.image.lpips_net, metrics_tpu_torch.image.fid,"
+        " metrics_tpu_torch.image.kid, metrics_tpu_torch.image.inception, metrics_tpu_torch.image.lpip,"
+        " metrics_tpu_torch.utilities.jax_random\n"
         "for tool in ('tools/torch_wal_scrub.py', 'tools/torch_loadgen.py'):\n"
         "    runpy.run_path(tool, run_name='tool')\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax') or m.startswith(('jax.', 'jaxlib', 'flax.'))"
         " or m == 'metrics_tpu' or m.startswith('metrics_tpu.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -78,7 +81,35 @@ def _imported_modules(path: Path):
 def test_no_jax_import_in_the_port(path):
     for name in _imported_modules(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "metrics_tpu"), f"{path.relative_to(REPO)} imports {name}"
+        assert root not in ("jax", "jaxlib", "flax", "metrics_tpu"), f"{path.relative_to(REPO)} imports {name}"
+
+
+_NETS = ("image/inception_net.py", "image/lpips_net.py", "image/fid.py", "image/kid.py", "image/inception.py",
+         "image/lpip.py", "utilities/jax_random.py")
+
+
+def test_the_scan_covers_the_nets_and_their_draws():
+    """The import scan above runs over the six modules of the nets and
+    ``utilities/jax_random.py``: they are in the package and parametrised."""
+    scanned = {p.relative_to(PACKAGE).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert set(_NETS) <= scanned
+
+
+def test_exports_equal_the_jax_packages():
+    """Nothing of the JAX package's top-level ``__all__`` is missing, and
+    ``image`` exports the JAX package's names (the nets' classes included)."""
+    import metrics_tpu as J
+    import metrics_tpu.image as jax_image
+    import metrics_tpu_torch as M
+    import metrics_tpu_torch.image as image
+
+    assert set(J.__all__) - set(M.__all__) == set()
+
+    def names(module):
+        return {n for n, v in vars(module).items() if not n.startswith("_") and isinstance(v, type)}
+
+    assert names(image) == names(jax_image)
+    assert {"InceptionV3", "InceptionV3FeatureExtractor"} <= names(image)
 
 
 def test_chip_smoke_fails_without_a_card():
