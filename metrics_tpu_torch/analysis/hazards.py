@@ -1,15 +1,17 @@
 """Predicted retrace hazards, read from the checked-in static audit.
 
-Port of ``metrics_tpu/analysis/hazards.py``. The JAX package's static
-audit derives, per metric, whether its update signature makes a retrace
-cause structurally likely (``static-key``: flag-like update parameters;
-``signature``: a state leaf whose type the update does not keep) and
-records it in ``STATIC_AUDIT.json`` at the repository root. This module
-reads that file as data (``METRICS_TPU_STATIC_AUDIT`` names another
-path): when a ``compile`` span fires with a mapped cause, the dispatcher
-attaches ``predicted=<bool>`` so ``tools/trace_report.py`` can show
-predicted against observed retraces. The file's ``hazards`` table is
-empty today, so a mapped cause reads ``predicted=False``.
+Port of ``metrics_tpu/analysis/hazards.py``. The port's static audit
+(:mod:`~metrics_tpu_torch.analysis.program_audit`) derives, per metric,
+whether its update signature makes a rebuild cause structurally likely
+(``static-key``: flag-like update parameters; ``signature``: a state leaf
+whose shape or dtype the update does not keep) and records it in the
+port's own baseline, ``STATIC_AUDIT_TORCH.json`` at the repository root
+(``tools/torch_static_audit.py --write-baseline``). The JAX package's
+``STATIC_AUDIT.json`` holds the JAX programs' hazards and is never read
+here. ``METRICS_TPU_STATIC_AUDIT`` names another path. When a ``compile``
+span fires with a mapped cause, the dispatcher attaches
+``predicted=<bool>`` so ``tools/torch_trace_report.py`` can show predicted
+against observed rebuilds.
 
 Standard library only: the dispatcher imports it at module load.
 """
@@ -25,7 +27,8 @@ CAUSE_TO_HAZARD = {
     "new-input-signature": "signature",
 }
 
-_BASELINE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "STATIC_AUDIT.json")
+BASELINE_NAME = "STATIC_AUDIT_TORCH.json"
+_BASELINE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", BASELINE_NAME)
 
 _lock = threading.Lock()
 _cache: Optional[Dict[str, Dict[str, bool]]] = None
@@ -33,8 +36,8 @@ _cache_path: Optional[str] = None
 
 
 def baseline_path() -> str:
-    """Path of the checked-in audit baseline (``STATIC_AUDIT.json`` at the
-    repo root; override with ``METRICS_TPU_STATIC_AUDIT``)."""
+    """Path of the port's checked-in audit baseline (``STATIC_AUDIT_TORCH.json``
+    at the repo root; override with ``METRICS_TPU_STATIC_AUDIT``)."""
     return os.environ.get("METRICS_TPU_STATIC_AUDIT", os.path.normpath(_BASELINE_PATH))
 
 
