@@ -2,6 +2,7 @@
 (nor do its tools, ``tools/torch_*.py``), and ``chip_smoke.py`` fails (and
 claims nothing) where there is no card."""
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -129,3 +130,29 @@ def test_chip_smoke_fails_without_the_package(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_the_package_data_ships_the_ports_sources():
+    """setuptools' package-data resolution for the port's packages, read from
+    ``pyproject.toml`` without building: the kernels' CUDA sources and the
+    text core's C++ source (which ``native.load()`` compiles) are shipped."""
+    code = (
+        "import json, warnings\n"
+        "warnings.simplefilter('ignore')\n"
+        "from setuptools.dist import Distribution\n"
+        "from setuptools.config.pyprojecttoml import apply_configuration\n"
+        "dist = Distribution()\n"
+        "apply_configuration(dist, 'pyproject.toml')\n"
+        "dist.include_package_data = False\n"
+        "cmd = dist.get_command_obj('build_py')\n"
+        "cmd.ensure_finalized()\n"
+        "cmd.manifest_files = {}\n"
+        "print(json.dumps({p: cmd.find_data_files(p, cmd.get_package_dir(p)) for p in dist.packages"
+        " if p.startswith('metrics_tpu_torch')}))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    shipped = {f for files in json.loads(proc.stdout.splitlines()[-1]).values() for f in files}
+    assert "metrics_tpu_torch/native/edit_distance.cpp" in shipped
+    sources = {p.relative_to(REPO).as_posix() for p in (PACKAGE / "csrc").iterdir() if p.suffix in (".cu", ".cuh")}
+    assert sources and sources <= shipped
