@@ -80,6 +80,18 @@ def make_metric_forward_factories(metric: Any, names: list) -> Tuple[Callable, C
     return make_forward, make_masked_forward
 
 
+def audit_forward_program(metric: Any) -> Tuple[list, Callable]:
+    """The unmasked forward program of one metric, for the static audit
+    (``metrics_tpu/forward_engine.py:118-129``): ``(names, fn)`` where
+    ``fn(count, leaves, *args) -> (new_leaves, batch_value)`` is the program
+    the dispatcher builds for a step with no static kwargs, made by the same
+    factory, so :mod:`metrics_tpu_torch.analysis.program_audit` traces the
+    engine's launch and not a copy of it."""
+    names = list(metric._defaults)
+    make_forward, _ = make_metric_forward_factories(metric, names)
+    return names, make_forward({})
+
+
 def _member_pure_update(m: Any, state: Dict, *args: Any, **kwargs: Any) -> Dict:
     return m.pure_update(state, *args, **kwargs)
 

@@ -4,6 +4,8 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.utilities.checks import _is_traced
+
 
 def _trapezoid(y: Tensor, x: Tensor) -> Tensor:
     """``jnp.trapezoid(y, x)`` over the last dim: integer inputs promote to
@@ -47,7 +49,9 @@ def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
         x, y = x[x_idx], y[x_idx]
 
     dx = x[1:] - x[:-1]
-    if bool((dx < 0).any()):
+    if _is_traced():
+        direction = 1.0  # no value to check inside a program, as under the JAX package's tracing
+    elif bool((dx < 0).any()):
         if bool((dx <= 0).all()):
             direction = -1.0
         else:
