@@ -7,6 +7,7 @@ kernels (:mod:`metrics_tpu_torch.ops`), on the CPU the kernels' plain
 PyTorch versions.
 """
 from metrics_tpu_torch import functional  # noqa: F401
+from metrics_tpu_torch.__about__ import __version__  # noqa: F401
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric  # noqa: F401
 from metrics_tpu_torch.audio import (  # noqa: F401
     PerceptualEvaluationSpeechQuality,

@@ -64,9 +64,13 @@ inside :func:`~metrics_tpu_torch.ops.registry.lowering`, so its kernels are
 attributed to the owner. ``scan`` programs emit nothing, as the JAX
 package's ``scan_update`` does not.
 
-The JAX engine's persistent on-disk tier (``METRICS_TPU_AOT_CACHE``) is not
-ported (ROADMAP.md, Queue A item 13): the port does not read that variable,
-and every process captures its graphs anew.
+The JAX engine's persistent on-disk tier (``METRICS_TPU_AOT_CACHE``,
+``metrics_tpu/aot_cache.py``) has no counterpart, by decision: it persists
+XLA executables so that a fresh process skips their compile. Here the only
+compile is ``nvcc``'s, which :mod:`metrics_tpu_torch.ops._build` already
+persists under a digest of the sources and flags; a CUDA graph cannot be
+serialized across processes, so every process captures its graphs anew, and
+the port does not read that variable.
 """
 import gc
 import os

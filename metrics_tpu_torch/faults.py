@@ -63,7 +63,10 @@ armed by :func:`crash` or ``METRICS_TPU_CRASH=<point>[:<nth>]``, the
 ``nth`` probe of the point fires.
 
 The JAX package's ``cache-corruption`` class fires in its persistent program
-cache, which the port does not have (ROADMAP.md, Queue A item 13).
+cache (``metrics_tpu/aot_cache.py``), which the port does not have: a CUDA
+graph cannot be serialized across processes, and the one compile the port
+persists, ``nvcc``'s, is keyed by a digest of its sources and written with an
+atomic rename (:mod:`metrics_tpu_torch.ops._build`).
 """
 import os
 import random

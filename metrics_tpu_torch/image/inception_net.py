@@ -16,6 +16,14 @@ with numpy alone, and :meth:`InceptionV3.load_flat` /
 by the tables of ``tools/convert_inception_weights.py``, kept here. A file
 read and written again is the same bytes.
 
+A PyTorch checkpoint loads without the JAX package: ``weights_path=`` also
+takes a ``.pth`` of ``torch_fidelity``'s (or torchvision's) state dict, read
+with ``torch.load(weights_only=True)``, checked key by key and shape by
+shape against the module (:meth:`FlatParams.load_torch_state_dict`) and
+loaded with ``load_state_dict(strict=True)``; :func:`convert_torch_state_dict`
+gives the same state dict as the JAX package's flat tree, the bytes of
+``tools/convert_inception_weights.py`` (``tools/torch_convert_inception_weights.py``).
+
 Without weights the network takes its own seeded init
 (:func:`seeded_init_`, a ``torch.Generator`` seeded 0 on the CPU; the JAX
 package's ``net.init(PRNGKey(0))`` cannot be rebuilt without flax), so values
@@ -121,6 +129,14 @@ def load_params(npz_path: str) -> Dict[str, np.ndarray]:
         return {k: f[k] for k in f.files}
 
 
+def load_torch(path: str) -> Dict[str, Tensor]:
+    """The tensors of a ``.pth``/``.pt`` state dict (``weights_only``: no code runs)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(state, dict):
+        raise ValueError(f"{path}: expected a state dict, got {type(state).__name__}")
+    return {k: v for k, v in state.items() if isinstance(v, Tensor)}
+
+
 def save_params(npz_path: str, flat: Dict[str, np.ndarray]) -> None:
     """Write a flat tree in the layout :func:`load_params` and the JAX
     package's ``load_params`` read: keys in the tree's order, arrays C-ordered."""
@@ -154,6 +170,50 @@ class FlatParams(nn.Module):
             flat[key] = _hwio(value) if value.ndim == 4 else np.ascontiguousarray(value.T if value.ndim == 2 else value)
         order = getattr(self, "_flat_order", None) or sorted(flat)
         return {k: flat[k] for k in order}
+
+    def _torch_kept(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The entries of a PyTorch state dict that hold weights (the rest of
+        the source network's layout is dropped here)."""
+        return {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")}
+
+    def check_torch_state_dict(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The weight entries of ``state``, after checking every key and
+        shape against this module (the counterpart of the JAX tools' flax
+        ``eval_shape`` check); raises ``ValueError`` with the full diff."""
+        kept = self._torch_kept(state)
+        own = self.state_dict()
+        expected = {name: tuple(own[name].shape) for name in self._flax_names().values()}
+        got = {k: tuple(v.shape) for k, v in kept.items()}
+        missing, extra = sorted(set(expected) - set(got)), sorted(set(got) - set(expected))
+        mismatched = [(k, got[k], expected[k]) for k in sorted(set(got) & set(expected)) if got[k] != expected[k]]
+        if missing or extra or mismatched:
+            raise ValueError(f"the state dict does not match {type(self).__name__}: missing {missing},"
+                             f" unexpected {extra}, shape mismatches {mismatched}")
+        return kept
+
+    def load_torch_state_dict(self, state: Dict[str, Any]) -> "FlatParams":
+        """Load a PyTorch state dict in the source network's layout: checked
+        by :meth:`check_torch_state_dict`, then ``load_state_dict(strict=True)``
+        (entries the module keeps and the file need not have, such as
+        ``num_batches_tracked``, keep their values)."""
+        new = dict(self.state_dict())
+        own = dict(new)
+        for k, v in self.check_torch_state_dict(state).items():
+            new[k] = torch.as_tensor(v).to(own[k].dtype)
+        self.load_state_dict(new, strict=True)
+        self._flat_order = None
+        return self
+
+    def torch_to_flat(self, state: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """A checked PyTorch state dict as the JAX package's flat tree, in the
+        state dict's order, float32, C-ordered: what the JAX package's
+        converters write."""
+        flat = {}
+        for k, v in self.check_torch_state_dict(state).items():
+            value = np.asarray(v.detach().cpu().numpy() if isinstance(v, Tensor) else v, dtype=np.float32)
+            flat[self._flax_key(k)] = _hwio(value) if value.ndim == 4 else (
+                np.ascontiguousarray(value.T) if value.ndim == 2 else value)
+        return flat
 
     def load_flat(self, flat: Dict[str, np.ndarray]) -> "FlatParams":
         """Load the JAX package's flat tree; every key and shape must match.
@@ -324,6 +384,10 @@ class InceptionV3(FlatParams):
         seeded_init_(self)
         self.requires_grad_(False)  # an evaluation network: no weight gradients, no saved activations
 
+    def _torch_kept(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        # the auxiliary head is no part of the inference network
+        return {k: v for k, v in super()._torch_kept(state).items() if not k.startswith("AuxLogits.")}
+
     def _flax_key(self, name: str) -> Optional[str]:
         if name == "fc.weight":
             return "params/Dense_0/kernel"
@@ -374,7 +438,8 @@ class InceptionV3FeatureExtractor(nn.Module):
 
     Args:
         weights_path: a flax ``.npz`` (the JAX package's ``save_params``
-            layout, or :func:`save_params`); None takes the seeded init.
+            layout, or :func:`save_params`), or a ``.pth``/``.pt`` of
+            ``torch_fidelity``'s state dict; None takes the seeded init.
         output: ``'pool'`` (2048-d; the int 2048 is an alias),
             ``'logits'``, ``'logits_unbiased'`` (the head without its bias),
             or a tap 64 / 192 / 768, each pooled to ``(N, C)``.
@@ -403,7 +468,9 @@ class InceptionV3FeatureExtractor(nn.Module):
         self.output = output
         self.dtype = dtype
         self.net = InceptionV3(num_classes=num_classes)
-        if weights_path is not None:
+        if weights_path is not None and str(weights_path).endswith((".pth", ".pt")):
+            self.net.load_torch_state_dict(load_torch(weights_path))
+        elif weights_path is not None:
             self.net.load_flat(load_params(weights_path))
         else:
             rank_zero_warn(
@@ -453,3 +520,27 @@ def resolve_ctor_extractor(
             " Inject a `feature_extractor` callable for taps outside the reference's set."
         )
     return InceptionV3FeatureExtractor(weights_path=weights_path, output=default_output if feature is None else feature)
+
+
+def convert_torch_state_dict(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """``torch_fidelity``'s (or torchvision's) InceptionV3 state dict as the
+    JAX package's flat tree, byte for byte what
+    ``tools/convert_inception_weights.py`` makes of it.
+
+    ``num_batches_tracked`` and ``AuxLogits.*`` are dropped; every other key
+    and shape is checked against :class:`InceptionV3` with the head's width
+    (an abort names every missing, unexpected and misshapen entry). A 1,000-
+    logit head is torchvision's: its features then differ from the FID
+    network's, whose pools this network applies, and a warning says so.
+    """
+    fc = state.get("fc.weight")
+    num_classes = int(fc.shape[0]) if fc is not None else 1008
+    flat = InceptionV3(num_classes=num_classes).torch_to_flat(state)
+    if num_classes != 1008:
+        rank_zero_warn(
+            f"{num_classes} logits suggests torchvision weights (the FID network has 1008). This network applies"
+            " the FID network's pools (branch average pools that leave padding out of the count, a max pool in"
+            " Mixed_7c), so its features differ slightly from the torchvision model's. For published-comparable"
+            " FID/KID/IS, convert torch_fidelity's pt_inception state dict instead."
+        )
+    return flat

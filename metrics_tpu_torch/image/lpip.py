@@ -2,11 +2,12 @@
 
 With ``net=None`` the metric builds the bundled
 :class:`~metrics_tpu_torch.image.lpips_net.LPIPSNet` for ``net_type``
-(``weights_path=`` loads a flax ``.npz``); any callable ``(img1, img2) ->
+(``weights_path=`` loads a flax ``.npz``, a ``.pth`` or a pair of ``.pth``
+files: :class:`~metrics_tpu_torch.image.lpips_net.LPIPSNet`); any callable ``(img1, img2) ->
 (N,)`` distances may stand in for it. The sums are float32 states; the
 value is differentiable through autograd with respect to the images.
 """
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
 from torch import Tensor, nn
@@ -21,7 +22,9 @@ class LearnedPerceptualImagePatchSimilarity(Metric):
         net: a callable ``(img1, img2) -> (N,)`` distances (an ``nn.Module``
             moves with the metric); it takes precedence over ``net_type``.
         net_type: ``'alex'``, ``'vgg'`` or ``'squeeze'``: the bundled network.
-        weights_path: a flax ``.npz`` of the bundled network's weights.
+        weights_path: the bundled network's weights: a flax ``.npz``, a
+            ``.pth`` of its state dict, or a pair of ``.pth`` files
+            (torchvision ``features``, lpips heads).
         reduction: ``'mean'`` or ``'sum'`` over the accumulated pairs.
 
     Example:
@@ -43,7 +46,7 @@ class LearnedPerceptualImagePatchSimilarity(Metric):
         self,
         net: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
         net_type: str = "alex",
-        weights_path: Optional[str] = None,
+        weights_path: Optional[Union[str, Sequence[str]]] = None,
         reduction: str = "mean",
         **kwargs: Any,
     ) -> None:

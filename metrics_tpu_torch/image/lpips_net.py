@@ -12,19 +12,27 @@ Modules carry the ``lpips`` package's names as
 indexed as torchvision's ``features`` (``net.0.weight``, ``net.3.squeeze.weight``),
 the heads ``lin{i}.model.1.weight``. The JAX package's flat ``.npz`` crosses
 both ways through :meth:`~metrics_tpu_torch.image.inception_net.FlatParams.load_flat`
-and ``flat_params``; without weights the network takes the seeded init of
+and ``flat_params``. PyTorch checkpoints load without the JAX package: a
+torchvision ``features`` state dict and the lpips heads' checkpoint, as a
+pair of ``.pth`` files or merged into one in this module's layout
+(:func:`torch_state_dict`), are checked key by key and shape by shape and
+loaded with ``load_state_dict(strict=True)``; :func:`convert_torch_state_dict`
+gives the bytes of ``tools/convert_lpips_weights.py``
+(``tools/torch_convert_lpips_weights.py``); without weights the network takes the seeded init of
 :func:`~metrics_tpu_torch.image.inception_net.seeded_init_` with the heads'
 weights made non-negative, as lpips keeps them (not calibrated perceptual
 scores, but distances: 0 for identical images and never negative).
 """
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
 from metrics_tpu_torch.functional.image.helper import _full_float32
-from metrics_tpu_torch.image.inception_net import FlatParams, _is_nchw, load_params, seeded_init_
+from metrics_tpu_torch.image.inception_net import FlatParams, _is_nchw, load_params, load_torch, seeded_init_
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 # ImageNet scaling layer (lpips.ScalingLayer)
@@ -147,6 +155,35 @@ class _LPIPSModule(FlatParams):
         return total.to(torch.promote_types(dt, torch.float32))
 
 
+def torch_state_dict(backbone: Dict[str, Any], lins: Dict[str, Any]) -> Dict[str, Any]:
+    """A torchvision ``features`` state dict (``0.weight``, ``3.squeeze.bias``,
+    ...) and the lpips heads' checkpoint (``lin0.model.1.weight``, ...) as one
+    state dict in this module's layout (the backbone under ``net.``)."""
+    return {**{f"net.{k}": v for k, v in backbone.items()}, **lins}
+
+
+def convert_torch_state_dict(backbone: Dict[str, Any], lins: Dict[str, Any], net_type: str) -> Dict[str, np.ndarray]:
+    """The two PyTorch checkpoints as the JAX package's flat tree, byte for
+    byte what ``tools/convert_lpips_weights.py`` makes of them (the backbone's
+    convolutions in tap order, then the heads), after every key and shape is
+    checked against the module (an abort names every difference)."""
+    module = _LPIPSModule(net_type)
+    state = torch_state_dict(backbone, lins)
+    module.check_torch_state_dict(state)
+    names = module._flax_names()  # flax key -> state name, in the module's (the converter's) order
+    return module.torch_to_flat({names[key]: state[names[key]] for key in names})
+
+
+def _load_weights(module: "_LPIPSModule", weights_path: Union[str, Sequence[str]]) -> None:
+    if isinstance(weights_path, (list, tuple)):
+        backbone, lins = (load_torch(p) for p in weights_path)
+        module.load_torch_state_dict(torch_state_dict(backbone, lins))
+    elif str(weights_path).endswith((".pth", ".pt")):
+        module.load_torch_state_dict(load_torch(weights_path))
+    else:
+        module.load_flat(load_params(weights_path))
+
+
 class LPIPSNet(nn.Module):
     """``(img1, img2) -> (N,)`` perceptual distances of ``(N, 3, H, W)`` or
     ``(N, H, W, 3)`` images in [-1, 1].
@@ -154,11 +191,13 @@ class LPIPSNet(nn.Module):
     Args:
         net_type: ``'alex'``, ``'vgg'`` or ``'squeeze'``.
         weights_path: a flax ``.npz`` of the network (the JAX package's
-            layout); None takes the seeded init.
+            layout), a ``.pth`` of this module's state dict, or a pair of
+            ``.pth`` files (torchvision ``features``, lpips heads); None takes
+            the seeded init.
         dtype: the compute dtype; scores come back in float32 or wider.
     """
 
-    def __init__(self, net_type: str = "alex", weights_path: Optional[str] = None,
+    def __init__(self, net_type: str = "alex", weights_path: Optional[Union[str, Sequence[str]]] = None,
                  dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         if net_type not in ("alex", "vgg", "squeeze"):
@@ -166,7 +205,7 @@ class LPIPSNet(nn.Module):
         self.dtype = dtype
         self.net = _LPIPSModule(net_type)
         if weights_path is not None:
-            self.net.load_flat(load_params(weights_path))
+            _load_weights(self.net, weights_path)
         else:
             rank_zero_warn(
                 "LPIPSNet built without `weights_path`: the backbone is randomly initialized,"

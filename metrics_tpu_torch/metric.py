@@ -97,10 +97,18 @@ _REDUCTIONS = {
     "cat": dim_zero_cat,
 }
 
+def jit_distributed_available() -> bool:
+    """Whether the ambient ``torch.distributed`` world has more than one rank
+    (``metrics_tpu/metric.py:90``)."""
+    return default_env().is_distributed()
+
+
 def aot_cache_stats() -> Dict[str, Any]:
     """The ``aot_cache`` block of a telemetry snapshot, under the JAX package's
-    keys. The port has no persistent program tier (ROADMAP.md, Queue A item
-    13), so its counters stay 0 and it is never enabled."""
+    keys. The port has no persistent program tier: a CUDA graph cannot be
+    serialized across processes, and the only compile, ``nvcc``'s, persists in
+    :mod:`metrics_tpu_torch.ops._build`. So its counters stay 0 and it is
+    never enabled."""
     return {"hits": 0, "misses": 0, "stores": 0, "corrupt": 0, "store_errors": 0, "enabled": False, "dir": None}
 
 

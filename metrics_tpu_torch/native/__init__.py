@@ -105,6 +105,16 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def native_available() -> bool:
+    """Whether the core loads (built first where it is missing). A False
+    here is no fallback: every entry point raises the build's error."""
+    try:
+        load()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def _as_i32(x: Sequence) -> np.ndarray:
     return np.ascontiguousarray(x, dtype=np.int32)
 

@@ -17,7 +17,16 @@ kernels are built by ``nvcc`` at their first launch (:mod:`._build`).
 """
 from metrics_tpu_torch.ops.binned_stats import binned_stat_scores  # noqa: F401
 from metrics_tpu_torch.ops.confusion import confusion_matrix_counts  # noqa: F401
-from metrics_tpu_torch.ops.registry import KERNELS, launches, reset_launches  # noqa: F401
+from metrics_tpu_torch.ops.registry import (  # noqa: F401
+    KERNELS,
+    engaged,
+    kernel_status,
+    launches,
+    names,
+    reset_launches,
+    reset_stats,
+    specs,
+)
 from metrics_tpu_torch.ops.retrieval import sorted_by_preds  # noqa: F401
 from metrics_tpu_torch.ops.sketch_ops import countmin_update, countmin_update_sessions, hash_u32  # noqa: F401
 from metrics_tpu_torch.ops.stat_scores import stat_scores_counts, stat_scores_counts_sessions  # noqa: F401

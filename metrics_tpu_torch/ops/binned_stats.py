@@ -31,6 +31,8 @@ from torch import Tensor
 from metrics_tpu_torch.ops import _build, registry
 
 _NAME = "binned_stats"
+registry.register(_NAME, "cuda", ("Binned",),
+                  "binned TP/FP/FN threshold sweep as a per-class score histogram (csrc/binned_stats.cu)")
 # cells of the plain version's (rows, C, T) bool compare in one chunk of rows
 _PLAIN_CELLS = 1 << 26
 _MAX_ROWS = 1 << 24  # float32 counts stay exact below this

@@ -20,6 +20,8 @@ from torch import Tensor
 from metrics_tpu_torch.ops import _build, registry
 
 _NAME = "confusion_matrix"
+registry.register(_NAME, "cuda", ("ConfusionMatrix", "CohenKappa", "MatthewsCorrCoef"),
+                  "confusion-matrix counts, every cell written by one launch (csrc/confusion.cu)")
 _LIB = "confusion"  # the library's export prefix: csrc/confusion.cu
 _BRANCHES = ("band", "split")  # the C launcher's branch codes, in order
 # The split branch takes a batch of at least two rows a cell of its table, and gives each block at least

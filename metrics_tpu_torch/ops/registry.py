@@ -29,6 +29,14 @@ make up the program's own entry (:func:`cost_model.record`).
 :func:`engaged` which kernels each owner's programs or calls ran. With
 telemetry off (``METRICS_TPU_TELEMETRY=0``) a launch is counted and nothing
 else: no cost entry, no event, no engagement.
+
+The spec table (``metrics_tpu/ops/registry.py:90-135, 264-281``): each kernel
+module registers a :class:`KernelSpec` naming the metric families its kernel
+covers, and :func:`kernel_status` gives the JAX package's ``yes`` /
+``eligible`` / ``no`` verdict that ``tools/torch_trace_report.py``'s kernel
+column reads. The JAX registry's opt-in switch (``pallas_enabled``,
+``refresh``, ``resolve``) and its guarded ``launch`` have no counterpart: the
+device of the tensor decides, and a failed launch raises.
 """
 import ctypes
 import threading
@@ -62,6 +70,63 @@ _lock = threading.Lock()
 _engaged_by_owner: Dict[str, Set[str]] = {}
 _costed: Set[Tuple[str, str]] = set()
 _lowering_owner = threading.local()
+
+
+class KernelSpec:
+    """One registered kernel: its name, kind (``"cuda"`` for a hand-written
+    kernel, ``"fused-graph"`` for a captured program with no hand-written
+    body), the owner-name substrings it covers (:func:`kernel_status`'s
+    ``eligible``) and a one-line description."""
+
+    __slots__ = ("name", "kind", "covers", "doc")
+
+    def __init__(self, name: str, kind: str, covers: Tuple[str, ...], doc: str) -> None:
+        self.name = name
+        self.kind = kind
+        self.covers = tuple(covers)
+        self.doc = doc
+
+    def __repr__(self) -> str:
+        return f"KernelSpec({self.name!r}, {self.kind!r}, covers={self.covers!r})"
+
+
+_REGISTRY: Dict[str, KernelSpec] = {}
+
+
+def register(name: str, kind: str, covers: Tuple[str, ...], doc: str) -> KernelSpec:
+    """Register (idempotently) one kernel spec."""
+    with _lock:
+        spec = _REGISTRY.get(name)
+        if spec is None:
+            spec = _REGISTRY[name] = KernelSpec(name, kind, covers, doc)
+    return spec
+
+
+def get(name: str) -> KernelSpec:
+    return _REGISTRY[name]
+
+
+def specs() -> List[KernelSpec]:
+    return list(_REGISTRY.values())
+
+
+def names() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+def kernel_status(owner: str, kind: str = "") -> str:
+    """``yes`` where ``owner``'s programs or calls ran a registered kernel (or
+    the row is an ``ops.*`` launch), ``eligible`` where a registered kernel
+    covers the owner's family but did not run, else ``no``."""
+    if owner.startswith("ops.") or kind == "kernel":
+        return "yes"
+    with _lock:
+        if _engaged_by_owner.get(owner):
+            return "yes"
+    for spec in _REGISTRY.values():
+        if any(c and c in owner for c in spec.covers):
+            return "eligible"
+    return "no"
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:

@@ -26,6 +26,8 @@ from torch import Tensor
 from metrics_tpu_torch.ops import _build, registry
 
 _NAME = "retrieval_sort"
+registry.register(_NAME, "cuda", ("Retrieval",),
+                  "labels in stable descending-score order, NaN last, by a bitonic sort (csrc/retrieval_sort.cu)")
 # the longest row the bitonic branch sorts: 16,384 composites of 8 bytes (and
 # a pad word every 16) fit a block's opt-in shared memory, 32,768 do not
 L_MAX = 16384

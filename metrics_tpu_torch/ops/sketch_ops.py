@@ -34,6 +34,8 @@ from torch import Tensor
 from metrics_tpu_torch.ops import _build, registry
 
 _NAME = "countmin"
+registry.register(_NAME, "cuda", ("CountMin",),
+                  "count-min hash and add into per-warp shared tables (csrc/countmin.cu)")
 _MASK = 0xFFFFFFFF
 _MULT = 0x45D9F3B
 _MAX_WARPS = 8  # a block of the shared branch: one private table a warp

@@ -28,6 +28,8 @@ from torch import Tensor
 from metrics_tpu_torch.ops import _build, registry
 
 _NAME = "stat_scores"
+registry.register(_NAME, "cuda", ("Accuracy", "Precision", "Recall", "F1Score", "FBeta", "StatScores", "Specificity"),
+                  "multiclass target, prediction and TP counts by one flat scatter (csrc/stat_scores.cu)")
 _BRANCHES = ("block", "shared", "global")  # the C launcher's branch codes, in order
 # the most rows the one-block branch takes: on an H100 it beats the multi-block branch up to 6,144 rows
 # and loses from 8,192 (chip_smoke.py times both at 2,048 to 16,384 rows)

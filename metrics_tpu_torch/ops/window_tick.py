@@ -29,6 +29,9 @@ from typing import Any, Dict, Tuple
 
 from metrics_tpu_torch.ops import registry
 
+registry.register("window_tick", "fused-graph", ("SlidingWindow",),
+                  "one sliding-window tick (gather, update, scatter, advance) as one captured CUDA graph")
+
 
 def _tick_engine(window: Any) -> Any:
     """The window's fused-tick engine, built at its first call (a copy of the

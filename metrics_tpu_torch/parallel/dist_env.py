@@ -219,6 +219,12 @@ def default_env() -> DistEnv:
     return NoOpEnv()
 
 
+def gather_all_tensors(x: Tensor, env: Optional[DistEnv] = None) -> List[Tensor]:
+    """``x`` from every rank of ``env`` (the ambient one by default), one
+    tensor a rank; see :func:`metrics_tpu_torch.utilities.distributed.gather_all_tensors`."""
+    return (env or default_env()).all_gather(x)
+
+
 def group_env(group: Optional["dist.ProcessGroup"] = None) -> DistEnv:
     """The env of ``pure_sync(state, group)`` and ``assemble_sharded``: a
     sharding :class:`ProcessEnv` over ``group`` (None: the default group),

@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from metrics_tpu_torch import faults, telemetry
+from metrics_tpu_torch.utilities.checksums import attach_checksums, strip_checksums, verify_checksums  # noqa: F401
 from metrics_tpu_torch.utilities.exceptions import StateCorruptionError
 from metrics_tpu_torch.utilities.prints import rank_zero_debug, rank_zero_warn
 
@@ -69,6 +70,9 @@ __all__ = [
     "snapshot_state",
     "restore_state",
     "verify_engine_state",
+    "attach_checksums",
+    "verify_checksums",
+    "strip_checksums",
     "run_collective",
     "group_broken",
     "degrades",

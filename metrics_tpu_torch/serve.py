@@ -60,9 +60,10 @@ A stacked launch that fails degrades its group to per-request eager updates
 through a :class:`~metrics_tpu_torch.resilience.ResiliencePolicy`. Each
 stacked launch is one ``update`` span of kind ``stacked-aot`` with the
 program's cost-model and billing attributes; each build one ``compile``
-span. The JAX package's persistent program tier (``aot_cache``) is not
-ported (ROADMAP.md, Queue A item 13): every process captures its graphs
-anew.
+span. The JAX package's persistent program tier (``aot_cache``) has no
+counterpart: a CUDA graph cannot be serialized across processes, so every
+process captures its graphs anew (the kernels' ``nvcc`` builds persist in
+:mod:`metrics_tpu_torch.ops._build`).
 
 Session handles::
 

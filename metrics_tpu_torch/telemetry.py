@@ -82,9 +82,11 @@ The serving service's launches are ``update`` spans of kind ``stacked-aot``
 (one a flush and signature: a CUDA graph replay on the card) with the
 program's cost-model attributes and, with billing on, its modelled
 occupancy and micro-dollars (:mod:`metrics_tpu_torch.analysis.billing`);
-each build is a ``compile`` span of the same kind. ``aot-cache`` events come
-with the persistent program tier (ROADMAP.md, Queue A item 13); the counters
-below already handle it as the JAX package does.
+each build is a ``compile`` span of the same kind. ``aot-cache`` events belong
+to the JAX package's persistent program tier, which the port does not have (a
+CUDA graph cannot be serialized across processes; the ``nvcc`` builds persist
+in :mod:`metrics_tpu_torch.ops._build`): nothing here emits one, and the
+counters below read them as the JAX package does.
 
 Events carry the owner (a metric's class name, ``MetricCollection`` or
 ``ops.<kernel>``), a kind, a start and a duration in µs of host wall time

@@ -46,6 +46,11 @@ def attach_checksums(payload: Dict[str, Any]) -> Dict[str, Any]:
     return payload
 
 
+def strip_checksums(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """A copy of ``payload`` without its checksum entries."""
+    return {k: v for k, v in payload.items() if not str(k).startswith(CHECKSUM_PREFIX)}
+
+
 def verify_checksums(payload: Dict[str, Any]) -> None:
     """Raise :class:`StateCorruptionError` naming the first entry whose
     checksum does not match. Payloads without checksums pass."""

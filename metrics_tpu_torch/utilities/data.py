@@ -151,9 +151,35 @@ def _squeeze_if_scalar(data: Any) -> Any:
 
 
 def _bincount(x: Tensor, minlength: int) -> Tensor:
-    """int32 bincount of a flattened tensor with a fixed length.
+    """int32 bincount of a flattened tensor with the fixed length
+    ``minlength``, as ``jnp.bincount(x, length=minlength)``: a negative value
+    counts at 0 and a value past the end adds nothing.
 
-    Values are checked to lie in ``[0, minlength)`` before this is reached,
-    so the length is ``minlength`` as with ``jnp.bincount(length=...)``.
+    One ``index_add_`` of fixed shape. ``torch.bincount`` sizes its output by
+    the largest value, which reads it back to the host: no CUDA graph could
+    hold it (the static audit's JX401).
     """
-    return torch.bincount(x.reshape(-1), minlength=minlength).to(torch.int32)
+    idx = x.reshape(-1).long().clamp_min(0)
+    inside = idx < minlength
+    counts = torch.zeros(minlength, dtype=torch.int32, device=x.device)
+    return counts.index_add_(0, torch.where(inside, idx, 0), inside.to(torch.int32))
+
+
+def get_group_indexes(indexes: Tensor) -> List[Tensor]:
+    """Row positions grouped by query id, in order of first appearance: a
+    host-side helper of the retrieval API (``metrics_tpu/utilities/data.py:142``;
+    the retrieval metrics group on the device instead). One int32 tensor a
+    group, on ``indexes``' device."""
+    groups: Dict[int, List[int]] = {}
+    for i, idx in enumerate(torch.as_tensor(indexes).reshape(-1).tolist()):
+        groups.setdefault(idx, []).append(i)
+    device = indexes.device if isinstance(indexes, Tensor) else None
+    return [torch.tensor(rows, dtype=torch.int32, device=device) for rows in groups.values()]
+
+
+def allclose(a: Tensor, b: Tensor, rtol: float = 1e-5, atol: float = 1e-8) -> bool:
+    """``torch.allclose`` that answers False for different shapes instead of
+    broadcasting or raising (``metrics_tpu/utilities/data.py:181``)."""
+    if a.shape != b.shape:
+        return False
+    return bool(torch.allclose(a, b, rtol=rtol, atol=atol))

@@ -1,4 +1,4 @@
-"""Rank-zero-only warnings (port of ``metrics_tpu/utilities/prints.py``).
+"""Rank-zero-only warnings and log lines (port of ``metrics_tpu/utilities/prints.py``).
 
 The rank is ``torch.distributed``'s when a process group is up, else 0.
 """
@@ -31,6 +31,11 @@ def rank_zero_only(fn: Callable) -> Callable:
 @rank_zero_only
 def rank_zero_warn(message: str, *args: Any, stacklevel: int = 4, **kwargs: Any) -> None:
     warnings.warn(message, *args, stacklevel=stacklevel, **kwargs)
+
+
+@rank_zero_only
+def rank_zero_info(message: str, *args: Any, **kwargs: Any) -> None:
+    log.info(message, *args, **kwargs)
 
 
 @rank_zero_only

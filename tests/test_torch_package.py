@@ -31,8 +31,11 @@ def test_import_leaves_jax_and_the_jax_package_out():
         " metrics_tpu_torch.functional.text.squad, metrics_tpu_torch.functional.text.bert, metrics_tpu_torch.detection,"
         " metrics_tpu_torch.image.inception_net, metrics_tpu_torch.image.lpips_net, metrics_tpu_torch.image.fid,"
         " metrics_tpu_torch.image.kid, metrics_tpu_torch.image.inception, metrics_tpu_torch.image.lpip,"
-        " metrics_tpu_torch.utilities.jax_random\n"
-        "for tool in ('tools/torch_wal_scrub.py', 'tools/torch_loadgen.py'):\n"
+        " metrics_tpu_torch.utilities.jax_random, metrics_tpu_torch.__about__, metrics_tpu_torch.analysis.program_audit,"
+        " metrics_tpu_torch.analysis.ast_lint, metrics_tpu_torch.analysis.registry, metrics_tpu_torch.analysis.report\n"
+        "for tool in ('tools/torch_wal_scrub.py', 'tools/torch_loadgen.py', 'tools/torch_static_audit.py',"
+        " 'tools/torch_trace_report.py', 'tools/torch_convert_inception_weights.py',"
+        " 'tools/torch_convert_lpips_weights.py'):\n"
         "    runpy.run_path(tool, run_name='tool')\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax') or m.startswith(('jax.', 'jaxlib', 'flax.'))"
         " or m == 'metrics_tpu' or m.startswith('metrics_tpu.')]\n"
@@ -111,6 +114,97 @@ def test_exports_equal_the_jax_packages():
 
     assert names(image) == names(jax_image)
     assert {"InceptionV3", "InceptionV3FeatureExtractor"} <= names(image)
+
+
+_FLAX_ONLY = "a flax module or helper of the JAX net; the port's net is one torch.nn.Module with the same parameters"
+_NO_SWITCH = "the JAX registry's Pallas opt-in switch: in the port the tensor's device decides, with no switch"
+# every JAX sub-module's public name without a counterpart of the same name in the port, with the reason
+NAME_DIFFERENCES = {
+    ("metrics_tpu.ops", "pallas_enabled"): _NO_SWITCH,
+    ("metrics_tpu.ops", "refresh"): _NO_SWITCH,
+    ("metrics_tpu.ops.registry", "pallas_enabled"): _NO_SWITCH,
+    ("metrics_tpu.ops.registry", "refresh"): _NO_SWITCH,
+    ("metrics_tpu.ops.registry", "resolve"): _NO_SWITCH,
+    ("metrics_tpu.ops.registry", "launch"): "a guarded launch that demotes to the lax path: the port has no"
+                                            " fallback, a failed launch raises",
+    ("metrics_tpu.parallel.dist_env", "AxisEnv"): "collectives over a shard_map mesh axis: PyTorch has no SPMD"
+                                                  " trace, a mesh axis becomes a process group (ProcessEnv)",
+    ("metrics_tpu.functional.text.bert", "transformers_flax_embedder"): "a Flax model's embedder; its counterpart"
+                                                                        " is transformers_embedder",
+    ("metrics_tpu.image.inception_net", "BasicConv"): _FLAX_ONLY,
+    ("metrics_tpu.image.inception_net", "cached_random_init"): "caches flax's eager init; the port seeds its"
+                                                               " default weights (seeded_init_)",
+    ("metrics_tpu.image.lpips_net", "AlexNetFeatures"): _FLAX_ONLY,
+    ("metrics_tpu.image.lpips_net", "SqueezeNetFeatures"): _FLAX_ONLY,
+    ("metrics_tpu.image.lpips_net", "VGG16Features"): _FLAX_ONLY,
+    ("metrics_tpu.functional.image.ssim", "np_prod"): "a Python product of the kernel size; the port uses"
+                                                      " math.prod",
+    ("metrics_tpu.analysis", "jaxpr_audit"): "renamed: its counterpart is analysis.program_audit",
+    ("metrics_tpu.analysis.ast_lint", "CALLBACK_NAMES"): "MT401's host callbacks, a rule with no torch meaning",
+}
+# JAX sub-modules with no port module of the same name
+MODULE_DIFFERENCES = {
+    "metrics_tpu.aot_cache": "persists XLA executables; the port's one compile, nvcc's, persists in ops/_build.py"
+                             " by a digest of sources and flags, and a CUDA graph cannot be serialized across"
+                             " processes",
+    "metrics_tpu._compat": "jax-version shims (shard_map, axis_size, enable_x64); profiler_annotation's"
+                           " counterpart is telemetry.profiler_range",
+    "metrics_tpu.analysis.jaxpr_audit": "renamed: metrics_tpu_torch.analysis.program_audit",
+}
+# rules of the JAX audit with no torch meaning (pinned in tests/test_torch_static_audit.py)
+RULE_DIFFERENCES = {
+    "JX102": "a weak-typed state default: a torch tensor has no weak type",
+    "JX103": "a state that widens under x64: no global switch widens a torch dtype",
+    "MT401": "a host callback in a pure path: no callback primitive exists inside a torch program",
+}
+
+
+def _public_names(module):
+    """``__all__``, else the names the module itself defines (and upper-case constants)."""
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    import inspect
+
+    return {n for n, v in vars(module).items() if not n.startswith("_") and not inspect.ismodule(v)
+            and (getattr(v, "__module__", None) == module.__name__ or (n.isupper() and not callable(v)))}
+
+
+def _jax_submodules():
+    import pkgutil
+
+    import metrics_tpu
+
+    return sorted(info.name for info in pkgutil.walk_packages(metrics_tpu.__path__, "metrics_tpu."))
+
+
+@pytest.mark.parametrize("name", _jax_submodules())
+def test_every_jax_submodule_has_its_counterpart(name):
+    """Each public name of each JAX sub-module has a counterpart of the same
+    name in the port, or a pinned, reasoned difference."""
+    import importlib
+
+    jax_module = importlib.import_module(name)
+    if name in MODULE_DIFFERENCES:
+        assert MODULE_DIFFERENCES[name]
+        return
+    port = importlib.import_module("metrics_tpu_torch" + name[len("metrics_tpu"):])
+    missing = {n for n in _public_names(jax_module) if not hasattr(port, n)}
+    pinned = {n for (m, n) in NAME_DIFFERENCES if m == name}
+    assert missing == pinned
+    assert all(hasattr(jax_module, n) for n in pinned)
+
+
+def test_the_pinned_differences_are_all_used_and_the_version_is_pyprojects():
+    import tomllib
+
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch.analysis import ast_lint, program_audit
+
+    modules = set(_jax_submodules())
+    assert {m for m, _ in NAME_DIFFERENCES} <= modules and set(MODULE_DIFFERENCES) <= modules
+    assert M.__version__ == "0.1.0" == tomllib.loads((REPO / "pyproject.toml").read_text())["project"]["version"]
+    assert "MT401" not in ast_lint.SEVERITY
+    assert all(code in (program_audit.__doc__ + ast_lint.__doc__) for code in RULE_DIFFERENCES)
 
 
 def test_chip_smoke_fails_without_a_card():
