@@ -31,6 +31,12 @@ JX501  P1   a ``torch.distributed`` call inside update, compute, merge or
             forward (seen by a spy on the collectives)
 ====== ==== =========================================================
 
+A fake trace models shapes, not the CUDA libraries, so a few operations
+that trace cleanly cannot be captured in a CUDA graph on the card: they are
+listed in :data:`CUDA_UNCAPTURABLE_OPS`, and a pure path that dispatches one
+is a JX301 too. ``chip_smoke.py`` slice 21 holds every prediction of this
+module against a capture on the card.
+
 JX102 (a weak-typed state default) and JX103 (a state that widens under
 x64) have no torch meaning: a torch tensor has no weak type, and no global
 switch widens its dtype. They are never emitted.
@@ -64,6 +70,11 @@ COLLECTIVES = (
     "barrier", "gather", "scatter",
 )
 HOST_COPIES = {"cpu", "numpy", "tolist"}
+# aten operations whose CUDA implementation cannot be captured in a CUDA graph (seen on the card: the capture is
+# invalidated and the engine demotes), which a fake trace cannot see
+CUDA_UNCAPTURABLE_OPS = {
+    "aten._linalg_solve_ex.default": "torch.linalg.solve_ex: cuSOLVER's batched LU invalidates a stream capture",
+}
 
 
 class Finding(NamedTuple):
@@ -112,14 +123,18 @@ class _HostCopySpy(TorchFunctionMode):
 
 
 class _OpCounter(TorchDispatchMode):
-    """Counts the aten operations a program dispatches (the jaxpr's eqns)."""
+    """Counts the aten operations a program dispatches (the jaxpr's eqns),
+    and notes those of :data:`CUDA_UNCAPTURABLE_OPS`."""
 
     def __init__(self) -> None:
         super().__init__()
         self.ops = 0
+        self.uncapturable: List[str] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         self.ops += 1
+        if str(func) in CUDA_UNCAPTURABLE_OPS and str(func) not in self.uncapturable:
+            self.uncapturable.append(str(func))
         return func(*args, **(kwargs or {}))
 
 
@@ -206,6 +221,7 @@ def _program_facts(fn: Callable, *trace_args: Any) -> Dict[str, Any]:
         "host_copies": len(copies.copies),
         "kernel_routes": seen["kernel_routes"],
         "ops": counter.ops,
+        "uncapturable": counter.uncapturable,
         "out": out,
     }
 
@@ -259,6 +275,9 @@ def _program_findings(name: str, programs: Dict[str, Dict[str, Any]]) -> List[Fi
         if pf.get("host_copies"):
             findings.append(Finding("JX201", "P0", name, f"pure_{prog}",
                                     f"{pf['host_copies']} host cop(ies) of a tensor inside pure_{prog}"))
+        if pf["error"] is None and pf.get("uncapturable"):
+            findings.append(Finding("JX301", "P0", name, f"pure_{prog}", "no CUDA graph can hold it: "
+                                    + "; ".join(CUDA_UNCAPTURABLE_OPS[op] for op in pf["uncapturable"])))
     return findings
 
 
@@ -333,7 +352,7 @@ def audit_metric(case: registry.AuditCase, pools: Dict[str, Any]) -> Tuple[Dict[
             fwd = _program_facts(fwd_fn, torch.tensor(1.0), leaves, *args)
         except Exception as err:  # noqa: BLE001 -- recorded; the engine degrades at run time
             fwd = {"error": {"rule": "JX301", "type": type(err).__name__, "why": "forward program does not build"},
-                   "collectives": 0, "host_copies": 0, "kernel_routes": 0, "ops": None, "out": None}
+                   "collectives": 0, "host_copies": 0, "kernel_routes": 0, "ops": None, "uncapturable": [], "out": None}
         fwd.pop("out")
         programs["forward"] = fwd
 

@@ -40,6 +40,13 @@ DEFAULT_EXPLANATIONS: List[Tuple[str, Optional[set], str]] = [
         " eager by design (the JAX package's JX301 on the same computes)",
     ),
     (
+        "JX301",
+        {"SignalDistortionRatio"},
+        "SDR's Toeplitz systems are solved by torch.linalg.solve_ex, cuSOLVER's batched LU, which invalidates a"
+        " CUDA graph capture: the engines demote SDR to its eager update (chip_smoke.py slice 17); a Levinson"
+        " solve that a graph can hold is untried (ROADMAP.md)",
+    ),
+    (
         "MT101",
         None,
         "float() of a Python number: the else branch of isinstance(weight, Tensor); a tensor weight stays on"

@@ -75,10 +75,14 @@ def test_a_hazard_in_the_ports_baseline_reaches_a_compile_span(monkeypatch, tmp_
 # ------------------------------------------------------------------ the audit against the JAX package's baseline
 JAX_BASELINE = REPO / "STATIC_AUDIT.json"
 
-# (metric, program) sites where both audits find a host sync or a dynamic shape, under another rule: the JAX
-# trace of `nonzero`/`unique`/`np.asarray` on a tracer fails with ConcretizationTypeError or
-# TracerArrayConversionError (its JX301), the fake trace of the same op with DynamicOutputShapeException (JX401)
+# (metric, program) sites where the audits differ, as (the JAX rule, the port's rule, why). Under another rule:
+# the JAX trace of `nonzero`/`unique`/`np.asarray` on a tracer fails with ConcretizationTypeError or
+# TracerArrayConversionError (its JX301), the fake trace of the same op with DynamicOutputShapeException (JX401).
+# Only in the port: a CUDA library call no graph can hold (program_audit.CUDA_UNCAPTURABLE_OPS), where XLA
+# compiles the same solve into the program.
 RULE_EXCEPTIONS = {
+    ("SignalDistortionRatio", "pure_update"): (None, "JX301", "torch.linalg.solve_ex cannot be captured"),
+    ("SignalDistortionRatio", "pure_forward"): (None, "JX301", "torch.linalg.solve_ex cannot be captured"),
     ("AUROC", "pure_compute"): ("JX301", "JX401", "nonzero over the distinct scores"),
     ("AveragePrecision", "pure_compute"): ("JX301", "JX401", "nonzero over the distinct scores"),
     ("PrecisionRecallCurve", "pure_compute"): ("JX301", "JX401", "nonzero over the distinct scores"),
@@ -113,8 +117,7 @@ def _sync_sites(findings, codes=("JX301", "JX401")):
 
 def test_host_syncs_and_dynamic_shapes_are_found_where_jax_finds_them(audit, jax_baseline):
     port, jax = _sync_sites(audit["findings"]), _sync_sites(jax_baseline["findings"])
-    assert set(port) == set(jax)
-    differ = {site: (jax[site], port[site]) for site in port if port[site] != jax[site]}
+    differ = {site: (jax.get(site), port.get(site)) for site in set(port) | set(jax) if port.get(site) != jax.get(site)}
     assert differ == {site: rule[:2] for site, rule in RULE_EXCEPTIONS.items()}
 
 
