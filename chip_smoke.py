@@ -455,6 +455,28 @@
    with ``jit_update=True``: each update a replay of a captured graph, the
    states the eager updates' bits, no host sync a captured update (the
    eager and captured updates' and the computes' syncs printed).
+   Slice 21, the static audit held on the card, PyTorch checkpoints and the
+   cold start (``run_slice21``). A. Every device case of the port's audit
+   registry (``metrics_tpu_torch/analysis/registry.py``, the JAX registry's
+   cases and seeded inputs) on the card, with every host sync an error
+   (``torch.cuda.set_sync_debug_mode("error")``): the update captured twice
+   by the engine (``dispatch.py``; list states: run), the forward where the
+   audit traced one (``forward_engine.py``), compute and merge run. Each
+   program the committed ``STATIC_AUDIT_TORCH.json`` calls clean must run
+   with no sync and its replay equal eager (integer states bit for bit,
+   floats rtol 1e-6); each with a JX301 or JX401 must raise or demote; 0
+   mismatches. The kernel cases launch all five kernels and both session
+   axes (and the window tick as a captured graph), each output its plain
+   version's on the CPU bit for bit. The capstone: the classification
+   suite's static collective plan equals the collectives slice 9's ranks
+   issue on it (bucketed and leaf by leaf). B. A seeded torch_fidelity-
+   layout InceptionV3 state dict saved as ``.pth``, loaded with
+   ``weights_path=`` and through the converter's ``.npz``: features of one
+   batch of 200 299 x 299 images bit-equal; LPIPS vgg from torchvision and
+   lins ``.pth`` files and from its ``.npz`` on 500 64 x 64 pairs, bit-equal.
+   C. A fresh process with the built kernels on disk: the seconds from
+   ``import`` to the first captured ``Accuracy`` update at (1,024, 1,000),
+   against a warm update and the ``nvcc`` build.
    Slice 9's ranks compute inside a session: on each, the ``collective``
    spans and their bytes equal ``sync_stats``. Before the ``kernels`` line
    each kernel's cost-model entry (``model_bytes``, ``model_flops``) must
@@ -708,6 +730,9 @@ BAPPS_PAIRS, BAPPS_BATCH, BAPPS_SHAPE, ENGINE_BATCHES20 = 12_000, 500, (3, 64, 6
 # within 1e-5 of their scale of the CPU's (tests/test_torch_image_kid_is.py's atol against the JAX package)
 FID_TOL20, NET_CARD_CPU_RTOL20, BF16_BOUND20 = 1e-4, 1e-4, 5e-2
 KID_ATOL20, IS_RTOL20, IS_STATE_ATOL20, LPIPS_CARD_CPU_ATOL20 = 1e-5, 1e-5, 1e-5, 1e-5
+# slice 21: the audit's replays against eager (floats), the checkpoints' batches, the cold start's update shape
+AUDIT_RTOL21, AUDIT_ATOL21 = 1e-6, 1e-12
+CKPT_IMAGES21, CKPT_PAIRS21, CKPT_LPIPS_HW21, COLD_SHAPE21, COLD_WARM_REPS21 = 200, 500, 64, (1024, 1000), 50
 
 KERNELS = {
     "stat_scores": ("metrics_tpu_torch/csrc/stat_scores.cu", "metrics_tpu/ops/stat_scores.py:39"),
@@ -1602,6 +1627,27 @@ def sync_rank(torch, dist, rank, dev):
     click["sync_ms"] = sync_times(members_of(sk), sk.compute)
     call_counts()
     out["click"] = click
+
+    # ---------------- slice 21's capstone: the static audit's classification suite (C = 32, no compute groups, as
+    # the JAX package's bench counts it), synced by compute: bucketed, then leaf by leaf
+    from metrics_tpu_torch.analysis import program_audit
+
+    suite = M.MetricCollection(program_audit.classification_suite(dev), compute_groups=False)
+    g_suite = torch.Generator(device=dev).manual_seed(SEED + 21 + rank)
+    suite.update(torch.rand(256, 32, generator=g_suite, device=dev),
+                 torch.randint(0, 32, (256,), generator=g_suite, device=dev, dtype=torch.int32))
+    torch.cuda.synchronize()
+    capstone = {}
+    for mode in ("fused", "per_leaf"):
+        fresh(members_of(suite))
+        call_counts()
+        os.environ["METRICS_TPU_FUSED_SYNC"] = "0" if mode == "per_leaf" else "1"
+        try:
+            suite.compute()
+        finally:
+            os.environ.pop("METRICS_TPU_FUSED_SYNC")
+        capstone[mode] = call_counts()
+    out["capstone"] = capstone
     out["degrades"] = resilience.degrades()
     return out
 
@@ -6314,6 +6360,290 @@ def run_slice20(torch, dev, laps):
     return slice20_launches
 
 
+def same21(torch, a, b):
+    """Replay against eager: integer and bool tensors bit for bit, floats within AUDIT_RTOL21."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(same21(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(same21(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        if not isinstance(b, torch.Tensor) or a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.is_floating_point() or a.is_complex():
+            return torch.allclose(a, b, rtol=AUDIT_RTOL21, atol=AUDIT_ATOL21, equal_nan=True)
+        return torch.equal(a, b)
+    return a == b
+
+
+def sync_free(torch, fn):
+    """``fn()`` with every host sync an error: ``("clean", value)`` or
+    ``("raised", the error's first line)``."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        value = fn()
+    except Exception as err:  # noqa: BLE001 -- the outcome the audit predicted, or a mismatch
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return "raised", f"{type(err).__name__}: {str(err).splitlines()[0] if str(err) else ''}"[:160]
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return "clean", value
+
+
+COLD_START21 = """
+import json, statistics, sys, time
+t0 = time.perf_counter()
+import torch
+import metrics_tpu_torch as M
+t_import = time.perf_counter()
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(21)
+rows, classes = int(sys.argv[1]), int(sys.argv[2])
+p = torch.rand(rows, classes, generator=g, device=dev)
+t = torch.randint(0, classes, (rows,), generator=g, device=dev, dtype=torch.int32)
+torch.cuda.synchronize()
+t_data = time.perf_counter()
+acc = M.Accuracy(num_classes=classes, average="macro", jit_update=True, device=dev)
+acc.update(p, t)
+torch.cuda.synchronize()
+t_first = time.perf_counter()
+captured = any(len(pr.graphs) == 2 for pr in acc._dispatcher._cache.values())
+warm = []
+for _ in range(int(sys.argv[3])):
+    s = time.perf_counter()
+    acc.update(p, t)
+    torch.cuda.synchronize()
+    warm.append((time.perf_counter() - s) * 1e3)
+print(json.dumps({"import_s": t_import - t0, "cuda_and_data_s": t_data - t_import, "first_update_s": t_first - t_data,
+                  "import_to_first_captured_update_s": t_first - t0, "captured": captured,
+                  "warm_update_ms": statistics.median(warm), "retraces": acc.dispatch_stats["retraces"]}))
+"""
+
+
+def run_slice21(torch, dev, laps, sync_outs=None, build_s=None):
+    """Slice 21 (see the module's docstring): the static audit held on the card,
+    PyTorch checkpoints at full width, and the cold start. ``sync_outs`` are
+    slice 9's ranks' results (the capstone's dynamic count); ``build_s`` the
+    ``nvcc`` build's seconds of part 1."""
+    import tempfile
+
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch import forward_engine
+    from metrics_tpu_torch.analysis import program_audit, report as audit_report
+    from metrics_tpu_torch.analysis import registry as audit_registry
+    from metrics_tpu_torch.image import inception_net, lpips_net
+    from metrics_tpu_torch.ops import fused_window_tick, launches, registry, reset_launches
+    from metrics_tpu_torch.utilities.checks import tracing
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    t_slice = time.perf_counter()
+    report = {"card": card}
+
+    # ------------------------------------------------ A. the program audit, held on the card
+    baseline = audit_report.load_baseline()
+    check(baseline is not None, "slice 21: STATIC_AUDIT_TORCH.json is missing")
+    predicted = {(f["metric"], f["where"]): f["code"] for f in baseline["findings"] if f["code"] in ("JX301", "JX401")}
+    pools = audit_registry.example_inputs(dev)
+    cpu_pools = audit_registry.example_inputs("cpu")
+    tally = {"cases": 0, "programs": 0, "clean": 0, "confirmed": 0, "captured": 0, "mismatches": []}
+
+    def hold(name, program, outcome, equal=True, detail=""):
+        """One program's outcome on the card against the audit's prediction."""
+        tally["programs"] += 1
+        rule = predicted.get((name, program))
+        if rule is None and outcome == "clean" and equal:
+            tally["clean"] += 1
+        elif rule is not None and outcome != "clean":
+            tally["confirmed"] += 1
+        else:
+            tally["mismatches"].append(f"{name} {program}: the audit says {rule or 'clean'}, the card {outcome}"
+                                       + ("" if equal else ", not the eager values") + (f" ({detail})" if detail else ""))
+
+    def engine_run(metric, calls):
+        """``calls(engine)`` through a fresh dispatcher of ``metric`` with every sync an error: the outcome
+        ("clean", "raised" or "not captured"), the value and the error's line."""
+        engine = metric._make_dispatcher()
+        outcome, value = sync_free(torch, lambda: calls(engine))
+        if outcome == "clean" and not any(len(p.graphs) == 2 for p in engine._cache.values()):
+            outcome = "not captured"
+        tally["captured"] += outcome == "clean"
+        return outcome, value
+
+    for case in audit_registry.audit_cases():
+        if case.scope != "device":
+            continue
+        tally["cases"] += 1
+        name, args = case.name, case.args(pools)
+        ref = case.build(dev)
+        traced = baseline["facts"][name]["programs"]
+        with tracing():
+            s1 = ref.pure_update(ref.default_state(), *args)
+            s2 = ref.pure_update(s1, *args)
+        names = list(ref._defaults)
+        if not any(isinstance(v, list) for v in s1.values()):
+            outcome, value = engine_run(case.build(dev), lambda e: (e.update({}, (), args, {}), e.update({}, (), args, {}),
+                                                                     e._read_leaves())[-1])
+            equal = outcome != "clean" or same21(torch, tuple(value), tuple(s2[k] for k in names))
+        else:  # a list state: no engine serves it; the update runs
+            outcome, value = sync_free(torch, lambda: _traced_call(tracing, ref.pure_update, ref.default_state(), *args))
+            equal = outcome != "clean" or same21(torch, value, s1)
+        hold(name, "pure_update", outcome, equal, value if outcome == "raised" else "")
+        for program, fn in (("pure_compute", lambda: ref.pure_compute(s2)), ("pure_merge", lambda: ref.pure_merge(s2, s2))):
+            outcome, value = sync_free(torch, lambda fn=fn: _traced_call(tracing, fn))
+            hold(name, program, outcome, True, value if outcome == "raised" else "")
+        if "forward" in traced:
+            fnames, fwd = forward_engine.audit_forward_program(ref)
+            with tracing():
+                l1, _ = fwd(torch.tensor(1.0, device=dev), tuple(ref.default_state()[n] for n in fnames), *args)
+                l2, v2 = fwd(torch.tensor(2.0, device=dev), l1, *args)
+            outcome, value = engine_run(case.build(dev), lambda e: (e.forward(1.0, {}, (), args, {}),
+                                                                     e.forward(2.0, {}, (), args, {}), e._read_leaves()))
+            equal = outcome != "clean" or (same21(torch, value[1], v2) and same21(torch, tuple(value[2]), tuple(l2)))
+            hold(name, "pure_forward", outcome, equal, value if outcome == "raised" else "")
+    torch.cuda.synchronize()
+    laps.mark("3. slice 21 A: the audit's device cases on the card")
+
+    # the kernel cases: each program on the card (the kernels) against the CPU (the plain versions), bit for bit
+    kernel_cases = {}
+    reset_launches()
+    for case in audit_registry.kernel_cases():
+        check(case.scope == "kernel", f"slice 21: {case.name} has no kernel case")
+        for program, fn in case.build().items():
+            got, want = fn(pools), fn(cpu_pools)
+            got = {k: v.cpu() for k, v in got.items()} if isinstance(got, dict) else tuple(
+                t.cpu() for t in (got if isinstance(got, tuple) else (got,)))
+            want = want if isinstance(want, dict) else tuple(want if isinstance(want, tuple) else (want,))
+            equal = same21(torch, got, want) and all(torch.equal(a, b) for a, b in zip(
+                got.values() if isinstance(got, dict) else got, want.values() if isinstance(want, dict) else want))
+            kernel_cases[f"{case.name} {program}"] = equal
+            check(equal, f"slice 21: the kernel case {case.name} ({program}) differs from its plain version")
+    # the window tick as its captured graph: two ticks equal two eager ones
+    tick = M.SlidingWindow(M.Accuracy(num_classes=4, average="macro", device=dev), window=4, slide=2)
+    eager_tick = M.SlidingWindow(M.Accuracy(num_classes=4, average="macro", device=dev), window=4, slide=2,
+                                 jit_update=False)
+    for _ in range(2):
+        fused_window_tick(tick, (pools["probs"], pools["labels"]), {})
+        eager_tick.update(pools["probs"], pools["labels"])
+    graph_ticks = any(len(p.graphs) == 2 for p in tick._fused_tick._cache.values())
+    check(graph_ticks and all(torch.equal(getattr(tick, k), getattr(eager_tick, k)) for k in tick._defaults),
+          "slice 21: the fused window tick is not a captured graph with the eager ticks' state")
+    kernel_launches = launches()
+    sessions = {k: sorted({b for (b, _) in registry.launches_by_shape(k)}) for k in ("stat_scores", "countmin")}
+    check(all(kernel_launches[k] > 0 for k in KERNELS), f"slice 21: a kernel case launched nothing: {kernel_launches}")
+    check(all(any("session" in b for b in branches) for branches in sessions.values()),
+          f"slice 21: a session axis did not launch: {sessions}")
+    report["A_audit"] = {"device_cases": tally["cases"], "programs": tally["programs"], "clean": tally["clean"],
+                         "findings_confirmed": tally["confirmed"], "captured": tally["captured"],
+                         "mismatches": len(tally["mismatches"]), "mismatch_list": tally["mismatches"],
+                         "kernel_cases": kernel_cases, "kernel_launches": kernel_launches, "branches": sessions,
+                         "window_tick_graph": graph_ticks}
+    print("slice 21 A, the static audit on the card: " + json.dumps(report["A_audit"]))
+    check(not tally["mismatches"], f"slice 21: the card disagrees with the audit: {tally['mismatches']}")
+
+    # the capstone: the static plan against the collectives slice 9's four ranks issued on the same suite
+    plan = program_audit.classification_suite_sync_plan()
+    if sync_outs is not None:
+        issued = [{mode: sum(o["capstone"][mode].values()) for mode in ("fused", "per_leaf")} for o in sync_outs]
+        report["A_capstone"] = {"plan": plan, "issued_by_rank": issued}
+        check(all(i == {"fused": plan["fused_collectives"], "per_leaf": plan["perleaf_collectives"]} for i in issued),
+              f"slice 21: the capstone's plan {plan} is not what slice 9's ranks issued: {issued}")
+    else:
+        report["A_capstone"] = {"plan": plan, "issued_by_rank": "not measured (slice 9 did not run)"}
+    print("slice 21 A, the capstone: " + json.dumps(report["A_capstone"]))
+    laps.mark("3. slice 21 A: kernel cases and the capstone")
+
+    # ------------------------------------------------ B. PyTorch checkpoints at full width
+    g_cpu = torch.Generator().manual_seed(SEED + 210)
+    g_dev = torch.Generator(device=dev).manual_seed(SEED + 211)
+
+    def perturbed(state, positive=()):
+        """A seeded state: each float weight moved by 1% noise (the heads and variances kept positive)."""
+        out = {}
+        for k, v in state.items():
+            if v.is_floating_point():
+                v = v + 0.01 * torch.randn(v.shape, generator=g_cpu, dtype=v.dtype)
+                v = v.abs() if any(k.startswith(p) or k.endswith(p) for p in positive) else v
+            out[k] = v
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="slice21-") as tmp:
+        state = perturbed(inception_net.InceptionV3().state_dict(), positive=("running_var",))
+        state["AuxLogits.conv0.conv.weight"] = torch.zeros(128, 768, 1, 1)  # dropped by both paths
+        pth, npz = os.path.join(tmp, "pt_inception.pth"), os.path.join(tmp, "inception.npz")
+        torch.save(state, pth)
+        inception_net.save_params(npz, inception_net.convert_torch_state_dict(inception_net.load_torch(pth)))
+        ext_pth = inception_net.InceptionV3FeatureExtractor(weights_path=pth).to(dev)
+        ext_npz = inception_net.InceptionV3FeatureExtractor(weights_path=npz).to(dev)
+        loaded = ext_pth.net.state_dict()
+        check(all(torch.equal(loaded[k].cpu(), v) for k, v in state.items() if k in loaded),
+              "slice 21: the .pth did not load its weights")
+        images = torch.rand(CKPT_IMAGES21, *FID_SHAPE, generator=g_dev, device=dev) * 2 - 1
+        cudnn_deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            f_pth, f_npz = ext_pth(images), ext_npz(images)
+        finally:
+            torch.backends.cudnn.deterministic = cudnn_deterministic
+        inception_equal = torch.equal(f_pth, f_npz)
+        del ext_pth, ext_npz, images
+
+        module = lpips_net._LPIPSModule("vgg")
+        lstate = perturbed(module.state_dict(), positive=("lin",))
+        backbone = {k[len("net."):]: v for k, v in lstate.items() if k.startswith("net.")}
+        lins = {k: v for k, v in lstate.items() if k.startswith("lin")}
+        b_pth, l_pth, l_npz = (os.path.join(tmp, f) for f in ("vgg_features.pth", "lpips_vgg.pth", "lpips_vgg.npz"))
+        torch.save(backbone, b_pth)
+        torch.save(lins, l_pth)
+        inception_net.save_params(l_npz, lpips_net.convert_torch_state_dict(
+            inception_net.load_torch(b_pth), inception_net.load_torch(l_pth), "vgg"))
+        net_pth = lpips_net.LPIPSNet("vgg", weights_path=(b_pth, l_pth)).to(dev)
+        net_npz = lpips_net.LPIPSNet("vgg", weights_path=l_npz).to(dev)
+        check(all(torch.equal(net_pth.net.state_dict()[k].cpu(), v) for k, v in lstate.items()),
+              "slice 21: the LPIPS .pth files did not load their weights")
+        hw = CKPT_LPIPS_HW21
+        a = torch.rand(CKPT_PAIRS21, 3, hw, hw, generator=g_dev, device=dev) * 2 - 1
+        b = torch.rand(CKPT_PAIRS21, 3, hw, hw, generator=g_dev, device=dev) * 2 - 1
+        torch.backends.cudnn.deterministic = True
+        try:
+            d_pth, d_npz = net_pth(a, b), net_npz(a, b)
+        finally:
+            torch.backends.cudnn.deterministic = cudnn_deterministic
+        lpips_equal = torch.equal(d_pth, d_npz)
+    report["B_checkpoints"] = {"inception": {"images": CKPT_IMAGES21, "shape": list(FID_SHAPE), "bit_equal": inception_equal,
+                                             "features_finite": bool(torch.isfinite(f_pth).all())},
+                               "lpips_vgg": {"pairs": CKPT_PAIRS21, "hw": hw, "bit_equal": lpips_equal,
+                                             "mean": float(d_pth.mean())}}
+    print("slice 21 B, PyTorch checkpoints: " + json.dumps(report["B_checkpoints"]))
+    check(inception_equal and lpips_equal, f"slice 21: the .pth and .npz paths differ: {report['B_checkpoints']}")
+    laps.mark("3. slice 21 B: PyTorch checkpoints")
+
+    # ------------------------------------------------ C. the cold start: a fresh process, the kernels on disk
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", COLD_START21, str(COLD_SHAPE21[0]), str(COLD_SHAPE21[1]),
+                           str(COLD_WARM_REPS21)], cwd=here, env=env, capture_output=True, text=True, timeout=300)
+    process_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"slice 21: the cold-start process failed: {proc.stderr[-2000:]}")
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    cold.update(process_s=process_s, nvcc_build_s=build_s, shape=list(COLD_SHAPE21), card=card)
+    report["C_cold_start"] = cold
+    print("slice 21 C, the cold start: " + json.dumps(cold))
+    check(cold["captured"] and cold["retraces"] == 1, f"slice 21: the cold start's update was not one captured graph: {cold}")
+    laps.mark("3. slice 21 C: the cold start")
+    report["command_s"] = time.perf_counter() - t_slice
+    print(f"slice 21 ({card}): " + json.dumps({"command_s": report["command_s"]}))
+    return report
+
+
+def _traced_call(tracing, fn, *args):
+    """``fn(*args)`` as the engines run a program (value checks skipped)."""
+    with tracing():
+        return fn(*args)
+
+
 def main() -> int:
     import torch
 
@@ -6405,7 +6735,8 @@ def main() -> int:
     t0 = time.perf_counter()
     # and the earlier confusion_matrix design (a zeroed output plus integer atomics), only to time against
     libs = _build.build(_build.SOURCES + ("confusion_atomic",))
-    print(f"built {', '.join(p.name for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
+    build_s = time.perf_counter() - t0
+    print(f"built {', '.join(p.name for p in libs.values())} in {build_s:.2f} s")
     atomic_lib = ctypes.CDLL(str(libs["confusion_atomic"]))
     atomic_lib.confusion_atomic_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
     atomic_lib.confusion_atomic_launch.restype = ctypes.c_int
@@ -7682,6 +8013,9 @@ def main() -> int:
 
     # ------------------------------------------ 3s. slice 20: the nets and their metrics
     run_slice20(torch, dev, laps)
+
+    # ------------------------------------------ 3t. slice 21: the static audit on the card, checkpoints, cold start
+    run_slice21(torch, dev, laps, sync_outs=sync_outs, build_s=build_s)
 
     # ----------------------------------------------------------------- 4. times
     p, t = batches[-2]  # a full batch: B = 1024, C = 1000

@@ -18,8 +18,10 @@ The JAX rules map onto what a fake trace can see:
 ====== ==== =========================================================
 JX000  P0   registry gap (an exported metric or a kernel with no case)
 JX101  P1   a state leaf whose dtype or shape ``pure_update`` changes
-JX201  P0   a host copy (``.cpu()``, ``.numpy()``, ``.tolist()``) of a
-            tensor inside a pure path
+JX201  P0   a host copy inside a pure path: ``.cpu()``, ``.numpy()``,
+            ``.tolist()`` of a tensor, or a tensor made from host data on
+            a device (``torch.tensor(x, device=...)``: on the card a
+            host-to-device copy, which synchronises)
 JX301  P0   a hidden host sync: a value read back to decide something
             (``.item()``, ``bool()``, ``int()``, ``float()`` on a tensor:
             ``DataDependentOutputException``), or a pure path that does
@@ -70,6 +72,8 @@ COLLECTIVES = (
     "barrier", "gather", "scatter",
 )
 HOST_COPIES = {"cpu", "numpy", "tolist"}
+# factories that copy host data to the device they are given (a sync on the card)
+HOST_DATA_FACTORIES = {"tensor", "as_tensor"}
 # aten operations whose CUDA implementation cannot be captured in a CUDA graph (seen on the card: the capture is
 # invalidated and the engine demotes), which a fake trace cannot see
 CUDA_UNCAPTURABLE_OPS = {
@@ -109,7 +113,8 @@ def _is_fake(x: Any) -> bool:
 
 
 class _HostCopySpy(TorchFunctionMode):
-    """Counts the host copies a program makes of a fake tensor."""
+    """Counts the host copies a program makes: of a fake tensor to the host,
+    and of host data (a number, a list, an array) to a named device."""
 
     def __init__(self) -> None:
         super().__init__()
@@ -117,9 +122,13 @@ class _HostCopySpy(TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         name = getattr(func, "__name__", "")
+        kwargs = kwargs or {}
         if name in HOST_COPIES and args and _is_fake(args[0]):
             self.copies.append(name)
-        return func(*args, **(kwargs or {}))
+        elif name in HOST_DATA_FACTORIES and kwargs.get("device") is not None and args \
+                and not isinstance(args[0], torch.Tensor):
+            self.copies.append(f"{name}(host data, device=)")
+        return func(*args, **kwargs)
 
 
 class _OpCounter(TorchDispatchMode):

@@ -47,6 +47,12 @@ DEFAULT_EXPLANATIONS: List[Tuple[str, Optional[set], str]] = [
         " solve that a graph can hold is untried (ROADMAP.md)",
     ),
     (
+        "JX201",
+        {"PermutationInvariantTraining"},
+        "the permutation table is built once a speaker count and device (functools.lru_cache in"
+        " functional/audio/pit.py): one host-to-device copy at its first use, none in a warm or captured update",
+    ),
+    (
         "MT101",
         None,
         "float() of a Python number: the else branch of isinstance(weight, Tensor); a tensor weight stays on"

@@ -73,7 +73,8 @@ def _hinge_update(
     if squared:
         measures = measures**2
 
-    total = torch.tensor(target.shape[0], dtype=torch.int32, device=preds.device)
+    # a fill on the device: a tensor made from a Python number would be a host-to-device copy, a sync on the card
+    total = torch.full((), target.shape[0], dtype=torch.int32, device=preds.device)
     return measures.sum(dim=0), total
 
 

@@ -150,7 +150,9 @@ class QuantileSketch(BaseAggregator):
         counts = self.value
         total = counts.sum()
         cum = torch.cumsum(counts, dim=0)
-        q = torch.as_tensor(q, dtype=torch.float32, device=counts.device).clamp(0.0, 1.0)
+        # a Python number is filled on the device: a copy from the host would be a sync on the card
+        q = (torch.full((), float(q), dtype=torch.float32, device=counts.device) if isinstance(q, (int, float))
+             else torch.as_tensor(q, dtype=torch.float32, device=counts.device)).clamp(0.0, 1.0)
         target = torch.clamp(q * total, min=1.0)
         idx = torch.argmax((cum >= target[..., None]).to(torch.uint8), dim=-1)
         rel = idx - self.bins  # <0 negative bins, 0 zero bucket, >0 positive

@@ -2273,3 +2273,83 @@ def test_captured_updates_equal_eager_on_the_card(card):
         stats = engine.dispatch_stats
         assert stats["demotions"] == 0 and stats["dispatches"] == len(batches), (cls.__name__, stats)
         assert any(len(p.graphs) == 2 for p in engine._dispatcher._cache.values()), cls.__name__
+
+
+# ------------------------------------------------------------------ the static audit's predictions on the card
+def _audit_case(name):
+    from metrics_tpu_torch.analysis import registry as audit_registry
+
+    return next(c for c in audit_registry.audit_cases() if c.name == name)
+
+
+def _sync_errors(fn):
+    """``fn()`` with every host sync an error: None, or the error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except Exception as err:  # noqa: BLE001 -- what the audit predicted, or not
+        return err
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    return None
+
+
+@pytest.mark.parametrize("name", ["Accuracy", "ConfusionMatrix", "MeanSquaredError", "SlidingWindow"])
+def test_an_update_the_audit_calls_clean_captures_without_a_sync(card, name):
+    """The engine captures the update of a case the static audit calls clean
+    with every host sync an error, and its replay is the eager bits
+    (``_bincount`` is a fixed-shape scatter: ConfusionMatrix's default path
+    captures)."""
+    from metrics_tpu_torch.analysis import registry as audit_registry
+    from metrics_tpu_torch.utilities.checks import tracing
+
+    case = _audit_case(name)
+    pools = audit_registry.example_inputs(card)
+    args = case.args(pools)
+    ref = case.build(card)
+    with tracing():
+        want = ref.pure_update(ref.pure_update(ref.default_state(), *args), *args)
+    metric = case.build(card)
+    engine = metric._make_dispatcher()
+    assert _sync_errors(lambda: [engine.update({}, (), args, {}) for _ in range(2)]) is None
+    assert any(len(p.graphs) == 2 for p in engine._cache.values())
+    for key in metric._defaults:
+        got = getattr(metric, key)
+        assert got.dtype == want[key].dtype and torch.allclose(got, want[key], rtol=1e-6, atol=1e-12)
+        if not got.is_floating_point():
+            assert torch.equal(got, want[key])
+
+
+def test_the_audits_findings_raise_on_the_card(card):
+    """AUROC's compute (JX401) reads the card back; SDR's update (JX301, a
+    CUDA solve no graph can hold) does not capture."""
+    from metrics_tpu_torch.analysis import registry as audit_registry
+    from metrics_tpu_torch.utilities.checks import tracing
+
+    pools = audit_registry.example_inputs(card)
+    auroc_case = _audit_case("AUROC")
+    auroc = auroc_case.build(card)
+    with tracing():
+        state = auroc.pure_update(auroc.default_state(), *auroc_case.args(pools))
+    assert _sync_errors(lambda: auroc.pure_compute(state)) is not None
+    sdr_case = _audit_case("SignalDistortionRatio")
+    engine = sdr_case.build(card)._make_dispatcher()
+    assert _sync_errors(lambda: engine.update({}, (), sdr_case.args(pools), {})) is not None
+
+
+def test_a_pth_and_its_npz_give_the_same_inception_features_on_the_card(card, tmp_path):
+    from metrics_tpu_torch.image import inception_net
+
+    g = torch.Generator().manual_seed(21)
+    state = {k: v + 0.01 * torch.randn(v.shape, generator=g) if v.is_floating_point() else v
+             for k, v in inception_net.InceptionV3().state_dict().items()}
+    state = {k: v.abs() if k.endswith("running_var") else v for k, v in state.items()}
+    pth, npz = str(tmp_path / "w.pth"), str(tmp_path / "w.npz")
+    torch.save(state, pth)
+    inception_net.save_params(npz, inception_net.convert_torch_state_dict(state))
+    images = torch.rand(8, 3, 299, 299, generator=torch.Generator(device=card).manual_seed(0), device=card) * 2 - 1
+    a = inception_net.InceptionV3FeatureExtractor(weights_path=pth).to(card)(images)
+    b = inception_net.InceptionV3FeatureExtractor(weights_path=npz).to(card)(images)
+    assert torch.isfinite(a).all() and torch.equal(a, b)

@@ -240,6 +240,33 @@ def test_a_collective_and_a_host_copy_in_a_pure_path_are_found():
                                                                   ("JX201", "P0", "pure_compute")}
 
 
+def test_a_tensor_made_from_host_data_on_the_device_is_a_host_copy():
+    """``torch.tensor(n, device=...)`` in an update is a host-to-device copy
+    on the card (a sync); ``torch.full`` on the device and a CPU constant
+    are not."""
+    class Counts(Metric):
+        def __init__(self, copy, **kwargs):
+            super().__init__(**kwargs)
+            self.copy = copy
+            self.add_state("total", torch.tensor(0, dtype=torch.int32), dist_reduce_fx="sum")
+
+        def update(self, x):
+            if self.copy:
+                n = torch.tensor(x.shape[0], dtype=torch.int32, device=x.device)
+            else:
+                n = torch.full((), x.shape[0], dtype=torch.int32, device=x.device) + torch.tensor(0, dtype=torch.int32)
+            self.total = self.total + n
+
+        def compute(self):
+            return self.total
+
+    args = lambda pools: (pools["reg_p"],)  # noqa: E731
+    cases = [registry.AuditCase(f"Counts{copy}", "device", lambda d, c=copy: Counts(c, device=d), args)
+             for copy in (True, False)]
+    _, findings = program_audit.run_audit(cases)
+    assert {f.key for f in findings} == {"JX201:CountsTrue:pure_update", "JX201:CountsTrue:pure_forward"}
+
+
 def test_a_state_whose_dtype_the_update_changes_is_jx101():
     class Widens(Metric):
         def __init__(self, **kwargs):
