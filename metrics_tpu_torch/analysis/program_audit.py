@@ -227,7 +227,7 @@ def _program_facts(fn: Callable, *trace_args: Any) -> Dict[str, Any]:
     return {
         "error": error,
         "collectives": len(seen["collectives"]),
-        "host_copies": len(copies.copies),
+        "host_copies": copies.copies,
         "kernel_routes": seen["kernel_routes"],
         "ops": counter.ops,
         "uncapturable": counter.uncapturable,
@@ -283,7 +283,7 @@ def _program_findings(name: str, programs: Dict[str, Dict[str, Any]]) -> List[Fi
                                     f"{pf['error']['why']} [{pf['error']['type']}]"))
         if pf.get("host_copies"):
             findings.append(Finding("JX201", "P0", name, f"pure_{prog}",
-                                    f"{pf['host_copies']} host cop(ies) of a tensor inside pure_{prog}"))
+                                    f"host copies inside pure_{prog}: {', '.join(pf['host_copies'])}"))
         if pf["error"] is None and pf.get("uncapturable"):
             findings.append(Finding("JX301", "P0", name, f"pure_{prog}", "no CUDA graph can hold it: "
                                     + "; ".join(CUDA_UNCAPTURABLE_OPS[op] for op in pf["uncapturable"])))
@@ -361,7 +361,7 @@ def audit_metric(case: registry.AuditCase, pools: Dict[str, Any]) -> Tuple[Dict[
             fwd = _program_facts(fwd_fn, torch.tensor(1.0), leaves, *args)
         except Exception as err:  # noqa: BLE001 -- recorded; the engine degrades at run time
             fwd = {"error": {"rule": "JX301", "type": type(err).__name__, "why": "forward program does not build"},
-                   "collectives": 0, "host_copies": 0, "kernel_routes": 0, "ops": None, "uncapturable": [], "out": None}
+                   "collectives": 0, "host_copies": [], "kernel_routes": 0, "ops": None, "uncapturable": [], "out": None}
         fwd.pop("out")
         programs["forward"] = fwd
 

@@ -86,9 +86,6 @@ class KernelSpec:
         self.covers = tuple(covers)
         self.doc = doc
 
-    def __repr__(self) -> str:
-        return f"KernelSpec({self.name!r}, {self.kind!r}, covers={self.covers!r})"
-
 
 _REGISTRY: Dict[str, KernelSpec] = {}
 

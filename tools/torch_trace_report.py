@@ -8,8 +8,6 @@ Usage::
         # instrumented eval (10 fused-collection forward steps + compute) on
         # --device (cuda by default), write TRACE.jsonl (and TRACE.trace.json
         # for Perfetto), then summarize it
-    python tools/torch_trace_report.py --slo TRACE.jsonl    # a short serving
-        # workload, its SLO / health / memory views, then the summary
 
 The counterpart of ``tools/trace_report.py`` with no JAX: the input is what
 ``metrics_tpu_torch.telemetry.export_jsonl`` (or a session's
@@ -527,50 +525,6 @@ def run_instrumented_bench(path: str, device: str = "cuda") -> None:
     print(f"wrote {path} and {chrome_path} (Perfetto-loadable)", file=sys.stderr)
 
 
-def run_slo_demo(path: str, device: str = "cuda") -> None:
-    """A short mixed serving workload (multi-tenant submits and a shed
-    burst) under instrumentation on ``device``, then the live SLO, health
-    and memory views. The trace lands at ``path`` (and ``.trace.json``)."""
-    import numpy as np
-    import torch
-
-    from metrics_tpu_torch import Accuracy, telemetry
-    from metrics_tpu_torch.serve import MetricsService, QueueFullError
-
-    rng = np.random.RandomState(11)
-    svc = MetricsService(
-        Accuracy(task="multiclass", num_classes=8, device=device),
-        max_queue=64,
-        admission="shed-oldest",
-    )
-
-    def labels():
-        return torch.from_numpy(rng.randint(0, 8, 32).astype(np.int32)).to(device)
-
-    with telemetry.instrument() as session:
-        for step in range(6):
-            for i in range(32):
-                svc.submit(f"tenant-{i % 8}", labels(), labels())
-            svc.flush()
-        # overload burst: every submit past the bound sheds the oldest
-        for i in range(96):
-            try:
-                svc.submit(f"tenant-{i % 8}", labels(), labels())
-            except QueueFullError:
-                pass
-        svc.drain()
-    session.export_jsonl(path)
-    session.export_chrome_trace(path.rsplit(".", 1)[0] + ".trace.json")
-
-    print("== slo_snapshot() ==")
-    print(json.dumps(svc.slo_snapshot(), indent=2, default=str))
-    print("== health() ==")
-    print(json.dumps(svc.health(), indent=2, default=str))
-    print("== memory ==")
-    print(json.dumps(svc.memory_snapshot(), indent=2, default=str))
-    print(f"wrote {path} (Perfetto: {path.rsplit('.', 1)[0]}.trace.json)", file=sys.stderr)
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("trace", help="telemetry JSONL file to summarize (written first with --bench)")
@@ -579,18 +533,10 @@ def main(argv=None) -> int:
         action="store_true",
         help="run a short instrumented fused-collection eval and export it to TRACE first",
     )
-    parser.add_argument(
-        "--slo",
-        action="store_true",
-        help="run a short instrumented serving workload, print slo_snapshot()/"
-        "health()/memory, export the trace to TRACE, then summarize it",
-    )
-    parser.add_argument("--device", default="cuda", help="where --bench and --slo run (default: cuda)")
+    parser.add_argument("--device", default="cuda", help="where --bench runs (default: cuda)")
     args = parser.parse_args(argv)
     if args.bench:
         run_instrumented_bench(args.trace, args.device)
-    if args.slo:
-        run_slo_demo(args.trace, args.device)
     print(summarize(load_events(args.trace)))
     return 0
 
