@@ -6485,7 +6485,7 @@ def run_slice21(torch, dev, laps, sync_outs=None, build_s=None):
         tally["cases"] += 1
         name, args = case.name, case.args(pools)
         ref = case.build(dev)
-        traced = baseline["facts"][name]["programs"]
+        audited_programs = baseline["facts"][name]["programs"]
         with tracing():
             s1 = ref.pure_update(ref.default_state(), *args)
             s2 = ref.pure_update(s1, *args)
@@ -6501,7 +6501,7 @@ def run_slice21(torch, dev, laps, sync_outs=None, build_s=None):
         for program, fn in (("pure_compute", lambda: ref.pure_compute(s2)), ("pure_merge", lambda: ref.pure_merge(s2, s2))):
             outcome, value = sync_free(torch, lambda fn=fn: traced(fn))
             hold(name, program, outcome, True, value if outcome == "raised" else "")
-        if "forward" in traced:
+        if "forward" in audited_programs:
             fnames, fwd = forward_engine.audit_forward_program(ref)
             with tracing():
                 l1, _ = fwd(torch.tensor(1.0, device=dev), tuple(ref.default_state()[n] for n in fnames), *args)

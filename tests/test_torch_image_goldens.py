@@ -116,6 +116,17 @@ def _rel(a, b):
     return abs(a - b) / abs(b)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Single-threaded convolutions: in a parallel test run every worker's
+    default thread pool would oversubscribe the cores (this file took over
+    ten times its single-threaded time there)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def inception_pth(tmp_path_factory):
     state = _make_inception_state(seed=_golden("fid_end_to_end_golden.json")["state_seed"])
@@ -131,12 +142,13 @@ def test_fid_matches_the_end_to_end_golden(inception_pth):
     real, fake = _images(golden["n_per_side"], golden["img_seed"], golden["img_hw"])
     ext = InceptionV3FeatureExtractor(weights_path=pth, dtype=torch.float64)
     fid_list = FrechetInceptionDistance(feature_extractor=ext, sqrtm_method="eigh", device="cpu")
-    # float64 moment sums, as the JAX package's moments path under x64 (a float32 outer sum loses this FID)
-    fid_moments = FrechetInceptionDistance(feature_extractor=ext, sqrtm_method="eigh", feature_dim=2048,
-                                           device="cpu").set_dtype(torch.float64)
-    for m in (fid_list, fid_moments):
-        m.update(torch.from_numpy(real), real=True)
-        m.update(torch.from_numpy(fake), real=False)
+    fid_list.update(torch.from_numpy(real), real=True)
+    fid_list.update(torch.from_numpy(fake), real=False)
+    # the moments path on the same features (float64 moment sums, as the JAX package's moments path under x64:
+    # a float32 outer sum loses this FID)
+    fid_moments = FrechetInceptionDistance(sqrtm_method="eigh", feature_dim=2048, device="cpu").set_dtype(torch.float64)
+    fid_moments.update(torch.cat(fid_list.real_features), real=True)
+    fid_moments.update(torch.cat(fid_list.fake_features), real=False)
     got_list, got_moments = float(fid_list.compute()), float(fid_moments.compute())
     for got in (got_list, got_moments):
         assert _rel(got, golden["torch_fid"]) <= 1e-5
@@ -152,10 +164,12 @@ def test_is_and_kid_match_the_end_to_end_golden(inception_pth):
     real, fake = _images(n, fid_golden["img_seed"], fid_golden["img_hw"])
     logits = InceptionV3FeatureExtractor(weights_path=pth, output="logits_unbiased", dtype=torch.float64)
     is_list = InceptionScore(logits_extractor=logits, splits=1, device="cpu")
-    is_stream = InceptionScore(logits_extractor=logits, splits=1, num_classes=1008, device="cpu")
-    for m in (is_list, is_stream):
-        m.update(torch.from_numpy(fake[: n // 2]))
-        m.update(torch.from_numpy(fake[n // 2:]))
+    is_list.update(torch.from_numpy(fake[: n // 2]))
+    is_list.update(torch.from_numpy(fake[n // 2:]))
+    # the streaming path on the same logits
+    is_stream = InceptionScore(splits=1, num_classes=1008, device="cpu")
+    for batch in is_list.features:
+        is_stream.update(batch)
     for m in (is_list, is_stream):
         got = float(m.compute()[0])
         assert _rel(got, golden["torch_is"]) <= 1e-10
