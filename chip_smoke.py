@@ -38,10 +38,12 @@
    ``forward``, ``compute``, ``state_dict`` and ``reset``. ``stat_scores``
    must launch once per batch (49 times), ``confusion_matrix`` 4 x 49 times
    on its band branch, and the results must equal the same run on the CPU
-   (its first 8 batches, held against a card run over the same 8; counts
-   exactly, values to rtol 1e-6) and an independent reference
-   computed from the scores (a bincount; its kappa, MCC and mean IoU in
-   float64 numpy to rtol 1e-5). Slice 7: the same scores through one
+   (its first 8 batches and the 848-row last one, held against a card run
+   over the same 9; counts exactly, values to rtol 1e-6) and an independent
+   reference computed from the scores (a bincount: the whole epoch's
+   confusion matrices and ``Accuracy``'s tp, fp, tn and fn exactly, every
+   epoch value against the CPU's plain compute of the card's states to rtol
+   1e-6, and the kappa, MCC and mean IoU in float64 numpy to rtol 1e-5). Slice 7: the same scores through one
    ``MetricCollection`` of eleven members, as a validation epoch logs them
    (``Accuracy``, ``Precision``, ``Recall``, ``F1Score``, ``FBetaScore(beta=0.5)``
    and ``Specificity``, all macro; ``HammingDistance``; ``ConfusionMatrix``,
@@ -461,12 +463,17 @@
    registry (``metrics_tpu_torch/analysis/registry.py``, the JAX registry's
    cases and seeded inputs) on the card, with every host sync an error
    (``torch.cuda.set_sync_debug_mode("error")``): the update captured twice
-   by the engine (``dispatch.py``; list states: run), the forward where the
-   audit traced one (``forward_engine.py``), compute and merge run. Each
-   program the committed ``STATIC_AUDIT_TORCH.json`` calls clean must run
-   with no sync and its replay equal eager (integer states bit for bit,
-   floats rtol 1e-6); each with a JX301 or JX401 must raise or demote; 0
-   mismatches. The kernel cases launch all five kernels and both session
+   by the engine (``dispatch.py``; list states: captured as they are), the
+   forward where the audit traced one (``forward_engine.py``), compute and
+   merge each captured in a CUDA graph; then each kernel-routed family
+   again at its main path's width (``Accuracy``, ``ConfusionMatrix`` and
+   ``BinnedAveragePrecision`` at (1,024, 1,000), ``CountMinHeavyHitters``
+   at 65,536 ids into 4 x 65,536, ``RetrievalMAP`` at 64 MS MARCO queries).
+   Each program the committed ``STATIC_AUDIT_TORCH.json`` calls clean must
+   capture with no sync and its replay equal eager (integer states bit for
+   bit, floats rtol 1e-6); each JX301 or JX401 must raise the sync debug
+   mode's error, or, where the finding names a call no CUDA graph can hold,
+   break the capture; any other error is a mismatch; 0 mismatches. The kernel cases launch all five kernels and both session
    axes (and the window tick as a captured graph), each output its plain
    version's on the CPU bit for bit. The capstone: the classification
    suite's static collective plan equals the collectives slice 9's ranks
@@ -558,7 +565,8 @@ SEG_PATCH, SEG_ZIPF, SEG_VOID_SHARE, SEG_RIGHT = 32, 1.1, 0.10, 0.94
 SEG_CPU_IMAGES = 8
 FBETA = 0.5
 COLLECTION_CPU_BATCHES = 8
-# slice 1's CPU rerun: a prefix of the epoch, held against a card run over the same prefix
+# slice 1's CPU rerun: a prefix of the epoch and its 848-row last batch (forward's tail shape), held against a
+# card run over the same batches
 SLICE1_CPU_BATCHES = 8
 # the ImageNet binned path's CPU rerun: a prefix of the epoch, held against a card run over the same prefix
 BINNED_CPU_BATCHES = 8
@@ -6378,17 +6386,35 @@ def same21(torch, a, b):
     return a == b
 
 
+# the two errors that confirm a finding on the card: the sync debug mode's, and a graph capture that a CUDA
+# library call broke
+SYNC_ERROR21, CAPTURE_INVALIDATED21 = "called a synchronizing CUDA operation", "cudaErrorStreamCaptureInvalidated"
+
+
 def sync_free(torch, fn):
-    """``fn()`` with every host sync an error: ``("clean", value)`` or
-    ``("raised", the error's first line)``."""
+    """``fn()`` with every host sync an error: ``("clean", value)``, or the
+    error's kind and first line. The kind is ``"synced"`` where the sync
+    debug mode raised, ``"capture invalidated"`` where a CUDA library call
+    broke a graph capture, and ``"error"`` for any other exception (a fault
+    of the case or of this check, which confirms no finding)."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         value = fn()
-    except Exception as err:  # noqa: BLE001 -- the outcome the audit predicted, or a mismatch
+    except Exception as err:  # noqa: BLE001 -- classified: only the two errors above confirm a finding
         torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        return "raised", f"{type(err).__name__}: {str(err).splitlines()[0] if str(err) else ''}"[:160]
+        chain, e = [], err
+        while e is not None and all(e is not c for c in chain):  # the error and those it was raised from or in
+            chain.append(e)
+            e = e.__cause__ or e.__context__
+        if any(isinstance(c, RuntimeError) and SYNC_ERROR21 in str(c) for c in chain):
+            kind = "synced"
+        elif any(CAPTURE_INVALIDATED21 in str(c) for c in chain):
+            kind = "capture invalidated"
+        else:
+            kind = "error"
+        return kind, f"{type(err).__name__}: {str(err).splitlines()[0] if str(err) else ''}"[:160]
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     return "clean", value
@@ -6447,71 +6473,131 @@ def run_slice21(torch, dev, laps, sync_outs=None, build_s=None):
     # ------------------------------------------------ A. the program audit, held on the card
     baseline = audit_report.load_baseline()
     check(baseline is not None, "slice 21: STATIC_AUDIT_TORCH.json is missing")
-    predicted = {(f["metric"], f["where"]): f["code"] for f in baseline["findings"] if f["code"] in ("JX301", "JX401")}
+    # what a finding predicts on the card: a call that no CUDA graph can hold breaks the capture; every other
+    # JX301 or JX401 is a host sync, which the sync debug mode raises
+    predicted = {(f["metric"], f["where"]): (f["code"], "capture invalidated" if "no CUDA graph can hold it" in f["detail"]
+                                             else "synced")
+                 for f in baseline["findings"] if f["code"] in ("JX301", "JX401")}
     pools = audit_registry.example_inputs(dev)
     cpu_pools = audit_registry.example_inputs("cpu")
-    tally = {"cases": 0, "programs": 0, "clean": 0, "confirmed": 0, "captured": 0, "mismatches": []}
+    tally = {"cases": 0, "wide_cases": 0, "programs": 0, "clean": 0, "confirmed": [], "captured": 0, "mismatches": [],
+             "case_s": {}}
 
-    def hold(name, program, outcome, equal=True, detail=""):
-        """One program's outcome on the card against the audit's prediction."""
+    def hold(name, label, program, outcome, equal=True, detail=""):
+        """One program's outcome on the card against the audit's prediction for ``name``."""
         tally["programs"] += 1
-        rule = predicted.get((name, program))
-        if rule is None and outcome == "clean" and equal:
-            tally["clean"] += 1
-        elif rule is not None and outcome != "clean":
-            tally["confirmed"] += 1
+        code, expected = predicted.get((name, program), (None, "clean"))
+        if outcome == expected and (code is not None or equal):
+            if code is None:
+                tally["clean"] += 1
+            else:
+                tally["confirmed"].append(f"{label} {program}: {code}, {outcome}")
         else:
-            tally["mismatches"].append(f"{name} {program}: the audit says {rule or 'clean'}, the card {outcome}"
+            says = f"{code} ({expected})" if code else "clean"
+            tally["mismatches"].append(f"{label} {program}: the audit says {says}, the card {outcome}"
                                        + ("" if equal else ", not the eager values") + (f" ({detail})" if detail else ""))
 
-    def traced(fn, *fn_args):
-        """``fn(*fn_args)`` as the engines run a program (value checks skipped)."""
-        with tracing():
-            return fn(*fn_args)
+    # one pool for every graph, and the graphs kept until part A ends: a pool is released with its last graph
+    side, pool, kept = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle(), []
+
+    def captured(fn):
+        """``fn()`` once on a side stream (the eager value), then captured in a CUDA graph and replayed, as the
+        engines run a program (value checks skipped): ``(eager, replayed)``. A program that syncs, or calls
+        what no graph can hold, raises."""
+        current = torch.cuda.current_stream(dev)
+        side.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin on the side stream, not torch.cuda.graph: that empties the allocator's cache each time
+        with torch.cuda.stream(side), tracing():
+            eager = fn()
+            graph.capture_begin(pool=pool)
+            try:
+                replayed = fn()
+            finally:
+                graph.capture_end()
+        current.wait_stream(side)
+        graph.replay()
+        kept.append(graph)
+        return eager, replayed
 
     def engine_run(metric, calls):
         """``calls(engine)`` through a fresh dispatcher of ``metric`` with every sync an error: the outcome
-        ("clean", "raised" or "not captured"), the value and the error's line."""
+        (``sync_free``'s, or "not captured"), the value and the error's line."""
         engine = metric._make_dispatcher()
         outcome, value = sync_free(torch, lambda: calls(engine))
         if outcome == "clean" and not any(len(p.graphs) == 2 for p in engine._cache.values()):
             outcome = "not captured"
-        tally["captured"] += outcome == "clean"
         return outcome, value
 
-    for case in audit_registry.audit_cases():
-        if case.scope != "device":
-            continue
-        tally["cases"] += 1
-        name, args = case.name, case.args(pools)
-        ref = case.build(dev)
-        audited_programs = baseline["facts"][name]["programs"]
+    def hold_programs(name, label, build, args):
+        """Every program the audit traced of ``build()`` on ``args``, on the card: the update captured twice
+        by the engine (a list state: captured as it is), the forward by the engine where the audit traced one,
+        compute and merge captured; each replay against eager."""
+        t_case = time.perf_counter()
+        ref = build()
         with tracing():
             s1 = ref.pure_update(ref.default_state(), *args)
             s2 = ref.pure_update(s1, *args)
         names = list(ref._defaults)
         if not any(isinstance(v, list) for v in s1.values()):
-            outcome, value = engine_run(case.build(dev), lambda e: (e.update({}, (), args, {}), e.update({}, (), args, {}),
-                                                                     e._read_leaves())[-1])
+            outcome, value = engine_run(build(), lambda e: (e.update({}, (), args, {}), e.update({}, (), args, {}),
+                                                             e._read_leaves())[-1])
             equal = outcome != "clean" or same21(torch, tuple(value), tuple(s2[k] for k in names))
-        else:  # a list state: no engine serves it; the update runs
-            outcome, value = sync_free(torch, lambda: traced(ref.pure_update, ref.default_state(), *args))
-            equal = outcome != "clean" or same21(torch, value, s1)
-        hold(name, "pure_update", outcome, equal, value if outcome == "raised" else "")
+        else:  # a list state: no engine serves it
+            outcome, value = sync_free(torch, lambda: captured(lambda: ref.pure_update(ref.default_state(), *args)))
+            equal = outcome != "clean" or (same21(torch, value[1], value[0]) and same21(torch, value[1], s1))
+        tally["captured"] += outcome == "clean"
+        hold(name, label, "pure_update", outcome, equal, value if outcome != "clean" else "")
         for program, fn in (("pure_compute", lambda: ref.pure_compute(s2)), ("pure_merge", lambda: ref.pure_merge(s2, s2))):
-            outcome, value = sync_free(torch, lambda fn=fn: traced(fn))
-            hold(name, program, outcome, True, value if outcome == "raised" else "")
-        if "forward" in audited_programs:
+            outcome, value = sync_free(torch, lambda fn=fn: captured(fn))
+            tally["captured"] += outcome == "clean"
+            equal = outcome != "clean" or same21(torch, value[1], value[0])
+            hold(name, label, program, outcome, equal, value if outcome != "clean" else "")
+        if "forward" in baseline["facts"][name]["programs"]:
             fnames, fwd = forward_engine.audit_forward_program(ref)
             with tracing():
                 l1, _ = fwd(torch.tensor(1.0, device=dev), tuple(ref.default_state()[n] for n in fnames), *args)
                 l2, v2 = fwd(torch.tensor(2.0, device=dev), l1, *args)
-            outcome, value = engine_run(case.build(dev), lambda e: (e.forward(1.0, {}, (), args, {}),
-                                                                     e.forward(2.0, {}, (), args, {}), e._read_leaves()))
+            outcome, value = engine_run(build(), lambda e: (e.forward(1.0, {}, (), args, {}),
+                                                             e.forward(2.0, {}, (), args, {}), e._read_leaves()))
+            tally["captured"] += outcome == "clean"
             equal = outcome != "clean" or (same21(torch, value[1], v2) and same21(torch, tuple(value[2]), tuple(l2)))
-            hold(name, "pure_forward", outcome, equal, value if outcome == "raised" else "")
+            hold(name, label, "pure_forward", outcome, equal, value if outcome != "clean" else "")
+        tally["case_s"][label] = time.perf_counter() - t_case
+
+    for case in audit_registry.audit_cases():
+        if case.scope != "device":
+            continue
+        tally["cases"] += 1
+        hold_programs(case.name, case.name, lambda case=case: case.build(dev), case.args(pools))
     torch.cuda.synchronize()
     laps.mark("3. slice 21 A: the audit's device cases on the card")
+    # each kernel-routed family again at its main path's width, where the wrappers take the main path's branches
+    g21 = torch.Generator(device=dev).manual_seed(SEED + 212)
+    probs = torch.softmax(torch.randn(BATCH, NUM_CLASSES, generator=g21, device=dev), dim=1)
+    labels = torch.randint(0, NUM_CLASSES, (BATCH,), generator=g21, device=dev)
+    ids = torch.randint(0, CLICK_IDS, (CLICK_BATCH,), generator=g21, device=dev).float()
+    marco = tuple(x[:MARCO_QUERY_BATCH].reshape(-1) for x in marco_data(torch, dev))
+    wide = (
+        ("Accuracy", lambda: M.Accuracy(num_classes=NUM_CLASSES, average="macro", device=dev), (probs, labels)),
+        ("ConfusionMatrix", lambda: M.ConfusionMatrix(num_classes=NUM_CLASSES, update_method="matmul", device=dev),
+         (probs, labels)),
+        ("BinnedAveragePrecision",
+         lambda: M.BinnedAveragePrecision(num_classes=NUM_CLASSES, thresholds=THRESHOLDS, device=dev), (probs, labels)),
+        ("CountMinHeavyHitters", lambda: M.CountMinHeavyHitters(depth=CLICK_DEPTH, width=CLICK_WIDTH, device=dev),
+         (ids,)),
+        ("RetrievalMAP", lambda: M.RetrievalMAP(device=dev), marco),
+    )
+    reset_launches()
+    for name, build, args in wide:
+        tally["wide_cases"] += 1
+        hold_programs(name, f"{name} {tuple(args[0].shape)}", build, args)
+    torch.cuda.synchronize()
+    wide_branches = {k: by_shape(registry.launches_by_shape(k)) for k in KERNELS}
+    check(all(wide_branches[k] for k in ("stat_scores", "confusion_matrix", "binned_stats", "countmin")),
+          f"slice 21: a main-path width launched no kernel: {wide_branches}")
+    kept.clear()
+    laps.mark("3. slice 21 A: the kernel-routed families at the main paths' widths")
 
     # the kernel cases: each program on the card (the kernels) against the CPU (the plain versions), bit for bit
     kernel_cases = {}
@@ -6540,11 +6626,14 @@ def run_slice21(torch, dev, laps, sync_outs=None, build_s=None):
     check(all(kernel_launches[k] > 0 for k in KERNELS), f"slice 21: a kernel case launched nothing: {kernel_launches}")
     check(all(any("session" in b for b in branches) for branches in sessions.values()),
           f"slice 21: a session axis did not launch: {sessions}")
-    report["A_audit"] = {"device_cases": tally["cases"], "programs": tally["programs"], "clean": tally["clean"],
-                         "findings_confirmed": tally["confirmed"], "captured": tally["captured"],
+    report["A_audit"] = {"device_cases": tally["cases"], "main_path_width_cases": tally["wide_cases"],
+                         "programs": tally["programs"], "clean": tally["clean"],
+                         "findings_confirmed": len(tally["confirmed"]), "confirmed": tally["confirmed"],
+                         "captured": tally["captured"], "main_path_width_branches": wide_branches,
                          "mismatches": len(tally["mismatches"]), "mismatch_list": tally["mismatches"],
                          "kernel_cases": kernel_cases, "kernel_launches": kernel_launches, "branches": sessions,
-                         "window_tick_graph": graph_ticks}
+                         "window_tick_graph": graph_ticks,
+                         "slowest_cases_s": dict(sorted(tally["case_s"].items(), key=lambda kv: -kv[1])[:5])}
     print("slice 21 A, the static audit on the card: " + json.dumps(report["A_audit"]))
     check(not tally["mismatches"], f"slice 21: the card disagrees with the audit: {tally['mismatches']}")
 
@@ -7086,13 +7175,16 @@ def main() -> int:
                                      ("band", (N_VAL - 48 * BATCH, NUM_CLASSES)): 1 + len(family)},
           f"confusion_matrix launches by branch and shape {confmat_slice_by_shape}: not all on the band branch")
 
-    # the CPU rerun: the epoch's first SLICE1_CPU_BATCHES batches, against a card run over the same prefix
+    # the CPU rerun: the epoch's first SLICE1_CPU_BATCHES batches and its last (forward's 848 rows), against a
+    # card run over the same batches
     cpu = torch.device("cpu")
     head = SLICE1_CPU_BATCHES
-    h_acc, h_cm, h_family, h_batch_vals, h_family_batch, h_values, h_family_values, _ = run_slice(dev, batches[:head])
-    cpu_batches = [(p.cpu(), t.cpu()) for p, t in batches[:head]]
+    rerun = batches[:head] + batches[-1:]
+    h_acc, h_cm, h_family, h_batch_vals, h_family_batch, h_values, h_family_values, _ = run_slice(dev, rerun)
+    cpu_batches = [(p.cpu(), t.cpu()) for p, t in rerun]
     c_acc, c_cm, c_family, c_batch_vals, c_family_batch, c_values, c_family_values, cpu_s = run_slice(cpu, cpu_batches)
-    print(f"same slice on the CPU (plain versions), its first {head} batches: {cpu_s * 1e3:.1f} ms")
+    check(int(c_batch_vals[1].sum()) == batches[-1][0].shape[0] == 848, "the CPU rerun's forward did not take the last batch")
+    print(f"same slice on the CPU (plain versions), its first {head} batches and the last: {cpu_s * 1e3:.1f} ms")
     for name in ("tp", "fp", "tn", "fn"):
         a, b = getattr(h_acc, name), getattr(c_acc, name)
         check(a.dtype == b.dtype == torch.int32 and torch.equal(a.cpu(), b), f"Accuracy.{name} differs from the CPU run")
@@ -7114,6 +7206,13 @@ def main() -> int:
     ref_cm = torch.bincount(labels * NUM_CLASSES + scores.argmax(dim=1), minlength=NUM_CLASSES**2)
     ref_cm = ref_cm.reshape(NUM_CLASSES, NUM_CLASSES)
     check(torch.equal(cm.confmat.long(), ref_cm), "confusion matrix differs from the bincount of argmax labels")
+    # the whole epoch's Accuracy counts, exactly: the matrix's diagonal, column and row sums
+    ref_tp = ref_cm.diag()
+    ref_fp, ref_fn = ref_cm.sum(dim=0) - ref_tp, ref_cm.sum(dim=1) - ref_tp
+    for name, want in (("tp", ref_tp), ("fp", ref_fp), ("tn", N_VAL - ref_tp - ref_fp - ref_fn), ("fn", ref_fn)):
+        got = getattr(acc, name)
+        check(got.dtype == torch.int32 and torch.equal(got.long(), want),
+              f"the epoch's Accuracy.{name} differs from the bincount of argmax labels")
     diag = ref_cm.diag().double()
     support = ref_cm.sum(dim=1).double()
     present = (support + ref_cm.sum(dim=0).double() - diag) > 0
@@ -7146,6 +7245,11 @@ def main() -> int:
         fresh = cls(device=dev, **kwargs)
         fresh.load_state_dict(metric.state_dict())
         check(torch.equal(fresh.compute(), metric.compute()), f"{cls.__name__} state_dict round trip changed the value")
+        # the whole epoch's value against the CPU's plain compute of the same states
+        twin = cls(device=cpu, **kwargs)
+        twin.load_state_dict(metric.state_dict())
+        torch.testing.assert_close(metric.compute().cpu(), twin.compute(), rtol=1e-6, atol=0,
+                                   msg=f"the epoch's {cls.__name__} differs from the CPU's compute of its states")
         metric.reset()
         check(metric._update_count == 0 and all(int(getattr(metric, k).abs().sum()) == 0 for k in metric._defaults),
               f"{cls.__name__}.reset left state behind")

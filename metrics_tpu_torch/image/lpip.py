@@ -2,8 +2,8 @@
 
 With ``net=None`` the metric builds the bundled
 :class:`~metrics_tpu_torch.image.lpips_net.LPIPSNet` for ``net_type``
-(``weights_path=`` loads a flax ``.npz``, a ``.pth`` or a pair of ``.pth``
-files: :class:`~metrics_tpu_torch.image.lpips_net.LPIPSNet`); any callable ``(img1, img2) ->
+(``weights_path=`` loads a flax ``.npz`` or a pair of ``.pth`` files:
+:class:`~metrics_tpu_torch.image.lpips_net.LPIPSNet`); any callable ``(img1, img2) ->
 (N,)`` distances may stand in for it. The sums are float32 states; the
 value is differentiable through autograd with respect to the images.
 """
@@ -22,9 +22,8 @@ class LearnedPerceptualImagePatchSimilarity(Metric):
         net: a callable ``(img1, img2) -> (N,)`` distances (an ``nn.Module``
             moves with the metric); it takes precedence over ``net_type``.
         net_type: ``'alex'``, ``'vgg'`` or ``'squeeze'``: the bundled network.
-        weights_path: the bundled network's weights: a flax ``.npz``, a
-            ``.pth`` of its state dict, or a pair of ``.pth`` files
-            (torchvision ``features``, lpips heads).
+        weights_path: the bundled network's weights: a flax ``.npz`` or a
+            pair of ``.pth`` files (torchvision ``features``, lpips heads).
         reduction: ``'mean'`` or ``'sum'`` over the accumulated pairs.
 
     Example:

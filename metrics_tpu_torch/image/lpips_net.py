@@ -13,9 +13,8 @@ indexed as torchvision's ``features`` (``net.0.weight``, ``net.3.squeeze.weight`
 the heads ``lin{i}.model.1.weight``. The JAX package's flat ``.npz`` crosses
 both ways through :meth:`~metrics_tpu_torch.image.inception_net.FlatParams.load_flat`
 and ``flat_params``. PyTorch checkpoints load without the JAX package: a
-torchvision ``features`` state dict and the lpips heads' checkpoint, as a
-pair of ``.pth`` files or merged into one in this module's layout
-(:func:`torch_state_dict`), are checked key by key and shape by shape and
+torchvision ``features`` state dict and the lpips heads' checkpoint, a
+pair of ``.pth`` files, are checked key by key and shape by shape and
 loaded with ``load_state_dict(strict=True)``; :func:`convert_torch_state_dict`
 gives the bytes of ``tools/convert_lpips_weights.py``
 (``tools/torch_convert_lpips_weights.py``); without weights the network takes the seeded init of
@@ -155,20 +154,13 @@ class _LPIPSModule(FlatParams):
         return total.to(torch.promote_types(dt, torch.float32))
 
 
-def torch_state_dict(backbone: Dict[str, Any], lins: Dict[str, Any]) -> Dict[str, Any]:
-    """A torchvision ``features`` state dict (``0.weight``, ``3.squeeze.bias``,
-    ...) and the lpips heads' checkpoint (``lin0.model.1.weight``, ...) as one
-    state dict in this module's layout (the backbone under ``net.``)."""
-    return {**{f"net.{k}": v for k, v in backbone.items()}, **lins}
-
-
 def convert_torch_state_dict(backbone: Dict[str, Any], lins: Dict[str, Any], net_type: str) -> Dict[str, np.ndarray]:
     """The two PyTorch checkpoints as the JAX package's flat tree, byte for
     byte what ``tools/convert_lpips_weights.py`` makes of them (the backbone's
     convolutions in tap order, then the heads), after every key and shape is
     checked against the module (an abort names every difference)."""
     module = _LPIPSModule(net_type)
-    state = torch_state_dict(backbone, lins)
+    state = {**{f"net.{k}": v for k, v in backbone.items()}, **lins}  # the backbone under ``net.``
     module.check_torch_state_dict(state)
     names = module._flax_names()  # flax key -> state name, in the module's (the converter's) order
     return module.torch_to_flat({names[key]: state[names[key]] for key in names})
@@ -177,9 +169,7 @@ def convert_torch_state_dict(backbone: Dict[str, Any], lins: Dict[str, Any], net
 def _load_weights(module: "_LPIPSModule", weights_path: Union[str, Sequence[str]]) -> None:
     if isinstance(weights_path, (list, tuple)):
         backbone, lins = (load_torch(p) for p in weights_path)
-        module.load_torch_state_dict(torch_state_dict(backbone, lins))
-    elif str(weights_path).endswith((".pth", ".pt")):
-        module.load_torch_state_dict(load_torch(weights_path))
+        module.load_torch_state_dict({**{f"net.{k}": v for k, v in backbone.items()}, **lins})
     else:
         module.load_flat(load_params(weights_path))
 
@@ -191,9 +181,8 @@ class LPIPSNet(nn.Module):
     Args:
         net_type: ``'alex'``, ``'vgg'`` or ``'squeeze'``.
         weights_path: a flax ``.npz`` of the network (the JAX package's
-            layout), a ``.pth`` of this module's state dict, or a pair of
-            ``.pth`` files (torchvision ``features``, lpips heads); None takes
-            the seeded init.
+            layout) or a pair of ``.pth`` files (torchvision ``features``,
+            lpips heads); None takes the seeded init.
         dtype: the compute dtype; scores come back in float32 or wider.
     """
 

@@ -2323,8 +2323,9 @@ def test_an_update_the_audit_calls_clean_captures_without_a_sync(card, name):
 
 
 def test_the_audits_findings_raise_on_the_card(card):
-    """AUROC's compute (JX401) reads the card back; SDR's update (JX301, a
-    CUDA solve no graph can hold) does not capture."""
+    """AUROC's compute (JX401) reads the card back: the sync debug mode's
+    error; SDR's update (JX301, a CUDA solve no graph can hold) breaks its
+    capture. Any other error would be a fault, not the finding."""
     from metrics_tpu_torch.analysis import registry as audit_registry
     from metrics_tpu_torch.utilities.checks import tracing
 
@@ -2333,10 +2334,15 @@ def test_the_audits_findings_raise_on_the_card(card):
     auroc = auroc_case.build(card)
     with tracing():
         state = auroc.pure_update(auroc.default_state(), *auroc_case.args(pools))
-    assert _sync_errors(lambda: auroc.pure_compute(state)) is not None
+    err = _sync_errors(lambda: auroc.pure_compute(state))
+    assert isinstance(err, RuntimeError) and "called a synchronizing CUDA operation" in str(err), err
     sdr_case = _audit_case("SignalDistortionRatio")
     engine = sdr_case.build(card)._make_dispatcher()
-    assert _sync_errors(lambda: engine.update({}, (), sdr_case.args(pools), {})) is not None
+    err = _sync_errors(lambda: engine.update({}, (), sdr_case.args(pools), {}))
+    chain = [err]
+    while chain[-1] is not None and len(chain) < 8:  # the error and those it was raised from or in
+        chain.append(chain[-1].__cause__ or chain[-1].__context__)
+    assert any("cudaErrorStreamCaptureInvalidated" in str(e) for e in chain if e is not None), err
 
 
 def test_a_pth_and_its_npz_give_the_same_inception_features_on_the_card(card, tmp_path):

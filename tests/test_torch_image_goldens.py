@@ -258,14 +258,10 @@ def test_the_lpips_converter_writes_the_jax_tools_bytes(net, tmp_path, fixed_zip
     runpy.run_path(str(TOOLS / "torch_convert_lpips_weights.py"), run_name="tool")["main"](args + [ours])
     _jax_tool("convert_lpips_weights").main(args + [theirs])
     assert open(ours, "rb").read() == open(theirs, "rb").read()
-    # the pair, one merged .pth and the .npz load the same weights
+    # the pair and the .npz load the same weights
     pair = LPIPSNet(net, weights_path=paths).net.state_dict()
-    merged_path = str(tmp_path / "merged.pth")
-    torch.save(lpips_net.torch_state_dict(backbone, lins), merged_path)
-    merged = LPIPSNet(net, weights_path=merged_path).net.state_dict()
     npz = LPIPSNet(net, weights_path=ours).net.state_dict()
-    assert all(torch.equal(pair[k], state[k]) and torch.equal(merged[k], state[k]) and torch.equal(npz[k], state[k])
-               for k in state)
+    assert all(torch.equal(pair[k], state[k]) and torch.equal(npz[k], state[k]) for k in state)
 
 
 def test_the_pth_and_its_npz_give_the_same_features(inception_pth, tmp_path):
