@@ -78,6 +78,7 @@ class CostEntry(NamedTuple):
     peak_temp_bytes: float  # bytes a captured program's memory pool keeps
     arg_bytes: float
     out_bytes: float
+    marks: Tuple[Tuple[str, str], ...] = ()  # a captured program's device phase marks, (owner, phase) in order
 
     @property
     def intensity(self) -> float:
@@ -100,8 +101,9 @@ def record(owner: str, family: str, key: Any, program: Any) -> Optional[CostEntr
     ``program`` holds ``launched`` (the registry kernels its capture
     recorded, each ``(name, branch, shape, flops, bytes)``), ``arg_bytes``
     and ``out_bytes`` (its static inputs and one state set read; one state
-    set written) and ``peak_temp_bytes``. Returns ``None`` (and records
-    nothing) for an object without them.
+    set written) and ``peak_temp_bytes``, and may hold ``marks`` (its device
+    phase marks, :mod:`metrics_tpu_torch.ops.marks`). Returns ``None`` (and
+    records nothing) for an object without them.
     """
     try:
         kernels = tuple(program.launched)
@@ -118,6 +120,7 @@ def record(owner: str, family: str, key: Any, program: Any) -> Optional[CostEntr
         peak_temp_bytes=peak_temp,
         arg_bytes=arg_bytes,
         out_bytes=out_bytes,
+        marks=tuple(getattr(program, "marks", ())),
     )
     with _lock:
         _registry[entry.key_id] = entry

@@ -51,7 +51,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch import resilience, sync_engine, telemetry
-from metrics_tpu_torch.dispatch import FastDispatcher, engine_owned, fast_dispatch_enabled
+from metrics_tpu_torch.dispatch import FastDispatcher, engine_owned, fast_dispatch_enabled, launch_kind
 from metrics_tpu_torch.forward_engine import fused_forward_enabled, make_collection_forward_factories, padded_mask
 from metrics_tpu_torch.metric import Metric, _raise_if_list_state, _scan_fold, _split_static_kwargs, aot_cache_stats
 from metrics_tpu_torch.parallel.dist_env import DistEnv, default_env, group_env
@@ -247,14 +247,17 @@ class MetricCollection:
         Across processes the whole collection syncs first, in one bucket pass
         (:meth:`sync_context`); inside a sync the caller holds, it stays synced."""
         already_synced = self._synced_members is not None
-        with self.sync_context(should_sync=not already_synced, should_unsync=not already_synced):
+        with telemetry.profiler_range("metrics_tpu.MetricCollection.compute"), self.sync_context(
+            should_sync=not already_synced, should_unsync=not already_synced
+        ):
             self._compute_groups_create_state_ref()
             res = _flatten_dict({k: m.compute() for k, m in self.items(keep_base=True)})
         return {self._set_name(k): v for k, v in res.items()}
 
     def reset(self) -> None:
-        for m in self._modules.values():
-            m.reset()
+        with telemetry.profiler_range("metrics_tpu.MetricCollection.reset"):
+            for m in self._modules.values():
+                m.reset()
 
     # ---------------------------------------------------------- fused calls
     @property
@@ -409,29 +412,34 @@ class MetricCollection:
             return False  # the kill switch: the eager loop
         if not self._fuse_resilience.allow():
             return False  # cooling down after a failure
-        if not self._fusable(args, kwargs):
-            self._fuse_fallback("update", "unfusable member or non-tensor inputs")
-            return False
-        # members of a group formed by eager updates take their leader's state first
-        self._compute_groups_create_state_ref()
-        snap = self._snapshot_members()
-        try:
-            if self._dispatcher is None:
-                self._dispatcher = self._make_dispatcher()
-            self._dispatcher.update({}, (), args, kwargs)
-            if snap is not None:
-                self._verify_members(snap, "fused-update")
-        except Exception as err:  # noqa: BLE001 -- degrade to the eager loop
-            if snap is not None:
-                self._restore_members(snap)
-            self._fuse_fallback("update", err)
-            return False
-        self._fuse_resilience.note_success()
-        for m in self._modules.values():
-            m._update_count += 1
-            m._computed = None
-            m._forward_cache = None
-            m._bump_version()
+        # the engine call's stages begin here: the checks and the snapshot are its preparation
+        with telemetry.Stages("MetricCollection", "update", launch_kind("MetricCollection")) as stages:
+            if not self._fusable(args, kwargs):
+                self._fuse_fallback("update", "unfusable member or non-tensor inputs")
+                return False
+            # members of a group formed by eager updates take their leader's state first
+            self._compute_groups_create_state_ref()
+            snap = self._snapshot_members()
+
+            def install() -> None:
+                if snap is not None:
+                    self._verify_members(snap, "fused-update")
+                self._fuse_resilience.note_success()
+                for m in self._modules.values():
+                    m._update_count += 1
+                    m._computed = None
+                    m._forward_cache = None
+                    m._bump_version()
+
+            try:
+                if self._dispatcher is None:
+                    self._dispatcher = self._make_dispatcher()
+                self._dispatcher.update({}, (), args, kwargs, stages, install)
+            except Exception as err:  # noqa: BLE001 -- degrade to the eager loop
+                if snap is not None:
+                    self._restore_members(snap)
+                self._fuse_fallback("update", err)
+                return False
         return True
 
     def _fused_forward_impl(

@@ -50,17 +50,32 @@ each replay, so the registry's counts stay the kernels run on the card.
 
 Telemetry (``metrics_tpu/dispatch.py:265-285, 337-350, 392, 409-415,
 460-590``): each update and forward emits one ``update`` or ``forward``
-span (kind ``aot`` for a metric, ``fused-aot`` for a collection), timed on
-the host from the call's staging to its launch, inside a ``torch.profiler``
-range named ``metrics_tpu.<label>.update[<kind>]``
-(:func:`~metrics_tpu_torch.telemetry.profiler_range`); while a session is
-subscribed the span carries the program's cost attributes
+span (kind ``aot`` for a metric, ``fused-aot`` for a collection) over the
+whole call, from the owner's first check to its last bookkeeping (after a
+build: from the build's end). The call runs in four host stages
+(:class:`~metrics_tpu_torch.telemetry.Stages`), ``prepare`` (the owner's
+checks and snapshot, flatten, canonicalize, the key and its lookup),
+``stage`` (:meth:`FastDispatcher._stage`), ``launch`` (``graph.replay()``,
+:func:`~metrics_tpu_torch.ops.registry.note_replay`) and ``install`` (the
+leaves written back, the owner's verification and bookkeeping); the span
+carries each one's µs (``prepare_us`` ...), ``rows`` (the batch's dim-0
+length) and ``bucket`` (the rows the program ran), which feed the
+``update:rows`` and ``update:bucket_rows`` counters. An owner that begins the
+call itself passes its :meth:`FastDispatcher.stages` to ``update``. While a
+``torch.profiler`` records, the call is the range
+``metrics_tpu.<label>.update[<kind>]`` with one child range a stage,
+``metrics_tpu.<label>.update.<stage>``. While a session is subscribed the
+span carries the program's cost attributes
 (:func:`metrics_tpu_torch.analysis.cost_model.launch_attrs`). Each build
 emits one ``compile`` span with its cause, the program's cost entry
 (:func:`~metrics_tpu_torch.analysis.cost_model.record`: its captured
-kernels' terms and its I/O bytes) and, for the causes the static audit
-models, ``predicted``; each eviction one ``evict`` instant. A build runs
-inside :func:`~metrics_tpu_torch.ops.registry.lowering`, so its kernels are
+kernels' terms and its I/O bytes), its device phase marks (``marks``:
+``(owner, phase)`` in graph order, :mod:`metrics_tpu_torch.ops.marks`,
+captured with telemetry on: ``format`` and ``count`` from each member,
+``writeback`` before the copy into the other state set and ``end``) and,
+for the causes the static audit models, ``predicted``; each eviction one
+``evict`` instant. A build runs inside
+:func:`~metrics_tpu_torch.ops.registry.lowering`, so its kernels are
 attributed to the owner. ``scan`` programs emit nothing, as the JAX
 package's ``scan_update`` does not.
 
@@ -85,7 +100,7 @@ from torch import Tensor
 
 from metrics_tpu_torch import faults, telemetry
 from metrics_tpu_torch.analysis import cost_model, hazards
-from metrics_tpu_torch.ops import registry
+from metrics_tpu_torch.ops import marks, registry
 from metrics_tpu_torch.utilities.checks import tracing
 from metrics_tpu_torch.utilities.data import bucket_pow2, pad_axis0
 
@@ -93,6 +108,12 @@ MIN_BUCKET = 8
 
 # every cached graph's state buffers, by id: the tensors a later replay writes in place
 _OWNED: "weakref.WeakValueDictionary[int, Tensor]" = weakref.WeakValueDictionary()
+
+
+def launch_kind(label: str) -> str:
+    """An engine's launch kind in telemetry, the JAX engine's names: ``fused-aot`` for a collection, else
+    ``aot`` (:func:`~metrics_tpu_torch.ops.fused_window_tick` sets ``window-tick`` on its engine)."""
+    return "fused-aot" if label.startswith("MetricCollection") else "aot"
 
 
 def fast_dispatch_enabled() -> bool:
@@ -169,7 +190,7 @@ class _Program:
     """One cache entry: the program, and on the card its graph and buffers."""
 
     __slots__ = ("masked", "body", "graphs", "inputs", "n_valid", "filled_n_valid", "counts", "sets", "values",
-                 "launched", "arg_bytes", "out_bytes", "peak_temp_bytes", "cost")
+                 "launched", "marks", "arg_bytes", "out_bytes", "peak_temp_bytes", "cost")
 
     def __init__(self, masked: bool, body: Callable) -> None:
         self.masked = masked
@@ -179,6 +200,7 @@ class _Program:
         self.sets: Tuple[Tuple[Tensor, ...], ...] = ()
         self.values: List[Any] = []
         self.launched: List[registry.Launch] = []  # the kernel launches of one replay
+        self.marks: Tuple[Tuple[str, str], ...] = ()  # its device phase marks, (owner, phase) in graph order
         self.inputs: List[Tensor] = []
         self.n_valid: Optional[Tensor] = None
         self.filled_n_valid: Optional[int] = None
@@ -231,8 +253,7 @@ class FastDispatcher:
     ) -> None:
         self.label = label
         self._host_only = bool(host_only)
-        # the launch kind in telemetry, the JAX engine's names (fused_window_tick sets "window-tick")
-        self.kind = "fused-aot" if label.startswith("MetricCollection") else "aot"
+        self.kind = launch_kind(label)
         self.device = torch.device(device)
         self._read_leaves = read_leaves
         self._write_leaves = write_leaves
@@ -261,13 +282,25 @@ class FastDispatcher:
         }
 
     # ------------------------------------------------------------ entry points
-    def update(self, static: Dict, static_key: Tuple, args: Tuple, dyn_kwargs: Dict) -> None:
+    def stages(self, family: str) -> telemetry.Stages:
+        """The host stages of one call of ``family``, begun now (in ``prepare``)."""
+        return telemetry.Stages(self.label, family, self.kind)
+
+    def update(self, static: Dict, static_key: Tuple, args: Tuple, dyn_kwargs: Dict,
+               stages: Optional[telemetry.Stages] = None, install: Optional[Callable[[], None]] = None) -> None:
         """One update through a cached program (built on a miss); the new
-        state leaves are installed on the owner."""
-        (out, _), launch = self._call("update", static, static_key, self._read_leaves(), args, dyn_kwargs)
-        self._emit_launch("update", launch, static_key)
-        self.stats["dispatches"] += 1
-        self._write_leaves(faults.maybe_corrupt_leaves(out))
+        state leaves are installed on the owner. ``stages`` are the call's
+        (:meth:`stages`), where the owner began it before this (its own
+        preparation); ``install`` is the owner's part of the install stage,
+        run after the leaves are written. Then the call's span is emitted."""
+        with stages or self.stages("update") as stages:
+            (out, _), launch = self._call("update", static, static_key, self._read_leaves(), args, dyn_kwargs, stages)
+            stages.enter("install")
+            self.stats["dispatches"] += 1
+            self._write_leaves(faults.maybe_corrupt_leaves(out))
+            if install is not None:
+                install()
+            self._emit_launch("update", stages, launch)
 
     def forward(self, counts: Any, static: Dict, static_key: Tuple, args: Tuple, dyn_kwargs: Dict) -> Any:
         """One fused forward (state advance and batch value) through a cached
@@ -276,40 +309,46 @@ class FastDispatcher:
         builds nothing. Returns the batch value, copied out of the graph."""
         if self._factories[("forward", False)] is None:
             raise FastDispatchUnsupported("owner wired no forward program factory")
-        (out, value), launch = self._call("forward", static, static_key, self._read_leaves(), args, dyn_kwargs,
-                                          counts)
-        self.forward_stats["launches"] += 1
-        self.forward_stats["engine_us"] += self._emit_launch("forward", launch, static_key)
-        self._write_leaves(faults.maybe_corrupt_leaves(out))
+        with self.stages("forward") as stages:
+            (out, value), launch = self._call("forward", static, static_key, self._read_leaves(), args, dyn_kwargs,
+                                              stages, counts)
+            stages.enter("install")
+            self.forward_stats["launches"] += 1
+            self._write_leaves(faults.maybe_corrupt_leaves(out))
+            self.forward_stats["engine_us"] += self._emit_launch("forward", stages, launch)
         return value
 
     def scan(self, static: Dict, static_key: Tuple, leaves: Tuple, args: Tuple, dyn_kwargs: Dict) -> Tuple:
         """Fold a stack of batches into ``leaves`` through one cached program
         a (stack, batch) shape; returns new leaves that nothing else holds."""
-        (out, _), _ = self._call("scan", static, static_key, leaves, args, dyn_kwargs)
+        with self.stages("scan") as stages:
+            (out, _), _ = self._call("scan", static, static_key, leaves, args, dyn_kwargs, stages)
         return tuple(x.clone() for x in out) if self.device.type == "cuda" else out
 
-    def _emit_launch(self, family: str, launch: Tuple, static_key: Tuple) -> float:
-        """The launch span of one update or forward (``metrics_tpu/dispatch.py:265-285, 337-350``); returns
-        its host µs. The cost attributes are built only while a session listens."""
-        t0, masked, rows, program = launch
-        dur = (time.perf_counter() - t0) * 1e6
+    def _emit_launch(self, family: str, stages: telemetry.Stages, launch: Tuple) -> float:
+        """The span of one update or forward call (``metrics_tpu/dispatch.py:265-285, 337-350``), its stages
+        closed; returns its host µs. The cost attributes are built only while a session listens."""
+        batch, bucket, program = launch
+        stage_us = stages.close()
+        dur = (time.perf_counter() - stages.t0) * 1e6
         cost = cost_model.launch_attrs(program.cost, dur) if telemetry.subscribed() else {}
-        telemetry.emit(family, self.label, self.kind, t0=t0, dur_us=dur, stream="dispatch" if family == "update"
-                       else "forward", masked=masked, bucket=rows, static_key=static_key or None, **cost)
+        telemetry.emit(family, self.label, self.kind, t0=stages.t0, dur_us=dur,
+                       stream="dispatch" if family == "update" else "forward", rows=batch, bucket=bucket,
+                       **stage_us, **cost)
         return dur
 
     # ------------------------------------------------------------------ core
     def _call(self, family: str, static: Dict, static_key: Tuple, leaves: Tuple, args: Tuple, dyn_kwargs: Dict,
-              counts: Any = None) -> Tuple[Tuple[Tuple, Any], Tuple]:
-        """One call through the cache: ``((new leaves, batch value), launch)``,
-        ``launch`` being ``(t0, masked, bucket, program)`` for its span."""
+              stages: telemetry.Stages, counts: Any = None) -> Tuple[Tuple[Tuple, Any], Tuple]:
+        """One call through the cache, moving ``stages`` on from ``prepare``:
+        ``((new leaves, batch value), launch)``, ``launch`` being ``(rows,
+        bucket, program)`` for its span (the batch's dim-0 length and the
+        rows the program ran, None without a uniform batch)."""
         if self._host_only:
             raise FastDispatchUnsupported(
                 f"{self.label} is host_only: its update runs host-side code"
                 " (strings/tokenizers/native libraries) the engine cannot trace"
             )
-        t0 = time.perf_counter()
         flat, layout = _flatten((args, dyn_kwargs))
         flat = [self._canonicalize(x) for x in flat]
         batch = self._uniform_batch(flat)
@@ -346,30 +385,34 @@ class FastDispatcher:
                 program.cost = cost_model.record(self.label, family, key, program)
                 predicted = hazards.predicted(self.label, cause)
                 telemetry.emit("compile", self.label, self.kind, t0=t_build,
-                               stream="dispatch" if family == "update" else "forward", cause=cause, masked=masked,
-                               static_key=static_key or None, **cost_model.compile_attrs(program.cost),
+                               stream="dispatch" if family == "update" else "forward", cause=cause,
+                               **cost_model.compile_attrs(program.cost),
+                               **({"marks": program.marks} if program.marks else {}),
                                **({} if predicted is None else {"predicted": predicted}))
             if family == "update":
                 self.stats["retraces"] += 1
             elif family == "forward":
                 self.forward_stats["retraces"] += 1
             self._cache_put(key, program)
-            t0 = time.perf_counter()  # the launch span starts after the build, as the JAX engine's after its compile
+            stages.restart()  # the call's span starts after the build, as the JAX engine's after its compile
         else:
             self._cache.move_to_end(key)
         faults.check("launch", self.label)
-        with telemetry.profiler_range(f"metrics_tpu.{self.label}.{family}[{self.kind}]"):
-            if served is not None:
-                out = served
-            elif not program.graphs:
-                out = self._run_direct(program, leaves, flat, batch, rows, count_values)
-            else:
-                src = self._stage(program, leaves, flat, batch, count_values)
-                program.graphs[src].replay()
-                registry.note_replay(program.launched)
-                out = program.sets[1 - src], copy_tensors(program.values[src])
+        if served is not None:
+            out = served
+        elif not program.graphs:
+            stages.enter("launch")
+            out = self._run_direct(program, leaves, flat, batch, rows, count_values)
+        else:
+            stages.enter("stage")
+            src = self._stage(program, leaves, flat, batch, count_values)
+            stages.enter("launch")
+            program.graphs[src].replay()
+            registry.note_replay(program.launched)
+            stages.enter("install")
+            out = program.sets[1 - src], copy_tensors(program.values[src])
         self._last_out = (out[0], leaf_avals)
-        return out, (t0, masked, rows, program)
+        return out, (batch, rows if masked else batch, program)
 
     def _leaf_avals(self, leaves: Tuple) -> Tuple:
         """The leaves' shapes and dtypes, read off the last call's output where
@@ -432,7 +475,9 @@ class FastDispatcher:
         def run(src: int) -> Any:
             new, value = body(program.n_valid, counts, program.sets[src], program.inputs)
             self._check_layout(new, leaves)
+            marks.mark("writeback", self.label)
             torch._foreach_copy_(list(program.sets[1 - src]), list(new))  # a few kernels, not one copy a leaf
+            marks.mark("end", self.label)
             return value
 
         # the warm-up: PyTorch's side-stream run before a capture, which also serves this call
@@ -459,13 +504,14 @@ class FastDispatcher:
         try:
             for src in (0, 1):  # a capture runs nothing: set B keeps the warm-up's result
                 graph = torch.cuda.CUDAGraph()
-                with registry.recording() as launched, tracing(), torch.cuda.graph(graph, pool=self._pool):
+                with registry.recording() as launched, marks.recording(dev) as marked, tracing(), \
+                        torch.cuda.graph(graph, pool=self._pool):
                     program.values.append(run(src))
                 graphs.append(graph)
         finally:
             if collecting:
                 gc.enable()
-        program.graphs, program.launched = tuple(graphs), launched
+        program.graphs, program.launched, program.marks = tuple(graphs), launched, tuple(marked)
         program.peak_temp_bytes = max(0, torch.cuda.memory_stats(dev).get("allocated_bytes.all.current", 0) - allocated)
         return program, (program.sets[1], served_value)
 
@@ -535,7 +581,7 @@ class FastDispatcher:
             for buf in (b for bufs in evicted.sets for b in bufs):
                 _OWNED.pop(id(buf), None)
             self.stats["evictions"] = self.stats.get("evictions", 0) + 1
-            telemetry.emit("evict", self.label, self.kind, stream="dispatch")
+            telemetry.emit("evict", self.label, self.kind)
 
     def _retrace_cause(self, family: str, static_key: Tuple, avals: List[Tuple]) -> str:
         """Why this miss builds a program: the first part of the key (static

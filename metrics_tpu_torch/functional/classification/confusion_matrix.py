@@ -10,7 +10,7 @@ from typing import Optional
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.ops import confusion_matrix_counts
+from metrics_tpu_torch.ops import confusion_matrix_counts, marks
 from metrics_tpu_torch.utilities.checks import _input_format_classification, _is_floating, _is_traced
 from metrics_tpu_torch.utilities.data import _bincount
 from metrics_tpu_torch.utilities.enums import DataType
@@ -45,6 +45,7 @@ def _confusion_matrix_update(
         unique_mapping = target.reshape(-1) * num_classes + preds.reshape(-1)
         minlength = num_classes**2
 
+    marks.mark("count")  # a captured program's phase mark: formatting ends, counting begins
     bins = _bincount(unique_mapping, minlength=minlength)
     if multilabel:
         return bins.reshape(num_classes, 2, 2)
@@ -57,9 +58,9 @@ def _confusion_matrix_update_matmul(
     """Confusion matrix of one batch by the ``confusion_matrix`` kernel
     (the same counts as :func:`_confusion_matrix_update`)."""
     preds, target = _canonicalize_confmat_labels(preds, target, num_classes, threshold)
-    return confusion_matrix_counts(
-        target.reshape(-1).to(torch.int32), preds.reshape(-1).to(torch.int32), num_classes
-    )
+    target_cls, pred_cls = target.reshape(-1).to(torch.int32), preds.reshape(-1).to(torch.int32)
+    marks.mark("count")  # a captured program's phase mark: formatting ends, counting begins
+    return confusion_matrix_counts(target_cls, pred_cls, num_classes)
 
 
 def _confusion_matrix_compute(confmat: Tensor, normalize: Optional[str] = None) -> Tensor:

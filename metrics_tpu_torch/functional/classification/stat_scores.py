@@ -16,7 +16,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.ops import stat_scores_counts, stat_scores_counts_sessions
+from metrics_tpu_torch.ops import marks, stat_scores_counts, stat_scores_counts_sessions
 from metrics_tpu_torch.utilities.checks import (
     _check_classification_inputs,
     _input_format_classification,
@@ -91,6 +91,7 @@ def _stat_scores(
     elif reduce == "macro":
         dim = 0 if preds.ndim == 2 else 2
 
+    marks.mark("count")  # a captured program's phase mark: formatting ends, counting begins
     true_pred, false_pred = target == preds, target != preds
     pos_pred, neg_pred = preds == 1, preds == 0
 
@@ -164,6 +165,7 @@ def _fast_multiclass_stat_scores(
     num_rows, num_classes = preds.shape[-2:]
     pred_cls = _predicted_classes(preds)
     target_cls = target.to(torch.int32).contiguous()
+    marks.mark("count")  # a captured program's phase mark: formatting ends, counting begins
     correct = pred_cls == target_cls
 
     if sample_mask is not None:

@@ -71,6 +71,7 @@ from torch import Tensor
 
 from metrics_tpu_torch import forward_engine, resilience, sync_engine, telemetry
 from metrics_tpu_torch.dispatch import FastDispatcher, copy_tensors, engine_owned, fast_dispatch_enabled
+from metrics_tpu_torch.ops import marks
 from metrics_tpu_torch.parallel.dist_env import DistEnv, ProcessEnv, default_env, group_env
 from metrics_tpu_torch.utilities.checks import tracing
 from metrics_tpu_torch.utilities.checksums import attach_checksums, verify_checksums
@@ -402,6 +403,7 @@ class Metric(ABC):
         saved = self._copy_state()
         try:
             self._load_state(state)
+            marks.mark("format", type(self).__name__)  # a captured program's phase mark: this member's update
             self._update_impl(*args, **kwargs)
             return self._copy_state()
         finally:
@@ -428,6 +430,7 @@ class Metric(ABC):
         saved = self._copy_state()
         try:
             self._load_state(state)
+            marks.mark("format", type(self).__name__)
             self._masked_update(sample_mask, *args, **kwargs)
             return self._copy_state()
         finally:
@@ -762,24 +765,28 @@ class Metric(ABC):
         cooling down or failed (the state then as before the call)."""
         if not fast_dispatch_enabled() or not self._dispatch_resilience.allow():
             return False
-        call_args, static, dynamic, key = self._split_update_args(args, kwargs)
-        # the counters already moved, and the eager path serves a failed call: leaves only
-        snap = resilience.snapshot_state(self, counters=False) if resilience.resilience_enabled() else None
-        try:
-            if self._dispatcher is None:
-                self._dispatcher = self._make_dispatcher()
-            self._dispatcher.update(static, key, call_args, dynamic)
-            if snap is not None and resilience.verify_after_call():
-                resilience.verify_engine_state(self, snap, where="update")
-            self._dispatch_resilience.note_success()
-            return True
-        except Exception as err:  # noqa: BLE001 -- degrade to the eager path (cooldown; permanent if unsupported)
-            if snap is not None:
-                resilience.restore_state(self, snap)
-            resilience.record_degrade(type(self).__name__, "dispatch", err, self._dispatch_resilience)
-            if self._dispatch_resilience.permanent:
-                self._dispatcher = None
-            return False
+        if self._dispatcher is None:
+            self._dispatcher = self._make_dispatcher()
+        with self._dispatcher.stages("update") as stages:
+            call_args, static, dynamic, key = self._split_update_args(args, kwargs)
+            # the counters already moved, and the eager path serves a failed call: leaves only
+            snap = resilience.snapshot_state(self, counters=False) if resilience.resilience_enabled() else None
+
+            def install() -> None:
+                if snap is not None and resilience.verify_after_call():
+                    resilience.verify_engine_state(self, snap, where="update")
+                self._dispatch_resilience.note_success()
+
+            try:
+                self._dispatcher.update(static, key, call_args, dynamic, stages, install)
+                return True
+            except Exception as err:  # noqa: BLE001 -- degrade to the eager path (cooldown; permanent if unsupported)
+                if snap is not None:
+                    resilience.restore_state(self, snap)
+                resilience.record_degrade(type(self).__name__, "dispatch", err, self._dispatch_resilience)
+                if self._dispatch_resilience.permanent:
+                    self._dispatcher = None
+                return False
 
     def _make_dispatcher(self) -> FastDispatcher:
         """This metric's fast-dispatch engine (``metrics_tpu/metric.py:854``)."""
@@ -1150,15 +1157,17 @@ class Metric(ABC):
 
     def reset(self) -> None:
         """Restore all states to their defaults."""
-        telemetry.emit("reset", type(self).__name__, "metric")
-        self._update_count = 0
-        self._forward_cache = None
-        self._computed = None
-        self._bump_version()
-        for attr, default in self.default_state().items():
-            object.__setattr__(self, attr, default)
-        self._cache = None
-        self._is_synced = False
+        name = type(self).__name__
+        telemetry.emit("reset", name, "metric")
+        with telemetry.profiler_range(f"metrics_tpu.{name}.reset"):
+            self._update_count = 0
+            self._forward_cache = None
+            self._computed = None
+            self._bump_version()
+            for attr, default in self.default_state().items():
+                object.__setattr__(self, attr, default)
+            self._cache = None
+            self._is_synced = False
 
     def _reset_preserving(self, prefix: str) -> None:
         """Base reset, then restore every state whose name starts with

@@ -74,9 +74,21 @@ checkpoint one serving checkpoint written (crc32 checksums attached)
 gauge      one health (queue depth, inflight, sessions, free rows) and one
            memory (state bytes, top leaves) reading a flush, while a
            session listens
-retire     one inflight generation retired on the serving path (the JAX
-           package's name; neither service emits it at present)
 ========== ============================================================
+
+An engine's ``update`` and ``forward`` span (:mod:`metrics_tpu_torch.dispatch`)
+covers the whole call, the owner's own part included (a collection's
+fusability check, snapshot and member bookkeeping), and carries its four
+host stages as attributes, each one ``perf_counter()`` read
+(:class:`Stages`): ``prepare_us`` (fusability, snapshot, flatten,
+canonicalize, the program's key and lookup), ``stage_us`` (the copies into
+the graph's static inputs and the row-count and merge-count fills),
+``launch_us`` (``graph.replay()``: where a full command buffer blocks the
+host) and ``install_us`` (the leaves written back, verification, the
+owner's bookkeeping); the call's host work is its duration less
+``launch_us``. It also carries ``rows``, the batch's true dim-0 length, and
+``bucket``, the rows the program ran (the padded bucket of a masked
+program, else ``rows``).
 
 The serving service's launches are ``update`` spans of kind ``stacked-aot``
 (one a flush and signature: a CUDA graph replay on the card) with the
@@ -96,9 +108,12 @@ tensor. Two tiers consume them:
 
 * **Always-on counters.** Every emit bumps a process-level counter keyed
   ``"<name>:<kind>"`` (plus ``"collective:bytes"``,
-  ``"compile:cause:<cause>"``, ``"degrade:cause:<cause>"`` and the
+  ``"compile:cause:<cause>"``, ``"degrade:cause:<cause>"``, the
   integer-microdollar ``"billing:microusd"``, which only serving spans
-  feed): read with :func:`snapshot`, clear with :func:`reset_counters`.
+  feed, and the port's own ``"update:rows"`` and ``"update:bucket_rows"``,
+  summed from the engine ``update`` spans' ``rows`` and ``bucket``, whose
+  ratio is the engine's useful share of the rows it ran): read with
+  :func:`snapshot`, clear with :func:`reset_counters`.
 * **Always-on timeline.** Every timed span also feeds a per-``(family,
   owner)`` latency and throughput aggregate: a
   :class:`~metrics_tpu_torch.streaming.sketch.HostQuantileSketch` of span µs
@@ -109,15 +124,30 @@ tensor. Two tiers consume them:
   captures every event with its timestamps; export with
   :meth:`TelemetrySession.export_chrome_trace` (Perfetto,
   ``chrome://tracing``) or :meth:`TelemetrySession.export_jsonl` (replay
-  with ``tools/trace_report.py``). Sessions nest.
+  with ``tools/trace_report.py``). Sessions nest. A session records, when
+  it opens, the offset from the stream's clock to the ``torch.profiler``'s
+  (Unix-epoch µs, :func:`profiler_clock_offset_us`): the Chrome export
+  carries it as ``otherData.stream_offset_us``, and the JSON-lines export
+  gives each event its ``profiler_ts_us`` beside ``ts_us``, so that either
+  lines up with a profiler trace taken in the same process.
 
 The ``profiling.track_*`` trackers are subscribers of this stream
 (:mod:`metrics_tpu_torch.profiling`).
 
+While a ``torch.profiler`` records, the program also opens
+``record_function`` ranges (:func:`profiler_range`): an engine call's
+``metrics_tpu.<label>.update[<kind>]`` (``forward[...]``, ``scan[...]``)
+over the whole call, with one child range a stage,
+``metrics_tpu.<label>.update.<stage>``; a metric's ``compute`` and
+``reset``; a collection's ``metrics_tpu.MetricCollection.compute`` and
+``.reset``. Inside a captured engine program the device marks of
+:mod:`metrics_tpu_torch.ops.marks` split the replay's device time by phase.
+
 ``METRICS_TPU_TELEMETRY=0`` (or ``false``/``off``) turns the whole engine
-off: no counters, no events, no tracker records, no kernel cost entries. The per-owner stats
-(``Metric.dispatch_stats`` and the others) are counted at the call sites
-and stay live regardless.
+off: no counters, no events, no tracker records, no kernel cost entries,
+no profiler ranges and no device marks in graphs captured then. The
+per-owner stats (``Metric.dispatch_stats`` and the others) are counted at
+the call sites and stay live regardless.
 """
 import contextlib
 import json
@@ -149,6 +179,8 @@ __all__ = [
     "export_chrome_trace",
     "export_jsonl",
     "profiler_range",
+    "profiler_clock_offset_us",
+    "Stages",
 ]
 
 # all timestamps are µs since this process-level epoch (perf_counter is
@@ -193,8 +225,8 @@ class TelemetryEvent(NamedTuple):
         dur_us: wall duration in µs (0.0 for instants and for spans whose
             start predates the first subscriber).
         tid: emitting thread id (Chrome-trace lane).
-        attrs: structured payload — ``nbytes``, ``bucket``, ``masked``,
-            ``static_key``, ``cause``, ``stream``, ``dtypes``, ...
+        attrs: structured payload — ``nbytes``, ``rows``, ``bucket``,
+            ``cause``, ``stream``, ``dtypes``, ...
     """
 
     name: str
@@ -420,6 +452,10 @@ def emit(
             _counters[f"degrade:cause:{cause}"] = _counters.get(f"degrade:cause:{cause}", 0) + 1
         elif name == "journal" and kind == "append":
             _counters["journal:bytes"] = _counters.get("journal:bytes", 0) + attrs.get("nbytes", 0)
+        elif name == "update" and attrs.get("rows") is not None:
+            # the engine's rows against the rows its program ran: the padding's share
+            _counters["update:rows"] = _counters.get("update:rows", 0) + attrs["rows"]
+            _counters["update:bucket_rows"] = _counters.get("update:bucket_rows", 0) + attrs["bucket"]
         elif name == "request" and "cost_microusd" in attrs:
             # dollar attribution rides the always-on counters as integer
             # microdollars (exact under summation; absent entirely when
@@ -462,22 +498,103 @@ def span(name: str, owner: str, kind: str = "", **attrs: Any) -> Generator[None,
         emit(name, owner, kind, t0=t0, **attrs)
 
 
+def _profiling() -> bool:
+    return torch._C._autograd._profiler_enabled() and telemetry_enabled()
+
+
 def profiler_range(name: str) -> ContextManager:
     """A ``torch.profiler.record_function`` range named ``name`` while a
-    profiler records, else a no-op context: the counterpart of the JAX
-    package's ``profiler_annotation`` (``metrics_tpu/_compat.py:66``), which
-    costs nothing outside a trace. Engine launches and ``compute`` wrap
-    themselves in one, so a profiler's trace lines up with this stream."""
-    if torch._C._autograd._profiler_enabled():
+    profiler records (and telemetry is on), else a no-op context: the
+    counterpart of the JAX package's ``profiler_annotation``
+    (``metrics_tpu/_compat.py:66``), which costs nothing outside a trace.
+    Engine calls, ``compute`` and ``reset`` wrap themselves in one, so a
+    profiler's trace lines up with this stream."""
+    if _profiling():
         return torch.profiler.record_function(name)
     return contextlib.nullcontext()
+
+
+STAGES = ("prepare", "stage", "launch", "install")
+
+
+class Stages:
+    """The host stages of one engine call (:data:`STAGES`, in order), one
+    ``perf_counter()`` read a boundary; while a profiler records, also its
+    ranges: ``metrics_tpu.<label>.<family>[<kind>]`` over the whole call and
+    ``metrics_tpu.<label>.<family>.<stage>`` inside it, one a stage.
+
+    The call begins in ``prepare``; :meth:`enter` moves it on (a stage the
+    call skips reads 0), :meth:`restart` starts its clock again after a
+    program build (the span, as the JAX engine's, starts after the compile),
+    and :meth:`close` ends it: it closes the ranges and returns the stages'
+    µs as ``{"<stage>_us": ...}``; leaving a ``with`` block closes it too.
+    ``t0`` is the call's start, for its span.
+    """
+
+    __slots__ = ("t0", "_t", "_i", "_us", "_prefix", "_ranges")
+
+    def __init__(self, label: str, family: str, kind: str) -> None:
+        self.t0 = self._t = time.perf_counter()
+        self._i = 0
+        self._us = [0.0] * len(STAGES)
+        self._ranges: Optional[List[Any]] = None
+        if _profiling():
+            self._prefix = f"metrics_tpu.{label}.{family}"
+            self._ranges = [torch.profiler.record_function(f"{self._prefix}[{kind}]").__enter__(),
+                            torch.profiler.record_function(f"{self._prefix}.{STAGES[0]}").__enter__()]
+
+    def enter(self, stage: str) -> None:
+        i = STAGES.index(stage)
+        if i == self._i or self._i < 0:  # already there, or closed
+            return
+        t = time.perf_counter()
+        self._us[self._i] += (t - self._t) * 1e6
+        self._t, self._i = t, i
+        if self._ranges:
+            self._ranges.pop().__exit__(None, None, None)
+            self._ranges.append(torch.profiler.record_function(f"{self._prefix}.{stage}").__enter__())
+
+    def __enter__(self) -> "Stages":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()
+
+    def restart(self) -> None:
+        self.t0 = self._t = time.perf_counter()
+        self._us = [0.0] * len(STAGES)
+
+    def close(self) -> Dict[str, float]:
+        """End the call (once; a second close returns the same stages)."""
+        if self._i >= 0:
+            self._us[self._i] += (time.perf_counter() - self._t) * 1e6
+            self._i = -1
+            while self._ranges:
+                self._ranges.pop().__exit__(None, None, None)
+        return {f"{stage}_us": us for stage, us in zip(STAGES, self._us)}
+
+
+def profiler_clock_offset_us() -> float:
+    """µs to add to a stream time (``ts_us``) to put it on the clock of the
+    ``torch.profiler``'s events: Unix-epoch µs (an event's start is the
+    trace's ``trace_start_ns()`` plus its ``time_range.start``). Read as the
+    tightest of a few paired reads of ``perf_counter`` and ``time_ns``."""
+    best = (float("inf"), 0.0)
+    for _ in range(5):
+        a = time.perf_counter()
+        wall = time.time_ns()
+        b = time.perf_counter()
+        if b - a < best[0]:
+            best = (b - a, wall / 1e3 - ((a + b) / 2 - _EPOCH) * 1e6)
+    return best[1]
 
 
 # ----------------------------------------------------------------- counters
 def snapshot() -> Dict[str, float]:
     """Copy of the process-level counters (``"<name>:<kind>"`` keys, plus
-    ``"collective:bytes"``, ``"compile:cause:<cause>"`` and
-    ``"degrade:cause:<cause>"``)."""
+    ``"collective:bytes"``, ``"compile:cause:<cause>"``,
+    ``"degrade:cause:<cause>"``, ``"update:rows"`` and
+    ``"update:bucket_rows"``)."""
     with _lock:
         return dict(_counters)
 
@@ -500,6 +617,8 @@ class TelemetrySession:
     def __init__(self) -> None:
         self.events: List[TelemetryEvent] = []
         self._session_lock = threading.Lock()
+        # µs from the stream's clock to the torch.profiler's, taken as the session opens
+        self.profiler_offset_us = profiler_clock_offset_us()
 
     def _record(self, event: TelemetryEvent) -> None:
         with self._session_lock:
@@ -540,10 +659,10 @@ class TelemetrySession:
 
     # ------------------------------------------------------------- exporters
     def export_chrome_trace(self, path: str) -> None:
-        export_chrome_trace(self.spans(), path)
+        export_chrome_trace(self.spans(), path, self.profiler_offset_us)
 
     def export_jsonl(self, path: str) -> None:
-        export_jsonl(self.spans(), path)
+        export_jsonl(self.spans(), path, self.profiler_offset_us)
 
 
 @contextmanager
@@ -574,9 +693,12 @@ def _jsonable(value: Any) -> Any:
     return str(value)
 
 
-def export_jsonl(events: Iterable[TelemetryEvent], path: str) -> None:
+def export_jsonl(events: Iterable[TelemetryEvent], path: str, offset_us: Optional[float] = None) -> None:
     """One JSON object per line per event — the ``tools/trace_report.py``
-    interchange format."""
+    interchange format — with ``profiler_ts_us``, the start on the
+    ``torch.profiler``'s clock (``ts_us`` plus ``offset_us``, by default
+    :func:`profiler_clock_offset_us` now)."""
+    offset = profiler_clock_offset_us() if offset_us is None else offset_us
     with open(path, "w") as f:
         for e in events:
             f.write(
@@ -586,6 +708,7 @@ def export_jsonl(events: Iterable[TelemetryEvent], path: str) -> None:
                         "owner": e.owner,
                         "kind": e.kind,
                         "ts_us": round(e.ts_us, 3),
+                        "profiler_ts_us": round(e.ts_us + offset, 3),
                         "dur_us": round(e.dur_us, 3),
                         "tid": e.tid,
                         "attrs": _jsonable(e.attrs),
@@ -595,11 +718,16 @@ def export_jsonl(events: Iterable[TelemetryEvent], path: str) -> None:
             )
 
 
-def export_chrome_trace(events: Iterable[TelemetryEvent], path: str) -> None:
+def export_chrome_trace(events: Iterable[TelemetryEvent], path: str, offset_us: Optional[float] = None) -> None:
     """Chrome trace-event JSON (the ``traceEvents`` array form) — open in
     Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``. Timed spans
     become complete (``ph="X"``) events; zero-duration events become
-    instants (``ph="i"``).
+    instants (``ph="i"``). ``ts`` is the stream's µs (exact to the ns);
+    ``otherData.stream_offset_us`` (``offset_us``, by default
+    :func:`profiler_clock_offset_us` now) puts it on the
+    ``torch.profiler``'s clock, Unix-epoch µs, where a float no longer
+    holds the ns, so that the file lines up with a profiler trace of the
+    process.
 
     Two extra record families make the trace readable as a story rather
     than a pile of slices:
@@ -615,6 +743,7 @@ def export_chrome_trace(events: Iterable[TelemetryEvent], path: str) -> None:
       through the stacked launch to the retirement slice."""
     pid = os.getpid()
     events = list(events)
+    offset = profiler_clock_offset_us() if offset_us is None else offset_us
     trace: List[Dict[str, Any]] = [
         {"ph": "M", "pid": pid, "tid": 0, "name": "process_name",
          "args": {"name": "metrics_tpu_torch"}},
@@ -644,7 +773,7 @@ def export_chrome_trace(events: Iterable[TelemetryEvent], path: str) -> None:
         if e.name == "request" and "rid" in e.attrs:
             trace.extend(_request_flow(e, pid))
     with open(path, "w") as f:
-        json.dump({"traceEvents": trace, "displayTimeUnit": "ms"}, f)
+        json.dump({"traceEvents": trace, "displayTimeUnit": "ms", "otherData": {"stream_offset_us": offset}}, f)
 
 
 def _request_flow(e: TelemetryEvent, pid: int) -> List[Dict[str, Any]]:

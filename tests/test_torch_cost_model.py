@@ -89,7 +89,8 @@ def test_record_static_keys_and_registry_as_in_jax():
     cost_model.reset()
     e = cost_model.record_static("ops.stat_scores", "kernel", (1024, 1000, "int32"), flops=3.0, bytes_accessed=5.0)
     j = jax_cost_model.record_static("ops.stat_scores", "kernel", (1024, 1000, "int32"), flops=3.0, bytes_accessed=5.0)
-    assert tuple(e) == tuple(j)
+    # the port's entry ends with one field more, its program's device phase marks: none for a static entry
+    assert tuple(e)[:len(j)] == tuple(j) and e.marks == ()
     assert cost_model.lookup(e.key_id) is e and cost_model.entries() == {e.key_id: e}
     cost_model.reset()
     assert cost_model.entries() == {}

@@ -2359,3 +2359,74 @@ def test_a_pth_and_its_npz_give_the_same_inception_features_on_the_card(card, tm
     a = inception_net.InceptionV3FeatureExtractor(weights_path=pth).to(card)(images)
     b = inception_net.InceptionV3FeatureExtractor(weights_path=npz).to(card)(images)
     assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ device phase marks
+MARKS_C = 20
+
+
+def _segmentation_collection(card):
+    return metrics_tpu_torch.MetricCollection(
+        [metrics_tpu_torch.JaccardIndex(num_classes=MARKS_C, ignore_index=MARKS_C - 1, update_method="matmul",
+                                        jit_update=True, device=card),
+         metrics_tpu_torch.Accuracy(num_classes=MARKS_C, ignore_index=MARKS_C - 1, mdmc_average="global",
+                                    jit_update=True, device=card)],
+        fused_update=True, compute_groups=True)
+
+
+def _segmentation_batches(card, n=4):
+    g = torch.Generator(device=card).manual_seed(90)
+    return [(torch.rand(4, MARKS_C, 64, 128, generator=g, device=card),
+             torch.randint(0, MARKS_C, (4, 64, 128), generator=g, device=card)) for _ in range(n)]
+
+
+def _marked_phases(card, fn):
+    """The phases of the phase-mark kernels a profiled ``fn`` ran on the card, in device order; the
+    profiler may lose device activities, so an empty capture is taken again (three in all)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(card)
+        kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                         if str(e.device_type).endswith("CUDA") and not e.is_user_annotation)
+        if kernels:
+            return [name.split("phase_mark_", 1)[1].split("(", 1)[0] for _, name in kernels if "phase_mark_" in name]
+    pytest.fail("no device activity in three profiler captures")
+
+
+def test_a_profiled_replay_shows_each_members_phase_marks_in_order(card):
+    from metrics_tpu_torch import telemetry
+
+    mc, batches = _segmentation_collection(card), _segmentation_batches(card)
+    with telemetry.instrument() as session:
+        for b in batches[:2]:
+            mc.update(*b)
+    (build,) = session.spans(name="compile")
+    assert build.attrs["marks"] == (("JaccardIndex", "format"), ("JaccardIndex", "count"), ("Accuracy", "format"),
+                                    ("Accuracy", "count"), ("MetricCollection", "writeback"),
+                                    ("MetricCollection", "end"))
+    assert _marked_phases(card, lambda: mc.update(*batches[2])) == [
+        "format", "count", "format", "count", "writeback", "end"]
+    eager = metrics_tpu_torch.Accuracy(num_classes=MARKS_C, ignore_index=MARKS_C - 1, mdmc_average="global",
+                                       device=card)
+    assert _marked_phases(card, lambda: eager.update(*batches[3])) == []  # an eager call places none
+
+
+def test_marked_graphs_count_what_unmarked_graphs_count_bit_for_bit(card, monkeypatch):
+    batches = _segmentation_batches(card)
+    results = []
+    for switch in ("1", "0"):  # marks captured, then none: METRICS_TPU_TELEMETRY is read at the capture
+        monkeypatch.setenv("METRICS_TPU_TELEMETRY", switch)
+        mc = _segmentation_collection(card)
+        for b in batches:
+            mc.update(*b)
+        values = mc.compute()
+        results.append((mc["JaccardIndex"].confmat.clone(), {k: v.clone() for k, v in values.items()}))
+        assert mc.dispatch_stats["demotions"] == 0
+        want = ["format", "count", "format", "count", "writeback", "end"] if switch == "1" else []
+        assert _marked_phases(card, lambda: mc.update(*batches[0])) == want
+    (marked_cm, marked), (plain_cm, plain) = results
+    assert torch.equal(marked_cm, plain_cm) and int(marked_cm.sum()) > 0
+    assert marked.keys() == plain.keys() and all(torch.equal(marked[k], plain[k]) for k in marked)

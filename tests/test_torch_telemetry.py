@@ -4,7 +4,8 @@ The same numpy inputs, made from a seed, go through both packages in one
 process, each inside its own ``telemetry.instrument()``. For every case the
 multiset of ``(name, owner, kind)`` events and the session's
 ``retrace_causes()`` must be equal, and so must the always-on counters
-(``snapshot()``, cleared before the case). Both sessions' JSON-lines exports
+(``snapshot()``, cleared before the case), but for the port's own
+``update:rows`` and ``update:bucket_rows``. Both sessions' JSON-lines exports
 are read back by ``tools/trace_report.py`` (``load_events``/``summarize``)
 and their launch and retrace sections must be equal once the µs columns are
 stripped. Counts, keys, causes and integer bytes are exact; no µs value is
@@ -19,6 +20,7 @@ import collections
 import contextlib
 import importlib.util
 import json
+import statistics
 import sys
 import threading
 import warnings
@@ -39,6 +41,8 @@ from metrics_tpu.parallel.dist_env import NoOpEnv as JaxNoOp
 import metrics_tpu.streaming as jax_streaming
 from metrics_tpu.streaming.sketch import HostQuantileSketch as JaxHostQuantileSketch
 from metrics_tpu_torch import Metric, faults, profiling, streaming, telemetry
+from metrics_tpu_torch.analysis import cost_model
+from metrics_tpu_torch.ops import marks
 from metrics_tpu_torch.parallel import NoOpEnv
 from metrics_tpu_torch.streaming import HostQuantileSketch
 
@@ -276,11 +280,15 @@ def test_event_stream_equals_jax(case):
     assert session.retrace_causes() == jax_session.retrace_causes()
 
 
+# the port's own counters, summed from its engine spans' rows and bucket: the JAX package has none
+PORT_COUNTERS = ("update:rows", "update:bucket_rows")
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_counters_equal_jax(case):
     _both(CASES[case])
     jax_counts, counts = jax_telemetry.snapshot(), telemetry.snapshot()
-    assert counts == jax_counts
+    assert {k: v for k, v in counts.items() if k not in PORT_COUNTERS} == jax_counts
     assert counts.get("collective:bytes", 0) == jax_counts.get("collective:bytes", 0)
 
 
@@ -616,3 +624,136 @@ def test_an_idle_stream_adds_no_window_read():
     assert sorted(e.owner for e in ticks) == ["SlidingWindow"] * 3 + ["TumblingWindow"] * 3
     (read,) = session.spans(name="window", kind="compute")
     assert read.attrs["live"] == 3 and telemetry.snapshot()["window:compute"] == 1
+
+
+# ------------------------------------------------------------------ the engine's stages, rows and marks
+STAGE_ATTRS = ("prepare_us", "stage_us", "launch_us", "install_us")
+
+
+def _segmentation_members(**kw):
+    return [metrics_tpu_torch.JaccardIndex(num_classes=C, ignore_index=C - 1, update_method="matmul", **kw),
+            metrics_tpu_torch.Accuracy(num_classes=C, ignore_index=C - 1, mdmc_average="global", **kw)]
+
+
+def _segmentation_batch(rng, images):
+    return (_torch(rng.rand(images, C, 4, 6).astype(np.float32)),
+            _torch(rng.randint(0, C, (images, 4, 6)).astype(np.int64)))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["metric", "collection"])
+def test_engine_spans_carry_their_stages_without_a_profiler(fused):
+    rng = np.random.RandomState(20)
+    if fused:
+        owner = metrics_tpu_torch.MetricCollection(_segmentation_members(jit_update=True, device="cpu"),
+                                                   fused_update=True)
+        batch = lambda: _segmentation_batch(rng, 3)  # noqa: E731
+    else:
+        owner = metrics_tpu_torch.Accuracy(num_classes=C, jit_update=True, device="cpu")
+        batch = lambda: tuple(map(_torch, _scores(rng, 8)))  # noqa: E731
+    with telemetry.instrument() as session:
+        for _ in range(3):
+            owner.update(*batch())
+    spans = session.spans(name="update")
+    assert len(spans) == 3 and not torch._C._autograd._profiler_enabled()
+    for span in spans:
+        assert all(span.attrs[k] >= 0.0 for k in STAGE_ATTRS), span.attrs
+        assert sum(span.attrs[k] for k in STAGE_ATTRS) <= span.dur_us
+        assert span.attrs["launch_us"] > 0  # on the CPU the program runs in the launch stage
+    rows = 3 if fused else 8
+    assert [(s.attrs["rows"], s.attrs["bucket"]) for s in spans] == [(rows, rows)] * 3
+
+
+def _stat_members():
+    return [metrics_tpu_torch.Accuracy(num_classes=C, device="cpu"),
+            metrics_tpu_torch.Recall(num_classes=C, average="macro", device="cpu")]
+
+
+@pytest.mark.parametrize("members, batch, bucket_rows", [
+    (_stat_members, lambda rng, n: tuple(map(_torch, _scores(rng, n))), 16),  # masked: 4 rows run as 8
+    # a confusion matrix has no masked update: one program an exact shape, no padding
+    (lambda: _segmentation_members(device="cpu"), _segmentation_batch, 12),
+], ids=["masked", "exact"])
+def test_the_rows_counters_hold_the_engine_s_padding(members, batch, bucket_rows):
+    rng = np.random.RandomState(21)
+    mc = metrics_tpu_torch.MetricCollection(members(), fused_update=True)
+    telemetry.reset_counters()
+    for images in (4, 8):
+        mc.update(*batch(rng, images))
+    counters = telemetry.snapshot()
+    assert (counters["update:rows"], counters["update:bucket_rows"]) == (12, bucket_rows)
+    assert counters["update:fused-aot"] == 2
+
+
+def test_the_stage_compute_and_reset_ranges_under_a_profiler():
+    rng = np.random.RandomState(22)
+    mc = metrics_tpu_torch.MetricCollection(_segmentation_members(jit_update=True, device="cpu"), fused_update=True)
+    mc.update(*_segmentation_batch(rng, 3))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        mc.update(*_segmentation_batch(rng, 3))
+        mc.compute()
+        mc.reset()
+    events = [e for e in prof.events() if e.name.startswith("metrics_tpu.")]
+    names = {e.name for e in events}
+    # on the CPU the program runs as it is: no static inputs, so no ``stage`` range (the card's test has it)
+    stages = [f"metrics_tpu.MetricCollection.update.{s}" for s in telemetry.STAGES if s != "stage"]
+    assert {"metrics_tpu.MetricCollection.update[fused-aot]", *stages, "metrics_tpu.MetricCollection.compute",
+            "metrics_tpu.MetricCollection.reset", "metrics_tpu.JaccardIndex.reset", "metrics_tpu.Accuracy.reset",
+            "metrics_tpu.JaccardIndex.compute"} <= names
+    (outer,) = [e for e in events if e.name == "metrics_tpu.MetricCollection.update[fused-aot]"]
+    inner = sorted((e for e in events if e.name in stages), key=lambda e: e.time_range.start)
+    assert [e.name for e in inner] == stages  # in order, each inside the call's range
+    assert all(outer.time_range.start <= e.time_range.start <= e.time_range.end <= outer.time_range.end for e in inner)
+    for name in ("metrics_tpu.MetricCollection.compute", "metrics_tpu.MetricCollection.reset"):
+        assert isinstance(telemetry.profiler_range(name), contextlib.nullcontext)  # no profiler: no range
+
+
+def test_the_chrome_export_lines_up_with_the_profiler_within_100_us(tmp_path):
+    rng = np.random.RandomState(23)
+    m = metrics_tpu_torch.Accuracy(num_classes=C, jit_update=True, device="cpu")
+    m.update(*map(_torch, _scores(rng, 8)))
+    with telemetry.instrument() as session, torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(7):
+            m.update(*map(_torch, _scores(rng, 8)))
+    session.export_chrome_trace(str(tmp_path / "trace.json"))
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    offset = trace["otherData"]["stream_offset_us"]
+    spans = sorted(r["ts"] + offset for r in trace["traceEvents"] if r["name"] == "Accuracy.update [aot]")
+    base = prof.profiler.kineto_results.trace_start_ns() / 1e3
+    ranges = sorted(base + e.time_range.start for e in prof.events() if e.name == "metrics_tpu.Accuracy.update[aot]")
+    assert len(spans) == len(ranges) == 7
+    assert statistics.median(abs(a - b) for a, b in zip(spans, ranges)) < 100.0
+    session.export_jsonl(str(tmp_path / "trace.jsonl"))
+    lines = [json.loads(line) for line in (tmp_path / "trace.jsonl").read_text().splitlines()]
+    assert all(abs(r["profiler_ts_us"] - (r["ts_us"] + offset)) < 1.0 for r in lines)
+
+
+def test_the_marker_is_a_no_op_on_the_cpu_and_outside_a_capture():
+    rng = np.random.RandomState(24)
+    assert marks.mark("format", "Accuracy") is None and marks.mark("count") is None  # no capture: nothing
+    with marks.recording(torch.device("cpu")) as marked:
+        marks.mark("format", "Accuracy")
+    assert marked == []
+    with telemetry.instrument() as session:
+        mc = metrics_tpu_torch.MetricCollection(_segmentation_members(jit_update=True, device="cpu"),
+                                                fused_update=True)
+        mc.update(*_segmentation_batch(rng, 3))
+    (build,) = session.spans(name="compile")
+    assert "marks" not in build.attrs and cost_model.lookup(build.attrs["cost_key"]).marks == ()
+
+
+def test_the_kill_switch_leaves_out_stages_counters_ranges_and_marks(monkeypatch):
+    monkeypatch.setenv("METRICS_TPU_TELEMETRY", "0")
+    telemetry.reset_counters()
+    rng = np.random.RandomState(25)
+    mc = metrics_tpu_torch.MetricCollection(_segmentation_members(jit_update=True, device="cpu"), fused_update=True)
+    with telemetry.instrument() as session, torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        mc.update(*_segmentation_batch(rng, 3))
+        mc.compute()
+        mc.reset()
+        with marks.recording(torch.device("cuda")) as marked:  # telemetry off: no kernel is loaded, no mark placed
+            marks.mark("format", "Accuracy")
+    assert session.events == [] and telemetry.snapshot() == {} and marked == []
+    assert not [e.name for e in prof.events() if e.name.startswith("metrics_tpu.")]
+    assert mc.dispatch_stats["dispatches"] == 1
