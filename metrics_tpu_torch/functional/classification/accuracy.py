@@ -4,6 +4,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch import telemetry
 from metrics_tpu_torch.functional.classification.helpers import _mask_ignored
 from metrics_tpu_torch.functional.classification.stat_scores import _reduce_stat_scores, _stat_scores_update
 from metrics_tpu_torch.utilities.checks import (
@@ -120,6 +121,7 @@ def _subset_accuracy_update(
 ) -> Tuple[Tensor, Tensor]:
     """Exact-match counts."""
     preds, target = _input_squeeze(preds, target)
+    telemetry.format_route("onehot")
     preds, target, mode = _input_format_classification(
         preds, target, threshold=threshold, top_k=top_k, ignore_index=ignore_index
     )

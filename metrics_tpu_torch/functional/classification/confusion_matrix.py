@@ -10,8 +10,16 @@ from typing import Optional
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch import telemetry
 from metrics_tpu_torch.ops import confusion_matrix_counts, marks
-from metrics_tpu_torch.utilities.checks import _input_format_classification, _is_floating, _is_traced
+from metrics_tpu_torch.utilities.checks import (
+    _checked_classification_inputs,
+    _format_multiclass_labels,
+    _format_onehot,
+    _is_floating,
+    _is_traced,
+    _takes_label_route,
+)
 from metrics_tpu_torch.utilities.data import _bincount
 from metrics_tpu_torch.utilities.enums import DataType
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
@@ -22,10 +30,18 @@ def _canonicalize_confmat_labels(preds: Tensor, target: Tensor, num_classes: int
 
     ``num_classes`` passes through only for integer-label inputs; float and
     binary layouts take the class count from the shape. Multiclass layouts
-    come back as class indices (one-hot, then argmax, as in the JAX package).
+    come back as flat int32 class indices, formatted straight to labels: the
+    JAX package's one-hot and argmax back give the same ones, a label outside
+    ``[0, C)`` (an all-zero one-hot row) class 0.
     """
     nc = num_classes if (preds.ndim == target.ndim and not _is_floating(preds)) else None
-    preds, target, mode = _input_format_classification(preds, target, threshold, num_classes=nc)
+    preds, target, mode = _checked_classification_inputs(preds, target, threshold, num_classes=nc)
+    if _takes_label_route(preds, target, mode, None, None):
+        telemetry.format_route("labels")
+        pred_cls, target_cls, _ = _format_multiclass_labels(preds, target, nc, outside=0)
+        return pred_cls, target_cls
+    telemetry.format_route("onehot")
+    preds, target, mode = _format_onehot(preds, target, mode, threshold, num_classes=nc)
     if mode not in (DataType.BINARY, DataType.MULTILABEL):
         preds = preds.argmax(dim=1)
         target = target.argmax(dim=1)
@@ -42,7 +58,7 @@ def _confusion_matrix_update(
         unique_mapping = ((2 * target + preds) + 4 * classes).reshape(-1)
         minlength = 4 * num_classes
     else:
-        unique_mapping = target.reshape(-1) * num_classes + preds.reshape(-1)
+        unique_mapping = target.reshape(-1).long() * num_classes + preds.reshape(-1)
         minlength = num_classes**2
 
     marks.mark("count")  # a captured program's phase mark: formatting ends, counting begins

@@ -112,8 +112,10 @@ tensor. Two tiers consume them:
   integer-microdollar ``"billing:microusd"``, which only serving spans
   feed, and the port's own ``"update:rows"`` and ``"update:bucket_rows"``,
   summed from the engine ``update`` spans' ``rows`` and ``bucket``, whose
-  ratio is the engine's useful share of the rows it ran): read with
-  :func:`snapshot`, clear with :func:`reset_counters`.
+  ratio is the engine's useful share of the rows it ran, and
+  ``"format:labels"`` and ``"format:onehot"``, one a member update whose
+  classification inputs took that formatting route, :func:`format_route`):
+  read with :func:`snapshot`, clear with :func:`reset_counters`.
 * **Always-on timeline.** Every timed span also feeds a per-``(family,
   owner)`` latency and throughput aggregate: a
   :class:`~metrics_tpu_torch.streaming.sketch.HostQuantileSketch` of span µs
@@ -181,6 +183,8 @@ __all__ = [
     "profiler_range",
     "profiler_clock_offset_us",
     "Stages",
+    "format_route",
+    "recording_routes",
 ]
 
 # all timestamps are µs since this process-level epoch (perf_counter is
@@ -461,6 +465,11 @@ def emit(
             # microdollars (exact under summation; absent entirely when
             # METRICS_TPU_BILLING=0 keeps spans cost-free)
             _counters["billing:microusd"] = _counters.get("billing:microusd", 0) + int(attrs.get("cost_microusd") or 0)
+        if name in ("update", "forward"):
+            for route in _ROUTES:  # an engine program's members' routes, once a call, as format_route counts them
+                n = attrs.get(f"format_{route}")
+                if n:
+                    _counters[f"format:{route}"] = _counters.get(f"format:{route}", 0) + n
     timed = t0 is not None or dur_us is not None
     if not subs and not timed:
         return
@@ -593,8 +602,8 @@ def profiler_clock_offset_us() -> float:
 def snapshot() -> Dict[str, float]:
     """Copy of the process-level counters (``"<name>:<kind>"`` keys, plus
     ``"collective:bytes"``, ``"compile:cause:<cause>"``,
-    ``"degrade:cause:<cause>"``, ``"update:rows"`` and
-    ``"update:bucket_rows"``)."""
+    ``"degrade:cause:<cause>"``, ``"update:rows"``,
+    ``"update:bucket_rows"``, ``"format:labels"`` and ``"format:onehot"``)."""
     with _lock:
         return dict(_counters)
 
@@ -603,6 +612,47 @@ def reset_counters() -> None:
     """Zero the process-level counters (subscribed sessions are untouched)."""
     with _lock:
         _counters.clear()
+
+
+# --------------------------------------------------------------- format routes
+_ROUTES = ("labels", "onehot")
+_route_local = threading.local()
+
+
+def format_route(route: str) -> None:
+    """Count one member update whose classification inputs took ``route``
+    (``"labels"``: class labels, no one-hots; ``"onehot"``) in
+    ``"format:<route>"``. Inside :func:`recording_routes` (an engine running a
+    program's body) the route is written down instead: the program's spans
+    carry it, once a call, and :func:`emit` counts it from there."""
+    stack = getattr(_route_local, "stack", None)
+    if stack:
+        stack[-1].append(route)
+    elif telemetry_enabled():
+        with _lock:
+            _counters[f"format:{route}"] = _counters.get(f"format:{route}", 0) + 1
+
+
+@contextmanager
+def recording_routes() -> Generator[List[str], None, None]:
+    """Write the block's :func:`format_route` calls down, in order, into the
+    list it yields, and count none of them."""
+    stack = getattr(_route_local, "stack", None)
+    if stack is None:
+        stack = _route_local.stack = []
+    routes: List[str] = []
+    stack.append(routes)
+    try:
+        yield routes
+    finally:
+        stack.pop()
+
+
+def route_attrs(routes: Iterable[str]) -> Dict[str, int]:
+    """A program's recorded routes as its span's ``format_<route>`` counts,
+    the routes it never takes left out."""
+    routes = list(routes)
+    return {f"format_{r}": routes.count(r) for r in _ROUTES if r in routes}
 
 
 # ------------------------------------------------------------------ sessions

@@ -14,6 +14,13 @@ say so themselves: they run a program inside :func:`tracing`, and
 under tracing are skipped at the same places (its ``checks.py:88, 114, 179,
 235, 313, 399, 430``), so a program reads nothing back to the host and can be
 captured as a CUDA graph; outside it every check runs.
+
+Classification inputs are formatted by one of two routes after the same
+checks. The one-hot route (:func:`_input_format_classification`) gives
+int32 one-hots ``(N, C[, X])`` for every layout. The label route
+(:func:`_format_multiclass_labels`) gives multi-class inputs as flat class
+labels, which the confusion-matrix and stat-score families count straight
+from: one int32 a position where the one-hots hold C, and no argmax back.
 """
 import threading
 from contextlib import contextmanager
@@ -276,7 +283,7 @@ def _input_squeeze(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     return preds, target
 
 
-def _input_format_classification(
+def _checked_classification_inputs(
     preds: Tensor,
     target: Tensor,
     threshold: float = 0.5,
@@ -285,8 +292,8 @@ def _input_format_classification(
     multiclass: Optional[bool] = None,
     ignore_index: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor, DataType]:
-    """Canonicalize any accepted classification layout to binary int32 tensors
-    of shape ``(N, C)`` or ``(N, C, X)``, plus the detected :class:`DataType`."""
+    """The inputs squeezed, half-precision scores upcast, and checked: the
+    first half of either formatting route, which raises their errors."""
     preds, target = _input_squeeze(preds, target)
     if preds.dtype in (torch.bfloat16, torch.float16):
         preds = preds.float()
@@ -300,7 +307,82 @@ def _input_format_classification(
         top_k=top_k,
         ignore_index=ignore_index,
     )
+    return preds, target, case
 
+
+def _takes_label_route(
+    preds: Tensor, target: Tensor, case: DataType, top_k: Optional[int], multiclass: Optional[bool]
+) -> bool:
+    """Whether checked inputs can be formatted to class labels
+    (:func:`_format_multiclass_labels`): multi-class or multi-dim multi-class
+    inputs, one predicted class a position (``top_k`` None or 1),
+    ``multiclass`` not False, at least two score columns, and not empty."""
+    return (
+        case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS)
+        and top_k in (None, 1)
+        and multiclass is not False
+        and not _check_for_empty_tensors(preds, target)
+        and not (_is_floating(preds) and preds.shape[1] < 2)
+    )
+
+
+def _format_multiclass_labels(
+    preds: Tensor, target: Tensor, num_classes: Optional[int], outside: Optional[int] = None
+) -> Tuple[Tensor, Tensor, int]:
+    """Checked inputs that :func:`_takes_label_route` as flat int32 class
+    labels ``(pred_cls, target_cls, C)``, without the one-hots.
+
+    One entry a sample and position, in the order of the one-hot route's
+    ``(N, C, X)`` rows after ``transpose(1, 2).reshape(-1, C)``. ``C`` is the
+    width that route's one-hots would have. Float scores give their argmax over
+    dim 1, read in place: the first maximum wins and NaN ranks as the maximum,
+    as ``select_topk`` and ``jnp.argmax`` rank them. Integer labels pass
+    through. A label outside ``[0, C)``, a one-hot route's all-zero row,
+    becomes ``outside`` (``C`` itself where None): the caller picks the class
+    that counts as that row does.
+    """
+    if _is_floating(preds):
+        num_classes = preds.shape[1]
+        pred_cls = torch.argmax(preds, dim=1).reshape(-1).to(torch.int32)
+    else:
+        if num_classes is None:
+            if _is_traced():
+                raise ValueError(
+                    "`num_classes` must be given when formatting integer multi-class "
+                    "inputs under jit (cannot infer the class count from traced values)."
+                )
+            num_classes = int(max(preds.max(), target.max())) + 1
+        num_classes = max(2, num_classes)
+        pred_cls = _inside_or(preds.reshape(-1), num_classes, outside)
+    target_cls = _inside_or(target.reshape(-1), num_classes, outside)
+    return pred_cls, target_cls, num_classes
+
+
+def _inside_or(labels: Tensor, num_classes: int, outside: Optional[int]) -> Tensor:
+    """int32 ``labels``, each outside ``[0, C)`` replaced by ``outside`` (``C``
+    where None), in two passes: a label's place among ``0..C`` (``x + 1``
+    inside, ``0`` below, ``C + 1`` above, the label read at its own width),
+    then a lookup of the place."""
+    if labels.dtype not in (torch.int32, torch.int64):
+        labels = labels.long()
+    bounds = torch.arange(num_classes + 1, dtype=labels.dtype, device=labels.device)
+    place = torch.searchsorted(bounds, labels, right=True, out_int32=True)
+    table = torch.arange(-1, num_classes + 1, dtype=torch.int32, device=labels.device)
+    # places 0 and C + 1, filled in place: a graph capture refuses a host scalar copied into the table
+    table[:: num_classes + 1].fill_(num_classes if outside is None else outside)
+    return table[place]
+
+
+def _format_onehot(
+    preds: Tensor,
+    target: Tensor,
+    case: DataType,
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+) -> Tuple[Tensor, Tensor, DataType]:
+    """The one-hot route's second half, on checked inputs of ``case``."""
     if case in (DataType.BINARY, DataType.MULTILABEL) and not top_k:
         preds = (preds >= threshold).to(torch.int32)
         num_classes = num_classes if not multiclass else 2
@@ -343,6 +425,23 @@ def _input_format_classification(
         preds, target = preds.squeeze(-1), target.squeeze(-1)
 
     return preds.to(torch.int32), target.to(torch.int32), case
+
+
+def _input_format_classification(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, DataType]:
+    """Canonicalize any accepted classification layout to binary int32 tensors
+    of shape ``(N, C)`` or ``(N, C, X)``, plus the detected :class:`DataType`."""
+    preds, target, case = _checked_classification_inputs(
+        preds, target, threshold, top_k, num_classes, multiclass, ignore_index
+    )
+    return _format_onehot(preds, target, case, threshold, top_k, num_classes, multiclass)
 
 
 def _check_retrieval_functional_inputs(

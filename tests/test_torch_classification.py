@@ -253,6 +253,187 @@ def test_pure_functions_match_the_stateful_path():
     assert torch.equal(m.pure_compute(merged), m.compute())
 
 
+# ------------------------------------------- segmentation inputs: the label route
+SEG_C = 6
+
+
+def _seg_inputs(kind, seed, ignore_index=None, n=3, hw=(5, 7)):
+    """``(n, SEG_C, *hw)`` float32 scores, or their argmax as ``(n, *hw)`` int
+    labels, and ``(n, *hw)`` int targets; a negative ``ignore_index`` marks
+    every 4th target position."""
+    rng = np.random.RandomState(seed)
+    scores = rng.rand(n, SEG_C, *hw).astype(np.float32)
+    target = rng.randint(0, SEG_C, (n,) + hw)
+    if kind == "ties":  # a coarse grid: many positions' maxima tie, and the first class wins
+        scores = np.round(scores * 2) / 2
+    elif kind == "nan_scores":  # every 5th position holds a NaN in one class, which is then its argmax
+        scores[:, seed % SEG_C][np.arange(target.size).reshape(target.shape) % 5 == 0] = np.nan
+    if ignore_index is not None and ignore_index < 0:
+        target.reshape(-1)[::4] = ignore_index
+    return (scores.argmax(1) if kind == "labels" else scores), target
+
+
+_SEG_METRICS = {
+    **{f"Accuracy-{avg}": ("Accuracy", dict(average=avg, mdmc_average="global"), (None, 2))
+       for avg in ("micro", "macro", "weighted", "none")},
+    **{f"StatScores-{red}": ("StatScores", dict(reduce=red, mdmc_reduce="global"), (None, 2))
+       for red in ("micro", "macro")},
+    **{f"JaccardIndex-{um}": ("JaccardIndex", dict(update_method=um), (None, 2)) for um in ("bincount", "matmul")},
+    **{f"ConfusionMatrix-{um}": ("ConfusionMatrix", dict(update_method=um), (None,)) for um in ("bincount", "matmul")},
+}
+_SEG_CASES = [(name, ig) for name, (_, _, ignores) in _SEG_METRICS.items() for ig in ignores]
+
+
+@pytest.mark.parametrize("kind", ["scores", "labels", "ties", "nan_scores"])
+@pytest.mark.parametrize("name,ignore_index", _SEG_CASES)
+def test_segmentation_inputs_take_the_label_route_and_equal_jax(name, ignore_index, kind):
+    """``(B, C, H, W)`` scores and ``(B, H, W)`` labels count from class labels: states exactly JAX's
+    one-hot counts, values to RTOL, every update a ``format:labels``."""
+    from metrics_tpu_torch import telemetry
+
+    metric, kwargs, _ = _SEG_METRICS[name]
+    kwargs = dict(kwargs, num_classes=SEG_C)
+    jax_kwargs = {k: v for k, v in kwargs.items() if k != "update_method"}
+    if ignore_index is not None:
+        kwargs["ignore_index"] = jax_kwargs["ignore_index"] = ignore_index
+    batches = [_seg_inputs(kind, seed=41 + i, ignore_index=ignore_index) for i in range(3)]
+    telemetry.reset_counters()
+    _drive(lambda: getattr(metrics_tpu, metric)(**jax_kwargs),
+           lambda: getattr(metrics_tpu_torch, metric)(device="cpu", **kwargs),
+           batches, exact=metric in ("StatScores", "ConfusionMatrix"))
+    counters = telemetry.snapshot()
+    assert counters.get("format:labels", 0) > 0 and "format:onehot" not in counters
+
+
+@pytest.mark.parametrize("kind", ["scores", "labels", "ties", "nan_scores"])
+@pytest.mark.parametrize("average", ["micro", "macro", "weighted", "none"])
+def test_functional_accuracy_of_segmentation_inputs_with_a_negative_ignore_index(kind, average):
+    """A negative ``ignore_index`` (the functional's; a module refuses one) arrives at the label route as a
+    row mask."""
+    from metrics_tpu_torch import telemetry
+
+    preds, target = _seg_inputs(kind, seed=45, ignore_index=-1)
+    (jp, tp), (jt, tt) = _pair(preds), _pair(target)
+    kwargs = dict(average=average, num_classes=SEG_C, ignore_index=-1)
+    telemetry.reset_counters()
+    _assert_same(jF.accuracy(jp, jt, **kwargs), tF.accuracy(tp, tt, **kwargs), exact=False)
+    assert telemetry.snapshot()["format:labels"] == 1
+
+
+@pytest.mark.parametrize("kind", ["scores", "labels"])
+@pytest.mark.parametrize("average", ["micro", "macro"])
+@pytest.mark.parametrize("ignore_index", [None, 2])
+def test_masked_update_of_segmentation_inputs_equals_jax(kind, average, ignore_index):
+    """The engine's padded batch: the last sample's positions count nothing, as in the JAX package."""
+    kwargs = dict(num_classes=SEG_C, average=average, mdmc_average="global", ignore_index=ignore_index)
+    jm, tm = metrics_tpu.Accuracy(**kwargs), metrics_tpu_torch.Accuracy(device="cpu", **kwargs)
+    mask = np.array([True, True, False])
+    for seed in (51, 52):
+        preds, target = _seg_inputs(kind, seed=seed)
+        (jp, tp), (jt, tt) = _pair(preds), _pair(target)
+        jm._masked_update(jnp.asarray(mask), jp, jt)
+        tm._masked_update(torch.from_numpy(mask), tp, tt)
+        _assert_states(jm, tm)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # both warn: a masked update leaves the update count as it was
+        _assert_same(jm.compute(), tm.compute(), exact=False)
+
+
+def _outside_labels(kind, seed):
+    """Segmentation inputs whose targets, and integer predictions, hold labels outside ``[0, SEG_C)``."""
+    preds, target = _seg_inputs(kind, seed=seed)
+    outside = target.reshape(-1)[::3]
+    outside[:] = np.resize([-3, SEG_C, SEG_C + 4, -1, 2**32 + 1], outside.size)  # 2**32 + 1 is 1 as an int32
+    if kind == "labels":
+        outside = preds.reshape(-1)[1::4]
+        outside[:] = np.resize([SEG_C, -2, 2**33], outside.size)
+    return torch.from_numpy(preds), torch.from_numpy(target)
+
+
+@pytest.mark.parametrize("kind", ["scores", "labels"])
+@pytest.mark.parametrize("reduce", ["micro", "macro"])
+@pytest.mark.parametrize("ignore_index", [None, 0, SEG_C - 1])
+@pytest.mark.parametrize("masked", [False, True])
+def test_label_route_counts_labels_outside_the_classes_as_the_one_hot_route(kind, reduce, ignore_index, masked):
+    """Under ``tracing()`` (an engine's program: no value checks) a label outside ``[0, C)`` is the one-hot
+    route's all-zero row: the label route's int32 counts equal that route's, bit for bit."""
+    from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores_update
+    from metrics_tpu_torch.utilities.checks import tracing
+    from tests.helpers.onehot_route import onehot_stat_scores
+
+    preds, target = _outside_labels(kind, seed=61)
+    mask = torch.tensor([True, False, True]) if masked else None
+    with tracing():
+        got = _stat_scores_update(preds, target, reduce=reduce, mdmc_reduce="global", num_classes=SEG_C,
+                                  ignore_index=ignore_index, sample_mask=mask)
+        want = onehot_stat_scores(preds, target, reduce, num_classes=SEG_C, ignore_index=ignore_index,
+                                  sample_mask=mask)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.int32 and g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind", ["scores", "labels"])
+@pytest.mark.parametrize("update_method", ["bincount", "matmul"])
+def test_label_route_confusion_matrix_puts_labels_outside_the_classes_in_class_0(kind, update_method):
+    """Under ``tracing()`` a label outside ``[0, C)`` counts as class 0, the argmax of an all-zero one-hot."""
+    from metrics_tpu_torch.functional.classification.confusion_matrix import (
+        _confusion_matrix_update,
+        _confusion_matrix_update_matmul,
+    )
+    from metrics_tpu_torch.utilities.checks import tracing
+    from tests.helpers.onehot_route import onehot_confmat
+
+    preds, target = _outside_labels(kind, seed=62)
+    update = _confusion_matrix_update if update_method == "bincount" else _confusion_matrix_update_matmul
+    with tracing():
+        got = update(preds, target, SEG_C)
+        want = onehot_confmat(preds, target, SEG_C)
+    assert got.dtype == want.dtype == torch.int32 and torch.equal(got, want)
+    assert int(got.sum()) == target.numel()  # every position counted, those outside in class 0
+
+
+def _route_counts():
+    from metrics_tpu_torch import telemetry
+
+    counters = telemetry.snapshot()
+    return counters.get("format:labels", 0), counters.get("format:onehot", 0)
+
+
+@pytest.mark.parametrize("engine", [False, True])
+def test_format_route_counters_tick_once_a_member_update(engine):
+    """The cells' collection: eagerly each member's update ticks ``format:labels`` itself; through the
+    fused engine the program's routes ride its ``update`` span, once a call."""
+    from metrics_tpu_torch import telemetry
+
+    mc = metrics_tpu_torch.MetricCollection(
+        [metrics_tpu_torch.JaccardIndex(num_classes=SEG_C, ignore_index=SEG_C - 1, update_method="matmul",
+                                        jit_update=engine, device="cpu"),
+         metrics_tpu_torch.Accuracy(num_classes=SEG_C, ignore_index=SEG_C - 1, mdmc_average="global",
+                                    jit_update=engine, device="cpu")],
+        fused_update=engine, compute_groups=True)
+    telemetry.reset_counters()
+    with telemetry.instrument() as session:
+        for seed in range(3):
+            mc.update(*(torch.from_numpy(x) for x in _seg_inputs("scores", seed=70 + seed)))
+    assert _route_counts() == (6, 0)
+    if engine:
+        spans = session.spans(name="update")
+        assert [(s.owner, s.kind, s.attrs["format_labels"]) for s in spans] == [("MetricCollection", "fused-aot", 2)] * 3
+        assert all("format_onehot" not in s.attrs for s in spans)
+
+
+@pytest.mark.parametrize("kwargs", [dict(mdmc_average="samplewise"), dict(top_k=2), dict(subset_accuracy=True)],
+                         ids=["samplewise", "top_k=2", "subset"])
+def test_inputs_left_on_the_one_hot_route_tick_format_onehot(kwargs):
+    from metrics_tpu_torch import telemetry
+
+    m = metrics_tpu_torch.Accuracy(num_classes=SEG_C, device="cpu", **kwargs)
+    telemetry.reset_counters()
+    for seed in range(2):
+        m.update(*(torch.from_numpy(x) for x in _seg_inputs("scores", seed=80 + seed)))
+    assert _route_counts() == (0, 2)
+
+
 # ------------------------------------------------------------------ errors
 _BAD_INPUTS = {
     "float target": (np.random.RandomState(0).rand(8, C).astype(np.float32), np.zeros(8, np.float32)),

@@ -2430,3 +2430,47 @@ def test_marked_graphs_count_what_unmarked_graphs_count_bit_for_bit(card, monkey
     (marked_cm, marked), (plain_cm, plain) = results
     assert torch.equal(marked_cm, plain_cm) and int(marked_cm.sum()) > 0
     assert marked.keys() == plain.keys() and all(torch.equal(marked[k], plain[k]) for k in marked)
+
+
+def test_the_cells_collection_counts_from_labels_what_the_one_hot_route_counted(card):
+    """The benchmark cells' collection on a small Cityscapes-shaped batch: the captured replays' confusion
+    matrix and tp/fp/tn/fn equal an eager run of the one-hot route (one-hots, argmax back, the one-hot
+    stat scores) bit for bit, ties and NaN score rows included; the phase marks keep their order, and every
+    member update took the label route."""
+    import importlib.util
+    from pathlib import Path
+
+    from metrics_tpu_torch import telemetry
+
+    # loaded by path: this file runs without the repo's conftest, which puts the root on sys.path
+    spec = importlib.util.spec_from_file_location("onehot_route", Path(__file__).parent / "helpers" / "onehot_route.py")
+    onehot_route = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(onehot_route)
+    onehot_confmat, onehot_stat_scores = onehot_route.onehot_confmat, onehot_route.onehot_stat_scores
+
+    g = torch.Generator(device=card).manual_seed(91)
+    batches = []
+    for i in range(3):
+        scores = torch.rand(2, MARKS_C, 256, 512, generator=g, device=card)
+        scores[:, :, ::3] = (scores[:, :, ::3] * 4).round()  # every 3rd row's maxima tie often
+        scores[i % 2, i + 2, ::17, ::13] = float("nan")  # NaN ranks as the maximum
+        batches.append((scores, torch.randint(0, MARKS_C, (2, 256, 512), generator=g, device=card)))
+    mc = _segmentation_collection(card)
+    telemetry.reset_counters()
+    for b in batches:  # the first call builds (its warm-up run serves it), the others replay
+        mc.update(*b)
+    torch.cuda.synchronize(card)
+    stats = mc.dispatch_stats
+    assert (stats["dispatches"], stats["retraces"], stats["demotions"]) == (3, 1, 0)
+    counters = telemetry.snapshot()
+    assert counters.get("format:labels") == 2 * len(batches) and "format:onehot" not in counters
+
+    want_cm = sum(onehot_confmat(p, t, MARKS_C) for p, t in batches)
+    want = [sum(c) for c in zip(*(onehot_stat_scores(p, t, "micro", MARKS_C, MARKS_C - 1) for p, t in batches))]
+    got_cm = mc["JaccardIndex"].confmat
+    assert got_cm.dtype == torch.int32 and torch.equal(got_cm, want_cm) and int(got_cm.sum()) == 3 * 2 * 256 * 512
+    for name, w in zip(("tp", "fp", "tn", "fn"), want):
+        got = getattr(mc["Accuracy"], name)
+        assert got.dtype == w.dtype == torch.int32 and torch.equal(got, w), name
+    assert _marked_phases(card, lambda: mc.update(*batches[0])) == [
+        "format", "count", "format", "count", "writeback", "end"]

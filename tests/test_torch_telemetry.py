@@ -5,7 +5,8 @@ process, each inside its own ``telemetry.instrument()``. For every case the
 multiset of ``(name, owner, kind)`` events and the session's
 ``retrace_causes()`` must be equal, and so must the always-on counters
 (``snapshot()``, cleared before the case), but for the port's own
-``update:rows`` and ``update:bucket_rows``. Both sessions' JSON-lines exports
+``update:rows``, ``update:bucket_rows``, ``format:labels`` and
+``format:onehot``. Both sessions' JSON-lines exports
 are read back by ``tools/trace_report.py`` (``load_events``/``summarize``)
 and their launch and retrace sections must be equal once the µs columns are
 stripped. Counts, keys, causes and integer bytes are exact; no µs value is
@@ -280,15 +281,20 @@ def test_event_stream_equals_jax(case):
     assert session.retrace_causes() == jax_session.retrace_causes()
 
 
-# the port's own counters, summed from its engine spans' rows and bucket: the JAX package has none
-PORT_COUNTERS = ("update:rows", "update:bucket_rows")
+# the port's own counters, summed from its engine spans' rows and bucket, and its members' formatting routes:
+# the JAX package has none
+PORT_COUNTERS = ("update:rows", "update:bucket_rows", "format:labels", "format:onehot")
+
+
+def _jax_counters(counters):
+    return {k: v for k, v in counters.items() if k not in PORT_COUNTERS}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_counters_equal_jax(case):
     _both(CASES[case])
     jax_counts, counts = jax_telemetry.snapshot(), telemetry.snapshot()
-    assert {k: v for k, v in counts.items() if k not in PORT_COUNTERS} == jax_counts
+    assert _jax_counters(counts) == jax_counts
     assert counts.get("collective:bytes", 0) == jax_counts.get("collective:bytes", 0)
 
 
@@ -304,7 +310,7 @@ def test_warm_degrade_stream_and_counters_equal_jax():
     assert _multiset(session) == _multiset(jax_session) == collections.Counter(
         {("degrade", "Accuracy", "dispatch"): 1, ("update", "Accuracy", "jit"): 1})
     assert session.retrace_causes() == jax_session.retrace_causes() == {}
-    assert telemetry.snapshot() == jax_telemetry.snapshot()
+    assert _jax_counters(telemetry.snapshot()) == jax_telemetry.snapshot()
     (span,) = session.spans(name="degrade")
     (jax_span,) = jax_session.spans(name="degrade")
     for key in ("cause", "cooldown", "permanent", "failures"):
