@@ -11,10 +11,11 @@ __global__ void phase_mark_format() {}
 __global__ void phase_mark_count() {}
 __global__ void phase_mark_writeback() {}
 __global__ void phase_mark_end() {}
+__global__ void phase_mark_extract() {}
 
 }  // namespace
 
-// Resolve the four kernels now (a lazily loaded module is otherwise loaded at a kernel's first
+// Resolve the five kernels now (a lazily loaded module is otherwise loaded at a kernel's first
 // launch, which would then fall inside a stream capture); returns a CUDA error code.
 extern "C" int phase_mark_prime() {
   cudaFuncAttributes attrs;
@@ -22,10 +23,11 @@ extern "C" int phase_mark_prime() {
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attrs, phase_mark_count);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attrs, phase_mark_writeback);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attrs, phase_mark_end);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attrs, phase_mark_extract);
   return static_cast<int>(err);
 }
 
-// One mark of phase `phase` (0 format, 1 count, 2 writeback, 3 end) on `stream`: one block of one thread.
+// One mark of phase `phase` (0 format, 1 count, 2 writeback, 3 end, 4 extract) on `stream`: one block of one thread.
 extern "C" int phase_mark_launch(int phase, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (phase) {
@@ -33,6 +35,7 @@ extern "C" int phase_mark_launch(int phase, void* stream) {
     case 1: phase_mark_count<<<1, 1, 0, s>>>(); break;
     case 2: phase_mark_writeback<<<1, 1, 0, s>>>(); break;
     case 3: phase_mark_end<<<1, 1, 0, s>>>(); break;
+    case 4: phase_mark_extract<<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

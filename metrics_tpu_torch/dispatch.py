@@ -60,11 +60,12 @@ checks and snapshot, flatten, canonicalize, the key and its lookup),
 leaves written back, the owner's verification and bookkeeping); the span
 carries each one's µs (``prepare_us`` ...), ``rows`` (the batch's dim-0
 length) and ``bucket`` (the rows the program ran), which feed the
-``update:rows`` and ``update:bucket_rows`` counters, and the formatting
-routes its members' classification inputs took
-(:func:`~metrics_tpu_torch.telemetry.format_route`, written down while the
-program's body runs): ``format_labels`` and ``format_onehot``, which feed the
-``format:labels`` and ``format:onehot`` counters. An owner that begins the
+``update:rows`` and ``update:bucket_rows`` counters, and the counters its
+body ticks (:func:`~metrics_tpu_torch.telemetry.tick`, written down while the
+program's body runs, :func:`~metrics_tpu_torch.telemetry.tick_attrs`): the
+formatting routes its members' classification inputs took, ``format_labels``
+and ``format_onehot``, and the images its extractor ran, ``extract_images``
+and ``extract_resized``, which feed the counters of those names. An owner that begins the
 call itself passes its :meth:`FastDispatcher.stages` to ``update``. While a
 ``torch.profiler`` records, the call is the range
 ``metrics_tpu.<label>.update[<kind>]`` with one child range a stage,
@@ -76,8 +77,7 @@ emits one ``compile`` span with its cause, the program's cost entry
 kernels' terms and its I/O bytes), its device phase marks (``marks``:
 ``(owner, phase)`` in graph order, :mod:`metrics_tpu_torch.ops.marks`,
 captured with telemetry on: ``format`` and ``count`` from each member,
-``writeback`` before the copy into the other state set and ``end``), the
-routes the capture recorded (``routes``, in member order) and,
+``writeback`` before the copy into the other state set and ``end``) and,
 for the causes the static audit models, ``predicted``; each eviction one
 ``evict`` instant. A build runs inside
 :func:`~metrics_tpu_torch.ops.registry.lowering`, so its kernels are
@@ -195,7 +195,7 @@ class _Program:
     """One cache entry: the program, and on the card its graph and buffers."""
 
     __slots__ = ("masked", "body", "graphs", "inputs", "n_valid", "filled_n_valid", "counts", "sets", "values",
-                 "launched", "marks", "routes", "arg_bytes", "out_bytes", "peak_temp_bytes", "cost")
+                 "launched", "marks", "ticks", "arg_bytes", "out_bytes", "peak_temp_bytes", "cost")
 
     def __init__(self, masked: bool, body: Callable) -> None:
         self.masked = masked
@@ -206,7 +206,7 @@ class _Program:
         self.values: List[Any] = []
         self.launched: List[registry.Launch] = []  # the kernel launches of one replay
         self.marks: Tuple[Tuple[str, str], ...] = ()  # its device phase marks, (owner, phase) in graph order
-        self.routes: Tuple[str, ...] = ()  # its members' formatting routes (telemetry.format_route), in order
+        self.ticks: Tuple[Tuple[str, int], ...] = ()  # its body's counter ticks (telemetry.tick), in order
         self.inputs: List[Tensor] = []
         self.n_valid: Optional[Tensor] = None
         self.filled_n_valid: Optional[int] = None
@@ -340,7 +340,7 @@ class FastDispatcher:
         cost = cost_model.launch_attrs(program.cost, dur) if telemetry.subscribed() else {}
         telemetry.emit(family, self.label, self.kind, t0=stages.t0, dur_us=dur,
                        stream="dispatch" if family == "update" else "forward", rows=batch, bucket=bucket,
-                       **stage_us, **telemetry.route_attrs(program.routes), **cost)
+                       **stage_us, **telemetry.tick_attrs(program.ticks), **cost)
         return dur
 
     # ------------------------------------------------------------------ core
@@ -394,7 +394,6 @@ class FastDispatcher:
                                stream="dispatch" if family == "update" else "forward", cause=cause,
                                **cost_model.compile_attrs(program.cost),
                                **({"marks": program.marks} if program.marks else {}),
-                               **({"routes": program.routes} if program.routes else {}),
                                **({} if predicted is None else {"predicted": predicted}))
             if family == "update":
                 self.stats["retraces"] += 1
@@ -452,9 +451,9 @@ class FastDispatcher:
             if n_valid is None:
                 n_valid = self._nvalid_cpu[batch] = torch.tensor(batch, dtype=torch.int32, device=self.device)
         counts = [torch.tensor(float(c), dtype=torch.float32, device=self.device) for c in count_values]
-        with tracing(), telemetry.recording_routes() as routes:
+        with tracing(), telemetry.recording_ticks() as ticks:
             new, value = program.body(n_valid, counts, leaves, inputs)
-        program.routes = tuple(routes)
+        program.ticks = tuple(ticks)
         self._check_layout(new, leaves)
         return new, value
 
@@ -494,9 +493,9 @@ class FastDispatcher:
             self._side_stream = torch.cuda.Stream(dev)
         side = self._side_stream
         side.wait_stream(current)
-        with torch.cuda.stream(side), tracing(), telemetry.recording_routes() as routes:
+        with torch.cuda.stream(side), tracing(), telemetry.recording_ticks() as ticks:
             served_value = copy_tensors(run(0))
-        program.routes = tuple(routes)
+        program.ticks = tuple(ticks)
         current.wait_stream(side)
         for v in _flatten(served_value)[0]:
             if isinstance(v, Tensor):
@@ -514,7 +513,7 @@ class FastDispatcher:
             for src in (0, 1):  # a capture runs nothing: set B keeps the warm-up's result
                 graph = torch.cuda.CUDAGraph()
                 with registry.recording() as launched, marks.recording(dev) as marked, tracing(), \
-                        telemetry.recording_routes(), torch.cuda.graph(graph, pool=self._pool):
+                        telemetry.recording_ticks(), torch.cuda.graph(graph, pool=self._pool):
                     program.values.append(run(src))
                 graphs.append(graph)
         finally:

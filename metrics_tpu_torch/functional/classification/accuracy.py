@@ -121,7 +121,7 @@ def _subset_accuracy_update(
 ) -> Tuple[Tensor, Tensor]:
     """Exact-match counts."""
     preds, target = _input_squeeze(preds, target)
-    telemetry.format_route("onehot")
+    telemetry.tick("format:onehot")
     preds, target, mode = _input_format_classification(
         preds, target, threshold=threshold, top_k=top_k, ignore_index=ignore_index
     )

@@ -37,10 +37,10 @@ def _canonicalize_confmat_labels(preds: Tensor, target: Tensor, num_classes: int
     nc = num_classes if (preds.ndim == target.ndim and not _is_floating(preds)) else None
     preds, target, mode = _checked_classification_inputs(preds, target, threshold, num_classes=nc)
     if _takes_label_route(preds, target, mode, None, None):
-        telemetry.format_route("labels")
+        telemetry.tick("format:labels")
         pred_cls, target_cls, _ = _format_multiclass_labels(preds, target, nc, outside=0)
         return pred_cls, target_cls
-    telemetry.format_route("onehot")
+    telemetry.tick("format:onehot")
     preds, target, mode = _format_onehot(preds, target, mode, threshold, num_classes=nc)
     if mode not in (DataType.BINARY, DataType.MULTILABEL):
         preds = preds.argmax(dim=1)

@@ -299,7 +299,7 @@ def _stat_scores_update(
                 raise ValueError(
                     f"The `ignore_index` {fast_ignore} is not valid for inputs with {preds.shape[1]} classes"
                 )
-            telemetry.format_route("labels")
+            telemetry.tick("format:labels")
             return _fast_multiclass_stat_scores(preds, target, reduce, fast_ignore, sample_mask)
 
     preds, target, case = _checked_classification_inputs(
@@ -317,10 +317,10 @@ def _stat_scores_update(
         and (case == DataType.MULTICLASS or mdmc_reduce == "global")
         and _takes_label_route(preds, target, case, top_k, multiclass)
     ):
-        telemetry.format_route("labels")
+        telemetry.tick("format:labels")
         label_ignore = None if _negative_index_dropped else ignore_index
         return _stat_scores_from_labels(preds, target, num_classes, reduce, label_ignore, sample_mask)
-    telemetry.format_route("onehot")
+    telemetry.tick("format:onehot")
     preds, target, _ = _format_onehot(
         preds, target, case, threshold=threshold, top_k=top_k, num_classes=num_classes, multiclass=multiclass
     )

@@ -7,7 +7,8 @@ The trace of the matrix square root has the JAX package's three algorithms
 ``eigh`` for a CPU tensor and for an eager compute on the card (cuSOLVER:
 the JAX package went to the host only because the TPU's eigensolver is
 slow), and Newton–Schulz inside an engine's program (``_is_traced()``),
-where the JAX package picks it under ``jit``.
+where the JAX package picks it under ``jit``. The metric's ``compute``
+telemetry span carries the one it took (``sqrtm_method``).
 
 Newton–Schulz runs a fixed 60 iterations in place of ``lax.while_loop``: a
 carried ``done`` flag freezes the iterate at the first step whose residual
@@ -25,14 +26,29 @@ features of a randomly initialised InceptionV3 on an H100 run gave
 eigenvalues down to the float32 rounding of the largest) then loses a few
 per cent of its traces to the rounding under the square roots, where
 float64 keeps it. States and products elsewhere stay float32, TF32 off.
+
+The moment sums are float32, as the JAX package's with x64 off. Features
+whose mean is many times their spread (InceptionV3's pool features, ~10
+times on an H100 run) cancel in ``Σxxᵀ - n μμᵀ``: over 10,000 images the
+float32 sums put ~1e-4 of absolute error on FID, which a FID in single
+digits feels. ``set_dtype(torch.float64)`` keeps them in float64, as
+TorchMetrics' ``FrechetInceptionDistance`` does and the JAX package's under
+x64: each update's ``f.T @ f`` is then exact products of the float32
+features summed in float64.
+
+In a program the engine captures, the moment sums of an update open the
+device phase ``count`` (:mod:`metrics_tpu_torch.ops.marks`), after the
+bundled extractor's ``extract``.
 """
 from typing import Any, Callable, Optional, Tuple
 
 import torch
 from torch import Tensor, nn
 
+from metrics_tpu_torch import telemetry
 from metrics_tpu_torch.functional.image.helper import _full_float32
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.ops import marks
 from metrics_tpu_torch.utilities.checks import _is_traced
 from metrics_tpu_torch.utilities.data import dim_zero_cat
 
@@ -105,6 +121,7 @@ def _trace_sqrtm_product(sigma1: Tensor, sigma2: Tensor, method: Optional[str] =
     CPU and eagerly on the card, ``newton_schulz`` in an engine's program."""
     if method is None:
         method = "newton_schulz" if sigma1.device.type != "cpu" and _is_traced() else "eigh"
+    telemetry.annotate(sqrtm_method=method)  # on the metric's ``compute`` span
     if method == "eigh":
         return _trace_sqrtm_eigh(sigma1, sigma2)
     if method == "eigh_host":
@@ -159,7 +176,8 @@ class FrechetInceptionDistance(Metric):
         sqrtm_method: ``"eigh"``, ``"eigh_host"``, ``"newton_schulz"`` or
             None (see the module's docstring).
         feature_dim: keep the running moments ``(n, Σx, Σxxᵀ)`` of each side
-            (float32, summed across processes) instead of feature lists.
+            (float32, or float64 after ``set_dtype(torch.float64)``; summed
+            across processes) instead of feature lists.
         feature_shift: a constant (scalar or ``(feature_dim,)``) taken off
             the features before the moments and put back on the means.
         feature: the bundled InceptionV3 at a 64 / 192 / 768 / 2048 tap.
@@ -255,6 +273,7 @@ class FrechetInceptionDistance(Metric):
         """Extract the features (or take them as given) and accumulate them."""
         features = self._extract(imgs)
         if self.feature_dim is not None:
+            marks.mark("count")  # a captured program's phase mark: the moment sums
             prefix = "real" if real else "fake"
             f = features.to(getattr(self, f"{prefix}_features_sum").dtype)
             if self.feature_shift is not None:

@@ -29,6 +29,11 @@ Without weights the network takes its own seeded init
 package's ``net.init(PRNGKey(0))`` cannot be rebuilt without flax), so values
 are not comparable to published ones, nor to the JAX package's defaults.
 
+The extractor runs the trunk at the size it is given unless ``resize=`` is
+set: then an image of another size is first resized to ``resize x resize``
+by TF1's ``resize_bilinear`` (:func:`resize_bilinear_tf1`), as
+``torch_fidelity``'s FID extractor resizes every input to 299 x 299.
+
 The forward runs in the dtype of its input (float32 by default; ``float64``
 for parity runs; ``bfloat16`` as the JAX package's bf16 option: weights cast
 on the fly, batch norm in float32); on the card in full float32 (TF32 off,
@@ -43,7 +48,9 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from metrics_tpu_torch import telemetry
 from metrics_tpu_torch.functional.image.helper import _full_float32
+from metrics_tpu_torch.ops import marks
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 # torch_fidelity module -> flax submodule (call order of the flax InceptionV3)
@@ -424,6 +431,24 @@ class InceptionV3(FlatParams):
         return features.to(out_dt), logits.to(out_dt)
 
 
+def resize_bilinear_tf1(x: Tensor, size: int) -> Tensor:
+    """``(N, C, H, W)`` resized to ``size x size`` by TF1's ``resize_bilinear``
+    (``align_corners=False``, no half-pixel centres), as ``torch_fidelity``'s
+    ``interpolate_bilinear_2d_like_tensorflow1x`` computes it: output pixel
+    ``i`` reads the input at ``src = i * in / out`` (float32), between pixel
+    ``floor(src)`` and the next one, the last pixel repeated past the edge,
+    across the width first and then the height; in ``x``'s dtype."""
+    for dim in (3, 2):
+        n_in = x.shape[dim]
+        src = torch.arange(size, dtype=torch.float32, device=x.device) * torch.tensor(n_in / size, dtype=torch.float32)
+        lo = src.long()
+        hi = (lo + 1).clamp_max(n_in - 1)
+        frac = (src - lo.float()).to(x.dtype).view((1, 1, size, 1) if dim == 2 else (1, 1, 1, size))
+        a, b = x.index_select(dim, lo), x.index_select(dim, hi)
+        x = a + (b - a) * frac
+    return x
+
+
 def _is_nchw(imgs: Tensor) -> bool:
     """The JAX package's layout rule: channels first where dim 1 is 3 and the
     last dim is not."""
@@ -433,8 +458,9 @@ def _is_nchw(imgs: Tensor) -> bool:
 class InceptionV3FeatureExtractor(nn.Module):
     """``(N, 3, H, W)`` or ``(N, H, W, 3)`` images -> features.
 
-    uint8 images in [0, 255] become ``x / 127.5 - 1`` (as ``torch_fidelity``
-    normalises); float images are used as they are.
+    uint8 images in [0, 255] become float32 and, after the resize, ``x / 127.5 - 1``
+    (``torch_fidelity`` takes ``(x - 128) / 128``; this is the JAX package's
+    rule); float images are used as they are.
 
     Args:
         weights_path: a flax ``.npz`` (the JAX package's ``save_params``
@@ -446,6 +472,15 @@ class InceptionV3FeatureExtractor(nn.Module):
         num_classes: the head's width (1,008 for the FID network).
         dtype: the compute dtype (``torch.bfloat16`` for the bf16 option,
             ``torch.float64`` for parity runs); outputs are float32 or wider.
+        resize: None runs the trunk at the images' own size (the JAX
+            package's behaviour); a size resizes every image that is not
+            ``resize x resize`` to it first (:func:`resize_bilinear_tf1`, on
+            the float image, uint8 ones in [0, 255]): 299 is
+            ``torch_fidelity``'s rule, which published FIDs follow.
+
+    Each call counts its images in the telemetry counter ``extract:images``
+    and those it resized in ``extract:resized``; inside a captured program
+    the trunk opens the device phase ``extract``.
     """
 
     def __init__(
@@ -454,8 +489,12 @@ class InceptionV3FeatureExtractor(nn.Module):
         output: Any = "pool",
         num_classes: int = 1008,
         dtype: torch.dtype = torch.float32,
+        resize: Optional[int] = None,
     ) -> None:
         super().__init__()
+        if resize is not None and not (isinstance(resize, int) and resize >= 75):
+            raise ValueError(f"Argument `resize` must be None or an int of at least 75, got {resize}")
+        self.resize = resize
         if isinstance(output, np.integer):
             output = int(output)
         if output == 2048:
@@ -480,12 +519,20 @@ class InceptionV3FeatureExtractor(nn.Module):
             )
 
     def forward(self, imgs: Tensor) -> Tensor:
-        if imgs.dtype == torch.uint8:
-            imgs = imgs.to(torch.float32) / 127.5 - 1.0
+        byte_images = imgs.dtype == torch.uint8
+        if byte_images:
+            imgs = imgs.to(torch.float32)
         if not _is_nchw(imgs):
             imgs = imgs.permute(0, 3, 1, 2)
+        telemetry.tick("extract:images", imgs.shape[0])
+        if self.resize is not None and tuple(imgs.shape[2:]) != (self.resize, self.resize):
+            imgs = resize_bilinear_tf1(imgs, self.resize)
+            telemetry.tick("extract:resized", imgs.shape[0])
+        if byte_images:
+            imgs = imgs / 127.5 - 1.0
         imgs = imgs.to(self.dtype)
         out_dt = torch.promote_types(self.dtype, torch.float32)
+        marks.mark("extract")  # a captured program's phase mark: the trunk
         with _full_float32():
             if isinstance(self.output, int):
                 return self.net(imgs, tap=self.output).mean(dim=(2, 3)).to(out_dt)

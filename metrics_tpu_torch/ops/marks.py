@@ -3,14 +3,18 @@
 A CUDA graph replays as one launch, so a device trace of it shows kernels and
 not whose they are. While the engine captures a program
 (:meth:`metrics_tpu_torch.dispatch.FastDispatcher._build`), and telemetry is on,
-the program launches one of ``csrc/phase_mark.cu``'s four empty kernels at each
+the program launches one of ``csrc/phase_mark.cu``'s five empty kernels at each
 phase boundary, in graph order:
 
 * ``format``: the start of each member's update body (``Metric.pure_update``,
   ``Metric._masked_pure_update``), owned by the member's class name;
-* ``count``: where that member's inputs leave formatting, at the call into
-  counting (``confusion_matrix_counts`` or the bincount, the stat-score
-  reductions), owned by the member whose ``format`` mark came last;
+* ``extract``: where the bundled InceptionV3 extractor calls its trunk, after
+  the images' cast, resize and normalisation (FID, KID, IS), owned by the
+  member whose ``format`` mark came last;
+* ``count``: where that member's inputs leave formatting (or its features
+  the trunk), at the call into counting (``confusion_matrix_counts`` or the
+  bincount, the stat-score reductions, FID's moment sums), owned by the
+  member whose ``format`` mark came last;
 * ``writeback``: just before the engine's ``_foreach_copy_`` of the new state
   into the other buffer set;
 * ``end``: the end of the captured body.
@@ -37,7 +41,7 @@ import torch
 from metrics_tpu_torch import telemetry
 from metrics_tpu_torch.ops import _build
 
-PHASES = ("format", "count", "writeback", "end")
+PHASES = ("format", "count", "writeback", "end", "extract")  # the kernels' indices in csrc/phase_mark.cu
 _LIB = "phase_mark"
 
 _local = threading.local()

@@ -114,8 +114,11 @@ tensor. Two tiers consume them:
   summed from the engine ``update`` spans' ``rows`` and ``bucket``, whose
   ratio is the engine's useful share of the rows it ran, and
   ``"format:labels"`` and ``"format:onehot"``, one a member update whose
-  classification inputs took that formatting route, :func:`format_route`):
-  read with :func:`snapshot`, clear with :func:`reset_counters`.
+  classification inputs took that formatting route (``"labels"``: class
+  labels, no one-hots), and ``"extract:images"`` and ``"extract:resized"``, the images through the
+  bundled InceptionV3's trunk and those it resized first; all four ticked
+  by :func:`tick`): read with :func:`snapshot`, clear with
+  :func:`reset_counters`.
 * **Always-on timeline.** Every timed span also feeds a per-``(family,
   owner)`` latency and throughput aggregate: a
   :class:`~metrics_tpu_torch.streaming.sketch.HostQuantileSketch` of span µs
@@ -183,8 +186,9 @@ __all__ = [
     "profiler_range",
     "profiler_clock_offset_us",
     "Stages",
-    "format_route",
-    "recording_routes",
+    "annotate",
+    "tick",
+    "recording_ticks",
 ]
 
 # all timestamps are µs since this process-level epoch (perf_counter is
@@ -466,10 +470,10 @@ def emit(
             # METRICS_TPU_BILLING=0 keeps spans cost-free)
             _counters["billing:microusd"] = _counters.get("billing:microusd", 0) + int(attrs.get("cost_microusd") or 0)
         if name in ("update", "forward"):
-            for route in _ROUTES:  # an engine program's members' routes, once a call, as format_route counts them
-                n = attrs.get(f"format_{route}")
+            for counter in TICKED:  # an engine program's ticks, once a call, as tick counts them eagerly
+                n = attrs.get(counter.replace(":", "_"))
                 if n:
-                    _counters[f"format:{route}"] = _counters.get(f"format:{route}", 0) + n
+                    _counters[counter] = _counters.get(counter, 0) + n
     timed = t0 is not None or dur_us is not None
     if not subs and not timed:
         return
@@ -499,12 +503,26 @@ def emit(
 
 @contextmanager
 def span(name: str, owner: str, kind: str = "", **attrs: Any) -> Generator[None, None, None]:
-    """Wrap a block in one timed span (emitted on exit, even on raise)."""
+    """Wrap a block in one timed span (emitted on exit, even on raise); code
+    inside it adds attributes with :func:`annotate`."""
     t0 = clock()
+    stack = getattr(_span_local, "stack", None)
+    if stack is None:
+        stack = _span_local.stack = []
+    stack.append(attrs)
     try:
         yield
     finally:
+        stack.pop()
         emit(name, owner, kind, t0=t0, **attrs)
+
+
+def annotate(**attrs: Any) -> None:
+    """Add ``attrs`` to the innermost open :func:`span` of this thread (FID's
+    ``compute`` names the square root it took); outside one, nothing."""
+    stack = getattr(_span_local, "stack", None)
+    if stack:
+        stack[-1].update(attrs)
 
 
 def _profiling() -> bool:
@@ -603,7 +621,7 @@ def snapshot() -> Dict[str, float]:
     """Copy of the process-level counters (``"<name>:<kind>"`` keys, plus
     ``"collective:bytes"``, ``"compile:cause:<cause>"``,
     ``"degrade:cause:<cause>"``, ``"update:rows"``,
-    ``"update:bucket_rows"``, ``"format:labels"`` and ``"format:onehot"``)."""
+    ``"update:bucket_rows"`` and the :data:`TICKED` counters)."""
     with _lock:
         return dict(_counters)
 
@@ -614,45 +632,49 @@ def reset_counters() -> None:
         _counters.clear()
 
 
-# --------------------------------------------------------------- format routes
-_ROUTES = ("labels", "onehot")
-_route_local = threading.local()
+# --------------------------------------------------------------- ticked counters
+# the counters that the program's own code ticks (:func:`tick`); an engine program's ride its spans
+TICKED = ("format:labels", "format:onehot", "extract:images", "extract:resized")
+_tick_local = threading.local()
+_span_local = threading.local()
 
 
-def format_route(route: str) -> None:
-    """Count one member update whose classification inputs took ``route``
-    (``"labels"``: class labels, no one-hots; ``"onehot"``) in
-    ``"format:<route>"``. Inside :func:`recording_routes` (an engine running a
-    program's body) the route is written down instead: the program's spans
-    carry it, once a call, and :func:`emit` counts it from there."""
-    stack = getattr(_route_local, "stack", None)
+def tick(counter: str, n: int = 1) -> None:
+    """Add ``n`` to ``counter``, one of :data:`TICKED`. Inside
+    :func:`recording_ticks` (an engine running a program's body) the tick is
+    written down instead: the program's spans carry it, once a call
+    (:func:`tick_attrs`), and :func:`emit` counts it from there."""
+    stack = getattr(_tick_local, "stack", None)
     if stack:
-        stack[-1].append(route)
+        stack[-1].append((counter, int(n)))
     elif telemetry_enabled():
         with _lock:
-            _counters[f"format:{route}"] = _counters.get(f"format:{route}", 0) + 1
+            _counters[counter] = _counters.get(counter, 0) + int(n)
 
 
 @contextmanager
-def recording_routes() -> Generator[List[str], None, None]:
-    """Write the block's :func:`format_route` calls down, in order, into the
-    list it yields, and count none of them."""
-    stack = getattr(_route_local, "stack", None)
+def recording_ticks() -> Generator[List[Tuple[str, int]], None, None]:
+    """Write the block's :func:`tick` calls down, in order, as ``(counter, n)``
+    into the list it yields, and count none of them."""
+    stack = getattr(_tick_local, "stack", None)
     if stack is None:
-        stack = _route_local.stack = []
-    routes: List[str] = []
-    stack.append(routes)
+        stack = _tick_local.stack = []
+    ticks: List[Tuple[str, int]] = []
+    stack.append(ticks)
     try:
-        yield routes
+        yield ticks
     finally:
         stack.pop()
 
 
-def route_attrs(routes: Iterable[str]) -> Dict[str, int]:
-    """A program's recorded routes as its span's ``format_<route>`` counts,
-    the routes it never takes left out."""
-    routes = list(routes)
-    return {f"format_{r}": routes.count(r) for r in _ROUTES if r in routes}
+def tick_attrs(ticks: Iterable[Tuple[str, int]]) -> Dict[str, int]:
+    """A program's recorded ticks as its span's attributes, one a counter it
+    ticks (``format_labels``, ``extract_images``, ...), summed."""
+    out: Dict[str, int] = {}
+    for counter, n in ticks:
+        key = counter.replace(":", "_")
+        out[key] = out.get(key, 0) + n
+    return out
 
 
 # ------------------------------------------------------------------ sessions

@@ -2275,6 +2275,55 @@ def test_captured_updates_equal_eager_on_the_card(card):
         assert any(len(p.graphs) == 2 for p in engine._dispatcher._cache.values()), cls.__name__
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_fid_with_the_network_in_the_graph_equals_eager_on_the_card(card, dtype):
+    """FID as the benchmark's ``fid_inception`` cell runs it, at a small batch: the bundled InceptionV3
+    with ``resize=299`` on 256 x 256 uint8 images, batches of 4 and a last of 2, the moment sums in
+    float32 or (``set_dtype``, the cell's) float64. Each engine update (the cast, the resize, the trunk's
+    convolutions, the moment sums) is one replay of a captured graph: the states are the eager updates'
+    bits, nothing is demoted, the real side survives ``reset()``, and the program's phase marks read
+    format, extract, count, writeback, end."""
+    import metrics_tpu_torch as M
+    from metrics_tpu_torch import telemetry
+    from metrics_tpu_torch.image.inception_net import InceptionV3FeatureExtractor
+
+    g = torch.Generator(device=card).manual_seed(26)
+
+    def batch(n):
+        return torch.randint(0, 256, (n, 3, 256, 256), generator=g, device=card, dtype=torch.uint8)
+
+    real, fake = [batch(4), batch(2)], [batch(4), batch(4), batch(2)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the seeded network's warning
+        eager, engine = (M.FrechetInceptionDistance(feature_extractor=InceptionV3FeatureExtractor(resize=299),
+                                                    feature_dim=2048, reset_real_features=False, jit_update=jit,
+                                                    device=card).set_dtype(dtype) for jit in (False, True))
+    with telemetry.instrument() as session:
+        for m in (eager, engine):
+            for x in real:
+                m.update(x, real=True)
+            kept = {k: getattr(m, k).clone() for k in m._defaults if k.startswith("real")}
+            m.reset()
+            for x in fake:
+                m.update(x, real=False)
+            assert all(torch.equal(getattr(m, k), v) for k, v in kept.items())
+    torch.cuda.synchronize()
+    for key in eager._defaults:
+        assert torch.equal(getattr(engine, key), getattr(eager, key)), key
+    assert int(engine.real_num_samples) == 6 and int(engine.fake_num_samples) == 10
+    assert engine.real_outer_sum.dtype == engine.fake_features_sum.dtype == dtype
+    stats = engine.dispatch_stats
+    assert stats["demotions"] == 0 and stats["dispatches"] == 5, stats
+    programs = engine._dispatcher._cache.values()
+    assert len(programs) == 4 and all(len(p.graphs) == 2 for p in programs)  # (real, fake) x (4, 2 rows)
+    builds = session.spans(name="compile", owner="FrechetInceptionDistance")
+    phases = ("format", "extract", "count", "writeback", "end")
+    assert len(builds) == 4 and all(b.attrs["marks"] == tuple(("FrechetInceptionDistance", p) for p in phases)
+                                    for b in builds)
+    assert _marked_phases(card, lambda: engine.update(fake[0], real=False)) == list(phases)
+    assert bool(torch.isfinite(engine.compute()))
+
+
 # ------------------------------------------------------------------ the static audit's predictions on the card
 def _audit_case(name):
     from metrics_tpu_torch.analysis import registry as audit_registry
